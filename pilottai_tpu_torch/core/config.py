@@ -1,0 +1,135 @@
+"""Engine configuration for the port (its own copy of the fields of
+``pilottai_tpu/core/config.py:LLMConfig`` this slice reads, under the
+same names).
+
+The JAX config has many more knobs. A knob whose feature comes with a
+later slice is refused with ``NotInSlice``, naming the ROADMAP item that
+brings it — unless it is set to the value this slice already runs (for
+example ``engine_prefix_cache=0``), which is accepted. No knob is ignored
+silently: an unknown field is a validation error.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Literal, Optional, Tuple
+
+from pydantic import BaseModel, ConfigDict, Field, model_validator
+
+Provider = Literal["cuda", "cpu"]
+
+
+class NotInSlice(ValueError):
+    """A setting whose feature the port does not carry yet."""
+
+
+# ROADMAP.md, "Port slices", in the order they land.
+ROADMAP = {
+    "prefix": "P2 (prefix cache)",
+    "paged": "P3 (paged KV and kernel K3)",
+    "spec": "P4 (speculative decoding)",
+    "quant": "P5 (weight and KV quantization)",
+    "batcher": "P6 (full batcher)",
+    "kvtier": "P7 (KV cache tier)",
+    "serve": "P8 (Serve, agents and the document pipeline on the port)",
+    "models": "P9 (Gemma, MoE and Hugging Face checkpoints)",
+    "multi": "P10 (multi-GPU)",
+    "tooling": "P12 (tooling)",
+}
+
+# JAX knob -> (values this slice already runs, ROADMAP item that brings the rest).
+_LATER: Dict[str, Tuple[Tuple[Any, ...], str]] = {
+    "engine_prefix_cache": ((0,), "prefix"),
+    "engine_prefix_min_len": ((None,), "prefix"),
+    "engine_paged_kv": ((None, False), "paged"),
+    "engine_kv_pages": ((None,), "paged"),
+    "engine_page_size": ((128,), "paged"),
+    "engine_page_strip": ((None,), "paged"),
+    "engine_prefill_chunk": ((None,), "paged"),
+    "engine_speculate": ((0,), "spec"),
+    "engine_draft_layers": ((0,), "spec"),
+    "quantize": ((None, "none"), "quant"),
+    "engine_quant": ((None, "none"), "quant"),
+    "engine_quant_group": ((128,), "quant"),
+    "engine_kv_quantize": ((None,), "quant"),
+    "engine_chunk_policy": (("fixed",), "batcher"),
+    "engine_chunk_buckets": ((None,), "batcher"),
+    "engine_pipeline": ((1,), "batcher"),
+    "engine_overlap_admission": ((False,), "batcher"),
+    "engine_fused_epilogue": ((False,), "batcher"),
+    "engine_sched_policy": (("fifo",), "batcher"),
+    "engine_gang_wait_ms": ((50.0,), "batcher"),
+    "engine_priority_aging_s": ((2.0,), "batcher"),
+    "engine_prewarm_depth": ((0,), "batcher"),
+    "max_rpm": ((None,), "batcher"),
+    "retries": ((0,), "batcher"),
+    "retry_delay": ((1.0,), "batcher"),
+    "reliability": ((None,), "batcher"),
+    "engine_kvcache_host_mb": ((0,), "kvtier"),
+    "engine_kvcache_policy": (("cost",), "kvtier"),
+    "cell_disagg": ((None,), "serve"),
+    "function_calling": ((True,), "serve"),
+    "api_key": ((None,), "serve"),
+    "tokenizer_path": ((None,), "models"),
+    "mesh_shape": ((None,), "multi"),
+    "engine_mesh_ladder": (("auto", "off"), "multi"),
+    "engine_compile_cache": ((None,), "tooling"),
+}
+
+
+def refuse_later(knob: str, value: Any, item: str) -> NotInSlice:
+    return NotInSlice(
+        f"{knob}={value!r} is not in the port yet; it arrives with ROADMAP item "
+        f"{ROADMAP[item]}"
+    )
+
+
+class SamplingConfig(BaseModel):
+    """Engine-wide sampling defaults (a request's GenerationParams wins)."""
+
+    model_config = ConfigDict(extra="forbid")
+
+    temperature: float = Field(default=0.7, ge=0.0)
+    top_k: int = Field(default=0, ge=0)
+    top_p: float = Field(default=1.0, gt=0.0, le=1.0)
+    max_new_tokens: int = Field(default=256, ge=1)
+    seed: Optional[int] = None
+    json_mode: bool = False
+
+
+class LLMConfig(BaseModel):
+    """The port's engine configuration: one device, dense KV in the cache
+    dtype, no prefix cache, no speculation, no quantization, a fixed
+    chunk size and the unfused sampling epilogue."""
+
+    model_config = ConfigDict(extra="forbid", protected_namespaces=())
+
+    model_name: str = "llama3-8b"
+    provider: Provider = "cuda"
+    checkpoint_path: Optional[str] = None   # a .npz written by scripts/export_protocol_s_npz.py
+    sampling: SamplingConfig = Field(default_factory=SamplingConfig)
+    max_concurrent_requests: int = Field(default=64, ge=1)
+    timeout: float = Field(default=120.0, gt=0)
+    dtype: Literal["bfloat16", "float32"] = "bfloat16"
+    engine_slots: int = Field(default=8, ge=1)
+    engine_admit_batch: int = Field(default=8, ge=1)
+    engine_max_seq: Optional[int] = None    # KV length cap (default min(model max, 2048))
+    engine_chunk: int = Field(default=16, ge=1)
+    seed: int = 0                           # param init seed when no checkpoint
+
+    @model_validator(mode="before")
+    @classmethod
+    def _refuse_later_knobs(cls, data: Any) -> Any:
+        if not isinstance(data, dict):
+            return data
+        data = dict(data)
+        for knob, (ok, item) in _LATER.items():
+            if knob in data:
+                value = data.pop(knob)
+                if value not in ok:
+                    raise refuse_later(knob, value, item)
+        if data.get("provider") in ("tpu", "mock"):
+            raise ValueError(
+                f"provider {data['provider']!r} belongs to the JAX package; the port "
+                "serves provider='cuda' (or 'cpu')"
+            )
+        return data
