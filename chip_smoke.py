@@ -278,11 +278,43 @@ FULL_PROMPT = (
 )
 
 
+async def profile_wave(handler, prompts):
+    """One more wave (8 requests, 16 tokens) under torch.profiler: the
+    device's busy share of the wall time and the kernels that fill it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from pilottai_tpu_torch.engine.types import GenerationParams
+
+    params = GenerationParams(temperature=0.0, max_new_tokens=16)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        await asyncio.gather(*[handler.generate_response(p, params=params, json_mode=True)
+                               for p in prompts])
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = []
+    for evt in prof.key_averages():
+        dev = getattr(evt, "self_device_time_total", None)
+        if dev is None:
+            dev = getattr(evt, "self_cuda_time_total", 0.0)
+        if dev > 0:
+            rows.append((dev, evt.key, evt.count))
+    busy = sum(r[0] for r in rows)
+    if not rows:
+        log("  profiled wave: the profiler saw no device time (busy share not measured)")
+        return
+    log(f"  profiled wave (8 x 16 tokens): wall {wall_us / 1e3:.1f} ms, device busy "
+        f"{busy / 1e3:.1f} ms = {busy / wall_us:.3f} of the wall; top device time:")
+    for dev, key, count in sorted(rows, reverse=True)[:8]:
+        log(f"    {dev / 1e3:9.2f} ms  {count:6d} x  {key[:90]}")
+
+
 def phase_full_width(torch, fa, da):
     from pilottai_tpu_torch import LLMConfig, LLMHandler
     from pilottai_tpu_torch.models.transformer import forward_prefill
 
-    torch.backends.cuda.matmul.allow_tf32 = True
     cfg = LLMConfig(provider="cuda", model_name="llama3-8b", dtype="bfloat16",
                     engine_slots=8, engine_admit_batch=8, engine_max_seq=2048,
                     engine_chunk=16, seed=0)
@@ -329,6 +361,7 @@ def phase_full_width(torch, fa, da):
             torch.arange(T, device=batcher.device, dtype=torch.int32)[None],
             torch.tensor([T], device=batcher.device, dtype=torch.int32))
         finite = bool(torch.isfinite(logits).all()) and tuple(logits.shape) == (1, T, 384)
+        await profile_wave(handler, prompts)
         await handler.stop()
         return replies, wall, launches, timings, peak, finite
 
@@ -365,6 +398,11 @@ def phase_timing(torch, fa, da, device, launches, shapes, worst):
     import torch.nn.functional as F
 
     timer = Timer(torch, device)
+    clocks = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,temperature.gpu",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60,
+    ).stdout.strip()
+    log(f"  card before timing (SM clock, max SM clock, power, temperature): {clocks}")
     gen = torch.Generator(device=device)
     gen.manual_seed(1)
     bf = torch.bfloat16

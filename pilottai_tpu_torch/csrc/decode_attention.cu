@@ -19,10 +19,11 @@
 // once for all G query heads of its kv head (one block per (kv head, batch
 // row)), walks only [max(0, q_pos - window + 1), last[b]] instead of the
 // whole panel the TPU kernel DMAs, and keeps scores and the accumulator on
-// chip. Rows are read as contiguous [TS, H] tiles (the K-major layout makes
-// a tile one span of device memory). One block per (kv head, batch row) is
-// B*K blocks — 64 at 8 slots of llama3-8b, fewer than the 132 SMs — so
-// splitting the key range over more blocks is the next step for speed.
+// chip. Rows are read as contiguous [TS, H] tiles with 16-byte loads (the
+// K-major layout makes a tile one span of device memory). One block per
+// (kv head, batch row) is B*K blocks — 64 at 8 slots of llama3-8b, fewer
+// than the 132 SMs — so splitting the key range over more blocks is the
+// next step for speed.
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -44,6 +45,14 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16(x);
 }
 
+// Widen one 16-byte load of VEC elements to floats.
+template <typename T, int VEC>
+__device__ __forceinline__ void unpack(const uint4& raw, float* out) {
+  const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) out[i] = to_f(e[i]);
+}
+
 __device__ __forceinline__ float warp_max(float x) {
   for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
   return x;
@@ -63,6 +72,8 @@ __global__ void __launch_bounds__(NT) decode_stats_kernel(
   constexpr int NW = NT / 32;
   constexpr int KSTRIDE = H + 1;
   constexpr int MAXR = (kMaxG * H + NT - 1) / NT;  // accumulator columns per thread
+  constexpr int VEC = 16 / sizeof(T);               // elements per 16-byte load
+  static_assert(H % VEC == 0, "rows load in 16-byte vectors");
 
   const int G = N / Kh;
   extern __shared__ float smem[];
@@ -96,15 +107,22 @@ __global__ void __launch_bounds__(NT) decode_stats_kernel(
 
   for (int t0 = s_begin; t0 <= s_end; t0 += TS) {
     __syncthreads();  // previous tile's readers are done with sK/sV/sP
-    for (int idx = tid; idx < TS * H; idx += NT) {
-      const int j = idx / H, h = idx % H, s = t0 + j;
-      float kx = 0.f, vx = 0.f;
+    for (int idx = tid; idx < TS * (H / VEC); idx += NT) {
+      const int j = idx / (H / VEC), c = (idx % (H / VEC)) * VEC, s = t0 + j;
+      float kx[VEC], vx[VEC];
       if (s <= s_end) {
-        kx = to_f(kc[panel + static_cast<size_t>(s) * H + h]);
-        vx = to_f(vc[panel + static_cast<size_t>(s) * H + h]);
+        const size_t off = panel + static_cast<size_t>(s) * H + c;
+        unpack<T, VEC>(*reinterpret_cast<const uint4*>(kc + off), kx);
+        unpack<T, VEC>(*reinterpret_cast<const uint4*>(vc + off), vx);
+      } else {
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) kx[e] = vx[e] = 0.f;
       }
-      sK[j * KSTRIDE + h] = kx;
-      sV[j * H + h] = vx;
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        sK[j * KSTRIDE + c + e] = kx[e];
+        sV[j * H + c + e] = vx[e];
+      }
     }
     __syncthreads();
 

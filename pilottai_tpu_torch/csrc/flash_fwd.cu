@@ -17,11 +17,13 @@
 // first version keeps every intermediate out of device memory (scores and
 // probabilities live in shared memory, the output accumulator in registers),
 // skips kv tiles in which no (query, key) pair is live (causal prefill reads
-// about half of them) and never visits keys at or past valid[b]. Its products
-// run on the CUDA cores in fp32, not on the tensor cores: wgmma, TMA staging
-// and split work per SM are later work.
+// about half of them) and never visits keys at or past valid[b]. In bf16 both
+// products run on the tensor cores through WMMA (flash_fwd_bf16_tc_kernel);
+// in fp32 they run on the CUDA cores in full fp32, so the fp32 path matches
+// the reference to summation order (tensor cores would round to TF32).
+// wgmma, TMA staging and a persistent schedule are later work.
 //
-// Layout of one block: BQ query rows of one head of one batch row, NT threads.
+// fp32 kernel layout: BQ query rows of one head of one batch row, NT threads.
 // Per kv tile of BK keys: K and V are staged in shared memory as fp32 (K rows
 // padded to H+1 floats so a warp reading 32 different keys hits 32 banks),
 // each thread computes BQ*BK/NT scores, one warp per row runs the online
@@ -30,8 +32,11 @@
 
 #include <climits>
 #include <cstdint>
+#include <type_traits>
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <mma.h>
 
 namespace {
 
@@ -203,25 +208,260 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
   }
 }
 
+// bf16 path: the same function with both products on the tensor cores
+// (WMMA m16n16k16, bf16 operands, fp32 accumulate). A block holds TC_BQ = 64
+// query rows of one head; each of its 4 warps owns 16 of them end to end
+// (scores, softmax, PV and the output accumulator), so after the shared
+// K/V tile is loaded a warp needs only __syncwarp. Tiles arrive with
+// 16-byte loads. Shared-memory rows are padded by 8 bf16 / 4 floats so the
+// fragment loads spread over the banks; every fragment pointer is 32-byte
+// aligned, as WMMA requires.
+constexpr int TC_BQ = 64, TC_BK = 64, TC_NT = 128;
+
+template <int H>
+constexpr size_t tc_smem_bytes() {
+  return static_cast<size_t>(TC_BQ * (H + 8) + 2 * TC_BK * (H + 8) + TC_BQ * (TC_BK + 8)) *
+             sizeof(__nv_bfloat16) +
+         static_cast<size_t>(TC_BQ * (TC_BK + 4) + TC_BQ * (H + 4) + 3 * TC_BQ) * sizeof(float) +
+         static_cast<size_t>(TC_BQ + TC_BK) * sizeof(int);
+}
+
+template <int H>
+__global__ void __launch_bounds__(TC_NT) flash_fwd_bf16_tc_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const int32_t* __restrict__ qpos,
+    const int32_t* __restrict__ kpos, const int32_t* __restrict__ valid,
+    __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int Tq, int S, int N, int Kh,
+    int window, float scale, float softcap) {
+  using namespace nvcuda;
+  constexpr int BQ = TC_BQ, BK = TC_BK, NT = TC_NT;
+  constexpr int LDH = H + 8;        // bf16 row stride of the Q, K and V tiles
+  constexpr int LDP = BK + 8;       // bf16 row stride of P
+  constexpr int LDS = BK + 4;       // float row stride of the scores
+  constexpr int LDO = H + 4;        // float row stride of a tile's PV product
+  constexpr int VEC = 8;            // bf16 per 16-byte load
+  constexpr int OPL = 16 * H / 32;  // output elements per lane (a warp's 16 rows x H)
+  static_assert(H % 16 == 0 && BK % 32 == 0, "WMMA tiles");
+
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BQ][LDH]
+  __nv_bfloat16* sK = sQ + BQ * LDH;                                 // [BK][LDH]
+  __nv_bfloat16* sV = sK + BK * LDH;                                 // [BK][LDH]
+  __nv_bfloat16* sP = sV + BK * LDH;                                 // [BQ][LDP]
+  float* sS = reinterpret_cast<float*>(sP + BQ * LDP);               // [BQ][LDS]
+  float* sPV = sS + BQ * LDS;                                        // [BQ][LDO]
+  float* sM = sPV + BQ * LDO;
+  float* sL = sM + BQ;
+  float* sC = sL + BQ;
+  int* sQpos = reinterpret_cast<int*>(sC + BQ);
+  int* sKpos = sQpos + BQ;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int q0 = blockIdx.x * BQ;
+  const int n = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kh = n / (N / Kh);
+  const int kv_end = min(S, valid[b]);
+  const int r0 = warp * 16;  // this warp's first row in the tile
+
+  for (int idx = tid; idx < BQ * (H / VEC); idx += NT) {
+    const int i = idx / (H / VEC), c = (idx % (H / VEC)) * VEC, t = q0 + i;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (t < Tq) {
+      val = *reinterpret_cast<const uint4*>(q + ((static_cast<size_t>(b) * Tq + t) * N + n) * H + c);
+    }
+    *reinterpret_cast<uint4*>(sQ + i * LDH + c) = val;
+  }
+  for (int i = tid; i < BQ; i += NT) {
+    const int t = q0 + i;
+    sQpos[i] = t < Tq ? qpos[static_cast<size_t>(b) * Tq + t] : INT_MIN;
+    sM[i] = kNegInf;
+    sL[i] = 0.f;
+  }
+  float oacc[OPL];
+#pragma unroll
+  for (int e = 0; e < OPL; ++e) oacc[e] = 0.f;
+
+  for (int j0 = 0; j0 < kv_end; j0 += BK) {
+    __syncthreads();  // every warp is done with the previous tile
+    for (int j = tid; j < BK; j += NT) {
+      const int s = j0 + j;
+      sKpos[j] = s < kv_end ? kpos[static_cast<size_t>(b) * S + s] : INT_MAX;
+    }
+    __syncthreads();
+    int live = 0;
+    for (int idx = tid; idx < BQ * BK && !live; idx += NT) {
+      const int i = idx / BK, j = idx % BK;
+      live = q0 + i < Tq && j0 + j < kv_end && attends(sQpos[i], sKpos[j], window);
+    }
+    if (!__syncthreads_or(live)) continue;
+
+    for (int idx = tid; idx < BK * (H / VEC); idx += NT) {
+      const int j = idx / (H / VEC), c = (idx % (H / VEC)) * VEC, s = j0 + j;
+      uint4 kx = make_uint4(0u, 0u, 0u, 0u), vx = kx;
+      if (s < kv_end) {
+        const size_t off = ((static_cast<size_t>(b) * S + s) * Kh + kh) * H + c;
+        kx = *reinterpret_cast<const uint4*>(k + off);
+        vx = *reinterpret_cast<const uint4*>(v + off);
+      }
+      *reinterpret_cast<uint4*>(sK + j * LDH + c) = kx;
+      *reinterpret_cast<uint4*>(sV + j * LDH + c) = vx;
+    }
+    __syncthreads();
+
+    // Scores of this warp's 16 rows against the tile's BK keys.
+    {
+      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[BK / 16];
+#pragma unroll
+      for (int nb = 0; nb < BK / 16; ++nb) wmma::fill_fragment(acc[nb], 0.f);
+#pragma unroll
+      for (int kk = 0; kk < H; kk += 16) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
+        wmma::load_matrix_sync(a, sQ + r0 * LDH + kk, LDH);
+#pragma unroll
+        for (int nb = 0; nb < BK / 16; ++nb) {
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> kb;
+          wmma::load_matrix_sync(kb, sK + nb * 16 * LDH + kk, LDH);
+          wmma::mma_sync(acc[nb], a, kb, acc[nb]);
+        }
+      }
+#pragma unroll
+      for (int nb = 0; nb < BK / 16; ++nb) {
+        wmma::store_matrix_sync(sS + r0 * LDS + nb * 16, acc[nb], LDS, wmma::mem_row_major);
+      }
+    }
+    __syncwarp();
+
+    // Online softmax over the warp's rows; p goes to sP in bf16.
+    for (int r = 0; r < 16; ++r) {
+      const int i = r0 + r;
+      const int qp = sQpos[i];
+      const bool row_real = q0 + i < Tq;
+      float sv[BK / 32];
+      float mx = kNegInf;
+#pragma unroll
+      for (int u = 0; u < BK / 32; ++u) {
+        const int j = lane + 32 * u;
+        float s = sS[i * LDS + j] * scale;
+        if (softcap > 0.f) s = tanhf(s / softcap) * softcap;
+        const bool ok = row_real && j0 + j < kv_end && attends(qp, sKpos[j], window);
+        sv[u] = ok ? s : kNegInf;
+        mx = fmaxf(mx, sv[u]);
+      }
+      mx = warp_max(mx);
+      const float m_old = sM[i];
+      const float m_new = fmaxf(m_old, mx);
+      const bool any = m_new > kNegInf * 0.5f;
+      float psum = 0.f;
+#pragma unroll
+      for (int u = 0; u < BK / 32; ++u) {
+        const float p = any ? expf(sv[u] - m_new) : 0.f;
+        psum += p;
+        sP[i * LDP + lane + 32 * u] = __float2bfloat16(p);
+      }
+      psum = warp_sum(psum);
+      if (lane == 0) {
+        const float corr = any ? expf(m_old - m_new) : 1.f;
+        sC[i] = corr;
+        sL[i] = sL[i] * corr + psum;
+        sM[i] = m_new;
+      }
+    }
+    __syncwarp();
+
+    // This tile's P . V for the warp's rows, then the rescaled accumulate.
+    {
+      wmma::fragment<wmma::accumulator, 16, 16, 16, float> pv[H / 16];
+#pragma unroll
+      for (int nb = 0; nb < H / 16; ++nb) wmma::fill_fragment(pv[nb], 0.f);
+#pragma unroll
+      for (int kk = 0; kk < BK; kk += 16) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
+        wmma::load_matrix_sync(a, sP + r0 * LDP + kk, LDP);
+#pragma unroll
+        for (int nb = 0; nb < H / 16; ++nb) {
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> vb;
+          wmma::load_matrix_sync(vb, sV + kk * LDH + nb * 16, LDH);
+          wmma::mma_sync(pv[nb], a, vb, pv[nb]);
+        }
+      }
+#pragma unroll
+      for (int nb = 0; nb < H / 16; ++nb) {
+        wmma::store_matrix_sync(sPV + r0 * LDO + nb * 16, pv[nb], LDO, wmma::mem_row_major);
+      }
+    }
+    __syncwarp();
+#pragma unroll
+    for (int e = 0; e < OPL; ++e) {
+      const int idx = lane + 32 * e;
+      const int i = r0 + idx / H, h = idx % H;
+      oacc[e] = oacc[e] * sC[i] + sPV[i * LDO + h];
+    }
+  }
+  // A full barrier, not __syncwarp: when no tile ran (valid[b] == 0) this is
+  // the first barrier after other warps initialized sM and sL.
+  __syncthreads();
+
+#pragma unroll
+  for (int e = 0; e < OPL; ++e) {
+    const int idx = lane + 32 * e;
+    const int i = r0 + idx / H, h = idx % H, t = q0 + i;
+    if (t >= Tq) continue;
+    const float l = sL[i];
+    const float out = l > 0.f ? oacc[e] / fmaxf(l, 1e-30f) : 0.f;
+    o[((static_cast<size_t>(b) * Tq + t) * N + n) * H + h] = __float2bfloat16(out);
+    if (h == 0) {
+      lse[(static_cast<size_t>(b) * N + n) * Tq + t] =
+          l > 0.f ? sM[i] + logf(fmaxf(l, 1e-30f)) : kNegInf;
+    }
+  }
+}
+
+template <int H>
+cudaError_t launch_bf16_tc(const void* q, const void* k, const void* v, const void* qpos,
+                           const void* kpos, const void* valid, void* o, void* lse, int B, int Tq,
+                           int S, int N, int Kh, int window, float scale, float softcap,
+                           cudaStream_t stream) {
+  constexpr size_t smem = tc_smem_bytes<H>();
+  auto kern = flash_fwd_bf16_tc_kernel<H>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Tq + TC_BQ - 1) / TC_BQ, N, B);
+  kern<<<grid, TC_NT, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const int32_t*>(qpos),
+      static_cast<const int32_t*>(kpos), static_cast<const int32_t*>(valid),
+      static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), Tq, S, N, Kh, window, scale,
+      softcap);
+  return cudaGetLastError();
+}
+
 template <typename T, int H>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* qpos,
                    const void* kpos, const void* valid, void* o, void* lse, int B, int Tq,
                    int S, int N, int Kh, int window, float scale, float softcap,
                    cudaStream_t stream) {
-  constexpr int BQ = 32, BK = 64, NT = 128;
-  const size_t smem = (BQ * H + BK * (H + 1) + BK * H + BQ * BK + 3 * BQ) * sizeof(float) +
-                      (BQ + BK) * sizeof(int);
-  auto kern = flash_fwd_kernel<T, H, BQ, BK, NT>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid((Tq + BQ - 1) / BQ, N, B);
-  kern<<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const int32_t*>(qpos), static_cast<const int32_t*>(kpos),
-      static_cast<const int32_t*>(valid), static_cast<T*>(o), static_cast<float*>(lse), Tq, S,
-      N, Kh, window, scale, softcap);
-  return cudaGetLastError();
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    return launch_bf16_tc<H>(q, k, v, qpos, kpos, valid, o, lse, B, Tq, S, N, Kh, window, scale,
+                             softcap, stream);
+  } else {
+    constexpr int BQ = 32, BK = 64, NT = 128;
+    const size_t smem = (BQ * H + BK * (H + 1) + BK * H + BQ * BK + 3 * BQ) * sizeof(float) +
+                        (BQ + BK) * sizeof(int);
+    auto kern = flash_fwd_kernel<T, H, BQ, BK, NT>;
+    cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    const dim3 grid((Tq + BQ - 1) / BQ, N, B);
+    kern<<<grid, NT, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const int32_t*>(qpos), static_cast<const int32_t*>(kpos),
+        static_cast<const int32_t*>(valid), static_cast<T*>(o), static_cast<float*>(lse), Tq, S,
+        N, Kh, window, scale, softcap);
+    return cudaGetLastError();
+  }
 }
 
 template <typename T>

@@ -6,7 +6,7 @@ exactly this framing."""
 from __future__ import annotations
 
 import abc
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, List, Optional, Sequence
 
 from pilottai_tpu_torch.engine.types import (
     ChatMessage,
@@ -37,9 +37,6 @@ class LLMBackend(abc.ABC):
 
     async def stop(self) -> None:  # noqa: B027 - optional lifecycle hook
         """Release device resources."""
-
-    def get_metrics(self) -> Dict[str, Any]:
-        return {"backend": self.name}
 
 
 def parse_tool_calls(content: str, tool_names: Sequence[str]) -> List[ToolCall]:

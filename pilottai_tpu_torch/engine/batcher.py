@@ -105,7 +105,6 @@ class ContinuousBatcher:
         self._thread: Optional[threading.Thread] = None
         # Completed requests' timings (host clock), newest last.
         self.completed: Deque[Dict[str, float]] = collections.deque(maxlen=4096)
-        self.counters = {"admissions": 0, "chunks": 0, "decode_steps": 0, "tokens": 0}
 
     # ------------------------------------------------------------------ #
 
@@ -228,7 +227,6 @@ class ContinuousBatcher:
         )
         first_host = first.cpu().numpy()
         now = time.perf_counter()
-        self.counters["admissions"] += 1
         for row, (idx, req) in enumerate(group):
             req.first_token_at = now
             self._fold(idx, [int(first_host[row])])
@@ -240,8 +238,6 @@ class ContinuousBatcher:
         )
         toks_h = toks.cpu().numpy()
         valid_h = valid.cpu().numpy()
-        self.counters["chunks"] += 1
-        self.counters["decode_steps"] += int(valid_h.any(axis=1).sum())
         for b in range(self.n_slots):
             if self._slots[b] is None:
                 continue
@@ -274,7 +270,6 @@ class ContinuousBatcher:
         if eos:
             out = out[:-1]
         now = time.perf_counter()
-        self.counters["tokens"] += len(out)
         self.completed.append({
             "prompt_tokens": slot.prompt_len,
             "tokens": len(out),
@@ -284,11 +279,3 @@ class ContinuousBatcher:
         if not req.future.done():
             req.future.set_result(out)
         return True
-
-    def get_metrics(self) -> Dict[str, Any]:
-        return {
-            "slots": self.n_slots,
-            "slots_active": sum(s is not None for s in self._slots),
-            "queue_depth": len(self._backlog) + self._pending.qsize(),
-            **self.counters,
-        }

@@ -38,9 +38,10 @@ from pilottai_tpu_torch.ops.kvcache import KVCache, write_chunk_rows, write_prom
 
 NEG_INF = -2.0**30
 
-# Packed admission metadata: the JAX layout (decode.py:93-106), kept so the
-# two engines' admission rows read alike. The port's batcher runs on the
-# host, so the buffers stay numpy and no row is uploaded it is not used.
+# Packed admission metadata in the JAX package's layout (its
+# engine/decode.py:93-106), so both engines' admission rows read alike.
+# Here the buffers stay numpy: admit_group reads the rows it needs on the
+# host and uploads only those.
 ADMIT_I32_ROWS = 9
 (
     AI_SLOT, AI_TOPK, AI_SEED, AI_EOS, AI_BUDGET, AI_JSON, AI_LEN, AI_SCHEMA, AI_PLEN,

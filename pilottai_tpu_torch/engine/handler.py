@@ -96,6 +96,3 @@ class LLMHandler:
                 self.backend.generate(msgs, specs or None, params),
                 timeout=self.config.timeout,
             )
-
-    def get_metrics(self) -> Dict[str, Any]:
-        return self.backend.get_metrics()

@@ -13,7 +13,7 @@ from __future__ import annotations
 import asyncio
 import time
 from pathlib import Path
-from typing import Any, Dict, Optional, Sequence
+from typing import Optional, Sequence
 
 import torch
 
@@ -149,13 +149,6 @@ class TorchEngine(LLMBackend):
             latency=time.perf_counter() - start,
             finish_reason="stop" if len(token_ids) < params.max_new_tokens else "length",
         )
-
-    def get_metrics(self) -> Dict[str, Any]:
-        out: Dict[str, Any] = {"backend": self.name, "model": self.model_cfg.name,
-                               "device": str(self.device)}
-        if self.batcher is not None:
-            out.update(self.batcher.get_metrics())
-        return out
 
 
 def _stop_cut(text: str, stops) -> Optional[int]:

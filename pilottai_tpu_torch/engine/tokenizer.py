@@ -1,11 +1,12 @@
 """Byte tokenizer and streaming detokenizer (the port's copy of
 ``pilottai_tpu/engine/tokenizer.py``; Hugging Face tokenizers wait for a
 later slice). Ids 0..255 are raw bytes; pad, bos and eos follow; the
-vocab is padded to a multiple of 128 (384)."""
+vocab is padded to a multiple of 128 (384). The engine renders prompts
+with the generic chat transcript (``engine/base.py``)."""
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import List, Sequence
 
 
 class ByteTokenizer:
@@ -25,13 +26,6 @@ class ByteTokenizer:
     def decode(self, ids: Sequence[int]) -> str:
         data = bytes(i for i in ids if 0 <= i < self.BYTE_VOCAB)
         return data.decode("utf-8", errors="replace")
-
-    def token_bytes(self, i: int) -> Optional[bytes]:
-        return bytes([i]) if 0 <= i < self.BYTE_VOCAB else None
-
-    def render_chat(self, messages) -> Optional[str]:
-        """No chat template: the engine renders the generic transcript."""
-        return None
 
 
 class IncrementalDecoder:

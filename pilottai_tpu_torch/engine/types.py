@@ -84,6 +84,3 @@ class LLMResponse(BaseModel):
     finish_reason: str = "stop"
     latency: float = 0.0
     created_at: float = Field(default_factory=time.time)
-
-    def to_dict(self) -> Dict[str, Any]:
-        return self.model_dump()

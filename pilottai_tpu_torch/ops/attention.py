@@ -42,11 +42,6 @@ def dot_product_attention(
     return out.reshape(B, T, N, H).to(q.dtype)
 
 
-def causal_mask(T: int, device=None) -> torch.Tensor:
-    """[T, T] lower-triangular causal mask."""
-    return torch.tril(torch.ones((T, T), dtype=torch.bool, device=device))
-
-
 def make_attention_mask(
     q_positions: torch.Tensor,  # [B, T] absolute positions of the queries
     kv_length: int,             # S — cache length

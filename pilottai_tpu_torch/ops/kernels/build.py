@@ -21,13 +21,11 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Tuple
+from typing import Dict, Iterable, Mapping, Tuple
 
 PACKAGE = Path(__file__).resolve().parents[2]
 CSRC = PACKAGE / "csrc"
-BUILD_DIR = Path(
-    os.environ.get("PILOTTAI_TORCH_BUILD_DIR", PACKAGE.parent / "build" / "pilottai_tpu_torch")
-)
+BUILD_DIR = PACKAGE.parent / "build" / "pilottai_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -36,7 +34,7 @@ NVCC_FLAGS = (
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
 #: What each build took and what ``ptxas -v`` said (registers, spills),
-#: by kernel name; filled by ``build_libraries``.
+#: by kernel name; filled when a library is compiled.
 build_log: Dict[str, Tuple[float, str]] = {}
 
 
@@ -44,51 +42,47 @@ def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
         return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    candidate = Path(home) / "bin" / "nvcc"
+    candidate = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
     if candidate.exists():
         return str(candidate)
     raise RuntimeError("nvcc not found: the CUDA kernels are built on a machine with the CUDA toolkit")
 
 
-def _target(name: str) -> Tuple[Path, Path]:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return src, BUILD_DIR / f"{name}-{digest}.so"
+def build_sources(sources: Mapping[str, Path]) -> Dict[str, ctypes.CDLL]:
+    """Compile ``{name: path to .cu}`` in parallel (or reuse the build of
+    an identical source) and load each library."""
+    pending = {}
+    libs: Dict[str, ctypes.CDLL] = {}
+    for name, src in sources.items():
+        digest = hashlib.sha256(Path(src).read_bytes() + " ".join(NVCC_FLAGS).encode())
+        out = BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+        if out.exists():
+            libs[name] = ctypes.CDLL(str(out))
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        pending[name] = (proc, tmp, out, time.perf_counter())
+    for name, (proc, tmp, out, t0) in pending.items():
+        log, _ = proc.communicate()
+        build_log[name] = (time.perf_counter() - t0, log)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+        os.replace(tmp, out)
+        libs[name] = ctypes.CDLL(str(out))
+    return libs
 
 
 def build_libraries(names: Iterable[str]) -> Dict[str, ctypes.CDLL]:
-    """Build (in parallel) and load every named kernel library."""
+    """Build (in parallel) and load the named kernels of ``csrc/``."""
     names = list(names)
     with _lock:
-        pending = {}
-        for name in names:
-            if name in _loaded:
-                continue
-            src, out = _target(name)
-            if out.exists():
-                _loaded[name] = ctypes.CDLL(str(out))
-                continue
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            pending[name] = (proc, tmp, out, time.perf_counter())
-        for name, (proc, tmp, out, t0) in pending.items():
-            log, _ = proc.communicate()
-            build_log[name] = (time.perf_counter() - t0, log)
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
-            os.replace(tmp, out)
-            _loaded[name] = ctypes.CDLL(str(out))
+        missing = {n: CSRC / f"{n}.cu" for n in names if n not in _loaded}
+        if missing:
+            _loaded.update(build_sources(missing))
         return {name: _loaded[name] for name in names}
 
 
 def load_library(name: str) -> ctypes.CDLL:
     return build_libraries([name])[name]
-
-
-def check(status: int, what: str) -> None:
-    """Raise on a nonzero ``cudaError_t`` returned by a C entry point."""
-    if status != 0:
-        raise RuntimeError(f"{what}: CUDA error {status}")

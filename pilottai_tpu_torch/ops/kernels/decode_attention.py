@@ -102,6 +102,8 @@ def _launch(q, k_cache, v_cache, last_valid, q_positions, scale, softcap, window
                          f"cache {tuple(k_cache.shape)}")
     if not (q.is_contiguous() and k_cache.is_contiguous() and v_cache.is_contiguous()):
         raise ValueError("decode_attention: q and the cache panels must be contiguous")
+    if k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
+        raise ValueError("decode_attention: the cache panels must start 16-byte aligned")
     last = last_valid.to(device=q.device, dtype=torch.int32).contiguous()
     qpos = q_positions.to(device=q.device, dtype=torch.int32).contiguous()
     if last.shape != (B,) or qpos.shape != (B,):

@@ -98,6 +98,8 @@ def flash_attention_with_lse(
                          f"k {tuple(k.shape)} v {tuple(v.shape)}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention: q, k and v must be contiguous")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: q, k and v must start 16-byte aligned")
     qpos = q_positions.to(device=q.device, dtype=torch.int32).contiguous()
     kpos = kv_positions.to(device=q.device, dtype=torch.int32).contiguous()
     val = valid.to(device=q.device, dtype=torch.int32).contiguous()

@@ -29,24 +29,12 @@ class KVCache:
     lengths: torch.Tensor                            # [B] int32 — valid entries
 
     @property
-    def n_layers(self) -> int:
-        return len(self.layers)
-
-    @property
     def n_slots(self) -> int:
         return self.layers[0][0].shape[0]
 
     @property
     def max_len(self) -> int:
         return self.layers[0][0].shape[2]
-
-    @property
-    def n_kv_heads(self) -> int:
-        return self.layers[0][0].shape[1]
-
-    @property
-    def head_dim(self) -> int:
-        return self.layers[0][0].shape[3]
 
     @classmethod
     def create(

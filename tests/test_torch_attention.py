@@ -27,6 +27,16 @@ NEG_INF = -2.0**30
 TOL = dict(atol=1e-5, rtol=1e-5)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The models here are tiny: one intra-op thread is as fast and does not
+    oversubscribe the CPU that parallel test workers share."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _flash_inputs(seed, B, T, N, K, H, valid, offset):
     rng = np.random.default_rng(seed)
     q = rng.standard_normal((B, T, N, H), np.float32)
@@ -148,3 +158,28 @@ def test_cuda_kernels_match_plain():
     want = da.decode_attention_plain(qd, kc, vc, lst, lst + 1, 64**-0.5)
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=0)
+
+
+def test_dense_reference_attention_and_masks_match_jax():
+    """``ops/attention.py``: the plain GQA attention and its position,
+    valid-length and window masks, against the JAX functions."""
+    from pilottai_tpu.ops import attention as jatt
+    from pilottai_tpu_torch.ops import attention as tatt
+
+    rng = np.random.default_rng(5)
+    B, T, S, N, K, H = 2, 6, 12, 4, 2, 16
+    q = rng.standard_normal((B, T, N, H), np.float32)
+    k = rng.standard_normal((B, S, K, H), np.float32)
+    v = rng.standard_normal((B, S, K, H), np.float32)
+    qpos = np.array([[3, 4, 5, 6, 7, 8], [6, 7, 8, 9, 10, 11]], np.int32)
+    kv_valid = np.array([9, 12], np.int32)
+    for window in (0, 4):
+        mj = jatt.make_attention_mask(jnp.asarray(qpos), S, jnp.asarray(kv_valid), window)
+        mt = tatt.make_attention_mask(torch.from_numpy(qpos), S, torch.from_numpy(kv_valid),
+                                      window)
+        np.testing.assert_array_equal(mt.numpy(), np.asarray(mj))
+        oj = jatt.dot_product_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                        mask=mj, logit_softcap=10.0)
+        ot = tatt.dot_product_attention(torch.from_numpy(q), torch.from_numpy(k),
+                                        torch.from_numpy(v), mask=mt, logit_softcap=10.0)
+        np.testing.assert_allclose(ot.numpy(), np.asarray(oj), **TOL)

@@ -31,6 +31,16 @@ PROMPTS = [
 ]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The models here are tiny: one intra-op thread is as fast and does not
+    oversubscribe the CPU that parallel test workers share."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def test_json_tables_equal_jax():
     for ours, theirs in (
         (json_mask.ALLOWED_NP, jjson.ALLOWED_NP), (json_mask.NEXT_NP, jjson.NEXT_NP),

@@ -17,12 +17,23 @@ from pilottai_tpu.models import registry as jregistry
 from pilottai_tpu.models import transformer as jtransformer
 from pilottai_tpu.models.loader import load_native_checkpoint, restore_params
 from pilottai_tpu.ops.kvcache import KVCache as JKVCache
+from pilottai_tpu.ops.kvcache import write_prompts as jwrite_prompts
 from pilottai_tpu.train.protocol import DEFAULT_CHECKPOINT
 from pilottai_tpu_torch.models import common, registry, transformer
 from pilottai_tpu_torch.models.loader import PROTOCOL_S_NPZ, load_npz, params_from_numpy
-from pilottai_tpu_torch.ops.kvcache import KVCache
+from pilottai_tpu_torch.ops.kvcache import KVCache, write_prompts
 
 CPU = torch.device("cpu")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The models here are tiny: one intra-op thread is as fast and does not
+    oversubscribe the CPU that parallel test workers share."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def test_registry_fields_equal_the_jax_registry():
@@ -65,7 +76,7 @@ def test_rms_norm_and_rope_match_jax():
     np.testing.assert_allclose(sin_t.numpy(), np.asarray(sin_j), atol=1e-4)
     np.testing.assert_allclose(cos_t.numpy(), np.asarray(cos_j), atol=1e-4)
     np.testing.assert_allclose(
-        common.apply_rope(torch.from_numpy(x), sin_t[:, :, :], cos_t).numpy(),
+        common.apply_rope(torch.from_numpy(x), sin_t, cos_t).numpy(),
         np.asarray(jcommon.apply_rope(jnp.asarray(x), sin_j, cos_j)),
         atol=1e-4,
     )
@@ -112,10 +123,7 @@ def test_forward_prefill_and_decode_match_jax(name):
     cache = KVCache.create(cfg.n_layers, 2, S, cfg.n_kv_heads, cfg.head_dim,
                            dtype=torch.float32, device=CPU)
     lens = np.array([17, 5], np.int32)
-    from pilottai_tpu.ops.kvcache import write_prompts as jwrite
-    from pilottai_tpu_torch.ops.kvcache import write_prompts
-
-    jcache = jwrite(jcache, jnp.asarray([0, 1]), kj[:, 1:], vj[:, 1:], jnp.asarray(lens))
+    jcache = jwrite_prompts(jcache, jnp.asarray([0, 1]), kj[:, 1:], vj[:, 1:], jnp.asarray(lens))
     cache = write_prompts(cache, [0, 1], kt[:, 1:], vt[:, 1:], lens.tolist())
     cur = np.array([65, 66], np.int32)
     active = np.array([True, True])
