@@ -131,6 +131,7 @@ class TorchEngine(LLMBackend):
         if self.batcher is None:
             await self.start()
         start = time.perf_counter()
+        prompt_tokens = len(request.prompt_ids)  # before the keep-window truncation
         future = self.batcher.submit(request)
         try:
             token_ids = await asyncio.wrap_future(future)
@@ -145,7 +146,7 @@ class TorchEngine(LLMBackend):
             content=text,
             tool_calls=parse_tool_calls(text, [t.name for t in tools]) if tools else [],
             model=self.model_cfg.name,
-            usage=Usage(prompt_tokens=len(request.prompt_ids), completion_tokens=len(token_ids)),
+            usage=Usage(prompt_tokens=prompt_tokens, completion_tokens=len(token_ids)),
             latency=time.perf_counter() - start,
             finish_reason="stop" if len(token_ids) < params.max_new_tokens else "length",
         )

@@ -162,3 +162,51 @@ def test_incremental_decoder_matches_jax():
         assert ours.push(chunk) == theirs.push(chunk)
     assert ours.flush() == theirs.flush()
     assert ours.text == theirs.text == bytes(ids).decode()
+
+
+def test_request_edges_budget_one_truncation_and_stop_strings():
+    """max_new_tokens=1 finishes at the prefill token; a prompt longer than
+    the keep window is left-truncated as the JAX batcher does; stop strings
+    cut the text at their earliest occurrence."""
+    async def main():
+        handler = _port_handler()
+        try:
+            one = await handler.generate_response(["Plan."], params=GenerationParams(
+                temperature=0.0, max_new_tokens=1))
+            long = await handler.generate_response(["x" * 900], params=GenerationParams(
+                temperature=0.0, max_new_tokens=8), json_mode=True)
+            free = await handler.generate_response(["Plan the step."], params=GenerationParams(
+                temperature=0.0, max_new_tokens=24), json_mode=True)
+            cut = await handler.generate_response(["Plan the step."], params=GenerationParams(
+                temperature=0.0, max_new_tokens=24, stop=[free.content[5:7]]),
+                json_mode=True)
+        finally:
+            await handler.stop()
+        return one, long, free, cut
+
+    one, long, free, cut = asyncio.run(main())
+    assert one.usage.completion_tokens == 1 and one.finish_reason == "length"
+    # Usage reports the prompt as rendered (as the JAX engine does); only
+    # its last max_seq - 1 - 8 tokens were prefilled, or the 512-row cache
+    # could not have held it.
+    assert long.usage.prompt_tokens == 1 + len("<|user|>\n" + "x" * 900 + "\n<|assistant|>\n")
+    assert long.usage.completion_tokens >= 1
+    assert free.content.startswith(cut.content) and len(cut.content) <= 5
+
+
+def test_tool_call_parsing_matches_jax():
+    from pilottai_tpu.engine.base import parse_tool_calls as jparse
+    from pilottai_tpu_torch.engine.base import parse_tool_calls
+
+    replies = [
+        '{"tool_call": {"name": "search_notes", "arguments": {"q": "risks"}}}',
+        'Sure: {"action": "fetch_report", "arguments": {"name": "q3"}} done',
+        '{"action": "respond", "arguments": {}}',
+        '```json\n{"tool_call": {"name": 7}}\n```',
+        "no json here",
+    ]
+    names = ["search_notes", "fetch_report"]
+    for reply in replies:
+        ours = [c.model_dump() for c in parse_tool_calls(reply, names)]
+        theirs = [c.model_dump() for c in jparse(reply, names)]
+        assert ours == theirs, reply
