@@ -58,17 +58,19 @@ def nvidia_smi() -> str:
 class Timer:
     """Per-launch CUDA-event timing with the L2 cache flushed before every
     launch (a real caller finds the operands cold: between two calls of a
-    layer's attention the other layers' weights stream through L2)."""
+    layer's attention the other layers' weights stream through L2). All
+    launches are queued back to back and read after one synchronize, so
+    the card never idles between them; the median launch is reported."""
 
     def __init__(self, torch, device):
         self.torch = torch
         self.flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=device)
 
-    def ms(self, fn, iters: int = 10, warmup: int = 2) -> float:
+    def ms(self, fn, iters: int = 20, warmup: int = 3) -> float:
         torch = self.torch
         for _ in range(warmup):
             fn()
-        total = 0.0
+        events = []
         for _ in range(iters):
             self.flush.zero_()
             start = torch.cuda.Event(enable_timing=True)
@@ -76,9 +78,10 @@ class Timer:
             start.record()
             fn()
             end.record()
-            torch.cuda.synchronize()
-            total += start.elapsed_time(end)
-        return total / iters
+            events.append((start, end))
+        torch.cuda.synchronize()
+        times = sorted(start.elapsed_time(end) for start, end in events)
+        return times[len(times) // 2]
 
 
 def randn(torch, gen, shape, dtype, device):

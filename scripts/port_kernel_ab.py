@@ -6,8 +6,8 @@ directories (A, typically the parent commit unpacked with ``git
 archive``, and B, the working tree), checks each against the plain
 PyTorch versions, and times both at the main path's shapes in the order
 A, B, B, A, so drift on the card shows up as A disagreeing with itself.
-Times use CUDA events around each launch with the L2 cache flushed before
-it (``chip_smoke.Timer``).
+Times are the median of CUDA-event-timed launches queued back to back
+with the L2 cache flushed before each (``chip_smoke.Timer``).
 
     python3 scripts/port_kernel_ab.py --a .scratch/parent/pilottai_tpu_torch/csrc \\
         --b pilottai_tpu_torch/csrc
@@ -27,15 +27,17 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 # (name, B, T or S, valid or last) at the llama3-8b widths N 32, K 8, H 128.
-FLASH_CASES = [("prefill T256 valid 184", 8, 256, 184), ("prefill T2048 valid 1983", 8, 2048, 1983)]
-DECODE_CASES = [("decode S2048 last 216", 8, 2048, 216), ("decode S2048 last 2015", 8, 2048, 2015)]
+FLASH_CASES = [("prefill T256 valid 184", 8, 256, 184),
+               ("prefill T2048 valid 1983", 8, 2048, 1983)]
+DECODE_CASES = [("decode S2048 last 216", 8, 2048, 216),
+                ("decode S2048 last 2015", 8, 2048, 2015)]
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--a", required=True, help="csrc directory of version A")
     ap.add_argument("--b", required=True, help="csrc directory of version B")
-    ap.add_argument("--iters", type=int, default=10)
+    ap.add_argument("--iters", type=int, default=20)
     args = ap.parse_args()
     import torch
 
