@@ -59,12 +59,15 @@ class Timer:
     """Per-launch CUDA-event timing with the L2 cache flushed before every
     launch (a real caller finds the operands cold: between two calls of a
     layer's attention the other layers' weights stream through L2). All
-    launches are queued back to back and read after one synchronize, so
-    the card never idles between them; the median launch is reported."""
+    launches are queued back to back and read after one synchronize, and
+    the flush (a 1 GiB write, ~0.3 ms of the card's time) keeps the card
+    busy while the host prepares the next launch, so the host's wrapper
+    time does not land between the events. The median launch is
+    reported."""
 
     def __init__(self, torch, device):
         self.torch = torch
-        self.flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=device)
+        self.flush = torch.empty(2**30, dtype=torch.uint8, device=device)
 
     def ms(self, fn, iters: int = 20, warmup: int = 3) -> float:
         torch = self.torch
