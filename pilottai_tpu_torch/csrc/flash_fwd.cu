@@ -19,12 +19,13 @@
 // skips kv tiles in which no (query, key) pair is live (causal prefill reads
 // about half of them) and never visits keys at or past valid[b]. In bf16 both
 // products run on the tensor cores through WMMA (flash_fwd_bf16_tc_kernel);
-// in fp32 they run on the CUDA cores in full fp32, so the fp32 path matches
-// the reference to summation order (tensor cores would round to TF32).
+// in fp32 they run on the CUDA cores in full fp32 (flash_fwd_fp32_kernel), so
+// the fp32 path matches the reference to summation order (tensor cores would
+// round to TF32).
 // wgmma, TMA staging and a persistent schedule are later work.
 //
 // fp32 kernel layout: BQ query rows of one head of one batch row, NT threads.
-// Per kv tile of BK keys: K and V are staged in shared memory as fp32 (K rows
+// Per kv tile of BK keys: K and V are staged in shared memory (K rows
 // padded to H+1 floats so a warp reading 32 different keys hits 32 banks),
 // each thread computes BQ*BK/NT scores, one warp per row runs the online
 // softmax update, and each thread accumulates its output column for BQ*H/NT
@@ -32,7 +33,6 @@
 
 #include <climits>
 #include <cstdint>
-#include <type_traits>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -41,17 +41,6 @@
 namespace {
 
 constexpr float kNegInf = -1073741824.0f;  // -2^30, the JAX package's NEG_INF
-
-template <typename T> __device__ __forceinline__ float to_f(T x);
-template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as astype(bfloat16)
-}
 
 __device__ __forceinline__ bool attends(int qp, int kp, int window) {
   return kp <= qp && (window <= 0 || qp - kp < window);
@@ -66,11 +55,11 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <typename T, int H, int BQ, int BK, int NT>
-__global__ void __launch_bounds__(NT) flash_fwd_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+template <int H, int BQ, int BK, int NT>
+__global__ void __launch_bounds__(NT) flash_fwd_fp32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     const int32_t* __restrict__ qpos, const int32_t* __restrict__ kpos,
-    const int32_t* __restrict__ valid, T* __restrict__ o, float* __restrict__ lse,
+    const int32_t* __restrict__ valid, float* __restrict__ o, float* __restrict__ lse,
     int Tq, int S, int N, int Kh, int window, float scale, float softcap) {
   static_assert(NT % H == 0, "each column is owned by NT / H threads");
   static_assert(BK % 32 == 0, "one warp covers a score row in BK/32 steps");
@@ -100,7 +89,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
 
   for (int idx = tid; idx < BQ * H; idx += NT) {
     const int i = idx / H, h = idx % H, t = q0 + i;
-    sQ[idx] = t < Tq ? to_f(q[((static_cast<size_t>(b) * Tq + t) * N + n) * H + h]) : 0.f;
+    sQ[idx] = t < Tq ? q[((static_cast<size_t>(b) * Tq + t) * N + n) * H + h] : 0.f;
   }
   for (int i = tid; i < BQ; i += NT) {
     const int t = q0 + i;
@@ -135,8 +124,8 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
       float kx = 0.f, vx = 0.f;
       if (s < kv_end) {
         const size_t off = ((static_cast<size_t>(b) * S + s) * Kh + kh) * H + hh;
-        kx = to_f(k[off]);
-        vx = to_f(v[off]);
+        kx = k[off];
+        vx = v[off];
       }
       sK[j * KSTRIDE + hh] = kx;
       sV[j * H + hh] = vx;
@@ -169,7 +158,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
       for (int j = lane; j < BK; j += 32) {
         const float p = any ? expf(row[j] - m_new) : 0.f;
         psum += p;
-        row[j] = to_f(from_f<T>(p));  // p in the input dtype for the PV product
+        row[j] = p;
       }
       psum = warp_sum(psum);
       if (lane == 0) {
@@ -200,7 +189,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
     if (t >= Tq) continue;
     const float l = sL[i];
     const float out = l > 0.f ? acc[r] / fmaxf(l, 1e-30f) : 0.f;
-    o[((static_cast<size_t>(b) * Tq + t) * N + n) * H + h] = from_f<T>(out);
+    o[((static_cast<size_t>(b) * Tq + t) * N + n) * H + h] = out;
     if (h == 0) {
       lse[(static_cast<size_t>(b) * N + n) * Tq + t] =
           l > 0.f ? sM[i] + logf(fmaxf(l, 1e-30f)) : kNegInf;
@@ -438,47 +427,38 @@ cudaError_t launch_bf16_tc(const void* q, const void* k, const void* v, const vo
   return cudaGetLastError();
 }
 
-template <typename T, int H>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* qpos,
-                   const void* kpos, const void* valid, void* o, void* lse, int B, int Tq,
-                   int S, int N, int Kh, int window, float scale, float softcap,
-                   cudaStream_t stream) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    return launch_bf16_tc<H>(q, k, v, qpos, kpos, valid, o, lse, B, Tq, S, N, Kh, window, scale,
-                             softcap, stream);
-  } else {
-    constexpr int BQ = 32, BK = 64, NT = 128;
-    const size_t smem = (BQ * H + BK * (H + 1) + BK * H + BQ * BK + 3 * BQ) * sizeof(float) +
-                        (BQ + BK) * sizeof(int);
-    auto kern = flash_fwd_kernel<T, H, BQ, BK, NT>;
-    cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    const dim3 grid((Tq + BQ - 1) / BQ, N, B);
-    kern<<<grid, NT, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<const int32_t*>(qpos), static_cast<const int32_t*>(kpos),
-        static_cast<const int32_t*>(valid), static_cast<T*>(o), static_cast<float*>(lse), Tq, S,
-        N, Kh, window, scale, softcap);
-    return cudaGetLastError();
-  }
+template <int H>
+cudaError_t launch_fp32(const void* q, const void* k, const void* v, const void* qpos,
+                        const void* kpos, const void* valid, void* o, void* lse, int B, int Tq,
+                        int S, int N, int Kh, int window, float scale, float softcap,
+                        cudaStream_t stream) {
+  constexpr int BQ = 32, BK = 64, NT = 128;
+  constexpr size_t smem = (BQ * H + BK * (H + 1) + BK * H + BQ * BK + 3 * BQ) * sizeof(float) +
+                          (BQ + BK) * sizeof(int);
+  auto kern = flash_fwd_fp32_kernel<H, BQ, BK, NT>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Tq + BQ - 1) / BQ, N, B);
+  kern<<<grid, NT, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const int32_t*>(qpos), static_cast<const int32_t*>(kpos),
+      static_cast<const int32_t*>(valid), static_cast<float*>(o), static_cast<float*>(lse), Tq, S,
+      N, Kh, window, scale, softcap);
+  return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_h(int H, const void* q, const void* k, const void* v, const void* qpos,
-                       const void* kpos, const void* valid, void* o, void* lse, int B, int Tq,
-                       int S, int N, int Kh, int window, float scale, float softcap,
-                       cudaStream_t stream) {
-  switch (H) {
-    case 32:
-      return launch<T, 32>(q, k, v, qpos, kpos, valid, o, lse, B, Tq, S, N, Kh, window, scale,
-                           softcap, stream);
-    case 64:
-      return launch<T, 64>(q, k, v, qpos, kpos, valid, o, lse, B, Tq, S, N, Kh, window, scale,
-                           softcap, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, qpos, kpos, valid, o, lse, B, Tq, S, N, Kh, window, scale,
+template <int H>
+cudaError_t launch(int dtype, const void* q, const void* k, const void* v, const void* qpos,
+                   const void* kpos, const void* valid, void* o, void* lse, int B, int Tq, int S,
+                   int N, int Kh, int window, float scale, float softcap, cudaStream_t stream) {
+  switch (dtype) {
+    case 0:
+      return launch_fp32<H>(q, k, v, qpos, kpos, valid, o, lse, B, Tq, S, N, Kh, window, scale,
                             softcap, stream);
+    case 1:
+      return launch_bf16_tc<H>(q, k, v, qpos, kpos, valid, o, lse, B, Tq, S, N, Kh, window,
+                               scale, softcap, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -493,17 +473,19 @@ extern "C" int pt_flash_fwd(int dtype, const void* q, const void* k, const void*
                             float scale, float softcap, void* stream) {
   if (B <= 0 || Tq <= 0 || S <= 0 || Kh <= 0 || N % Kh != 0) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 0) {
-    err = dispatch_h<float>(H, q, k, v, qpos, kpos, valid, o, lse, B, Tq, S, N, Kh, window,
-                            scale, softcap, st);
-  } else if (dtype == 1) {
-    err = dispatch_h<__nv_bfloat16>(H, q, k, v, qpos, kpos, valid, o, lse, B, Tq, S, N, Kh,
-                                    window, scale, softcap, st);
-  } else {
-    err = cudaErrorInvalidValue;
+  switch (H) {
+    case 32:
+      return launch<32>(dtype, q, k, v, qpos, kpos, valid, o, lse, B, Tq, S, N, Kh, window,
+                        scale, softcap, st);
+    case 64:
+      return launch<64>(dtype, q, k, v, qpos, kpos, valid, o, lse, B, Tq, S, N, Kh, window,
+                        scale, softcap, st);
+    case 128:
+      return launch<128>(dtype, q, k, v, qpos, kpos, valid, o, lse, B, Tq, S, N, Kh, window,
+                         scale, softcap, st);
+    default:
+      return cudaErrorInvalidValue;
   }
-  return static_cast<int>(err);
 }
 
 extern "C" const char* pt_error_string(int err) {

@@ -42,6 +42,9 @@ from pilottai_tpu_torch.engine.sampling import SamplingState
 from pilottai_tpu_torch.models.common import ModelConfig
 from pilottai_tpu_torch.ops.kvcache import KVCache, free_slots
 
+#: Smallest prompt bucket of an admission group (prompts pad up to a power
+#: of two at least this long).
+MIN_BUCKET = 64
 
 @dataclass
 class GenRequest:
@@ -80,8 +83,6 @@ class ContinuousBatcher:
         admit_batch: int = 8,
         max_seq_len: int = 2048,
         chunk_size: int = 16,
-        cache_dtype: Optional[torch.dtype] = None,
-        min_bucket: int = 64,
     ) -> None:
         self.cfg = cfg
         self.params = params
@@ -90,10 +91,9 @@ class ContinuousBatcher:
         self.admit_batch = admit_batch
         self.max_seq_len = max_seq_len
         self.chunk_size = chunk_size
-        self.min_bucket = min_bucket
         self.cache = KVCache.create(
             cfg.n_layers, n_slots, max_seq_len, cfg.n_kv_heads, cfg.head_dim,
-            dtype=cache_dtype or cfg.dtype, device=device,
+            dtype=cfg.dtype, device=device,
         )
         self.dstate = DecodeState.create(n_slots, device)
         self.sampling = SamplingState.create(n_slots, device)
@@ -157,8 +157,8 @@ class ContinuousBatcher:
     # ------------------------------------------------------------------ #
 
     def _bucket(self, n: int) -> int:
-        """Power-of-two prompt bucket with a ``min_bucket`` floor."""
-        b = self.min_bucket
+        """Power-of-two prompt bucket with a ``MIN_BUCKET`` floor."""
+        b = MIN_BUCKET
         while b < n:
             b *= 2
         return min(b, self.max_seq_len)
