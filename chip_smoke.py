@@ -9,20 +9,29 @@ Phases (each prints its own lines; any failure exits nonzero, and the
 result line is printed only when every phase passed):
 
 1. environment — torch and CUDA versions, the card's name and power limit;
-2. build — both hand-written kernels from ``pilottai_tpu_torch/csrc`` with
-   ``nvcc`` for sm_90a, in parallel;
-3. kernels — K1 (flash prefill) and K2 (dense decode statistics) held
-   against their plain PyTorch versions at llama3-8b (head_dim 128),
-   llama3-1b (64) and protocol-s (32) shapes, in bf16 and fp32, with
-   windows, soft-caps, ragged lengths and empty rows (limits in ``TOL``);
+2. build — the three hand-written kernels from ``pilottai_tpu_torch/csrc``
+   with ``nvcc`` for sm_90a, in parallel;
+3. kernels — K1 (flash prefill), K2 (dense decode statistics) and K3
+   (paged decode statistics, ring fused) held against their plain PyTorch
+   versions at llama3-8b (head_dim 128), llama3-1b (64) and protocol-s (32)
+   shapes, in bf16 and fp32, with windows, soft-caps, ragged lengths and
+   empty rows; K3 also with a sentinel page inside a table row, the ring at
+   its first and last row, ``q_blocks=2`` and int8 pools (limits in ``TOL``);
 4. golden — the committed protocol-s checkpoint in fp32 (TF32 off) served
-   through ``LLMHandler.generate_response``; the greedy token ids must
-   equal ``assets/protocol_s_golden.json`` (the JAX engine's), and both
-   kernels' launch counters, reset just before, must be > 0;
-5. full width — llama3-8b in bf16 from random init serves 8 concurrent
-   JSON-mode greedy requests; the kernels' launch counters, reset just
-   before, must be > 0, and one prompt's first-token logits through K1
-   must agree with the same forward through the plain K1 (``TOL_E2E``);
+   through ``LLMHandler.generate_response``, once on the dense cache and
+   once paged with chunked prefill; the greedy token ids must equal
+   ``assets/protocol_s_golden.json`` and ``protocol_s_paged_golden.json``
+   (the JAX engine's). Each path's launch counters, reset just before it,
+   must show its kernels: K1 and K2 on the dense path, K1 and K3 with K2 at
+   zero on the paged one, where prefill segments must have run;
+5. full width — llama3-8b in bf16 from random init, (a) on the dense cache:
+   8 concurrent JSON-mode greedy requests, the counters > 0 and one prompt's
+   first-token logits through K1 against the plain K1 (``TOL_E2E``); (b)
+   paged, switched on by ``engine_max_seq=8192`` alone: one ~6000-token
+   prompt (prefilled in 1024-token segments) and seven short ones, K1 and
+   K3 > 0 with K2 at zero, every page back on the free list, and one decode
+   step of the wave's live state through K3 against the plain K3
+   (``TOL_E2E``);
 6. each path's kernels timed at the shapes that path gave them (bf16 at
    phase 5's, fp32 at phase 4's); the kernels line, then the result line.
 
@@ -38,6 +47,7 @@ from __future__ import annotations
 import argparse
 import asyncio
 import contextlib
+import gc
 import json
 import math
 import subprocess
@@ -60,6 +70,9 @@ TOL = {
     "float32": {"out": 1e-4, "rel": 0.0, "stats": 1e-4},
     "bfloat16": {"out": 3e-3, "rel": 2.0**-7, "stats": 1e-4},
 }
+# K3 is held to K2's limits. Its int8 pools are dequantised to fp32 and p
+# stays fp32 for them (as in the TPU kernel), so an int8 case is held to
+# the fp32 limits whatever q's dtype.
 # Full width, bf16: the first-token logits of one prompt with K1 against the
 # same forward with the plain K1, as max |difference| / max |logit| (about
 # twice the reading of seed 0, 4.7e-3); the argmax must agree wherever the
@@ -124,7 +137,7 @@ def randn(torch, gen, shape, dtype, device):
 
 def tol_text(dtype_name: str, rel: bool = True) -> str:
     """The limits of one dtype; ``rel`` for K1, whose o is rounded to the
-    input dtype (K2's outputs are fp32)."""
+    input dtype (K2's and K3's outputs are fp32)."""
     t = TOL[dtype_name]
     rel = f" + {t['rel']:.3g}|ref|" if rel and t["rel"] else ""
     return f"out {t['out']:g}{rel}, stats {t['stats']:g}"
@@ -155,21 +168,16 @@ def check_flash(torch, fa, gen, device, name, dtype, B, T, N, K, H, valid,
     return ok, max(err_o, err_lse)
 
 
-def check_decode(torch, da, gen, device, name, dtype, B, N, K, S, H, last,
-                 window=0, softcap=0.0):
-    q = randn(torch, gen, (B, N, H), dtype, device)
-    kc = randn(torch, gen, (B, K, S, H), dtype, device)
-    vc = randn(torch, gen, (B, K, S, H), dtype, device)
-    lst = torch.tensor(last, device=device, dtype=torch.int32)
-    qpos = torch.clamp(lst, min=0) + 1
-    scale = H**-0.5
-    a_k, m_k, l_k = da.decode_attention(q, kc, vc, lst, qpos, scale, softcap, window,
-                                        return_stats=True)
-    torch.cuda.synchronize()
-    a_p, m_p, l_p = da.decode_attention_plain(q, kc, vc, lst, qpos, scale, softcap, window)
+def compare_stats(kernel, plain, tol_name):
+    """Hold a kernel's ``(acc, m, l)`` to its plain version's: acc (as acc /
+    max(l, 1) in bf16), the normalised output, m and relative l on rows
+    with keys; rows with no key must be exact. Returns (ok, gated error,
+    the log line's numbers)."""
+    a_k, m_k, l_k = kernel
+    a_p, m_p, l_p = plain
     empty = m_p <= NEG_INF / 2
     live = ~empty
-    tol = TOL[str(dtype)[6:]]
+    tol = TOL[tol_name]
     # acc is unnormalized: its scale is l (up to S). In bf16 its error is
     # held as acc / max(l, 1), in units of the attention output; fp32 holds
     # acc itself.
@@ -183,17 +191,91 @@ def check_decode(torch, da, gen, device, name, dtype, B, N, K, S, H, last,
              .abs()[live].max().item()) if live.any() else 0.0
     empty_ok = bool((m_k[empty] == m_p[empty]).all() and (l_k[empty] == 0).all()
                     and (a_k[empty] == 0).all())
-    gated_acc = err_acc_l if dtype == torch.bfloat16 else err_acc
+    gated_acc = err_acc_l if tol_name == "bfloat16" else err_acc
     ok = (max(gated_acc, err_o) <= tol["out"] and max(err_m, err_l) <= tol["stats"]
           and empty_ok)
-    log(f"  K2 {name:<34} {str(dtype)[6:]:<8} acc {err_acc:.2e} acc/l {err_acc_l:.2e} "
-        f"o {err_o:.2e} m {err_m:.2e} l(rel) {err_l:.2e} empty rows exact={empty_ok} "
-        f"tol {tol_text(str(dtype)[6:], rel=False)} (acc{'/l' if dtype == torch.bfloat16 else ''} gated) "
-        f"{'ok' if ok else 'FAIL'}")
-    return ok, max(gated_acc, err_o, err_m, err_l)
+    text = (f"acc {err_acc:.2e} acc/l {err_acc_l:.2e} o {err_o:.2e} m {err_m:.2e} "
+            f"l(rel) {err_l:.2e} empty rows exact={empty_ok} ({int(empty.sum())} rows) "
+            f"tol {tol_text(tol_name, rel=False)} "
+            f"(acc{'/l' if tol_name == 'bfloat16' else ''} gated) {'ok' if ok else 'FAIL'}")
+    return ok, max(gated_acc, err_o, err_m, err_l), text
 
 
-def phase_kernels(torch, fa, da, device, seed):
+def check_decode(torch, da, gen, device, name, dtype, B, N, K, S, H, last,
+                 window=0, softcap=0.0):
+    q = randn(torch, gen, (B, N, H), dtype, device)
+    kc = randn(torch, gen, (B, K, S, H), dtype, device)
+    vc = randn(torch, gen, (B, K, S, H), dtype, device)
+    lst = torch.tensor(last, device=device, dtype=torch.int32)
+    qpos = torch.clamp(lst, min=0) + 1
+    scale = H**-0.5
+    got = da.decode_attention(q, kc, vc, lst, qpos, scale, softcap, window, return_stats=True)
+    torch.cuda.synchronize()
+    want = da.decode_attention_plain(q, kc, vc, lst, qpos, scale, softcap, window)
+    ok, err, text = compare_stats(got, want, str(dtype)[6:])
+    log(f"  K2 {name:<34} {str(dtype)[6:]:<8} {text}")
+    return ok, err
+
+
+def paged_inputs(torch, gen, device, dtype, B, N, K, H, P, lengths, step=0, ring=0,
+                 hole=None, quantized=False, spare=8):
+    """A random page pool whose pages are handed to the slots in a shuffled
+    order, the block table (sentinel ``num_pages - 1``; ``hole`` = (slot,
+    page) turns one inner entry into the sentinel), ``last``, the query
+    position (a decode step ``step`` rows into its chunk), q and the ring."""
+    import random
+
+    rnd = random.Random(sum(lengths) + B)
+    pages_per = [-(-n // P) for n in lengths]
+    max_pages = max(max(pages_per), 1)
+    num_pages = sum(pages_per) + spare + 1
+    order = list(range(num_pages - 1))
+    rnd.shuffle(order)
+    table = torch.full((B, max_pages), num_pages - 1, dtype=torch.int32)
+    it = iter(order)
+    for b, n in enumerate(pages_per):
+        for j in range(n):
+            table[b, j] = next(it)
+    if hole is not None:
+        table[hole] = num_pages - 1
+    shape = (K, num_pages, P, H)
+    x = {"table": table.to(device), "num_pages": num_pages, "max_pages": max_pages}
+    if quantized:
+        x["k"] = torch.randint(-127, 128, shape, generator=gen, device=device, dtype=torch.int8)
+        x["v"] = torch.randint(-127, 128, shape, generator=gen, device=device, dtype=torch.int8)
+        x["ks"] = torch.rand(shape[:3], generator=gen, device=device) * 0.02 + 0.004
+        x["vs"] = torch.rand(shape[:3], generator=gen, device=device) * 0.02 + 0.004
+    else:
+        x["k"] = randn(torch, gen, shape, dtype, device)
+        x["v"] = randn(torch, gen, shape, dtype, device)
+        x["ks"] = x["vs"] = None
+    lst = torch.tensor(lengths, device=device, dtype=torch.int32) - 1
+    x["last"] = lst
+    x["qpos"] = lst + 1 + step
+    x["q"] = randn(torch, gen, (B, N, H), dtype, device)
+    x["rk"] = randn(torch, gen, (B, K, ring, H), dtype, device) if ring else None
+    x["rv"] = randn(torch, gen, (B, K, ring, H), dtype, device) if ring else None
+    return x
+
+
+def check_paged(torch, pa, gen, device, name, dtype, B, N, K, H, P, lengths, ring=0, step=0,
+                hole=None, window=0, softcap=0.0, q_blocks=1, quantized=False):
+    x = paged_inputs(torch, gen, device, dtype, B, N, K, H, P, lengths, step, ring, hole,
+                     quantized)
+    kw = dict(q_positions=x["qpos"], n_blocks=x["max_pages"], scale=H**-0.5, softcap=softcap,
+              window=window, q_blocks=q_blocks, k_scales=x["ks"], v_scales=x["vs"],
+              ring_k=x["rk"], ring_v=x["rv"], ring_step=step if ring else None)
+    got = pa.paged_decode_attention(x["q"], x["k"], x["v"], x["table"], x["last"], **kw)
+    torch.cuda.synchronize()
+    kw["ring_step"] = step
+    want = pa.paged_decode_attention_plain(x["q"], x["k"], x["v"], x["table"], x["last"], **kw)
+    tol_name = "float32" if quantized else str(dtype)[6:]
+    ok, err, text = compare_stats(got, want, tol_name)
+    log(f"  K3 {name:<34} {str(dtype)[6:]:<8} {text}")
+    return ok, err
+
+
+def phase_kernels(torch, fa, da, pa, device, seed):
     """Returns the largest gated error per (kernel, dtype)."""
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
@@ -228,13 +310,40 @@ def phase_kernels(torch, fa, da, device, seed):
             ok, err = check_decode(torch, da, gen, device, name, dtype, **kw)
             results.append(ok)
             worst[("decode", dn)] = max(worst.get(("decode", dn), 0.0), err)
+        paged_cases = [
+            ("llama3-8b P128 6000+short ring@0", dict(
+                B=8, N=32, K=8, H=128, P=128, lengths=[6000, 184, 190, 201, 176, 0, 188, 195],
+                hole=(6, 1), ring=16, step=0)),
+            ("llama3-8b P128 window softcap ring@R-1", dict(
+                B=4, N=32, K=8, H=128, P=128, lengths=[1000, 300, 0, 129], hole=(0, 2),
+                window=256, softcap=30.0, ring=16, step=15)),
+            ("llama3-8b P128 int8 pools", dict(
+                B=4, N=32, K=8, H=128, P=128, lengths=[3000, 100, 0, 700], hole=(3, 1),
+                softcap=30.0, quantized=True)),
+            ("llama3-1b H64 P128 ring@7", dict(
+                B=4, N=32, K=8, H=64, P=128, lengths=[1500, 700, 0, 33], ring=16, step=7)),
+            # A window shorter than the ring's live rows: it cuts the ring
+            # and leaves no page in reach.
+            ("llama3-1b H64 P128 window 4 ring@7", dict(
+                B=4, N=32, K=8, H=64, P=128, lengths=[1500, 700, 0, 33], window=4, ring=16,
+                step=7)),
+            ("protocol-s H32 P16 ring@0", dict(
+                B=4, N=8, K=4, H=32, P=16, lengths=[415, 510, 0, 1], hole=(1, 5), ring=16,
+                step=0)),
+            ("protocol-s H32 P16 q_blocks2 window", dict(
+                B=4, N=8, K=4, H=32, P=16, lengths=[415, 63, 0, 200], q_blocks=2, window=40)),
+        ]
+        for name, kw in paged_cases:
+            ok, err = check_paged(torch, pa, gen, device, name, dtype, **kw)
+            results.append(ok)
+            worst[("paged", dn)] = max(worst.get(("paged", dn), 0.0), err)
     if not all(results):
         raise SystemExit("kernel check failed")
     return worst
 
 
 # --------------------------------------------------------------------- #
-# Phase 4: golden token ids on protocol-s
+# Phase 4: golden token ids on protocol-s, dense and paged
 # --------------------------------------------------------------------- #
 
 def record_requests(handler):
@@ -251,7 +360,24 @@ def record_requests(handler):
     return seen
 
 
-def phase_golden(torch, fa, da, root):
+def reset(kernels):
+    for mod in kernels.values():
+        mod.launches = 0
+
+
+def counts(kernels):
+    return {name: mod.launches for name, mod in kernels.items()}
+
+
+def launches_text(launches):
+    return (f"flash_fwd {launches['flash']}, decode_attention {launches['decode']}, "
+            f"paged_attention {launches['paged']}")
+
+
+def phase_golden(torch, kernels, root, asset, paged):
+    """Serve the golden prompts with the asset's engine settings and hold
+    the ids to it. Returns the path's launches and the shapes its fp32
+    kernels saw."""
     from pilottai_tpu_torch import LLMConfig, LLMHandler, PROTOCOL_S_NPZ
     from pilottai_tpu_torch.engine.types import ChatMessage, ToolSpec
     from pilottai_tpu_torch.models.transformer import forward_prefill
@@ -259,8 +385,8 @@ def phase_golden(torch, fa, da, root):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log("  TF32 off for matmuls and cuDNN (torch.backends.*.allow_tf32 = False)")
-    golden = json.loads((root / "pilottai_tpu_torch" / "assets" /
-                         "protocol_s_golden.json").read_text())
+    golden = json.loads((root / "pilottai_tpu_torch" / "assets" / asset).read_text())
+    log(f"  {asset}: engine {golden['engine']}")
 
     async def run():
         handler = LLMHandler(LLMConfig(
@@ -272,8 +398,7 @@ def phase_golden(torch, fa, da, root):
         seen = record_requests(handler)
         try:
             out = []
-            fa.launches = 0
-            da.launches = 0
+            reset(kernels)
             for case in golden["cases"]:
                 p = golden["prompts"][case["prompt"]]
                 seen.clear()
@@ -283,17 +408,23 @@ def phase_golden(torch, fa, da, root):
                     json_mode=case["json_mode"],
                 )
                 out.append((list(seen[0].prompt_ids), seen[0].future.result()))
-            return out, handler.backend.batcher, {"flash": fa.launches, "decode": da.launches}
+            return out, handler.backend.batcher, counts(kernels)
         finally:
             await handler.stop()
 
     t0 = time.perf_counter()
     got, batcher, launches = asyncio.run(run())
     n = len(golden["cases"])
-    log(f"  launches on this run ({n} requests, fp32): flash_fwd {launches['flash']}, "
-        f"decode_attention {launches['decode']}")
-    if launches["flash"] <= 0 or launches["decode"] <= 0:
-        raise SystemExit("the golden path did not go through both kernels")
+    log(f"  launches on this run ({n} requests, fp32): {launches_text(launches)}")
+    if paged:
+        log(f"  paged: {batcher.num_pages} pages of {batcher.page_size}, prefill segments "
+            f"{batcher.prefill_segments}, free pages after {batcher.alloc.free_pages}")
+        if (launches["flash"] <= 0 or launches["paged"] <= 0 or launches["decode"] != 0
+                or batcher.prefill_segments <= 0):
+            raise SystemExit("the paged golden path did not run K1, K3 and prefill segments "
+                             "with K2 at zero")
+    elif launches["flash"] <= 0 or launches["decode"] <= 0 or launches["paged"] != 0:
+        raise SystemExit("the dense golden path did not go through K1 and K2 alone")
     failed = False
     for case, (prompt_ids, ids) in zip(golden["cases"], got):
         want = case["token_ids"]
@@ -321,15 +452,24 @@ def phase_golden(torch, fa, da, root):
     if failed:
         raise SystemExit("golden token ids differ")
     # The shapes the fp32 kernels saw: one request at a time, the prompt
-    # padded to its bucket, the decode read over every slot's panel.
+    # padded to its bucket, the decode read over every slot's panel (or,
+    # paged, the request's pages) at mid-generation, mid-chunk.
     lens = [len(prompt_ids) for prompt_ids, _ in got]
     mean_gen = sum(len(ids) for _, ids in got) // n
-    return launches, {
+    last = [max(lens) + mean_gen // 2] + [-1] * (batcher.n_slots - 1)
+    shapes = {
         "flash": dict(B=1, T=batcher._bucket(max(lens)), lens=[max(lens)]),
-        "decode": dict(B=batcher.n_slots, S=batcher.max_seq_len,
-                       last=[max(lens) + mean_gen // 2] + [-1] * (batcher.n_slots - 1)),
+        "decode": dict(B=batcher.n_slots, S=batcher.max_seq_len, last=last),
         "model": batcher.cfg,
+        "requests": n,
     }
+    if paged:
+        P = batcher.page_size
+        table = [[-1] * batcher.alloc.table.shape[1] for _ in range(batcher.n_slots)]
+        table[0][: -(-(last[0] + 1) // P)] = list(range(-(-(last[0] + 1) // P)))
+        shapes["paged"] = dict(last=last, table=table, num_pages=batcher.num_pages, P=P,
+                               R=batcher.chunk_size, step=batcher.chunk_size // 2)
+    return launches, shapes
 
 
 # --------------------------------------------------------------------- #
@@ -343,20 +483,36 @@ FULL_PROMPT = (
 )
 
 
-async def profile_wave(handler, prompts):
-    """One more wave (8 requests, 16 tokens) under torch.profiler: the
-    device's busy share of the wall time and the kernels that fill it."""
+def long_prompt(n_chars: int) -> str:
+    """A report of about ``n_chars`` bytes (one byte-tokenizer token each),
+    then the instruction."""
+    lines, size, j = [], 0, 0
+    while size < n_chars:
+        line = (f"Section {j}: revenue in region {j % 9} moved {(j * 7) % 13} percent; "
+                f"churn {(j * 5) % 11} percent; backlog {(j * 3) % 17} orders.")
+        lines.append(line)
+        size += len(line) + 1
+        j += 1
+    return ("\n".join(lines)[:n_chars] + "\nSummarize the risks in this report. Reply with "
+            "one JSON object with the keys task_complete, action, arguments and reasoning.")
+
+
+async def profile_wave(handler, requests, label):
+    """One more wave under torch.profiler: the device's busy share of the
+    wall time and the kernels that fill it. ``requests`` are (messages,
+    max_new_tokens) pairs."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from pilottai_tpu_torch.engine.types import GenerationParams
 
-    params = GenerationParams(temperature=0.0, max_new_tokens=16)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        await asyncio.gather(*[handler.generate_response(p, params=params, json_mode=True)
-                               for p in prompts])
+        await asyncio.gather(*[
+            handler.generate_response(p, params=GenerationParams(
+                temperature=0.0, max_new_tokens=n), json_mode=True)
+            for p, n in requests])
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     rows = []
@@ -368,12 +524,14 @@ async def profile_wave(handler, prompts):
             rows.append((dev, evt.key, evt.count))
     busy = sum(r[0] for r in rows)
     if not rows:
-        log("  profiled wave: the profiler saw no device time (busy share not measured)")
-        return
-    log(f"  profiled wave (8 x 16 tokens): wall {wall_us / 1e3:.1f} ms, device busy "
+        log(f"  profiled wave ({label}): the profiler saw no device time (busy share not "
+            "measured)")
+        return None
+    log(f"  profiled wave ({label}): wall {wall_us / 1e3:.1f} ms, device busy "
         f"{busy / 1e3:.1f} ms = {busy / wall_us:.3f} of the wall; top device time:")
     for dev, key, count in sorted(rows, reverse=True)[:8]:
         log(f"    {dev / 1e3:9.2f} ms  {count:6d} x  {key[:90]}")
+    return busy / wall_us
 
 
 @contextlib.contextmanager
@@ -389,10 +547,75 @@ def plain_prefill_attention(fa):
         transformer.flash_attention = kernel
 
 
-def phase_full_width(torch, fa, da, seed):
+@contextlib.contextmanager
+def plain_paged_attention(pa):
+    """Route the decode step's paged attention through the plain K3 while
+    inside."""
+    from pilottai_tpu_torch.engine import decode
+
+    kernel = decode.paged_decode_attention
+    decode.paged_decode_attention = pa.paged_decode_attention_plain
+    try:
+        yield
+    finally:
+        decode.paged_decode_attention = kernel
+
+
+def logits_agreement(got, want, rows):
+    """max |difference| / max |logit| over ``rows``, and whether every row's
+    argmax agrees (or its top-2 margin is within twice the difference)."""
+    got, want = got[rows].float(), want[rows].float()
+    diff = (got - want).abs()
+    top = want.topk(2, dim=-1).values
+    same = got.argmax(-1) == want.argmax(-1)
+    close = (top[:, 0] - top[:, 1]) <= 2 * diff.max(dim=-1).values
+    return {
+        "rel": float(diff.max() / want.abs().max()),
+        "max_diff": float(diff.max()),
+        "max_logit": float(want.abs().max()),
+        "same_argmax": bool(same.all()),
+        "argmax_ok": bool((same | close).all()),
+        "margin": float((top[:, 0] - top[:, 1]).min()),
+    }
+
+
+def paged_step_check(torch, pa, batcher):
+    """One decode step of the batcher's live paged state (on its device
+    thread, between two chunks) through K3 and through the plain K3: the
+    logits of every live slot. The step writes only fresh rings, never the
+    cache, and its K3 launches are taken back out of the count."""
+    from pilottai_tpu_torch.engine import decode
+
+    cfg, cache, dstate = batcher.cfg, batcher.cache, batcher.dstate
+    dev = batcher.device
+    n0 = pa.launches
+    table = torch.from_numpy(batcher.alloc.table.copy()).to(dev)
+    pos = cache.lengths.clone()
+    n_blocks = max(-(-int(pos.max()) // batcher.page_size), 1)
+
+    def step():
+        rings = decode.new_rings(cfg, batcher.n_slots, batcher.chunk_size,
+                                 cache.layers[0][0].dtype, dev)
+        return decode.decode_step_logits(batcher.params, cfg, cache, dstate.tokens, pos,
+                                         pos - 1, rings, 0, table=table, n_blocks=n_blocks)
+
+    got = step()
+    with plain_paged_attention(pa):
+        want = step()
+    torch.cuda.synchronize()
+    pa.launches = n0
+    live = torch.nonzero(~dstate.done).flatten()
+    out = logits_agreement(got, want, live)
+    out["finite"] = bool(torch.isfinite(got).all())
+    out["lengths"] = pos.tolist()
+    return out
+
+
+def phase_full_width(torch, kernels, seed):
     from pilottai_tpu_torch import LLMConfig, LLMHandler
     from pilottai_tpu_torch.models.transformer import forward_prefill
 
+    fa = kernels["flash"]
     cfg = LLMConfig(provider="cuda", model_name="llama3-8b", dtype="bfloat16",
                     engine_slots=8, engine_admit_batch=8, engine_max_seq=2048,
                     engine_chunk=16, seed=seed)
@@ -417,8 +640,7 @@ def phase_full_width(torch, fa, da, seed):
         batcher.completed.clear()
         seen = record_requests(handler)
         torch.cuda.reset_peak_memory_stats()
-        fa.launches = 0
-        da.launches = 0
+        reset(kernels)
         t0 = time.perf_counter()
         replies = await asyncio.gather(*[
             handler.generate_response(p, params=GenerationParams(**params), json_mode=True)
@@ -426,7 +648,7 @@ def phase_full_width(torch, fa, da, seed):
         ])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {"flash": fa.launches, "decode": da.launches}
+        launches = counts(kernels)
         shapes["prompt_lens"] = [len(r.prompt_ids) for r in seen]
         shapes["gen_lens"] = [len(r.future.result()) for r in seen]
         timings = list(batcher.completed)
@@ -442,28 +664,14 @@ def phase_full_width(torch, fa, da, seed):
         with plain_prefill_attention(fa):
             ref, _, _ = forward_prefill(batcher.params, batcher.cfg, ids, pos, val)
         finite = bool(torch.isfinite(logits).all()) and tuple(logits.shape) == (1, T, 384)
-        got, want = logits[0, T - 1], ref[0, T - 1]
-        top = torch.topk(want, 2).values
-        e2e = {
-            "rel": float((got - want).abs().max() / want.abs().max()),
-            "max_diff": float((got - want).abs().max()),
-            "max_logit": float(want.abs().max()),
-            "same_argmax": int(got.argmax()) == int(want.argmax()),
-            "margin": float(top[0] - top[1]),
-        }
+        e2e = logits_agreement(logits[0, T - 1][None], ref[0, T - 1][None], [0])
         shapes["model"] = handler.backend.model_cfg
-        await profile_wave(handler, prompts)
+        await profile_wave(handler, [(p, 16) for p in prompts], "8 x 16 tokens")
         await handler.stop()
         return replies, wall, launches, timings, peak, finite, e2e
 
     replies, wall, launches, timings, peak, finite, e2e = asyncio.run(run())
-    parsed = 0
-    for r in replies:
-        try:
-            json.loads(r.content)
-            parsed += 1
-        except json.JSONDecodeError:
-            pass
+    parsed = sum(1 for r in replies if parses(r.content))
     tokens = sum(t["tokens"] for t in timings)
     ttft = sorted(t["ttft_s"] for t in timings)
     tpot = sorted((t["e2e_s"] - t["ttft_s"]) / max(t["tokens"] - 1, 1) for t in timings)
@@ -472,24 +680,164 @@ def phase_full_width(torch, fa, da, seed):
         f"TPOT p50 {tpot[len(tpot) // 2] * 1e3:.2f} ms; {tokens / wall:.1f} tokens/s over "
         f"{wall:.2f} s; peak memory {peak / 2**30:.2f} GiB")
     log(f"  JSON replies that parse: {parsed}/8; prefill logits finite: {finite}")
-    e2e_ok = e2e["rel"] <= TOL_E2E and (
-        e2e["same_argmax"] or e2e["margin"] <= 2 * e2e["max_diff"])
+    e2e_ok = e2e["rel"] <= TOL_E2E and e2e["argmax_ok"]
     log(f"  first-token logits of a {shapes['prompt_lens'][0]}-token prompt, K1 vs plain K1 "
         f"(bf16): max |diff| {e2e['max_diff']:.3e} over max |logit| {e2e['max_logit']:.3e} "
         f"= {e2e['rel']:.3e}, tol {TOL_E2E:g}; same argmax {e2e['same_argmax']} "
         f"(top-2 margin {e2e['margin']:.3e}) {'ok' if e2e_ok else 'FAIL'}")
-    log(f"  launches on this run: flash_fwd {launches['flash']}, "
-        f"decode_attention {launches['decode']}")
-    if launches["flash"] <= 0 or launches["decode"] <= 0:
-        raise SystemExit("the main path did not go through both kernels")
+    log(f"  launches on this run: {launches_text(launches)}")
+    if launches["flash"] <= 0 or launches["decode"] <= 0 or launches["paged"] != 0:
+        raise SystemExit("the dense main path did not go through K1 and K2 alone")
     if parsed != 8 or not finite or not e2e_ok:
         raise SystemExit("full-width outputs are wrong")
+    return launches, shapes
+
+
+def parses(text: str) -> bool:
+    try:
+        json.loads(text)
+        return True
+    except json.JSONDecodeError:
+        return False
+
+
+def phase_full_width_paged(torch, kernels, seed):
+    """llama3-8b with an 8192-token context (paging switches on by itself):
+    one long prompt, admitted in 1024-token segments, and seven short ones
+    behind it; the long one is at the head of the queue, so all eight decode
+    together once it is in."""
+    from pilottai_tpu_torch import LLMConfig, LLMHandler
+    from pilottai_tpu_torch.engine.types import GenerationParams
+
+    pa = kernels["paged"]
+    cfg = LLMConfig(provider="cuda", model_name="llama3-8b", dtype="bfloat16",
+                    engine_slots=8, engine_admit_batch=8, engine_max_seq=8192,
+                    engine_chunk=16, seed=seed)
+    requests = [[long_prompt(5900)]] + [[FULL_PROMPT.format(i=i)] for i in range(7)]
+    state = {"peak_pages": 0}
+
+    async def run():
+        handler = LLMHandler(cfg)
+        t0 = time.perf_counter()
+        await handler.start()
+        torch.cuda.synchronize()
+        batcher = handler.backend.batcher
+        log(f"  llama3-8b bf16 random init, engine_max_seq 8192, on the card in "
+            f"{time.perf_counter() - t0:.1f} s; paged {batcher.paged}: {batcher.num_pages} "
+            f"pages of {batcher.page_size} (the last one scratch), prefill segments of "
+            f"{batcher.prefill_chunk}, slot capacity {batcher.max_seq_len}")
+        if not batcher.paged:
+            raise SystemExit("engine_max_seq 8192 did not page the cache")
+        await handler.generate_response(requests[1], params=GenerationParams(
+            temperature=0.0, max_new_tokens=4), json_mode=True)
+        decode = batcher._decode
+
+        def watching():
+            used = batcher.num_pages - 1 - batcher.alloc.free_pages
+            state["peak_pages"] = max(state["peak_pages"], used)
+            if all(s is not None for s in batcher._slots):
+                # The first step with all eight live is checked against the
+                # plain K3; the last one gives K3's timing shape.
+                if "e2e" not in state:
+                    state["e2e"] = paged_step_check(torch, pa, batcher)
+                state["last"] = [int(n) - 1 for n in batcher.cache.lengths.tolist()]
+                state["table"] = batcher.alloc.table.tolist()
+            decode()
+
+        batcher._decode = watching
+        batcher.completed.clear()
+        seen = record_requests(handler)
+        seg0 = batcher.prefill_segments
+        torch.cuda.reset_peak_memory_stats()
+        reset(kernels)
+        t0 = time.perf_counter()
+        def send(p):
+            return asyncio.ensure_future(handler.generate_response(
+                p, params=GenerationParams(temperature=0.0, max_new_tokens=64),
+                json_mode=True))
+
+        # The long prompt heads the queue: the short ones are sent once its
+        # segmented prefill has begun, and wait behind it (FIFO admission).
+        tasks = [send(requests[0])]
+        while (batcher._segmenting is None and batcher.prefill_segments == seg0
+               and not tasks[0].done()):
+            await asyncio.sleep(0.001)
+        tasks += [send(p) for p in requests[1:]]
+        replies = await asyncio.gather(*tasks)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = counts(kernels)
+        batcher._decode = decode
+        out = dict(
+            replies=replies, wall=wall, launches=launches,
+            timings=list(batcher.completed), peak=torch.cuda.max_memory_allocated(),
+            prompt_lens=[len(r.prompt_ids) for r in seen],
+            gen_lens=[len(r.future.result()) for r in seen],
+            segments=batcher.prefill_segments - seg0,
+            free_after=batcher.alloc.free_pages, usable=batcher.num_pages - 1,
+            table_clear=bool((batcher.alloc.table == batcher.alloc.sentinel).all()),
+            num_pages=batcher.num_pages, P=batcher.page_size, R=batcher.chunk_size,
+            model=handler.backend.model_cfg,
+        )
+        out["busy"] = await profile_wave(handler, [(p, 16) for p in requests],
+                                         "1 long + 7 short x 16 tokens")
+        await handler.stop()
+        return out
+
+    out = asyncio.run(run())
+    timings = out["timings"]
+    long_t = [t for t in timings if t["prompt_tokens"] > 1000]
+    short_t = sorted((t for t in timings if t["prompt_tokens"] <= 1000),
+                     key=lambda t: t["ttft_s"])
+    tokens = sum(t["tokens"] for t in timings)
+    tpot = sorted((t["e2e_s"] - t["ttft_s"]) / max(t["tokens"] - 1, 1) for t in timings)
+    parsed = sum(1 for r in out["replies"] if parses(r.content))
+    log(f"  8 requests, prompt tokens {out['prompt_lens']}, generated {out['gen_lens']}")
+    log(f"  TTFT long {long_t[0]['ttft_s'] * 1e3:.1f} ms; TTFT short p50 "
+        f"{short_t[len(short_t) // 2]['ttft_s'] * 1e3:.1f} ms max "
+        f"{short_t[-1]['ttft_s'] * 1e3:.1f} ms; TPOT p50 {tpot[len(tpot) // 2] * 1e3:.2f} ms; "
+        f"{tokens / out['wall']:.1f} tokens/s over {out['wall']:.2f} s; peak memory "
+        f"{out['peak'] / 2**30:.2f} GiB")
+    log(f"  prefill segments {out['segments']}; pages in use at the peak {state['peak_pages']} "
+        f"of {out['usable']}; free after the wave {out['free_after']} of {out['usable']}, "
+        f"block table clear {out['table_clear']}; JSON replies that parse: {parsed}/8")
+    log(f"  launches on this run: {launches_text(out['launches'])}")
+    e2e = state.get("e2e")
+    e2e_ok = bool(e2e) and e2e["finite"] and e2e["rel"] <= TOL_E2E and e2e["argmax_ok"]
+    if e2e:
+        log(f"  one decode step of the live wave (slot lengths {e2e['lengths']}), K3 vs plain "
+            f"K3 (bf16): max |diff| {e2e['max_diff']:.3e} over max |logit| "
+            f"{e2e['max_logit']:.3e} = {e2e['rel']:.3e}, tol {TOL_E2E:g}; same argmax "
+            f"{e2e['same_argmax']} (smallest top-2 margin {e2e['margin']:.3e}); finite "
+            f"{e2e['finite']} {'ok' if e2e_ok else 'FAIL'}")
+    else:
+        log("  the wave never had all eight slots live: no decode-step check")
+    launches = out["launches"]
+    if launches["flash"] <= 0 or launches["paged"] <= 0 or launches["decode"] != 0:
+        raise SystemExit("the paged main path did not go through K1 and K3 with K2 at zero")
+    if out["segments"] <= 0 or out["free_after"] != out["usable"] or not out["table_clear"]:
+        raise SystemExit("chunked prefill did not run, or pages were not returned")
+    if parsed != 8 or not e2e_ok:
+        raise SystemExit("paged full-width outputs are wrong")
+    shapes = dict(last=state["last"], table=state["table"], num_pages=out["num_pages"],
+                  P=out["P"], R=out["R"], step=out["R"] // 2, model=out["model"],
+                  requests=len(requests))
     return launches, shapes
 
 
 # --------------------------------------------------------------------- #
 # Phase 6: timing at the main path's shapes
 # --------------------------------------------------------------------- #
+
+def entry(name, mod, launched, err, ms, plain, lib, flops, nbytes, dtype_name, tol, **extra):
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype_name] * 1e3, nbytes / PEAK_BYTES * 1e3
+    return {
+        "name": name, "route": "cuda", "source": mod.SOURCE, "replaces": mod.REPLACES,
+        "launches": launched, "max_abs_err": err, "ms": ms, "plain_ms": plain,
+        "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": lib, "dtype": dtype_name, "tolerance": tol, **extra,
+    }
+
 
 def time_kernels(torch, fa, da, device, timer, gen, dtype, cfg, flash, decode, launches,
                  worst, suffix=""):
@@ -537,21 +885,11 @@ def time_kernels(torch, fa, da, device, timer, gen, dtype, cfg, flash, decode, l
     k2_flops = 4 * H * N * keys
     k2_bytes = 2 * esz * keys * K * H + esz * B * N * H + 4 * B * N * H + 2 * 4 * B * N
 
-    def entry(name, source, replaces, launched, err, ms, plain, lib, flops, nbytes, rel):
-        t_ops, t_bytes = flops / PEAK_FLOPS[dn] * 1e3, nbytes / PEAK_BYTES * 1e3
-        return {
-            "name": name + suffix, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launched, "max_abs_err": err, "ms": ms, "plain_ms": plain,
-            "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": lib, "dtype": dn, "tolerance": tol_text(dn, rel),
-        }
-
     kernels = [
-        entry("flash_fwd", fa.SOURCE, fa.REPLACES, launches["flash"], worst[("flash", dn)],
-              k1, k1_plain, k1_lib, k1_flops, k1_bytes, True),
-        entry("decode_attention", da.SOURCE, da.REPLACES, launches["decode"],
-              worst[("decode", dn)], k2, k2_plain, k2_lib, k2_flops, k2_bytes, False),
+        entry("flash_fwd" + suffix, fa, launches["flash"], worst[("flash", dn)], k1, k1_plain,
+              k1_lib, k1_flops, k1_bytes, dn, tol_text(dn, True)),
+        entry("decode_attention" + suffix, da, launches["decode"], worst[("decode", dn)], k2,
+              k2_plain, k2_lib, k2_flops, k2_bytes, dn, tol_text(dn, False)),
     ]
     log(f"  K1 flash_fwd {dn:<8} q [{flash['B']},{T},{N},{H}] valid {lens}: kernel {k1:.4f} ms, "
         f"plain {k1_plain:.4f} ms, SDPA {k1_lib:.4f} ms, bound {kernels[0]['bound_ms']:.5f} ms "
@@ -562,9 +900,73 @@ def time_kernels(torch, fa, da, device, timer, gen, dtype, cfg, flash, decode, l
     return kernels
 
 
-def phase_timing(torch, fa, da, device, seed, worst, full, golden):
-    """Both paths' kernels, each at the shapes its own run gave it: bf16 at
-    the llama3-8b wave's, fp32 at the golden protocol-s requests'."""
+def time_paged(torch, pa, device, timer, gen, dtype, shape, launched, worst, suffix=""):
+    """Time K3 (kernel, plain version, SDPA over panels gathered beforehand)
+    at one paged path's decode step: its slots' lengths and block table, a
+    pool of its size, the ring ``step`` rows into a chunk. Returns its entry
+    of the kernels line."""
+    import torch.nn.functional as F
+
+    from pilottai_tpu_torch.ops.paged import gather_pages
+
+    dn = str(dtype)[6:]
+    esz = torch.finfo(dtype).bits // 8
+    cfg = shape["model"]
+    N, K, H = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    G = N // K
+    P, num_pages, R, step, last = shape["P"], shape["num_pages"], shape["R"], shape["step"], \
+        shape["last"]
+    B = len(last)
+    sentinel = num_pages - 1
+    table = torch.tensor([[p if p >= 0 else sentinel for p in row] for row in shape["table"]],
+                         device=device, dtype=torch.int32)
+    n_blocks = max(-(-(max(last) + 1) // P), 1)
+    k_pool = randn(torch, gen, (K, num_pages, P, H), dtype, device)
+    v_pool = randn(torch, gen, (K, num_pages, P, H), dtype, device)
+    q = randn(torch, gen, (B, N, H), dtype, device)
+    rk = randn(torch, gen, (B, K, R, H), dtype, device)
+    rv = randn(torch, gen, (B, K, R, H), dtype, device)
+    lst = torch.tensor(last, device=device, dtype=torch.int32)
+    qpos = lst + 1 + step
+    kw = dict(q_positions=qpos, n_blocks=n_blocks, scale=H**-0.5, ring_k=rk, ring_v=rv,
+              ring_step=step)
+    k3 = timer.ms(lambda: pa.paged_decode_attention(q, k_pool, v_pool, table, lst, **kw))
+    k3_plain = timer.ms(lambda: pa.paged_decode_attention_plain(q, k_pool, v_pool, table, lst,
+                                                                **kw))
+
+    def gather():
+        kg = torch.cat([gather_pages(k_pool, table, n_blocks), rk], dim=2)
+        vg = torch.cat([gather_pages(v_pool, table, n_blocks), rv], dim=2)
+        return kg.repeat_interleave(G, dim=1), vg.repeat_interleave(G, dim=1)
+
+    gather_ms = timer.ms(gather)
+    kg, vg = gather()
+    col = torch.arange(n_blocks * P, device=device)
+    live = (table[:, :n_blocks] != sentinel).repeat_interleave(P, dim=1)
+    pmask = (col[None, :] <= lst[:, None]) & live
+    rmask = (torch.arange(R, device=device) <= step)[None].expand(B, R)
+    mask = torch.cat([pmask, rmask], dim=1)[:, None, None, :]
+    k3_lib = timer.ms(lambda: F.scaled_dot_product_attention(q[:, :, None], kg, vg,
+                                                             attn_mask=mask))
+    keys = sum(n + 1 for n in last if n >= 0)
+    ring_rows = B * (step + 1)
+    flops = 4 * H * N * (keys + ring_rows)
+    nbytes = (2 * esz * (keys + ring_rows) * K * H + esz * B * N * H + 4 * B * n_blocks
+              + 2 * 4 * B + 4 * B * N * H + 2 * 4 * B * N)
+    e = entry("paged_attention" + suffix, pa, launched, worst[("paged", dn)], k3, k3_plain,
+              k3_lib, flops, nbytes, dn, tol_text(dn, False), gather_ms=gather_ms,
+              launches_per_request=launched / shape["requests"])
+    log(f"  K3 paged     {dn:<8} q [{B},{N},{H}] P {P} pool {num_pages} pages, last {last}, "
+        f"ring {R} at step {step}: kernel {k3:.4f} ms, plain {k3_plain:.4f} ms, SDPA "
+        f"{k3_lib:.4f} ms (+ gather {gather_ms:.4f} ms), bound {e['bound_ms']:.5f} ms "
+        f"({e['bound_by']}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
+    return e
+
+
+def phase_timing(torch, kernels, device, seed, worst, paths):
+    """Every path's kernels, each at the shapes its own run gave it: bf16 at
+    the llama3-8b waves', fp32 at the golden protocol-s requests'."""
+    fa, da, pa = kernels["flash"], kernels["decode"], kernels["paged"]
     timer = Timer(torch, device)
     clocks = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,temperature.gpu",
@@ -573,22 +975,31 @@ def phase_timing(torch, fa, da, device, seed, worst, full, golden):
     log(f"  card before timing (SM clock, max SM clock, power, temperature): {clocks}")
     gen = torch.Generator(device=device)
     gen.manual_seed(seed + 1)
-    launches, shapes = full
+    launches, shapes = paths["full"]
     lens = shapes["prompt_lens"]
     T = 64
     while T < max(lens):
         T *= 2
-    bf16 = time_kernels(
+    out = time_kernels(
         torch, fa, da, device, timer, gen, torch.bfloat16, shapes["model"],
         flash=dict(B=len(lens), T=T, lens=lens),
         decode=dict(B=len(lens), S=2048, last=[n + 32 for n in lens]),
         launches=launches, worst=worst)
-    g_launches, g_shapes = golden
+    p_launches, p_shape = paths["full_paged"]
+    out[0]["launches_paged"] = p_launches["flash"]
+    out.append(time_paged(torch, pa, device, timer, gen, torch.bfloat16, p_shape,
+                          p_launches["paged"], worst))
+    g_launches, g_shapes = paths["golden"]
     fp32 = time_kernels(
         torch, fa, da, device, timer, gen, torch.float32, g_shapes["model"],
         flash=g_shapes["flash"], decode=g_shapes["decode"], launches=g_launches, worst=worst,
         suffix="_fp32")
-    return bf16 + fp32
+    gp_launches, gp_shapes = paths["golden_paged"]
+    fp32[0]["launches_paged"] = gp_launches["flash"]
+    gp_shape = dict(gp_shapes["paged"], model=gp_shapes["model"], requests=gp_shapes["requests"])
+    fp32.append(time_paged(torch, pa, device, timer, gen, torch.float32, gp_shape,
+                           gp_launches["paged"], worst, suffix="_fp32"))
+    return out + fp32
 
 
 def main() -> int:
@@ -609,17 +1020,20 @@ def main() -> int:
     from pilottai_tpu_torch.ops.kernels import build
     from pilottai_tpu_torch.ops.kernels import decode_attention as da
     from pilottai_tpu_torch.ops.kernels import flash_attention as fa
+    from pilottai_tpu_torch.ops.kernels import paged_attention as pa
 
+    kernels = {"flash": fa, "decode": da, "paged": pa}
     device = torch.device("cuda", 0)
     smi = nvidia_smi()
+    t_start = time.perf_counter()
     log("== 1. environment")
     log(f"  python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.device_count()} device(s): {torch.cuda.get_device_name(0)}")
     log(smi)
 
-    log("== 2. build (nvcc, sm_90a, both kernels in parallel)")
+    log("== 2. build (nvcc, sm_90a, the three kernels in parallel)")
     t0 = time.perf_counter()
-    build.build_libraries(["flash_fwd", "decode_attention"])
+    build.build_libraries(["flash_fwd", "decode_attention", "paged_attention"])
     log(f"  built in {time.perf_counter() - t0:.1f} s")
     for name, (secs, text) in build.build_log.items():
         log(f"  {name}: nvcc {secs:.1f} s")
@@ -628,18 +1042,32 @@ def main() -> int:
                 log(f"    {line.strip()}")
 
     log("== 3. kernels vs plain versions")
-    worst = phase_kernels(torch, fa, da, device, args.seed)
+    worst = phase_kernels(torch, fa, da, pa, device, args.seed)
     if args.kernels_only:
         return 0
-    log("== 4. golden protocol-s token ids (fp32)")
-    golden = phase_golden(torch, fa, da, root)
-    log("== 5. llama3-8b full width, bf16, 8 concurrent JSON requests")
-    full = phase_full_width(torch, fa, da, args.seed)
+    paths = {}
+    log("== 4a. golden protocol-s token ids (fp32), dense cache")
+    paths["golden"] = phase_golden(torch, kernels, root, "protocol_s_golden.json", paged=False)
+    log("== 4b. golden protocol-s token ids (fp32), paged cache, chunked prefill")
+    paths["golden_paged"] = phase_golden(torch, kernels, root, "protocol_s_paged_golden.json",
+                                         paged=True)
+    log("== 5a. llama3-8b full width, bf16, dense cache, 8 concurrent JSON requests")
+    paths["full"] = phase_full_width(torch, kernels, args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  after the dense engine stopped: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        "allocated")
+    log("== 5b. llama3-8b full width, bf16, paged cache (engine_max_seq 8192), "
+        "1 long + 7 short JSON requests")
+    paths["full_paged"] = phase_full_width_paged(torch, kernels, args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
     log("== 6. kernel times at each path's shapes")
-    kernels = phase_timing(torch, fa, da, device, args.seed, worst, full, golden)
-    if not all(math.isfinite(k["ms"]) for k in kernels):
+    kernels_line = phase_timing(torch, kernels, device, args.seed, worst, paths)
+    if not all(math.isfinite(k["ms"]) for k in kernels_line):
         raise SystemExit("non-finite timing")
-    print(json.dumps({"kernels": kernels}), flush=True)
+    log(f"  smoke wall time {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": kernels_line}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

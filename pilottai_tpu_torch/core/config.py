@@ -25,7 +25,6 @@ class NotInSlice(ValueError):
 # ROADMAP.md, "Port slices", in the order they land.
 ROADMAP = {
     "prefix": "P2 (prefix cache)",
-    "paged": "P3 (paged KV and kernel K3)",
     "spec": "P4 (speculative decoding)",
     "quant": "P5 (weight and KV quantization)",
     "batcher": "P6 (full batcher)",
@@ -40,11 +39,6 @@ ROADMAP = {
 _LATER: Dict[str, Tuple[Tuple[Any, ...], str]] = {
     "engine_prefix_cache": ((0,), "prefix"),
     "engine_prefix_min_len": ((None,), "prefix"),
-    "engine_paged_kv": ((None, False), "paged"),
-    "engine_kv_pages": ((None,), "paged"),
-    "engine_page_size": ((128,), "paged"),
-    "engine_page_strip": ((None,), "paged"),
-    "engine_prefill_chunk": ((None,), "paged"),
     "engine_speculate": ((0,), "spec"),
     "engine_draft_layers": ((0,), "spec"),
     "quantize": ((None, "none"), "quant"),
@@ -97,9 +91,10 @@ class SamplingConfig(BaseModel):
 
 
 class LLMConfig(BaseModel):
-    """The port's engine configuration: one device, dense KV in the cache
-    dtype, no prefix cache, no speculation, no quantization, a fixed
-    chunk size and the unfused sampling epilogue."""
+    """The port's engine configuration: one device, KV in the cache dtype
+    (dense, or paged from ``engine_max_seq`` 4096 on), no prefix cache,
+    no speculation, no quantization, a fixed chunk size and the unfused
+    sampling epilogue."""
 
     model_config = ConfigDict(extra="forbid", protected_namespaces=())
 
@@ -114,6 +109,13 @@ class LLMConfig(BaseModel):
     engine_admit_batch: int = Field(default=8, ge=1)
     engine_max_seq: Optional[int] = None    # KV length cap (default min(model max, 2048))
     engine_chunk: int = Field(default=16, ge=1)
+    # Paged KV (ops/paged.py): None pages when engine_max_seq >= 4096.
+    engine_paged_kv: Optional[bool] = None
+    engine_page_size: int = Field(default=128, ge=8)
+    # Pool pages; default n_slots * min(max_seq, 2048) / page_size + 1 (scratch page).
+    engine_kv_pages: Optional[int] = Field(default=None, ge=2)
+    # Chunked prefill segment (paged only); default 1024, rounded up to pages; 0 = off.
+    engine_prefill_chunk: Optional[int] = Field(default=None, ge=0)
     seed: int = 0                           # param init seed when no checkpoint
 
     @model_validator(mode="before")
@@ -122,6 +124,13 @@ class LLMConfig(BaseModel):
         if not isinstance(data, dict):
             return data
         data = dict(data)
+        strip = data.pop("engine_page_strip", None)
+        if strip is not None:
+            raise NotInSlice(
+                f"engine_page_strip={strip!r} sets the TPU paged kernel's pages per grid "
+                "cell; results are identical across strips and the port's CUDA kernel K3 "
+                "has no such grid, so only None is accepted"
+            )
         for knob, (ok, item) in _LATER.items():
             if knob in data:
                 value = data.pop(knob)

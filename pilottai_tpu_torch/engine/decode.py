@@ -1,15 +1,26 @@
-"""Chunked decode and fused admission on the dense KV cache (the port's
-counterpart of ``pilottai_tpu/engine/decode.py``; prefix caching,
-paging, speculation and the fused greedy epilogue wait for later slices).
+"""Chunked decode and fused admission on the dense or the paged KV cache
+(the port's counterpart of ``pilottai_tpu/engine/decode.py``; prefix
+caching, speculation and the fused greedy epilogue wait for later
+slices).
 
 The chunk keeps the JAX engine's KV trick: inside a chunk the big
 per-layer cache panels are read-only. Each step's fresh K/V goes to a
-small per-layer ring ``[B, K, n, H]``; attention reads the cache prefix
-through kernel K2 (``ops/kernels/decode_attention.py``) as online-softmax
-statistics, attends the ring with plain tensor ops, and merges the two
-with ``_merge_stats``; one scatter per layer lands the ring in the cache
-at chunk end. JAX's ``lax.while_loop`` becomes a Python loop that stops
-early once every slot is done (one device read per step).
+small per-layer ring ``[B, K, n, H]``, and one scatter per layer lands
+the ring in the cache at chunk end. On the dense cache attention reads
+the prefix through kernel K2 (``ops/kernels/decode_attention.py``) as
+online-softmax statistics, attends the ring with plain tensor ops, and
+merges the two with ``_merge_stats``. On the paged cache one launch of
+kernel K3 (``ops/kernels/paged_attention.py``) per layer reads the live
+pages through the block table with the ring fused in. JAX's
+``lax.while_loop`` becomes a Python loop that stops early once every
+slot is done (one device read per step).
+
+Long prompts on the paged cache admit in segments (chunked prefill):
+``extend_prompt_paged`` prefills one segment against the pages already
+written, and the final segment admits through
+``admit_group_prefix_paged``. A segment's attention is its own causal
+block through kernel K1 merged with plain-torch statistics over the
+chain of pages before it (``_tail_prefix_attn``).
 
 Out-of-range slots — admission padding rows — are dropped explicitly:
 torch raises where JAX's scatters drop and its gathers clamp.
@@ -18,7 +29,7 @@ torch raises where JAX's scatters drop and its gathers clamp.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -34,7 +45,17 @@ from pilottai_tpu_torch.models.transformer import (
     forward_prefill,
 )
 from pilottai_tpu_torch.ops.kernels.decode_attention import decode_attention
+from pilottai_tpu_torch.ops.kernels.flash_attention import flash_attention_with_lse
+from pilottai_tpu_torch.ops.kernels.paged_attention import paged_decode_attention
 from pilottai_tpu_torch.ops.kvcache import KVCache, write_chunk_rows, write_prompts
+from pilottai_tpu_torch.ops.paged import (
+    PagedKVCache,
+    install_lengths,
+    write_chunk_rows_paged,
+    write_prompts_paged,
+)
+
+AnyCache = Union[KVCache, PagedKVCache]
 
 NEG_INF = -2.0**30
 
@@ -170,56 +191,55 @@ def _combine_stats(acc_a, m_a, l_a, acc_b, m_b, l_b):
     return acc / torch.clamp(l, min=1e-30)[..., None]
 
 
-def decode_chunk(
-    params: Dict[str, Any],
-    cfg: ModelConfig,
-    cache: KVCache,
-    dstate: DecodeState,
-    sampling: SamplingState,
-    n_steps: int,
-) -> Tuple[torch.Tensor, torch.Tensor, KVCache, DecodeState, SamplingState]:
-    """Run up to ``n_steps`` decode steps for every slot.
-
-    Returns ``(tokens [n, B], valid [n, B], cache, dstate, sampling)``;
-    ``valid[i, b]`` marks tokens actually generated (slot active entering
-    step i). Slots flip ``done`` on device at EOS, budget or a full
-    context; the loop stops once every slot is done. The cache, decode
-    state and sampling state are updated in place."""
-    B = dstate.tokens.shape[0]
-    dev = dstate.tokens.device
-    S = cache.max_len
-    start = cache.lengths.clone()          # frozen during the chunk
-    prefix_last = start - 1                # max valid prefix key index (-1: empty)
-    windows = cfg.window_sizes()
-    G = cfg.n_heads // cfg.n_kv_heads
-    ring_shape = (B, cfg.n_kv_heads, n_steps, cfg.head_dim)
-    cache_dtype = cache.layers[0][0].dtype
-    rings = [
-        (torch.zeros(ring_shape, dtype=cache_dtype, device=dev),
-         torch.zeros(ring_shape, dtype=cache_dtype, device=dev))
+def new_rings(cfg: ModelConfig, n_slots: int, n_steps: int, dtype: torch.dtype,
+              device: torch.device) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """Per-layer ``(k, v)`` rings ``[B, K, n_steps, H]`` for one chunk."""
+    shape = (n_slots, cfg.n_kv_heads, n_steps, cfg.head_dim)
+    return [
+        (torch.zeros(shape, dtype=dtype, device=device),
+         torch.zeros(shape, dtype=dtype, device=device))
         for _ in range(cfg.n_layers)
     ]
-    tokens, done, budget = dstate.tokens, dstate.done, dstate.budget
-    offset = torch.zeros((B,), dtype=torch.int32, device=dev)
-    out_t = torch.zeros((n_steps, B), dtype=torch.int32, device=dev)
-    out_v = torch.zeros((n_steps, B), dtype=torch.bool, device=dev)
 
-    for i in range(n_steps):
-        if bool(done.all()):
-            break
-        active = ~done
-        pos = start + offset
-        x = _embed(params, tokens[:, None].long())
-        sin, cos = rope_tables(pos[:, None], cfg.head_dim, cfg.rope_theta)
-        for l, lp in enumerate(params["layers"]):
-            window = int(windows[l])
-            layer_k, layer_v = cache.layers[l]
-            rk, rv = rings[l]
-            h = rms_norm(x, lp["ln1"]["scale"], cfg.rms_eps)
-            q, k, v = _qkv(cfg, lp["attn"], h, sin, cos)
-            rk[:, :, i] = k[:, 0].to(rk.dtype)
-            rv[:, :, i] = v[:, 0].to(rv.dtype)
-            qf = q[:, 0].contiguous()                          # [B, N, H]
+
+def decode_step_logits(
+    params: Dict[str, Any],
+    cfg: ModelConfig,
+    cache: AnyCache,
+    tokens: torch.Tensor,       # [B] current token per slot
+    pos: torch.Tensor,          # [B] int32 its position
+    prefix_last: torch.Tensor,  # [B] last cache key each slot attends (-1: none)
+    rings: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+    i: int,                     # chunk step: ring rows 0..i attend, row i is written here
+    table: Optional[torch.Tensor] = None,  # [B, max_pages] — the paged cache's block table
+    n_blocks: Optional[int] = None,        # pages per slot K3 visits (default all)
+) -> torch.Tensor:
+    """One decode step's forward for every slot: writes this step's K/V
+    into ring row ``i`` of each layer and returns the ``[B, V]`` fp32
+    logits. The dense cache reads its prefix through K2 and merges the
+    ring; the paged cache makes one K3 launch per layer, ring fused."""
+    B = tokens.shape[0]
+    G = cfg.n_heads // cfg.n_kv_heads
+    windows = cfg.window_sizes()
+    x = _embed(params, tokens[:, None].long())
+    sin, cos = rope_tables(pos[:, None], cfg.head_dim, cfg.rope_theta)
+    for l, lp in enumerate(params["layers"]):
+        window = int(windows[l])
+        layer_k, layer_v = cache.layers[l]
+        rk, rv = rings[l]
+        h = rms_norm(x, lp["ln1"]["scale"], cfg.rms_eps)
+        q, k, v = _qkv(cfg, lp["attn"], h, sin, cos)
+        rk[:, :, i] = k[:, 0].to(rk.dtype)
+        rv[:, :, i] = v[:, 0].to(rv.dtype)
+        qf = q[:, 0].contiguous()                              # [B, N, H]
+        if table is not None:
+            acc, _, l_sum = paged_decode_attention(
+                qf, layer_k, layer_v, table, prefix_last, q_positions=pos,
+                n_blocks=n_blocks, scale=cfg.qscale, softcap=cfg.attn_softcap,
+                window=window, ring_k=rk, ring_v=rv, ring_step=i,
+            )
+            attn = acc / torch.clamp(l_sum, min=1e-30)[..., None]
+        else:
             acc_p, m_p, l_p = decode_attention(
                 qf, layer_k, layer_v, prefix_last, q_positions=pos,
                 scale=cfg.qscale, softcap=cfg.attn_softcap, window=window,
@@ -230,11 +250,55 @@ def decode_chunk(
                 cfg.qscale, cfg.attn_softcap, window,
             )
             attn = _combine_stats(acc_p, m_p, l_p, acc_c, m_c, l_c)
-            x = _layer_tail(
-                cfg, lp, x, attn.to(x.dtype).reshape(B, 1, cfg.n_heads, cfg.head_dim)
-            )
-        h = rms_norm(x, params["final_norm"]["scale"], cfg.rms_eps)
-        logits = _unembed(cfg, params, h)[:, 0]                 # [B, V] fp32
+        x = _layer_tail(
+            cfg, lp, x, attn.to(x.dtype).reshape(B, 1, cfg.n_heads, cfg.head_dim)
+        )
+    h = rms_norm(x, params["final_norm"]["scale"], cfg.rms_eps)
+    return _unembed(cfg, params, h)[:, 0]
+
+
+def decode_chunk(
+    params: Dict[str, Any],
+    cfg: ModelConfig,
+    cache: AnyCache,
+    dstate: DecodeState,
+    sampling: SamplingState,
+    n_steps: int,
+    table: Optional[torch.Tensor] = None,  # [B, max_pages] int32 — paged cache only
+    n_blocks: Optional[int] = None,        # pages per slot K3 visits (default all)
+) -> Tuple[torch.Tensor, torch.Tensor, AnyCache, DecodeState, SamplingState]:
+    """Run up to ``n_steps`` decode steps for every slot.
+
+    Returns ``(tokens [n, B], valid [n, B], cache, dstate, sampling)``;
+    ``valid[i, b]`` marks tokens actually generated (slot active entering
+    step i). Slots flip ``done`` on device at EOS, budget or a full
+    context; the loop stops once every slot is done. The cache, decode
+    state and sampling state are updated in place. The paged cache needs
+    the chunk's block table on the device (a snapshot: the host
+    allocator may change its rows after the call)."""
+    B = dstate.tokens.shape[0]
+    dev = dstate.tokens.device
+    paged = isinstance(cache, PagedKVCache)
+    if paged and table is None:
+        raise ValueError("paged decode needs the block table")
+    S = table.shape[1] * cache.page_size if paged else cache.max_len
+    start = cache.lengths.clone()          # frozen during the chunk
+    prefix_last = start - 1                # max valid prefix key index (-1: empty)
+    rings = new_rings(cfg, B, n_steps, cache.layers[0][0].dtype, dev)
+    tokens, done, budget = dstate.tokens, dstate.done, dstate.budget
+    offset = torch.zeros((B,), dtype=torch.int32, device=dev)
+    out_t = torch.zeros((n_steps, B), dtype=torch.int32, device=dev)
+    out_v = torch.zeros((n_steps, B), dtype=torch.bool, device=dev)
+
+    for i in range(n_steps):
+        if bool(done.all()):
+            break
+        active = ~done
+        pos = start + offset
+        logits = decode_step_logits(
+            params, cfg, cache, tokens, pos, prefix_last, rings, i,
+            table=table if paged else None, n_blocks=n_blocks,
+        )
         sampled, sampling = sample_core(logits, sampling, json_remaining=budget)
         act = active.to(torch.int32)
         budget = budget - act
@@ -246,7 +310,11 @@ def decode_chunk(
         out_t[i] = sampled
         out_v[i] = active
 
-    cache = write_chunk_rows(cache, [r[0] for r in rings], [r[1] for r in rings], start, offset)
+    ring_ks, ring_vs = [r[0] for r in rings], [r[1] for r in rings]
+    if paged:
+        cache = write_chunk_rows_paged(cache, table, ring_ks, ring_vs, start, offset)
+    else:
+        cache = write_chunk_rows(cache, ring_ks, ring_vs, start, offset)
     dstate.tokens, dstate.done, dstate.budget = tokens, done, budget
     return out_t, out_v, cache, dstate, sampling
 
@@ -278,15 +346,42 @@ def sample_prefill_tokens(
     return tokens, sampling
 
 
+def _admit_rows(
+    logits: torch.Tensor,   # [A, T, V] prefill (or tail) logits
+    dstate: DecodeState,
+    sampling: SamplingState,
+    meta_i32: np.ndarray,
+    meta_f32: np.ndarray,
+) -> Tuple[DecodeState, SamplingState, torch.Tensor]:
+    """Sampler install, first-token sample and decode-state install for
+    the rows of one admission (``AI_LEN`` holds the lengths the logits
+    end at)."""
+    dev = dstate.tokens.device
+    slots = [int(s) for s in meta_i32[AI_SLOT]]
+    lens = [int(n) for n in meta_i32[AI_LEN]]
+    budgets = [int(b) for b in meta_i32[AI_BUDGET]]
+    sampling = admit_sampling(
+        sampling, slots, meta_f32[AF_TEMP].tolist(), meta_i32[AI_TOPK].tolist(),
+        meta_f32[AF_TOPP].tolist(), meta_i32[AI_SEED].tolist(), meta_i32[AI_EOS].tolist(),
+        [bool(j) for j in meta_i32[AI_JSON]],
+    )
+    remaining = torch.tensor(budgets, dtype=torch.int32, device=dev) + 1
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+    first, sampling = sample_prefill_tokens(logits, lens_t, slots, sampling, remaining=remaining)
+    dstate = admit_decode(dstate, slots, first, budgets, [n > 0 for n in lens])
+    return dstate, sampling, first
+
+
 def admit_group(
     params: Dict[str, Any],
     cfg: ModelConfig,
-    cache: KVCache,
+    cache: AnyCache,
     dstate: DecodeState,
     sampling: SamplingState,
     tokens: np.ndarray,    # [A, T] right-padded prompt ids
     meta_i32: np.ndarray,  # [ADMIT_I32_ROWS, A] packed int metadata
     meta_f32: np.ndarray,  # [ADMIT_F32_ROWS, A] packed float metadata
+    page_rows: Optional[np.ndarray] = None,  # [A, max_pages] — the paged cache's rows
 ):
     """The whole admission path — prefill forward (kernel K1), batched
     cache write, sampler install, first-token sample, decode-state
@@ -295,18 +390,190 @@ def admit_group(
     A, T = tokens.shape
     slots = [int(s) for s in meta_i32[AI_SLOT]]
     lens = [int(n) for n in meta_i32[AI_LEN]]
-    budgets = [int(b) for b in meta_i32[AI_BUDGET]]
     tok = torch.as_tensor(tokens, dtype=torch.long, device=dev)
     lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
     positions = torch.arange(T, dtype=torch.int32, device=dev)[None].expand(A, T)
     logits, ks, vs = forward_prefill(params, cfg, tok, positions, lens_t)
-    cache = write_prompts(cache, slots, ks, vs, lens)
-    sampling = admit_sampling(
-        sampling, slots, meta_f32[AF_TEMP].tolist(), meta_i32[AI_TOPK].tolist(),
-        meta_f32[AF_TOPP].tolist(), meta_i32[AI_SEED].tolist(), meta_i32[AI_EOS].tolist(),
-        [bool(j) for j in meta_i32[AI_JSON]],
+    if isinstance(cache, PagedKVCache):
+        if page_rows is None:
+            raise ValueError("paged admission needs the slots' page rows")
+        cache = write_prompts_paged(cache, torch.as_tensor(page_rows, device=dev), ks, vs, lens)
+        cache = install_lengths(cache, slots, lens)
+    else:
+        cache = write_prompts(cache, slots, ks, vs, lens)
+    dstate, sampling, first = _admit_rows(logits, dstate, sampling, meta_i32, meta_f32)
+    return cache, dstate, sampling, first
+
+
+# --------------------------------------------------------------------- #
+# Chunked prefill on the paged cache
+# --------------------------------------------------------------------- #
+
+#: Prefix span of one step of the windowed prefix attention, taken when
+#: the one-shot scores would pass ``PREFIX_ONE_SHOT_BYTES``.
+PREFIX_WINDOW = 2048
+PREFIX_ONE_SHOT_BYTES = 1 << 30
+
+
+def _tail_prefix_attn(
+    q: torch.Tensor,        # [A, T, N, H] tail queries
+    k: torch.Tensor,        # [A, T, K, H] the tail's own keys
+    v: torch.Tensor,
+    pk: torch.Tensor,       # [K, Pp, H] the chain's keys (page-gathered)
+    pv: torch.Tensor,
+    prefix_len: int,        # true prefix length (<= Pp); the tail starts there
+    valid: torch.Tensor,    # [A] true tail lengths
+    scale: float,
+    softcap: float,
+    window: int,
+) -> torch.Tensor:
+    """Tail-prefill attention: every tail query attends the whole prefix
+    and the tail causally. The tail's own block goes through K1 (its
+    ``(o, lse)`` are statistics with ``l = 1``); the prefix is plain
+    torch, windowed over ``PREFIX_WINDOW`` keys when the one-shot scores
+    would pass ``PREFIX_ONE_SHOT_BYTES``, as in the JAX function. Returns
+    ``[A, T, N, H]`` fp32."""
+    A, T, N, H = q.shape
+    K = k.shape[2]
+    G = N // K
+    dev = q.device
+    qg = q.reshape(A, T, K, G, H).permute(0, 2, 3, 1, 4).float()   # [A, K, G, T, H]
+    qpos = prefix_len + torch.arange(T, device=dev)
+
+    def prefix_stats(pkw, pvw, col):
+        s = torch.einsum("akgth,kph->akgtp", qg, pkw.float()) * scale
+        if softcap > 0.0:
+            s = torch.tanh(s / softcap) * softcap
+        mask = (col < prefix_len)[None, :]
+        if window > 0:
+            mask = mask & ((qpos[:, None] - col[None, :]) < window)
+        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+        m = s.amax(dim=-1)
+        p = torch.where(m[..., None] > NEG_INF / 2, torch.exp(s - m[..., None]),
+                        torch.zeros_like(s))
+        acc = torch.einsum("akgtp,kph->akgth", p.to(pvw.dtype).float(), pvw.float())
+        return acc, m, p.sum(dim=-1)
+
+    Pp = pk.shape[1]
+    if (Pp > PREFIX_WINDOW and Pp % PREFIX_WINDOW == 0
+            and 4 * A * K * G * T * Pp > PREFIX_ONE_SHOT_BYTES):
+        acc_p = torch.zeros((A, K, G, T, H), dtype=torch.float32, device=dev)
+        m_p = torch.full((A, K, G, T), NEG_INF, dtype=torch.float32, device=dev)
+        l_p = torch.zeros((A, K, G, T), dtype=torch.float32, device=dev)
+        for w0 in range(0, Pp, PREFIX_WINDOW):
+            cols = torch.arange(w0, w0 + PREFIX_WINDOW, device=dev)
+            acc_p, m_p, l_p = _merge_stats(
+                acc_p, m_p, l_p,
+                *prefix_stats(pk[:, w0:w0 + PREFIX_WINDOW], pv[:, w0:w0 + PREFIX_WINDOW], cols),
+            )
+    else:
+        acc_p, m_p, l_p = prefix_stats(pk, pv, torch.arange(Pp, device=dev))
+
+    positions = qpos.to(torch.int32)[None].expand(A, T).contiguous()
+    o, lse = flash_attention_with_lse(q, k, v, positions, positions, valid, window, scale,
+                                      softcap)
+    acc_b = o.float().reshape(A, T, K, G, H).permute(0, 2, 3, 1, 4)
+    m_b = lse.reshape(A, T, K, G).permute(0, 2, 3, 1)
+    l_b = (m_b > NEG_INF / 2).float()
+    acc, _, l = _merge_stats(acc_p, m_p, l_p, acc_b, m_b, l_b)
+    attn = acc / torch.clamp(l, min=1e-30)[..., None]
+    return attn.permute(0, 3, 1, 2, 4).reshape(A, T, N, H)
+
+
+def _chain_tail_prefill(
+    params: Dict[str, Any],
+    cfg: ModelConfig,
+    cache: PagedKVCache,
+    prefix_pages: torch.Tensor,  # [kb] long — the chain's pages, sentinel-padded
+    prefix_len: int,             # page-aligned tokens the chain holds
+    tail_tokens: torch.Tensor,   # [A, Tt] right-padded tails
+    tail_lens: torch.Tensor,     # [A] int32
+):
+    """Tail prefill against a page chain, one layer at a time: each layer
+    gathers its own chain panels ``[K, kb·P, H]`` (sentinel pads gather
+    the scratch page, masked by ``col < prefix_len``). Returns ``(logits
+    [A, Tt, V], ks [L, A, Tt, K, H], vs)``."""
+    A, Tt = tail_tokens.shape
+    K, _, P, H = cache.layers[0][0].shape
+    Pb = prefix_pages.shape[0] * P
+    positions = (prefix_len + torch.arange(Tt, dtype=torch.int32, device=tail_tokens.device))
+    positions = positions[None].expand(A, Tt)
+    x = _embed(params, tail_tokens)
+    sin, cos = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    windows = cfg.window_sizes()
+    ks: List[torch.Tensor] = []
+    vs: List[torch.Tensor] = []
+    for l, lp in enumerate(params["layers"]):
+        k_pool, v_pool = cache.layers[l]
+        pk = k_pool[:, prefix_pages].reshape(K, Pb, H)
+        pv = v_pool[:, prefix_pages].reshape(K, Pb, H)
+        h = rms_norm(x, lp["ln1"]["scale"], cfg.rms_eps)
+        q, k, v = _qkv(cfg, lp["attn"], h, sin, cos)
+        attn = _tail_prefix_attn(
+            q, k, v, pk, pv, prefix_len, tail_lens, cfg.qscale, cfg.attn_softcap,
+            int(windows[l]),
+        )
+        x = _layer_tail(cfg, lp, x, attn.to(x.dtype))
+        ks.append(k)
+        vs.append(v)
+    x = rms_norm(x, params["final_norm"]["scale"], cfg.rms_eps)
+    return _unembed(cfg, params, x), torch.stack(ks), torch.stack(vs)
+
+
+def extend_prompt_paged(
+    params: Dict[str, Any],
+    cfg: ModelConfig,
+    cache: PagedKVCache,
+    prefix_pages: np.ndarray,  # [kb] pages already written for this slot, sentinel-padded
+    prefix_len: int,           # page-aligned tokens written
+    seg_tokens: np.ndarray,    # [1, Ts] the segment
+    seg_lens: Sequence[int],   # [1] its true length
+    page_rows: np.ndarray,     # [1, max_pages] the slot's block-table row
+) -> PagedKVCache:
+    """One chunked-prefill segment of a long prompt: prefill it against
+    the KV already written for the slot and scatter its K/V into the
+    slot's pages — nothing else. The slot stays decode-inactive until the
+    final segment admits through ``admit_group_prefix_paged``."""
+    dev = cache.lengths.device
+    _logits, ks, vs = _chain_tail_prefill(
+        params, cfg, cache, torch.as_tensor(prefix_pages, dtype=torch.long, device=dev),
+        int(prefix_len), torch.as_tensor(seg_tokens, dtype=torch.long, device=dev),
+        torch.tensor([int(n) for n in seg_lens], dtype=torch.int32, device=dev),
     )
-    remaining = torch.tensor(budgets, dtype=torch.int32, device=dev) + 1
-    first, sampling = sample_prefill_tokens(logits, lens_t, slots, sampling, remaining=remaining)
-    dstate = admit_decode(dstate, slots, first, budgets, [n > 0 for n in lens])
+    return write_prompts_paged(cache, torch.as_tensor(page_rows, device=dev), ks, vs,
+                               seg_lens, pos_offset=int(prefix_len))
+
+
+def admit_group_prefix_paged(
+    params: Dict[str, Any],
+    cfg: ModelConfig,
+    cache: PagedKVCache,
+    dstate: DecodeState,
+    sampling: SamplingState,
+    prefix_pages: np.ndarray,  # [kb] the chain's pages in order, sentinel-padded
+    tail_tokens: np.ndarray,   # [A, Tt] right-padded prompt tails
+    page_rows: np.ndarray,     # [A, max_pages] the slots' block-table rows
+    meta_i32: np.ndarray,      # AI_LEN = tail lengths, AI_PLEN = page-aligned prefix length
+    meta_f32: np.ndarray,
+):
+    """Admission of prompts whose first ``AI_PLEN`` tokens already sit in
+    the pages at the head of each slot's table — how the final segment of
+    a chunked prefill admits: prefill only the tails against the chain,
+    write them after it, then sample and install as ``admit_group``
+    does. Returns ``(cache, dstate, sampling, first_tokens [A])``."""
+    dev = dstate.tokens.device
+    slots = [int(s) for s in meta_i32[AI_SLOT]]
+    tail_lens = [int(n) for n in meta_i32[AI_LEN]]
+    prefix_len = int(meta_i32[AI_PLEN, 0])
+    logits, ks, vs = _chain_tail_prefill(
+        params, cfg, cache, torch.as_tensor(prefix_pages, dtype=torch.long, device=dev),
+        prefix_len, torch.as_tensor(tail_tokens, dtype=torch.long, device=dev),
+        torch.tensor(tail_lens, dtype=torch.int32, device=dev),
+    )
+    cache = write_prompts_paged(cache, torch.as_tensor(page_rows, device=dev), ks, vs,
+                                tail_lens, pos_offset=prefix_len)
+    cache = install_lengths(
+        cache, slots, [prefix_len + n if n > 0 else 0 for n in tail_lens]
+    )
+    dstate, sampling, first = _admit_rows(logits, dstate, sampling, meta_i32, meta_f32)
     return cache, dstate, sampling, first

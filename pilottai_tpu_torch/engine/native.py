@@ -4,8 +4,8 @@
 Weights live on one device (the CUDA device unless ``provider="cpu"``);
 generations run through the batcher's device thread and asyncio callers
 await futures bridged from it. Settings outside this slice are refused
-by ``LLMConfig``; the ones that depend on the resolved context length
-are refused here.
+by ``LLMConfig``. From a context length of 4096 on the KV cache is paged
+unless ``engine_paged_kv`` says otherwise, as in the JAX engine.
 """
 
 from __future__ import annotations
@@ -61,9 +61,10 @@ class TorchEngine(LLMBackend):
         dtype = torch.bfloat16 if config.dtype == "bfloat16" else torch.float32
         self.model_cfg = cfg.replace(dtype=dtype)
         self.max_seq = config.engine_max_seq or min(self.model_cfg.max_seq_len, 2048)
-        if self.max_seq >= 4096:
-            # The JAX engine pages the cache from this length on.
-            raise refuse_later("engine_max_seq", self.max_seq, "paged")
+        # As in the JAX engine, long contexts page the cache.
+        self.paged = (
+            config.engine_paged_kv if config.engine_paged_kv is not None else self.max_seq >= 4096
+        )
         if config.checkpoint_path is not None and Path(config.checkpoint_path).is_dir():
             raise NotInSlice(
                 "checkpoint_path must be a .npz written by scripts/export_protocol_s_npz.py; "
@@ -90,6 +91,10 @@ class TorchEngine(LLMBackend):
             admit_batch=self.config.engine_admit_batch,
             max_seq_len=self.max_seq,
             chunk_size=self.config.engine_chunk,
+            paged=self.paged,
+            page_size=self.config.engine_page_size,
+            num_pages=self.config.engine_kv_pages,
+            prefill_chunk=self.config.engine_prefill_chunk,
         )
         batcher.start()
         self.batcher = batcher

@@ -134,8 +134,18 @@ def test_knobs_outside_the_slice_are_refused():
     # The values this slice already runs are accepted.
     LLMConfig(engine_prefix_cache=0, engine_speculate=0, engine_chunk_policy="fixed",
               engine_fused_epilogue=False)
-    with pytest.raises(NotInSlice, match="P3"):
-        LLMHandler(LLMConfig(provider="cpu", model_name="protocol-s", engine_max_seq=4096))
+    # From a context of 4096 on the handler builds a paged batcher, as the
+    # JAX engine does; the TPU kernel's page strip has no counterpart.
+    paged = LLMHandler(LLMConfig(provider="cpu", model_name="protocol-s", engine_max_seq=4096))
+    asyncio.run(paged.start())
+    try:
+        assert paged.backend.batcher.paged and paged.backend.batcher.alloc is not None
+    finally:
+        asyncio.run(paged.stop())
+    with pytest.raises(ValueError, match="engine_page_strip=2") as refused:
+        LLMConfig(engine_page_strip=2)
+    assert isinstance(refused.value.errors()[0]["ctx"]["error"], NotInSlice)
+    LLMConfig(engine_page_strip=None)
 
     async def schema_request():
         handler = LLMHandler(LLMConfig(provider="cpu", model_name="protocol-xs"))
