@@ -9,14 +9,19 @@ Phases (each prints its own lines; any failure exits nonzero, and the
 result line is printed only when every phase passed):
 
 1. environment — torch and CUDA versions, the card's name and power limit;
-2. build — the three hand-written kernels from ``pilottai_tpu_torch/csrc``
+2. build — the five hand-written kernels from ``pilottai_tpu_torch/csrc``
    with ``nvcc`` for sm_90a, in parallel;
 3. kernels — K1 (flash prefill), K2 (dense decode statistics) and K3
    (paged decode statistics, ring fused) held against their plain PyTorch
    versions at llama3-8b (head_dim 128), llama3-1b (64) and protocol-s (32)
    shapes, in bf16 and fp32, with windows, soft-caps, ragged lengths and
    empty rows; K3 also with a sentinel page inside a table row, the ring at
-   its first and last row, ``q_blocks=2`` and int8 pools (limits in ``TOL``);
+   its first and last row, ``q_blocks=2`` and int8 pools; K4 and K5 (the
+   flash backward: dq, and dk with dv) against the plain backward at the
+   same three head dims with G = 4 and G = 1, an empty row, T != S with
+   offset query positions, a window, a soft-cap and a nonzero lse
+   cotangent, each run twice to show bit-identical gradients (limits in
+   ``TOL``);
 4. golden — the committed protocol-s checkpoint in fp32 (TF32 off) served
    through ``LLMHandler.generate_response``, once on the dense cache and
    once paged with chunked prefill; the greedy token ids must equal
@@ -32,11 +37,25 @@ result line is printed only when every phase passed):
    K3 > 0 with K2 at zero, every page back on the free list, and one decode
    step of the wave's live state through K3 against the plain K3
    (``TOL_E2E``);
-6. each path's kernels timed at the shapes that path gave them (bf16 at
-   phase 5's, fp32 at phase 4's); the kernels line, then the result line.
+7. training — (a) golden: four ``Trainer.step`` calls on protocol-s in fp32
+   (TF32 off) from the shipped checkpoint, on ``protocol_batches(4, 512,
+   seed=11)``; the batches' hash and each step's loss and grad norm must
+   match ``assets/protocol_s_train_golden.json`` (the JAX trainer's,
+   ``TOL_TRAIN_GOLDEN``), and the counters read K1 = 2 x layers x steps
+   (remat runs each layer's forward twice) and K4 = K5 = layers x steps;
+   (b) llama3-1b at full width, bf16 compute over fp32 master weights
+   from random init, remat on, 8 steps on one fixed
+   ``synthetic_batches(cfg, 4, 2048)`` batch: every loss finite and the last
+   below the first, exact launch counts, step time, tokens/s, model FLOPs
+   utilisation, peak memory, one profiled step, and every parameter's
+   gradient through the kernels against the same step through the plain
+   K1, K4 and K5 (``TOL_E2E_TRAIN``);
+6. last, each path's kernels timed at the shapes that path gave them (bf16
+   at phase 5's and 7b's, fp32 at phase 4's and 7a's); the kernels line,
+   then the result line.
 
 ``--kernels-only`` stops after phase 3; ``--seed`` changes the kernel
-checks' inputs and the llama3-8b weights.
+checks' inputs and the llama3-8b and llama3-1b weights.
 
 With no CUDA device (or outside a checkout of the repository) it exits
 nonzero and prints no result.
@@ -66,9 +85,18 @@ NEG_INF = -2.0**30
 # H100 (1.6e-3; PERF.md, PR 1). The statistics ("stats": lse, m, relative
 # l) come from products that are exact in fp32 in either dtype, so both
 # dtypes hold them to fp32's limit.
+#
+# K4 and K5 ("bwd"): each of dq, dk and dv as max |difference| / max |ref|.
+# fp32: 1e-4 (summation order only; readings up to 5.5e-6). bf16: the
+# kernels and the plain version round p and ds to bf16 from exponentials
+# that differ in the last fp32 bits, so a rounding can land one bf16 step
+# apart; bf16 dq is also rounded once more on output, which the relative
+# term covers as for K1's o. The bf16 limit is about twice the largest
+# reading over seeds 0-3 on an H100, in two draws of the inputs (1.34e-3,
+# dv; PERF.md).
 TOL = {
-    "float32": {"out": 1e-4, "rel": 0.0, "stats": 1e-4},
-    "bfloat16": {"out": 3e-3, "rel": 2.0**-7, "stats": 1e-4},
+    "float32": {"out": 1e-4, "rel": 0.0, "stats": 1e-4, "bwd": 1e-4},
+    "bfloat16": {"out": 3e-3, "rel": 2.0**-7, "stats": 1e-4, "bwd": 3e-3},
 }
 # K3 is held to K2's limits. Its int8 pools are dequantised to fp32 and p
 # stays fp32 for them (as in the TPU kernel), so an int8 case is held to
@@ -78,6 +106,22 @@ TOL = {
 # twice the reading of seed 0, 4.7e-3); the argmax must agree wherever the
 # top-2 margin exceeds twice the largest difference.
 TOL_E2E = 1e-2
+# Phase 7a: the port's fp32 training steps against the JAX trainer's on the
+# CPU (assets/protocol_s_train_golden.json), relative. Only the order of
+# summation differs, but AdamW normalises each update, so an element whose
+# gradient is summation-order noise moves by a fraction of the learning
+# rate and the later losses follow: on an H100 the third step's loss read
+# 1.28e-5 and the grad norms 1.11e-5 at most (PERF.md). The loss
+# limit is about twice that reading; the grad norm keeps 1e-4.
+TOL_TRAIN_GOLDEN = {"loss": 3e-5, "grad_norm": 1e-4}
+# Phase 7b: every parameter's gradient of one llama3-1b bf16 step through
+# K1, K4 and K5 against the same step through their plain versions, as
+# max |difference| / max |gradient| per leaf: about twice the H100 reading
+# of seed 0 (1.996e-2, layer 14's wk; PERF.md). The two paths round
+# p and ds to bf16 at different points, and 16 layers of bf16 backward
+# carry the difference to every gradient.
+TOL_E2E_TRAIN = 4e-2
+TRAIN_STEPS = 8
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # H100 SXM dense bf16 (tensor
 # cores) and fp32 outside the tensor cores (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
@@ -275,10 +319,54 @@ def check_paged(torch, pa, gen, device, name, dtype, B, N, K, H, P, lengths, rin
     return ok, err
 
 
+def check_flash_bwd(torch, fa, gen, device, name, dtype, B, T, S, N, K, H, valid, window=0,
+                    softcap=0.0, offset=0, dlse=False):
+    """K4 and K5 through ``flash_attention_bwd`` (twice: the gradients must
+    be the same bits) against the plain backward, on K1's own (o, lse).
+    Returns (ok, dq's gated error, dk's and dv's)."""
+    dn = str(dtype)[6:]
+    q = randn(torch, gen, (B, T, N, H), dtype, device)
+    k = randn(torch, gen, (B, S, K, H), dtype, device)
+    v = randn(torch, gen, (B, S, K, H), dtype, device)
+    do = randn(torch, gen, (B, T, N, H), dtype, device)
+    dl = randn(torch, gen, (B, T, N), torch.float32, device) if dlse else None
+    qpos = (torch.arange(T, device=device, dtype=torch.int32) + offset)[None].repeat(B, 1)
+    kpos = torch.arange(S, device=device, dtype=torch.int32)[None].repeat(B, 1)
+    val = torch.tensor(valid, device=device, dtype=torch.int32)
+    args = (q, k, v, qpos, kpos, val, window)
+    o, lse = fa.flash_attention_fwd(*args, None, softcap)
+    got = fa.flash_attention_bwd(*args, o, lse, do, dl, None, softcap)
+    again = fa.flash_attention_bwd(*args, o, lse, do, dl, None, softcap)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    want = fa.flash_attention_bwd_plain(*args, o, lse, do, dl, None, softcap)
+    tol = TOL[dn]
+    errs, texts = [], []
+    for label, g, w, rel in (("dq", got[0], want[0], tol["rel"]), ("dk", got[1], want[1], 0.0),
+                             ("dv", got[2], want[2], 0.0)):
+        g, w = g.float(), w.float()
+        d = (g - w).abs()
+        ref = w.abs().max().clamp_min(1e-30)
+        err = float(d.max() / ref)
+        over = float((d - rel * w.abs()).max() / ref)
+        finite = bool(torch.isfinite(g).all())
+        errs.append(over if finite else math.inf)
+        texts.append(f"{label} {err:.2e}" + (f" (beyond rel {over:.2e})" if rel else ""))
+    ok = same and max(errs) <= tol["bwd"]
+    log(f"  K4/K5 {name:<31} {dn:<8} {', '.join(texts)} of max |ref|; repeat bit-identical "
+        f"{same}; tol {tol['bwd']:g}{' + 2^-7|ref| on dq' if tol['rel'] else ''} "
+        f"{'ok' if ok else 'FAIL'}")
+    return ok, errs[0], max(errs[1:])
+
+
 def phase_kernels(torch, fa, da, pa, device, seed):
     """Returns the largest gated error per (kernel, dtype)."""
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
+    # K4 and K5 draw from their own generator, so K1-K3 see the inputs they
+    # saw before the backward kernels existed.
+    bgen = torch.Generator(device=device)
+    bgen.manual_seed(seed)
     results, worst = [], {}
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype)[6:]
@@ -337,6 +425,24 @@ def phase_kernels(torch, fa, da, pa, device, seed):
             ok, err = check_paged(torch, pa, gen, device, name, dtype, **kw)
             results.append(ok)
             worst[("paged", dn)] = max(worst.get(("paged", dn), 0.0), err)
+        bwd_cases = [
+            ("llama3-1b H64 T2048 ragged dlse", dict(B=2, T=2048, S=2048, N=32, K=8, H=64,
+                                                     valid=[2048, 1377], dlse=True)),
+            ("llama3-8b H128 T1024 empty row", dict(B=2, T=1024, S=1024, N=32, K=8, H=128,
+                                                    valid=[1024, 0])),
+            ("llama3-8b H128 T512 window softcap", dict(B=2, T=512, S=512, N=32, K=8, H=128,
+                                                        valid=[512, 300], window=96,
+                                                        softcap=30.0, dlse=True)),
+            ("H32 G1 T100 S160 offset 60", dict(B=3, T=100, S=160, N=4, K=4, H=32,
+                                                valid=[160, 97, 0], offset=60, dlse=True)),
+            ("protocol-s H32 T512 window", dict(B=4, T=512, S=512, N=8, K=4, H=32,
+                                                valid=[415, 512, 1, 0], window=17, offset=3)),
+        ]
+        for name, kw in bwd_cases:
+            ok, err_dq, err_dkv = check_flash_bwd(torch, fa, bgen, device, name, dtype, **kw)
+            results.append(ok)
+            worst[("bwd_dq", dn)] = max(worst.get(("bwd_dq", dn), 0.0), err_dq)
+            worst[("bwd_dkv", dn)] = max(worst.get(("bwd_dkv", dn), 0.0), err_dkv)
     if not all(results):
         raise SystemExit("kernel check failed")
     return worst
@@ -363,15 +469,21 @@ def record_requests(handler):
 def reset(kernels):
     for mod in kernels.values():
         mod.launches = 0
+    kernels["flash"].launches_dq = kernels["flash"].launches_dkv = 0
 
 
 def counts(kernels):
-    return {name: mod.launches for name, mod in kernels.items()}
+    """Every kernel's launches: K1, K2, K3 by module, K4 and K5 beside K1."""
+    out = {name: mod.launches for name, mod in kernels.items()}
+    out["bwd_dq"] = kernels["flash"].launches_dq
+    out["bwd_dkv"] = kernels["flash"].launches_dkv
+    return out
 
 
 def launches_text(launches):
     return (f"flash_fwd {launches['flash']}, decode_attention {launches['decode']}, "
-            f"paged_attention {launches['paged']}")
+            f"paged_attention {launches['paged']}, flash_bwd_dq {launches['bwd_dq']}, "
+            f"flash_bwd_dkv {launches['bwd_dkv']}")
 
 
 def phase_golden(torch, kernels, root, asset, paged):
@@ -515,8 +627,23 @@ async def profile_wave(handler, requests, label):
             for p, n in requests])
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    return report_profile(prof, wall_us, f"wave ({label})")
+
+
+def report_profile(prof, wall_us, label, top=8):
+    """Log the device's busy share of ``wall_us`` and the kernels that fill
+    it, from a finished ``torch.profiler`` run; returns the share. Only the
+    device's own kernel rows count: an operator row (``aten::mm``, an
+    autograd Function) carries the time of the kernels it launched, and a
+    user annotation (``Optimizer.step#AdamW.step``) spans them on the
+    device, so either would count them twice."""
+    from torch.autograd import DeviceType
+
     rows = []
     for evt in prof.key_averages():
+        if (getattr(evt, "device_type", DeviceType.CUDA) == DeviceType.CPU
+                or getattr(evt, "is_user_annotation", False)):
+            continue
         dev = getattr(evt, "self_device_time_total", None)
         if dev is None:
             dev = getattr(evt, "self_cuda_time_total", 0.0)
@@ -524,12 +651,11 @@ async def profile_wave(handler, requests, label):
             rows.append((dev, evt.key, evt.count))
     busy = sum(r[0] for r in rows)
     if not rows:
-        log(f"  profiled wave ({label}): the profiler saw no device time (busy share not "
-            "measured)")
+        log(f"  profiled {label}: the profiler saw no device time (busy share not measured)")
         return None
-    log(f"  profiled wave ({label}): wall {wall_us / 1e3:.1f} ms, device busy "
+    log(f"  profiled {label}: wall {wall_us / 1e3:.1f} ms, device busy "
         f"{busy / 1e3:.1f} ms = {busy / wall_us:.3f} of the wall; top device time:")
-    for dev, key, count in sorted(rows, reverse=True)[:8]:
+    for dev, key, count in sorted(rows, reverse=True)[:top]:
         log(f"    {dev / 1e3:9.2f} ms  {count:6d} x  {key[:90]}")
     return busy / wall_us
 
@@ -826,13 +952,210 @@ def phase_full_width_paged(torch, kernels, seed):
 
 
 # --------------------------------------------------------------------- #
+# Phase 7: training (golden protocol-s in fp32; llama3-1b at full width)
+# --------------------------------------------------------------------- #
+
+def batches_sha256(np, batches) -> str:
+    """sha256 of every batch's int32 tokens, valid and loss_start, in order
+    (as ``scripts/export_protocol_s_train_golden.py`` hashes them)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for b in batches:
+        for key in ("tokens", "valid", "loss_start"):
+            h.update(np.ascontiguousarray(b[key], dtype=np.int32).tobytes())
+    return h.hexdigest()
+
+
+def expect_train_launches(launches, layers, steps, label):
+    """Remat runs each layer's forward twice per step (K1), the backward
+    once (K4, K5); serving kernels stay at zero."""
+    want = {"flash": 2 * layers * steps, "bwd_dq": layers * steps, "bwd_dkv": layers * steps,
+            "decode": 0, "paged": 0}
+    log(f"  launches on this run ({steps} steps x {layers} layers): {launches_text(launches)}; "
+        f"expected flash_fwd {want['flash']}, flash_bwd_dq {want['bwd_dq']}, flash_bwd_dkv "
+        f"{want['bwd_dkv']}, the serving kernels 0")
+    if launches != want:
+        raise SystemExit(f"the {label} training path did not launch K1, K4 and K5 as expected")
+
+
+def phase_train_golden(torch, kernels, root):
+    """Four fp32 steps of the port's Trainer from the shipped protocol-s
+    checkpoint, held to the JAX trainer's losses and grad norms."""
+    import numpy as np
+
+    from pilottai_tpu_torch.models.loader import PROTOCOL_S_NPZ, load_npz
+    from pilottai_tpu_torch.models.registry import get_model_config
+    from pilottai_tpu_torch.train.protocol import protocol_batches
+    from pilottai_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    golden = json.loads((root / "pilottai_tpu_torch" / "assets" /
+                         "protocol_s_train_golden.json").read_text())
+    cfg = get_model_config(golden["model"]).replace(dtype=torch.float32)
+    trainer = Trainer(cfg, TrainConfig(**golden["train_config"]))
+    state = trainer.init_from_params(load_npz(PROTOCOL_S_NPZ, cfg, dtype=torch.float32))
+    spec = golden["batches"]
+    stream = protocol_batches(spec["batch_size"], spec["seq_len"], seed=spec["seed"])
+    batches = [next(stream) for _ in range(golden["steps"])]
+    same_batches = batches_sha256(np, batches) == golden["batches_sha256"]
+    log(f"  protocol_batches({spec['batch_size']}, {spec['seq_len']}, seed={spec['seed']}): "
+        f"valid lengths {[b['valid'].tolist() for b in batches]}; hash equals the golden's: "
+        f"{same_batches}; TF32 off")
+    reset(kernels)
+    got = []
+    for batch in batches:
+        state, metrics = trainer.step(state, batch)
+        got.append((float(metrics["loss"]), float(metrics["grad_norm"])))
+    torch.cuda.synchronize()
+    launches = counts(kernels)
+    ok = same_batches
+    for i, ((loss, norm), want) in enumerate(zip(got, golden["per_step"])):
+        rl = abs(loss - want["loss"]) / abs(want["loss"])
+        rn = abs(norm - want["grad_norm"]) / abs(want["grad_norm"])
+        step_ok = rl <= TOL_TRAIN_GOLDEN["loss"] and rn <= TOL_TRAIN_GOLDEN["grad_norm"]
+        ok &= step_ok
+        log(f"  step {i}: loss {loss:.9g} (JAX {want['loss']:.9g}, rel {rl:.2e}) grad_norm "
+            f"{norm:.9g} (JAX {want['grad_norm']:.9g}, rel {rn:.2e}) tol loss "
+            f"{TOL_TRAIN_GOLDEN['loss']:g} grad_norm {TOL_TRAIN_GOLDEN['grad_norm']:g} "
+            f"{'ok' if step_ok else 'FAIL'}")
+    expect_train_launches(launches, cfg.n_layers, len(batches), "golden")
+    if not ok:
+        raise SystemExit("the golden training steps differ from the JAX trainer's")
+    shapes = dict(B=spec["batch_size"], T=spec["seq_len"],
+                  lens=[int(n) for n in batches[0]["valid"]], model=cfg)
+    return launches, shapes
+
+
+@contextlib.contextmanager
+def plain_train_attention(fa):
+    """Route the autograd Function's forward and backward through the plain
+    K1, K4 and K5 while inside."""
+    fwd, bwd = fa.flash_attention_fwd, fa.flash_attention_bwd
+    fa.flash_attention_fwd = fa.flash_attention_plain
+    fa.flash_attention_bwd = fa.flash_attention_bwd_plain
+    try:
+        yield
+    finally:
+        fa.flash_attention_fwd, fa.flash_attention_bwd = fwd, bwd
+
+
+def train_grads(trainer, state, batch):
+    """Every master leaf's gradient of one loss at the state's parameters
+    (no update)."""
+    from pilottai_tpu_torch.train.trainer import param_leaves
+
+    trainer.loss_and_grads(state, batch)
+    leaves = param_leaves(state.params)
+    grads = [p.grad for p in leaves]
+    for p in leaves:
+        p.grad = None
+    return grads
+
+
+def phase_train_full(torch, kernels, seed, model="llama3-1b", B=4, T=2048):
+    """llama3-1b, bf16 compute over fp32 master weights, remat on: 8 steps on
+    one fixed batch of 4 x 2048, then a profiled step and the gradient
+    check against the plain kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from pilottai_tpu_torch.models.registry import get_model_config
+    from pilottai_tpu_torch.train.trainer import TrainConfig, Trainer, synthetic_batches
+
+    fa = kernels["flash"]
+    cfg = get_model_config(model)
+    trainer = Trainer(cfg, TrainConfig(learning_rate=3e-4, warmup_steps=2,
+                                       total_steps=TRAIN_STEPS, remat=True))
+    gen = torch.Generator(device=trainer.device)
+    gen.manual_seed(seed)
+    t0 = time.perf_counter()
+    state = trainer.init(gen)
+    torch.cuda.synchronize()
+    n_params = cfg.param_count()
+    log(f"  {model} fp32 master weights from random init (seed {seed}) in "
+        f"{time.perf_counter() - t0:.1f} s: {n_params / 1e9:.3f}B params, vocab "
+        f"{cfg.vocab_size}, tied head; compute {str(cfg.dtype)[6:]}, remat on")
+    batch = next(synthetic_batches(cfg, B, T, seed=seed))
+    torch.cuda.reset_peak_memory_stats()
+    reset(kernels)
+    losses, norms, times = [], [], []
+    for i in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = trainer.step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+        log(f"  step {i}: loss {losses[-1]:.6g} grad_norm {norms[-1]:.6g} "
+            f"lr {state.scheduler.get_last_lr()[0]:.3g} (next) {times[-1] * 1e3:.1f} ms")
+    launches = counts(kernels)
+    peak = torch.cuda.max_memory_allocated()
+    steady = sorted(times[1:])
+    p50 = steady[len(steady) // 2]
+    tokens = B * T
+    pairs = B * T * (T + 1) // 2
+    attn_flops = 3 * 4 * cfg.n_heads * cfg.head_dim * pairs * cfg.n_layers
+    model_flops = 6 * n_params * tokens + attn_flops
+    mfu = model_flops / (p50 * PEAK_FLOPS["bfloat16"])
+    log(f"  step time p50 {p50 * 1e3:.1f} ms (steps 1-{TRAIN_STEPS - 1}; min "
+        f"{steady[0] * 1e3:.1f}, max {steady[-1] * 1e3:.1f}; step 0 {times[0] * 1e3:.1f} ms); "
+        f"{tokens / p50:.0f} tokens/s; MFU {mfu:.4f} = (6 x {n_params:.4g} params x {tokens} "
+        f"tokens + {attn_flops:.4g} attention FLOPs) / (step x 989e12); peak memory "
+        f"{peak / 2**30:.2f} GiB")
+    expect_train_launches(launches, cfg.n_layers, TRAIN_STEPS, model)
+    finite = all(math.isfinite(x) for x in losses + norms)
+    if not finite or not losses[-1] < losses[0]:
+        raise SystemExit(f"{model} training did not lower a finite loss: {losses}")
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = trainer.step(state, batch)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy = report_profile(prof, wall_us, f"train step ({model}, {B} x {T})", top=12)
+
+    before = counts(kernels)
+    got = train_grads(trainer, state, batch)
+    with plain_train_attention(fa):
+        want = train_grads(trainer, state, batch)
+    torch.cuda.synchronize()
+    if counts(kernels) != dict(before, flash=before["flash"] + 2 * cfg.n_layers,
+                               bwd_dq=before["bwd_dq"] + cfg.n_layers,
+                               bwd_dkv=before["bwd_dkv"] + cfg.n_layers):
+        raise SystemExit("the gradient check's kernel and plain runs launched the wrong kernels")
+    from pilottai_tpu_torch.train.trainer import named_leaves
+
+    worst, where, finite = -1.0, "", True
+    for (name, _), g, w in zip(named_leaves(state.params), got, want):
+        finite &= bool(torch.isfinite(g).all())
+        rel = float((g - w).abs().max() / w.abs().max().clamp_min(1e-30))
+        if rel > worst:
+            worst, where = rel, name
+    grads_ok = finite and worst <= TOL_E2E_TRAIN
+    log(f"  one step's gradients, K1/K4/K5 vs plain K1/K4/K5 (bf16 compute, {len(got)} "
+        f"leaves): largest max |diff| / max |grad| {worst:.3e} at {where}, tol "
+        f"{TOL_E2E_TRAIN:g}; finite {finite} {'ok' if grads_ok else 'FAIL'}")
+    del got, want, state, trainer
+    if not grads_ok:
+        raise SystemExit(f"{model} gradients through the kernels disagree with the plain ones")
+    shapes = dict(B=B, T=T, lens=[T] * B, model=cfg, step_ms=p50 * 1e3, busy=busy)
+    return launches, shapes
+
+
+# --------------------------------------------------------------------- #
 # Phase 6: timing at the main path's shapes
 # --------------------------------------------------------------------- #
 
-def entry(name, mod, launched, err, ms, plain, lib, flops, nbytes, dtype_name, tol, **extra):
+def entry(name, mod, launched, err, ms, plain, lib, flops, nbytes, dtype_name, tol,
+          kernel="", **extra):
+    """One kernels-line entry. ``kernel`` picks the module's K4 ("_DQ") or
+    K5 ("_DKV") source and TPU origin instead of its first kernel's."""
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype_name] * 1e3, nbytes / PEAK_BYTES * 1e3
     return {
-        "name": name, "route": "cuda", "source": mod.SOURCE, "replaces": mod.REPLACES,
+        "name": name, "route": "cuda", "source": getattr(mod, "SOURCE" + kernel),
+        "replaces": getattr(mod, "REPLACES" + kernel),
         "launches": launched, "max_abs_err": err, "ms": ms, "plain_ms": plain,
         "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": lib, "dtype": dtype_name, "tolerance": tol, **extra,
@@ -963,6 +1286,78 @@ def time_paged(torch, pa, device, timer, gen, dtype, shape, launched, worst, suf
     return e
 
 
+def time_train_kernels(torch, fa, device, timer, gen, dtype, shape, launches, worst,
+                       suffix=""):
+    """Time K1, K4 and K5 at one training path's attention shape in ``dtype``
+    (kernel; plain version; SDPA's forward for K1 and SDPA's backward, which
+    computes dq, dk and dv at once, for K4 and K5, both with an explicit
+    mask) and return their three entries of the kernels line."""
+    import torch.nn.functional as F
+
+    from pilottai_tpu_torch.ops.attention import prefill_mask
+
+    dn = str(dtype)[6:]
+    esz = torch.finfo(dtype).bits // 8
+    cfg = shape["model"]
+    N, K, H = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    G = N // K
+    B, T, lens = shape["B"], shape["T"], shape["lens"]
+    q = randn(torch, gen, (B, T, N, H), dtype, device)
+    k = randn(torch, gen, (B, T, K, H), dtype, device)
+    v = randn(torch, gen, (B, T, K, H), dtype, device)
+    do = randn(torch, gen, (B, T, N, H), dtype, device)
+    pos = torch.arange(T, device=device, dtype=torch.int32)[None].repeat(B, 1)
+    val = torch.tensor(lens, device=device, dtype=torch.int32)
+    k1 = timer.ms(lambda: fa.flash_attention_fwd(q, k, v, pos, pos, val))
+    k1_plain = timer.ms(lambda: fa.flash_attention_plain(q, k, v, pos, pos, val))
+    mask = prefill_mask(pos, pos, val)[:, None]
+    qs = q.transpose(1, 2).detach().requires_grad_()
+    ks = k.transpose(1, 2).repeat_interleave(G, dim=1).detach().requires_grad_()
+    vs = v.transpose(1, 2).repeat_interleave(G, dim=1).detach().requires_grad_()
+    with torch.no_grad():
+        k1_lib = timer.ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask))
+    out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask)
+    dout = do.transpose(1, 2)
+    bwd_lib = timer.ms(lambda: torch.autograd.grad(out, (qs, ks, vs), dout, retain_graph=True))
+    del out
+    o, lse = fa.flash_attention_fwd(q, k, v, pos, pos, val)
+    ops = fa.bwd_operands(q, k, v, pos, pos, val, 0, o, lse, do)
+    k4 = timer.ms(lambda: fa.flash_bwd_dq(ops))
+    k5 = timer.ms(lambda: fa.flash_bwd_dkv(ops))
+    bwd_plain = timer.ms(lambda: fa.flash_attention_bwd_plain(q, k, v, pos, pos, val, 0, o,
+                                                              lse, do))
+    pairs = sum(sum(min(t + 1, n) for t in range(T)) for n in lens)
+    kv_live = 2 * esz * sum(lens) * K * H          # the live k and v rows, read once
+    rows = 4 * B * N * T                            # one fp32 value per query row and head
+    qsize = esz * B * T * N * H
+    flops = {"k1": 4 * H * N * pairs, "k4": 6 * H * N * pairs, "k5": 8 * H * N * pairs}
+    nbytes = {
+        "k1": 2 * qsize + kv_live + rows,                        # q, o; k, v; lse
+        "k4": 3 * qsize + kv_live + 2 * rows,                    # q, dO, dq; k, v; lse, delta
+        "k5": 2 * qsize + kv_live + 2 * rows + 2 * 4 * B * T * K * H,  # ... dk, dv in fp32
+    }
+    tol = tol_text(dn, True)
+    bwd_tol = f"{TOL[dn]['bwd']:g} of max |ref|" + (" + 2^-7|ref| on dq" if TOL[dn]["rel"] else "")
+    covers = dict(plain_covers="dq, dk and dv (one plain backward)",
+                  library_covers="dq, dk and dv (scaled_dot_product_attention backward)")
+    out = [
+        entry("flash_fwd_train" + suffix, fa, launches["flash"], worst[("flash", dn)], k1,
+              k1_plain, k1_lib, flops["k1"], nbytes["k1"], dn, tol),
+        entry("flash_bwd_dq" + suffix, fa, launches["bwd_dq"], worst[("bwd_dq", dn)], k4,
+              bwd_plain, bwd_lib, flops["k4"], nbytes["k4"], dn, bwd_tol, kernel="_DQ",
+              **covers),
+        entry("flash_bwd_dkv" + suffix, fa, launches["bwd_dkv"], worst[("bwd_dkv", dn)], k5,
+              bwd_plain, bwd_lib, flops["k5"], nbytes["k5"], dn, bwd_tol, kernel="_DKV",
+              **covers),
+    ]
+    shape_text = f"q [{B},{T},{N},{H}] valid {lens}"
+    for e, label in zip(out, ("K1 flash_fwd   ", "K4 flash_bwd_dq", "K5 flash_bwd_dkv")):
+        log(f"  {label} {dn:<8} {shape_text}: kernel {e['ms']:.4f} ms, plain {e['plain_ms']:.4f} "
+            f"ms, SDPA {e['library_ms']:.4f} ms, bound {e['bound_ms']:.5f} ms ({e['bound_by']}), "
+            f"{e['launches']} launches on the path")
+    return out
+
+
 def phase_timing(torch, kernels, device, seed, worst, paths):
     """Every path's kernels, each at the shapes its own run gave it: bf16 at
     the llama3-8b waves', fp32 at the golden protocol-s requests'."""
@@ -999,6 +1394,12 @@ def phase_timing(torch, kernels, device, seed, worst, paths):
     gp_shape = dict(gp_shapes["paged"], model=gp_shapes["model"], requests=gp_shapes["requests"])
     fp32.append(time_paged(torch, pa, device, timer, gen, torch.float32, gp_shape,
                            gp_launches["paged"], worst, suffix="_fp32"))
+    t_launches, t_shape = paths["train_full"]
+    out += time_train_kernels(torch, fa, device, timer, gen, torch.bfloat16, t_shape,
+                              t_launches, worst)
+    g_launches, g_shape = paths["train_golden"]
+    fp32 += time_train_kernels(torch, fa, device, timer, gen, torch.float32, g_shape,
+                               g_launches, worst, suffix="_fp32")
     return out + fp32
 
 
@@ -1031,9 +1432,10 @@ def main() -> int:
         f"{torch.cuda.device_count()} device(s): {torch.cuda.get_device_name(0)}")
     log(smi)
 
-    log("== 2. build (nvcc, sm_90a, the three kernels in parallel)")
+    log("== 2. build (nvcc, sm_90a, the five kernels in parallel)")
     t0 = time.perf_counter()
-    build.build_libraries(["flash_fwd", "decode_attention", "paged_attention"])
+    build.build_libraries(["flash_fwd", "decode_attention", "paged_attention", "flash_bwd_dq",
+                           "flash_bwd_dkv"])
     log(f"  built in {time.perf_counter() - t0:.1f} s")
     for name, (secs, text) in build.build_log.items():
         log(f"  {name}: nvcc {secs:.1f} s")
@@ -1060,6 +1462,13 @@ def main() -> int:
     log("== 5b. llama3-8b full width, bf16, paged cache (engine_max_seq 8192), "
         "1 long + 7 short JSON requests")
     paths["full_paged"] = phase_full_width_paged(torch, kernels, args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("== 7a. golden training: protocol-s fp32, 4 steps against the JAX trainer")
+    paths["train_golden"] = phase_train_golden(torch, kernels, root)
+    log("== 7b. llama3-1b full width, bf16 compute, fp32 master weights, remat, 8 steps of 4 x "
+        "2048")
+    paths["train_full"] = phase_train_full(torch, kernels, args.seed)
     gc.collect()
     torch.cuda.empty_cache()
     log("== 6. kernel times at each path's shapes")

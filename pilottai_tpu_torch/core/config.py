@@ -33,6 +33,10 @@ ROADMAP = {
     "models": "P9 (Gemma, MoE and Hugging Face checkpoints)",
     "multi": "P10 (multi-GPU)",
     "tooling": "P12 (tooling)",
+    # Training (slice P11) refuses what its one-device path does not carry.
+    "ring": "P10 (multi-GPU: ring attention, sharded flash, a mesh)",
+    "moe": "P9 (Gemma, MoE and Hugging Face checkpoints: the MoE layers)",
+    "corpora": "P12 (tooling: cli.py train and text corpora)",
 }
 
 # JAX knob -> (values this slice already runs, ROADMAP item that brings the rest).

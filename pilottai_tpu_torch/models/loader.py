@@ -1,5 +1,6 @@
 """Weight bridge: the JAX parameter tree (numpy leaves) → the port's
-parameters, and the loader for the shipped ``.npz`` checkpoint.
+parameters and back, and the loader for ``.npz`` checkpoints (the shipped
+protocol-s one and those ``train/protocol.py`` writes).
 
 The JAX tree stacks every ``layers/…`` leaf on a leading L axis and lays
 matmul weights out ``[in, out]``; the port keeps ``[in, out]`` and splits
@@ -83,6 +84,28 @@ def params_from_numpy(
     if tuple(embed.shape) != (cfg.vocab_size, cfg.hidden_size):
         raise ValueError(f"embed {tuple(embed.shape)} does not match {cfg.name}")
     return params
+
+
+def params_to_numpy(params: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """The reverse of ``params_from_numpy``: the port's parameters as the
+    flat JAX-layout tree (``/``-joined keys, ``layers/…`` leaves stacked on
+    a leading L axis), bfloat16 leaves as their ``uint16`` bit patterns —
+    what ``load_npz`` reads back from ``np.savez``."""
+    flat: Dict[str, np.ndarray] = {}
+
+    def array(t: torch.Tensor) -> np.ndarray:
+        t = t.detach().cpu().contiguous()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(np.uint16)
+        return t.numpy()
+
+    for key, leaf in _flatten({k: v for k, v in params.items() if k != "layers"}).items():
+        flat[key] = array(leaf)
+    layers = params["layers"]
+    for key in _flatten(layers[0]):
+        stacked = torch.stack([_flatten(lp)[key].detach() for lp in layers])
+        flat[f"layers/{key}"] = array(stacked)
+    return flat
 
 
 def load_npz(

@@ -1,12 +1,13 @@
-"""Transformer forward: prefill and the single-step decode reference (the
-port's counterpart of ``pilottai_tpu/models/transformer.py`` for the
-dense llama trunk).
+"""Transformer forward: prefill, the single-step decode reference and the
+training forward (the port's counterpart of
+``pilottai_tpu/models/transformer.py`` for the dense llama trunk).
 
-Prefill attention goes through kernel K1 (``ops/kernels/
-flash_attention.py``) for every prompt — no size gate, no fallback: on a
-CPU tensor the wrapper runs K1's plain version, on a CUDA tensor the
-kernel. The projections and the MLP stay ``torch.matmul``, as the JAX
-package leaves them to XLA.
+Full-sequence attention goes through kernel K1 (``ops/kernels/
+flash_attention.py``) for every prompt and every training row — no size
+gate, no fallback: on a CPU tensor the wrapper runs K1's plain version, on
+a CUDA tensor the kernel; in training its backward runs K4 and K5. The
+projections and the MLP stay ``torch.matmul``, as the JAX package leaves
+them to XLA.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from typing import Any, Dict, List, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from pilottai_tpu_torch.models.common import ModelConfig, apply_rope, rms_norm, rope_tables
 from pilottai_tpu_torch.ops.attention import NEG_INF
@@ -148,3 +150,37 @@ def forward_decode(
     logits = _unembed(cfg, params, x)[:, 0]
     cache.lengths.copy_(torch.where(active, cache.lengths + 1, cache.lengths))
     return logits, cache
+
+
+def forward_train(
+    params: Dict[str, Any],
+    cfg: ModelConfig,
+    tokens: torch.Tensor,     # [B, T] right-padded
+    positions: torch.Tensor,  # [B, T]
+    valid: torch.Tensor,      # [B] true lengths
+    remat: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward for training: ``(logits [B, T, V] fp32,
+    moe_aux_loss)``, where the aux loss is 0 for the dense trunk.
+
+    With ``remat=True`` each layer runs under ``torch.utils.checkpoint``:
+    the backward recomputes the whole block, K1 included, instead of
+    keeping T x L activations. The JAX package's policy
+    (``dots_with_no_batch_dims_saveable``) also keeps the matmul outputs,
+    so the numbers are the same and the memory and the time differ."""
+    x = _embed(params, tokens)
+    sin, cos = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    windows = cfg.window_sizes()
+    for l, lp in enumerate(params["layers"]):
+        args = (cfg, x, lp, int(windows[l]), sin, cos, positions, valid)
+        if remat:
+            x = checkpoint(_train_block, *args, use_reentrant=False, preserve_rng_state=False)
+        else:
+            x = _train_block(*args)
+    x = rms_norm(x, params["final_norm"]["scale"], cfg.rms_eps)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return _unembed(cfg, params, x), aux
+
+
+def _train_block(cfg, x, lp, window, sin, cos, positions, valid) -> torch.Tensor:
+    return _full_seq_block(cfg, x, lp, window, sin, cos, positions, valid)[0]

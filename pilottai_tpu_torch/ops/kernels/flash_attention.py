@@ -1,23 +1,34 @@
-"""Kernel K1: causal GQA flash attention, forward.
+"""Kernels K1 (causal GQA flash attention, forward) and K4, K5 (its
+backward).
 
-Replaces ``pilottai_tpu/ops/pallas/flash_attention.py:_flash_kernel``
+K1 replaces ``pilottai_tpu/ops/pallas/flash_attention.py:_flash_kernel``
 (via ``_fwd_impl``; entry points ``flash_attention`` and
-``flash_attention_with_lse``). The CUDA source is
-``csrc/flash_fwd.cu``; its header says what bounds it on an H100 and
-what the design does about it.
+``flash_attention_with_lse``); its CUDA source is ``csrc/flash_fwd.cu``.
+K4 replaces ``_bwd_dq_kernel`` (``csrc/flash_bwd_dq.cu``) and K5
+``_bwd_dkv_kernel`` (``csrc/flash_bwd_dkv.cu``), which the TPU package
+reaches through ``_bwd_impl`` and the ``custom_vjp`` rules. Each source's
+header says what bounds it on an H100 and what the design does about it.
 
-``flash_attention_with_lse`` is the wrapper: for a CUDA tensor it
-launches the kernel (or raises), for a CPU tensor it runs
-``flash_attention_plain``, the same function in plain PyTorch. The plain
-version materializes the [B, N, T, S] logits and exists to test the
-kernel against, not to serve. Unlike the TPU kernel there is no size
-floor and no padding to blocks: every prefill goes through the kernel,
-which masks its own ragged edges.
+``flash_attention_fwd`` and ``flash_attention_bwd`` are the wrappers: for
+CUDA tensors they launch the kernels (or raise), for CPU tensors they run
+``flash_attention_plain`` and ``flash_attention_bwd_plain``, the same
+functions in plain PyTorch. The plain versions materialize the
+[B, N, T, S] logits and exist to test the kernels against, not to serve
+or train. Unlike the TPU kernels there is no size floor and no padding
+to blocks (``_pad_to_blocks`` is not carried): every kernel masks its own
+ragged edges.
+
+``FlashAttention`` is the ``torch.autograd.Function`` over them, the
+counterpart of the TPU package's ``custom_vjp``: its forward is K1 and
+saves ``q, k, v, o, lse``; its backward runs K4 and K5. The public
+``flash_attention_with_lse`` and ``flash_attention`` go through it only
+when autograd needs a gradient, so serving launches K1 alone, as before.
 
 One deliberate difference from the TPU kernel: a query row with no
 attendable key gives ``o = 0`` and ``lse = NEG_INF`` whatever the tiling
 (the TPU kernel does so only when every block of the row was skipped;
-otherwise such a row, which no caller reads, holds an average of V).
+otherwise such a row, which no caller reads, holds an average of V). Its
+gradients are 0: p is 0 wherever the row's lse is NEG_INF.
 """
 
 from __future__ import annotations
@@ -29,12 +40,18 @@ import torch
 
 from pilottai_tpu_torch.ops.attention import NEG_INF, prefill_mask
 
-#: Kernel launches since the last reset (``chip_smoke.py`` reads it to show
-#: the main path went through the kernel).
+#: Kernel launches since the last reset (``chip_smoke.py`` reads them to
+#: show the main path went through the kernels): K1, K4 and K5.
 launches = 0
+launches_dq = 0
+launches_dkv = 0
 
 SOURCE = "pilottai_tpu_torch/csrc/flash_fwd.cu"
 REPLACES = "pilottai_tpu/ops/pallas/flash_attention.py:57"
+SOURCE_DQ = "pilottai_tpu_torch/csrc/flash_bwd_dq.cu"
+REPLACES_DQ = "pilottai_tpu/ops/pallas/flash_attention.py:202"
+SOURCE_DKV = "pilottai_tpu_torch/csrc/flash_bwd_dkv.cu"
+REPLACES_DKV = "pilottai_tpu/ops/pallas/flash_attention.py:274"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)
 
@@ -68,7 +85,36 @@ def flash_attention_plain(
     return o.reshape(B, T, N, H).to(q.dtype), lse
 
 
-def flash_attention_with_lse(
+def _check(name: str, q, k, v, extra=()) -> None:
+    """The kernels' common contract; raises on what they do not take."""
+    B, T, N, H = q.shape
+    _, S, K, _ = k.shape
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {q.device}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"{name}: q/k/v must share float32 or bfloat16, got "
+                        f"{q.dtype}/{k.dtype}/{v.dtype}")
+    if H not in _HEAD_DIMS or k.shape != (B, S, K, H) or v.shape != k.shape or N % K:
+        raise ValueError(f"{name}: unsupported shapes q {tuple(q.shape)} "
+                         f"k {tuple(k.shape)} v {tuple(v.shape)}")
+    tensors = (q, k, v, *extra)
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name}: every tensor operand must be contiguous")
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name}: every tensor operand must start 16-byte aligned")
+
+
+def _index_args(q, q_positions, kv_positions, valid, S):
+    B, T = q.shape[:2]
+    qpos = q_positions.to(device=q.device, dtype=torch.int32).contiguous()
+    kpos = kv_positions.to(device=q.device, dtype=torch.int32).contiguous()
+    val = valid.to(device=q.device, dtype=torch.int32).contiguous()
+    if qpos.shape != (B, T) or kpos.shape != (B, S) or val.shape != (B,):
+        raise ValueError("flash_attention: positions must be [B,T]/[B,S] and valid [B]")
+    return qpos, kpos, val
+
+
+def flash_attention_fwd(
     q: torch.Tensor,             # [B, T, N, H]
     k: torch.Tensor,             # [B, S, K, H]
     v: torch.Tensor,             # [B, S, K, H]
@@ -79,39 +125,24 @@ def flash_attention_with_lse(
     scale: Optional[float] = None,
     softcap: float = 0.0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Causal GQA attention: attend iff kv_pos <= q_pos, kv index < valid
-    and (window <= 0 or q_pos - kv_pos < window). Returns ``(o
-    [B,T,N,H], lse [B,T,N] fp32)``."""
+    """K1's wrapper, without autograd: ``(o [B,T,N,H], lse [B,T,N] fp32)``.
+    For CUDA tensors the lse is a transposed view of the kernel's
+    contiguous ``[B, N, T]`` rows."""
     if q.device.type == "cpu":
         return flash_attention_plain(
             q, k, v, q_positions, kv_positions, valid, window, scale, softcap
         )
+    _check("flash_attention", q, k, v)
     B, T, N, H = q.shape
     _, S, K, _ = k.shape
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_attention: q/k/v must share float32 or bfloat16, got "
-                        f"{q.dtype}/{k.dtype}/{v.dtype}")
-    if H not in _HEAD_DIMS or k.shape != (B, S, K, H) or v.shape != k.shape or N % K:
-        raise ValueError(f"flash_attention: unsupported shapes q {tuple(q.shape)} "
-                         f"k {tuple(k.shape)} v {tuple(v.shape)}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash_attention: q, k and v must be contiguous")
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("flash_attention: q, k and v must start 16-byte aligned")
-    qpos = q_positions.to(device=q.device, dtype=torch.int32).contiguous()
-    kpos = kv_positions.to(device=q.device, dtype=torch.int32).contiguous()
-    val = valid.to(device=q.device, dtype=torch.int32).contiguous()
-    if qpos.shape != (B, T) or kpos.shape != (B, S) or val.shape != (B,):
-        raise ValueError("flash_attention: positions must be [B,T]/[B,S] and valid [B]")
+    qpos, kpos, val = _index_args(q, q_positions, kv_positions, valid, S)
     scale = scale if scale is not None else H**-0.5
     o = torch.empty_like(q)
     lse = torch.empty((B, N, T), device=q.device, dtype=torch.float32)
 
     from pilottai_tpu_torch.ops.kernels.build import load_library
 
-    lib = _bind(load_library("flash_fwd"))
+    lib = _bind(load_library("flash_fwd"), "pt_flash_fwd", 8)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     status = lib.pt_flash_fwd(
         _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -125,6 +156,182 @@ def flash_attention_with_lse(
     return o, lse.transpose(1, 2)
 
 
+def _delta(o: torch.Tensor, do: torch.Tensor, dlse: Optional[torch.Tensor]) -> torch.Tensor:
+    """``rowsum(dO * O) - dlse`` in fp32, ``[B, N, T]`` contiguous — computed
+    outside the kernels, as ``_bwd_impl`` does (a nonzero lse cotangent
+    shifts delta: d lse_i / d s_ij = p_ij)."""
+    delta = (do.float() * o.float()).sum(dim=-1)                    # [B, T, N]
+    if dlse is not None:
+        delta = delta - dlse.float()
+    return delta.transpose(1, 2).contiguous()
+
+
+def flash_attention_bwd_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    q_positions: torch.Tensor, kv_positions: torch.Tensor, valid: torch.Tensor,
+    window: int, o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+    dlse: Optional[torch.Tensor] = None, scale: Optional[float] = None,
+    softcap: float = 0.0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch K4 and K5: ``(dq in q's dtype, dk fp32, dv fp32)`` for
+    the cotangents ``do [B,T,N,H]`` and ``dlse [B,T,N]`` (None = 0) of
+    K1's ``(o, lse [B,T,N])``. It rounds where the kernels round: s from
+    the input dtype's products, p to v's dtype for dv, ds to k's dtype for
+    dq and to q's dtype for dk."""
+    B, T, N, H = q.shape
+    _, S, K, _ = k.shape
+    G = N // K
+    scale = scale if scale is not None else H**-0.5
+    delta = _delta(o, do, dlse).reshape(B, K, G, T, 1)
+    lse = lse.reshape(B, T, K, G).permute(0, 2, 3, 1)[..., None].float()   # [B,K,G,T,1]
+    qg = q.reshape(B, T, K, G, H)
+    dog = do.reshape(B, T, K, G, H)
+    s = torch.einsum("btkgh,bskh->bkgts", qg.float(), k.float()) * scale
+    if softcap > 0.0:
+        t = torch.tanh(s / softcap)
+        s = t * softcap
+    mask = prefill_mask(q_positions, kv_positions, valid, window)[:, None, None]
+    mask = mask & (lse > NEG_INF / 2)
+    p = torch.where(mask, torch.exp(s - lse), torch.zeros_like(s))
+    del s
+    dv = torch.einsum("bkgts,btkgh->bskh", p.to(v.dtype).float(), dog.to(v.dtype).float())
+    dp = torch.einsum("btkgh,bskh->bkgts", dog.float(), v.float())
+    ds = p * (dp - delta)
+    del p, dp
+    if softcap > 0.0:
+        ds = ds * (1.0 - t * t)
+    dq = torch.einsum("bkgts,bskh->btkgh", ds.to(k.dtype).float(), k.float()) * scale
+    dk = torch.einsum("bkgts,btkgh->bskh", ds.to(q.dtype).float(), qg.float()) * scale
+    return dq.reshape(B, T, N, H).to(q.dtype), dk, dv
+
+
+def flash_attention_bwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    q_positions: torch.Tensor, kv_positions: torch.Tensor, valid: torch.Tensor,
+    window: int, o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+    dlse: Optional[torch.Tensor] = None, scale: Optional[float] = None,
+    softcap: float = 0.0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K4 and K5's wrapper: ``(dq in q's dtype, dk fp32, dv fp32)``, the
+    TPU ``_bwd_impl`` before its final cast. ``lse`` is K1's ``[B,T,N]``
+    (a view of its ``[B,N,T]`` rows is read in place); ``dlse`` None
+    means a zero lse cotangent."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(
+            q, k, v, q_positions, kv_positions, valid, window, o, lse, do, dlse, scale, softcap
+        )
+    from pilottai_tpu_torch.ops.kernels.build import build_libraries
+
+    build_libraries(["flash_bwd_dq", "flash_bwd_dkv"])   # a cold start compiles both at once
+    ops = bwd_operands(q, k, v, q_positions, kv_positions, valid, window, o, lse, do, dlse,
+                       scale, softcap)
+    return (flash_bwd_dq(ops), *flash_bwd_dkv(ops))
+
+
+def bwd_operands(q, k, v, q_positions, kv_positions, valid, window, o, lse, do,
+                 dlse=None, scale=None, softcap=0.0) -> dict:
+    """What K4 and K5 read, checked and laid out for them: ``do``
+    contiguous, lse rows and delta fp32 ``[B, N, T]``, int32 positions."""
+    do = do.contiguous()
+    lse_rows = lse.transpose(1, 2).contiguous()                       # [B, N, T]
+    delta = _delta(o, do, dlse)
+    _check("flash_attention_bwd", q, k, v, (do, lse_rows, delta))
+    if do.shape != q.shape or do.dtype != q.dtype or lse_rows.dtype != torch.float32:
+        raise ValueError("flash_attention_bwd: do must match q in shape and dtype, and lse "
+                         "must be fp32 [B,T,N]")
+    qpos, kpos, val = _index_args(q, q_positions, kv_positions, valid, k.shape[1])
+    return dict(q=q, k=k, v=v, do=do, lse=lse_rows, delta=delta, qpos=qpos, kpos=kpos,
+                valid=val, window=int(window),
+                scale=float(scale if scale is not None else q.shape[-1] ** -0.5),
+                softcap=float(softcap))
+
+
+def _launch_bwd(name: str, ops: dict, outs) -> None:
+    from pilottai_tpu_torch.ops.kernels.build import load_library
+
+    lib = _bind(load_library(name), f"pt_{name}", 9 + len(outs))
+    q, k = ops["q"], ops["k"]
+    B, T, N, H = q.shape
+    _, S, K, _ = k.shape
+    ptrs = [ops[key].data_ptr() for key in
+            ("q", "k", "v", "do", "lse", "delta", "qpos", "kpos", "valid")]
+    status = getattr(lib, f"pt_{name}")(
+        _DTYPES[q.dtype], *ptrs, *(t.data_ptr() for t in outs), B, T, S, N, K, H,
+        ops["window"], ops["scale"], ops["softcap"], torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if status != 0:
+        raise RuntimeError(f"{name} launch failed: {lib.pt_error_string(status).decode()}")
+
+
+def flash_bwd_dq(ops: dict) -> torch.Tensor:
+    """Launch K4 on ``bwd_operands``: dq in q's dtype."""
+    dq = torch.empty_like(ops["q"])
+    _launch_bwd("flash_bwd_dq", ops, (dq,))
+    global launches_dq
+    launches_dq += 1
+    return dq
+
+
+def flash_bwd_dkv(ops: dict) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch K5 on ``bwd_operands``: dk and dv in fp32."""
+    k = ops["k"]
+    dk = torch.empty(k.shape, device=k.device, dtype=torch.float32)
+    dv = torch.empty_like(dk)
+    _launch_bwd("flash_bwd_dkv", ops, (dk, dv))
+    global launches_dkv
+    launches_dkv += 1
+    return dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """K1 forward, K4 and K5 backward: the TPU package's ``_flash_lse``
+    with its ``custom_vjp`` rules. Differentiable in q, k and v,
+    including through the lse."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_positions, kv_positions, valid, window, scale, softcap):
+        # Module-level lookups, so a caller may route both directions
+        # through the plain versions (chip_smoke.py does, to compare).
+        o, lse = flash_attention_fwd(q, k, v, q_positions, kv_positions, valid, window,
+                                     scale, softcap)
+        ctx.save_for_backward(q, k, v, q_positions, kv_positions, valid, o, lse)
+        ctx.args = (window, scale, softcap)
+        ctx.set_materialize_grads(False)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        q, k, v, q_positions, kv_positions, valid, o, lse = ctx.saved_tensors
+        window, scale, softcap = ctx.args
+        if do is None:
+            do = torch.zeros_like(o)
+        dq, dk, dv = flash_attention_bwd(q, k, v, q_positions, kv_positions, valid, window,
+                                         o, lse, do, dlse, scale, softcap)
+        return dq, dk.to(k.dtype), dv.to(v.dtype), None, None, None, None, None, None
+
+
+def flash_attention_with_lse(
+    q: torch.Tensor,             # [B, T, N, H]
+    k: torch.Tensor,             # [B, S, K, H]
+    v: torch.Tensor,             # [B, S, K, H]
+    q_positions: torch.Tensor,   # [B, T] absolute positions
+    kv_positions: torch.Tensor,  # [B, S]
+    valid: torch.Tensor,         # [B] valid kv length (index bound)
+    window: int = 0,             # 0 = global attention
+    scale: Optional[float] = None,
+    softcap: float = 0.0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Causal GQA attention: attend iff kv_pos <= q_pos, kv index < valid
+    and (window <= 0 or q_pos - kv_pos < window). Returns ``(o
+    [B,T,N,H], lse [B,T,N] fp32)``, differentiable in q, k and v (through
+    ``FlashAttention``) when autograd asks for it."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttention.apply(q, k, v, q_positions, kv_positions, valid, window,
+                                    scale, softcap)
+    return flash_attention_fwd(q, k, v, q_positions, kv_positions, valid, window, scale,
+                               softcap)
+
+
 def flash_attention(q, k, v, q_positions, kv_positions, valid, window=0,
                     scale=None, softcap=0.0) -> torch.Tensor:
     """``flash_attention_with_lse`` without the lse: [B, T, N, H]."""
@@ -133,11 +340,14 @@ def flash_attention(q, k, v, q_positions, kv_positions, valid, window=0,
     )[0]
 
 
-def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    fn = lib.pt_flash_fwd
+def _bind(lib: ctypes.CDLL, name: str, n_ptrs: int) -> ctypes.CDLL:
+    """Set the argument types of ``name``: the dtype code, ``n_ptrs``
+    tensor pointers (inputs, the three index arrays, outputs), the seven
+    sizes and window, scale, softcap and the stream."""
+    fn = getattr(lib, name)
     if fn.argtypes is None:
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [I, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, F, P]
+        fn.argtypes = [I] + [P] * n_ptrs + [I] * 7 + [F, F, P]
         fn.restype = I
         lib.pt_error_string.argtypes = [I]
         lib.pt_error_string.restype = ctypes.c_char_p

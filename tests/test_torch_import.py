@@ -1,5 +1,5 @@
 """The PyTorch port stands alone: importing every module of
-``pilottai_tpu_torch`` loads neither JAX nor the JAX package, and its entry
+``pilottai_tpu_torch`` loads neither JAX, optax, orbax nor the JAX package, and its entry
 points refuse to run without a GPU unless the caller asks for the CPU."""
 
 import pkgutil
@@ -20,8 +20,8 @@ for name in names:
     importlib.import_module(name)
 banned = [
     m for m in sys.modules
-    if m in ("jax", "jaxlib", "orbax", "pilottai_tpu")
-    or m.startswith(("jax.", "jaxlib.", "orbax.", "pilottai_tpu."))
+    if m in ("jax", "jaxlib", "orbax", "optax", "pilottai_tpu")
+    or m.startswith(("jax.", "jaxlib.", "orbax.", "optax.", "pilottai_tpu."))
 ]
 print(len(names), "modules")
 print("BANNED", banned)
@@ -35,7 +35,7 @@ def test_port_imports_no_jax_and_no_jax_package():
     )
     assert out.returncode == 0, out.stderr
     lines = out.stdout.strip().splitlines()
-    assert int(lines[0].split()[0]) >= 20          # every module was imported
+    assert int(lines[0].split()[0]) >= 38          # every module was imported
     assert lines[-1] == "BANNED []", lines[-1]
 
 
