@@ -21,7 +21,11 @@ result line is printed only when every phase passed):
    same three head dims with G = 4 and G = 1, an empty row, T != S with
    offset query positions, a window, a soft-cap and a nonzero lse
    cotangent, each run twice to show bit-identical gradients (limits in
-   ``TOL``);
+   ``TOL``); then edge cases of the redesigned K1 and K3 (Tq and S off
+   the tiles, rows with no key, key positions out of order; K3's slots
+   ending mid-page and at a split's end, windows that leave whole splits
+   dead, 8 and 32 query rows per kv head, int8 pools at P 16 and 256).
+   K1 and K3 also run twice and must give the same bits;
 4. golden — the committed protocol-s checkpoint in fp32 (TF32 off) served
    through ``LLMHandler.generate_response``, once on the dense cache and
    once paged with chunked prefill; the greedy token ids must equal
@@ -51,8 +55,8 @@ result line is printed only when every phase passed):
    gradient through the kernels against the same step through the plain
    K1, K4 and K5 (``TOL_E2E_TRAIN``);
 6. last, each path's kernels timed at the shapes that path gave them (bf16
-   at phase 5's and 7b's, fp32 at phase 4's and 7a's); the kernels line,
-   then the result line.
+   at phase 5's and 7b's, fp32 at phase 4's and 7a's; K3 with the L2
+   flushed and warm); the kernels line, then the result line.
 
 ``--kernels-only`` stops after phase 3; ``--seed`` changes the kernel
 checks' inputs and the llama3-8b and llama3-1b weights.
@@ -125,6 +129,9 @@ TRAIN_STEPS = 8
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # H100 SXM dense bf16 (tensor
 # cores) and fp32 outside the tensor cores (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
+# Kernel names of csrc/ that a profile lists apart, wherever they rank.
+PORT_KERNEL_NAMES = ("flash_fwd", "kv_tile_bounds", "decode_stats", "paged_split", "paged_merge",
+                     "flash_bwd")
 
 
 def log(msg: str) -> None:
@@ -153,13 +160,19 @@ class Timer:
         self.torch = torch
         self.flush = torch.empty(2**30, dtype=torch.uint8, device=device)
 
-    def ms(self, fn, iters: int = 20, warmup: int = 3) -> float:
+    def ms(self, fn, iters: int = 20, warmup: int = 3, flush: bool = True) -> float:
+        """``flush=False`` leaves the L2 warm with the operands of the
+        previous launch: a spin kernel (~0.5 ms) stands in for the flush
+        and keeps the card busy while the host queues the next launch."""
         torch = self.torch
         for _ in range(warmup):
             fn()
         events = []
         for _ in range(iters):
-            self.flush.zero_()
+            if flush:
+                self.flush.zero_()
+            else:
+                torch.cuda._sleep(1_000_000)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -188,15 +201,26 @@ def tol_text(dtype_name: str, rel: bool = True) -> str:
 
 
 def check_flash(torch, fa, gen, device, name, dtype, B, T, N, K, H, valid,
-                window=0, softcap=0.0, offset=0):
+                window=0, softcap=0.0, offset=0, S=None, shuffle=False):
+    """K1 against its plain version. ``S`` keys (default T) at positions
+    0..S-1, shuffled along the key axis with ``shuffle``; queries at
+    ``offset``..``offset + T - 1``. Run twice: the outputs must be the
+    same bits."""
+    S = T if S is None else S
     q = randn(torch, gen, (B, T, N, H), dtype, device)
-    k = randn(torch, gen, (B, T, K, H), dtype, device)
-    v = randn(torch, gen, (B, T, K, H), dtype, device)
-    pos = (torch.arange(T, device=device, dtype=torch.int32) + offset)[None].repeat(B, 1)
+    k = randn(torch, gen, (B, S, K, H), dtype, device)
+    v = randn(torch, gen, (B, S, K, H), dtype, device)
+    qpos = (torch.arange(T, device=device, dtype=torch.int32) + offset)[None].repeat(B, 1)
+    kpos = torch.arange(S, device=device, dtype=torch.int32)[None].repeat(B, 1)
+    if shuffle:
+        kpos = torch.stack([kpos[b, torch.randperm(S, generator=gen, device=device)]
+                            for b in range(B)])
     val = torch.tensor(valid, device=device, dtype=torch.int32)
-    o_k, lse_k = fa.flash_attention_with_lse(q, k, v, pos, pos, val, window, None, softcap)
+    o_k, lse_k = fa.flash_attention_with_lse(q, k, v, qpos, kpos, val, window, None, softcap)
+    o_2, lse_2 = fa.flash_attention_with_lse(q, k, v, qpos, kpos, val, window, None, softcap)
     torch.cuda.synchronize()
-    o_p, lse_p = fa.flash_attention_plain(q, k, v, pos, pos, val, window, None, softcap)
+    same = torch.equal(o_k, o_2) and torch.equal(lse_k, lse_2)
+    o_p, lse_p = fa.flash_attention_plain(q, k, v, qpos, kpos, val, window, None, softcap)
     empty = lse_p <= NEG_INF / 2
     tol = TOL[str(dtype)[6:]]
     d_o = (o_k.float() - o_p.float()).abs()
@@ -205,10 +229,10 @@ def check_flash(torch, fa, gen, device, name, dtype, B, T, N, K, H, valid,
     over_o = (d_o - tol["rel"] * o_p.float().abs()).max().item()
     err_lse = (lse_k - lse_p).abs()[~empty].max().item() if (~empty).any() else 0.0
     empty_ok = bool((lse_k[empty] == NEG_INF).all() and (o_k.float()[empty] == 0).all())
-    ok = over_o <= tol["out"] and err_lse <= tol["stats"] and empty_ok
+    ok = over_o <= tol["out"] and err_lse <= tol["stats"] and empty_ok and same
     log(f"  K1 {name:<34} {str(dtype)[6:]:<8} o {err_o:.2e} (beyond rel {over_o:.2e}) "
-        f"lse {err_lse:.2e} empty rows exact={empty_ok} tol {tol_text(str(dtype)[6:])} "
-        f"{'ok' if ok else 'FAIL'}")
+        f"lse {err_lse:.2e} empty rows exact={empty_ok} ({int(empty.sum())}) repeat "
+        f"bit-identical {same} tol {tol_text(str(dtype)[6:])} {'ok' if ok else 'FAIL'}")
     return ok, max(err_o, err_lse)
 
 
@@ -310,13 +334,15 @@ def check_paged(torch, pa, gen, device, name, dtype, B, N, K, H, P, lengths, rin
               window=window, q_blocks=q_blocks, k_scales=x["ks"], v_scales=x["vs"],
               ring_k=x["rk"], ring_v=x["rv"], ring_step=step if ring else None)
     got = pa.paged_decode_attention(x["q"], x["k"], x["v"], x["table"], x["last"], **kw)
+    again = pa.paged_decode_attention(x["q"], x["k"], x["v"], x["table"], x["last"], **kw)
     torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
     kw["ring_step"] = step
     want = pa.paged_decode_attention_plain(x["q"], x["k"], x["v"], x["table"], x["last"], **kw)
     tol_name = "float32" if quantized else str(dtype)[6:]
     ok, err, text = compare_stats(got, want, tol_name)
-    log(f"  K3 {name:<34} {str(dtype)[6:]:<8} {text}")
-    return ok, err
+    log(f"  K3 {name:<34} {str(dtype)[6:]:<8} {text}; repeat bit-identical {same}")
+    return ok and same, err
 
 
 def check_flash_bwd(torch, fa, gen, device, name, dtype, B, T, S, N, K, H, valid, window=0,
@@ -367,6 +393,9 @@ def phase_kernels(torch, fa, da, pa, device, seed):
     # saw before the backward kernels existed.
     bgen = torch.Generator(device=device)
     bgen.manual_seed(seed)
+    # So do the edge cases added with the redesigned K1 and K3.
+    egen = torch.Generator(device=device)
+    egen.manual_seed(seed)
     results, worst = [], {}
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype)[6:]
@@ -443,6 +472,52 @@ def phase_kernels(torch, fa, da, pa, device, seed):
             results.append(ok)
             worst[("bwd_dq", dn)] = max(worst.get(("bwd_dq", dn), 0.0), err_dq)
             worst[("bwd_dkv", dn)] = max(worst.get(("bwd_dkv", dn), 0.0), err_dkv)
+        # K1: Tq and S off the 64-row tiles, query rows offset into the keys
+        # (a paged segment), rows with no key (positions before every key,
+        # a batch row with valid 0) and key positions out of order, so the
+        # tile bounds meet boundary, full and dead tiles.
+        flash_edges = [
+            ("llama3-8b Tq200 S333 offset 133", dict(B=2, T=200, S=333, N=32, K=8, H=128,
+                                                     valid=[333, 150], offset=133)),
+            ("llama3-1b H64 Tq77 no-key rows window", dict(B=2, T=77, S=77, N=32, K=8, H=64,
+                                                           valid=[77, 0], offset=-10,
+                                                           window=5)),
+            ("llama3-8b Tq130 S300 shuffled keys", dict(B=2, T=130, S=300, N=32, K=8, H=128,
+                                                        valid=[300, 211], offset=170,
+                                                        softcap=30.0, shuffle=True)),
+            ("protocol-s H32 Tq45 S190 window", dict(B=3, T=45, S=190, N=8, K=4, H=32,
+                                                     valid=[190, 100, 0], offset=145,
+                                                     window=30)),
+        ]
+        for name, kw in flash_edges:
+            ok, err = check_flash(torch, fa, egen, device, name, dtype, **kw)
+            results.append(ok)
+            worst[("flash", dn)] = max(worst.get(("flash", dn), 0.0), err)
+        # K3: the split walk (256 keys a split): slots ending mid-page inside
+        # a split and exactly at a split's end, windows that leave whole
+        # splits dead, 8 and 32 query rows per kv head, page sizes 32 to 256.
+        paged_edges = [
+            ("llama3-8b P128 split ends, ring@3", dict(
+                B=4, N=32, K=8, H=128, P=128, lengths=[700, 512, 0, 256], ring=16, step=3)),
+            ("llama3-8b P128 window kills splits", dict(
+                B=4, N=32, K=8, H=128, P=128, lengths=[3000, 900, 0, 1], window=200,
+                softcap=30.0, ring=16, step=9, hole=(0, 22))),
+            ("llama3-1b H64 P64 G8 q_blocks2 window", dict(
+                B=4, N=32, K=4, H=64, P=64, lengths=[1000, 300, 0, 65], q_blocks=2,
+                window=100)),
+            ("H64 P32 G32 q_blocks4 window", dict(
+                B=2, N=32, K=1, H=64, P=32, lengths=[400, 0], q_blocks=4, window=50)),
+            ("protocol-s H32 P16 int8 window hole", dict(
+                B=4, N=8, K=4, H=32, P=16, lengths=[415, 513, 0, 33], quantized=True,
+                window=300, hole=(1, 3))),
+            ("llama3-8b P256 int8 ring@15", dict(
+                B=4, N=32, K=8, H=128, P=256, lengths=[2000, 10, 0, 700], quantized=True,
+                ring=16, step=15)),
+        ]
+        for name, kw in paged_edges:
+            ok, err = check_paged(torch, pa, egen, device, name, dtype, **kw)
+            results.append(ok)
+            worst[("paged", dn)] = max(worst.get(("paged", dn), 0.0), err)
     if not all(results):
         raise SystemExit("kernel check failed")
     return worst
@@ -655,7 +730,14 @@ def report_profile(prof, wall_us, label, top=8):
         return None
     log(f"  profiled {label}: wall {wall_us / 1e3:.1f} ms, device busy "
         f"{busy / 1e3:.1f} ms = {busy / wall_us:.3f} of the wall; top device time:")
-    for dev, key, count in sorted(rows, reverse=True)[:top]:
+    ranked = sorted(rows, reverse=True)
+    for dev, key, count in ranked[:top]:
+        log(f"    {dev / 1e3:9.2f} ms  {count:6d} x  {key[:90]}")
+    # The port's own kernels, wherever they rank.
+    ours = [r for r in ranked[top:] if any(n in r[1] for n in PORT_KERNEL_NAMES)]
+    if ours:
+        log("    and the port's kernels below those:")
+    for dev, key, count in ours:
         log(f"    {dev / 1e3:9.2f} ms  {count:6d} x  {key[:90]}")
     return busy / wall_us
 
@@ -1254,6 +1336,8 @@ def time_paged(torch, pa, device, timer, gen, dtype, shape, launched, worst, suf
     kw = dict(q_positions=qpos, n_blocks=n_blocks, scale=H**-0.5, ring_k=rk, ring_v=rv,
               ring_step=step)
     k3 = timer.ms(lambda: pa.paged_decode_attention(q, k_pool, v_pool, table, lst, **kw))
+    k3_warm = timer.ms(lambda: pa.paged_decode_attention(q, k_pool, v_pool, table, lst, **kw),
+                       flush=False)
     k3_plain = timer.ms(lambda: pa.paged_decode_attention_plain(q, k_pool, v_pool, table, lst,
                                                                 **kw))
 
@@ -1278,9 +1362,10 @@ def time_paged(torch, pa, device, timer, gen, dtype, shape, launched, worst, suf
               + 2 * 4 * B + 4 * B * N * H + 2 * 4 * B * N)
     e = entry("paged_attention" + suffix, pa, launched, worst[("paged", dn)], k3, k3_plain,
               k3_lib, flops, nbytes, dn, tol_text(dn, False), gather_ms=gather_ms,
-              launches_per_request=launched / shape["requests"])
+              warm_ms=k3_warm, launches_per_request=launched / shape["requests"])
     log(f"  K3 paged     {dn:<8} q [{B},{N},{H}] P {P} pool {num_pages} pages, last {last}, "
-        f"ring {R} at step {step}: kernel {k3:.4f} ms, plain {k3_plain:.4f} ms, SDPA "
+        f"ring {R} at step {step}: kernel {k3:.4f} ms (L2 warm {k3_warm:.4f} ms), plain "
+        f"{k3_plain:.4f} ms, SDPA "
         f"{k3_lib:.4f} ms (+ gather {gather_ms:.4f} ms), bound {e['bound_ms']:.5f} ms "
         f"({e['bound_by']}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
     return e

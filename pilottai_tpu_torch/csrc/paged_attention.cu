@@ -27,23 +27,38 @@
 // What bounds it on an H100: HBM bytes. Every live key costs 2*H pool
 // elements read for 4*H*G multiply-adds (G = N/K query rows per kv head),
 // far below the card's ~295 operations per byte, so the time is the read of
-// the live pages. The design reads each live key's K/V row from device
-// memory exactly once for all G rows of its kv head (one block per
-// (kv head, slot)), walks a slot's table only up to last[b] and skips dead
-// pages without touching them, stages each page in tiles of 32 keys through
-// shared memory with 16-byte loads, and keeps scores, statistics and the
-// accumulator on chip. Offsets into a pool are 64-bit (a pool for 8 slots of
-// 8192 tokens at 8B holds 67M elements per layer).
+// the live pages. The card reaches its memory rate only with many bytes in
+// flight on every SM.
 //
-// Keys that are masked must not poison the PV sum (0 * NaN = NaN): rows past
-// last[b] are staged as zeros, and the PV loop selects on p != 0 rather than
-// multiplying a masked key's value by zero.
+// The design is flash-decoding, in two launches on the caller's stream:
 //
-// What this design leaves on the table: one block per (kv head, slot) is
-// B*K blocks (64 at 8 slots of llama3-8b, for 132 SMs), and one long slot's
-// pages are walked serially by its K blocks while the short slots' blocks
-// have long finished. Splitting the page walk across blocks, with a merge of
-// the partial statistics (flash-decoding), is the next step for speed.
+// 1. paged_split_kernel, one block per (kv head, slot, split). A split is a
+//    fixed run of `pages_per_split` page slots (256 keys' worth; the wrapper's
+//    split_plan), so one long slot spreads over many blocks however the
+//    other slots are sized, and the grid comes from n_blocks alone: nothing
+//    on the host reads `last`. One more split per (kv head, slot) runs the
+//    ring. A split past last[b] writes m = NEG_INF, l = 0 and exits; a split
+//    whose pages are all dead (sentinel or out of the window) stages
+//    nothing and writes the same. Each block streams its live tiles of 32
+//    keys through a 3-stage ring in shared memory filled with 16-byte
+//    cp.async copies in the pool's own dtype, so two tiles are in flight
+//    while the third is computed; rows are padded by 16 bytes so the lane
+//    that owns a key reads its row without bank conflicts. Within a tile,
+//    each warp owns query rows (warp w: rows w, w+4, ...): lane j scores key
+//    j, the warp runs the row's online softmax with shuffles, and the PV
+//    product broadcasts p_j while each lane accumulates H/32 columns, all in
+//    registers. The only block barriers are the ring's, two per tile.
+// 2. paged_merge_kernel, one block per (kv head, slot): the page splits'
+//    (acc, m, l) merged in split order (m = max over splits, each split
+//    weighted by exp(m_s - m), dead splits skipped), then the ring merged
+//    with wa and wb; the splits' m and l are staged in shared memory and
+//    each thread owns one (row, column) of acc. A fixed order and no
+//    atomics: a repeat is bit-identical.
+//
+// Keys that are masked must not poison the PV sum (0 * NaN = NaN): the PV
+// loop visits only the tile's staged rows and selects on p != 0 rather than
+// multiplying a masked key's value by zero; scores of unstaged lanes are
+// selected away before the softmax. Offsets into a pool are 64-bit.
 //
 // Modes: bf16 and fp32 pools (q and the ring in the pool's dtype), int8 pools
 // with scales (q and the ring in bf16 or fp32), q_blocks >= 1 (speculative
@@ -62,9 +77,10 @@ namespace {
 
 constexpr float kNegInf = -1073741824.0f;  // -2^30, the JAX package's NEG_INF
 constexpr int kMaxRows = 32;               // query rows per kv head
-constexpr int TS = 32;                      // keys per tile: one warp lane per key
-constexpr int NT = 128;                     // threads per block
+constexpr int TS = 32;                     // keys per tile: one warp lane per key
+constexpr int NT = 128;                    // threads per block
 constexpr int NW = NT / 32;
+constexpr int STAGES = 3;                  // tiles in the shared-memory ring
 
 template <typename T> __device__ __forceinline__ float to_f(T x);
 template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
@@ -82,11 +98,23 @@ template <> __device__ __forceinline__ float round_p<__nv_bfloat16>(float x) {
   return __bfloat162float(__float2bfloat16(x));
 }
 
-template <typename T, int VEC>
-__device__ __forceinline__ void unpack(const uint4& raw, float* out) {
+// N consecutive elements of type T from shared memory, widened to fp32.
+template <typename T, int N>
+__device__ __forceinline__ void load_row(const unsigned char* src, float* out) {
+  constexpr int BYTES = N * static_cast<int>(sizeof(T));
+  static_assert(BYTES == 1 || BYTES == 2 || BYTES == 4 || BYTES == 8 || BYTES == 16,
+                "one vector load");
+  using V = typename std::conditional<
+      BYTES == 16, uint4,
+      typename std::conditional<
+          BYTES == 8, uint2,
+          typename std::conditional<BYTES == 4, uint32_t,
+                                    typename std::conditional<BYTES == 2, uint16_t,
+                                                              uint8_t>::type>::type>::type>::type;
+  const V raw = *reinterpret_cast<const V*>(src);
   const T* e = reinterpret_cast<const T*>(&raw);
 #pragma unroll
-  for (int i = 0; i < VEC; ++i) out[i] = to_f(e[i]);
+  for (int i = 0; i < N; ++i) out[i] = to_f(e[i]);
 }
 
 __device__ __forceinline__ float warp_max(float x) {
@@ -96,6 +124,17 @@ __device__ __forceinline__ float warp_max(float x) {
 __device__ __forceinline__ float warp_sum(float x) {
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 struct Params {
@@ -112,249 +151,377 @@ struct Params {
   float* acc;
   float* m;
   float* l;
+  float* part_acc;        // [B, Kh, Z, G, H]: each split's acc (Z = n_split, + 1 with a ring)
+  float* part_m;          // [B, Kh, Z, G]
+  float* part_l;
   int N, Kh, num_pages, P, max_pages, n_blocks, q_blocks, R, ring_step, window;
+  int pages_per_split, n_split, Z;
   float scale, softcap;
 };
 
-struct Smem {
-  float* q;   // [G][H]
-  float* k;   // [TS][H+1]
-  float* v;   // [TS][H]
-  float* p;   // [G][TS]
-  float* m;   // [G]
-  float* l;   // [G]
-  float* c;   // [G] this tile's correction
-  float* pa;  // [G][H] the pages' acc while the ring runs
-  float* pm;  // [G] the pages' m
-  float* pl;  // [G] the pages' l
-};
-
-// Floats of dynamic shared memory for G query rows of head_dim H.
-constexpr int smem_floats(int G, int H) {
-  return 2 * G * H + TS * (H + 1) + TS * H + G * TS + 5 * G;
+// Bytes of one staged row of H elements of T: padded by 16 so lanes that
+// read neighbouring rows in 16-byte vectors fall on different banks.
+template <typename T, int H> __host__ __device__ constexpr int row_bytes() {
+  return H * static_cast<int>(sizeof(T)) + 16;
 }
 
-// One tile of up to TS keys: rows [lo, hi) of kt/vt attend; the others are
-// staged as zeros and masked. win_base = qpos - (column of row 0) when the
-// per-row window applies (page tiles), window = 0 otherwise (the ring's
-// window is already in [lo, hi)).
-template <typename T, typename VT, int H, int MAXR>
-__device__ __forceinline__ void attend_tile(const T* __restrict__ kt, const T* __restrict__ vt,
-                                            const float* __restrict__ ks,
-                                            const float* __restrict__ vs, int lo, int hi,
-                                            int win_base, int window, int q_blocks, int G,
-                                            float scale, float softcap, const Smem& sm,
-                                            float (&acc)[MAXR]) {
-  constexpr int VEC = 16 / sizeof(T);
-  constexpr int KSTRIDE = H + 1;
-  static_assert(H % VEC == 0, "rows load in 16-byte vectors");
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-
-  __syncthreads();  // the previous tile's readers are done with k, v and p
-  for (int idx = tid; idx < TS * (H / VEC); idx += NT) {
-    const int j = idx / (H / VEC), c = (idx % (H / VEC)) * VEC;
-    float kx[VEC], vx[VEC];
-    if (j >= lo && j < hi) {
-      unpack<T, VEC>(*reinterpret_cast<const uint4*>(kt + static_cast<size_t>(j) * H + c), kx);
-      unpack<T, VEC>(*reinterpret_cast<const uint4*>(vt + static_cast<size_t>(j) * H + c), vx);
-      if (ks != nullptr) {
-        const float a = ks[j], b = vs[j];
-#pragma unroll
-        for (int e = 0; e < VEC; ++e) {
-          kx[e] *= a;
-          vx[e] *= b;
-        }
-      }
-    } else {
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) kx[e] = vx[e] = 0.f;
-    }
-#pragma unroll
-    for (int e = 0; e < VEC; ++e) {
-      sm.k[j * KSTRIDE + c + e] = kx[e];
-      sm.v[j * H + c + e] = vx[e];
-    }
-  }
-  __syncthreads();
-
-  for (int idx = tid; idx < G * TS; idx += NT) {
-    const int g = idx / TS, j = idx % TS;
-    const float* qr = sm.q + g * H;
-    const float* kr = sm.k + j * KSTRIDE;
-    float dot = 0.f;
-#pragma unroll 16
-    for (int h = 0; h < H; ++h) dot = fmaf(qr[h], kr[h], dot);
-    float s = dot * scale;
-    if (softcap > 0.f) s = tanhf(s / softcap) * softcap;
-    bool ok = j >= lo && j < hi;
-    if (window > 0) ok = ok && (win_base + (g % q_blocks) - j < window);
-    sm.p[idx] = ok ? s : kNegInf;
-  }
-  __syncthreads();
-
-  for (int g = warp; g < G; g += NW) {
-    const float x = sm.p[g * TS + lane];
-    const float m_old = sm.m[g];
-    const float m_new = fmaxf(m_old, warp_max(x));
-    const float p = m_new > kNegInf * 0.5f ? expf(x - m_new) : 0.f;
-    const float psum = warp_sum(p);
-    sm.p[g * TS + lane] = round_p<VT>(p);
-    if (lane == 0) {
-      const float corr = m_old > kNegInf * 0.5f ? expf(m_old - m_new) : 0.f;
-      sm.c[g] = corr;
-      sm.l[g] = sm.l[g] * corr + psum;
-      sm.m[g] = m_new;
-    }
-  }
-  __syncthreads();
-
-#pragma unroll
-  for (int r = 0; r < MAXR; ++r) {
-    const int idx = tid + r * NT;
-    if (idx < G * H) {
-      const int g = idx / H, h = idx % H;
-      const float* prow = sm.p + g * TS;
-      float a = acc[r] * sm.c[g];
-#pragma unroll 8
-      for (int j = 0; j < TS; ++j) {
-        const float pj = prow[j];
-        if (pj != 0.f) a = fmaf(pj, sm.v[j * H + h], a);
-      }
-      acc[r] = a;
-    }
-  }
+// One ring stage: K rows, V rows (TS each, row_bytes apart), then TS k
+// scales and TS v scales.
+template <typename TQ, typename TKV, int H> __host__ __device__ constexpr int stage_bytes() {
+  constexpr int rb = row_bytes<TQ, H>() > row_bytes<TKV, H>() ? row_bytes<TQ, H>()
+                                                               : row_bytes<TKV, H>();
+  return 2 * TS * rb + 2 * TS * static_cast<int>(sizeof(float));
 }
 
 template <typename TQ, typename TKV, int H>
-__global__ void __launch_bounds__(NT) paged_attention_kernel(const Params p) {
-  using VT = typename std::conditional<std::is_same<TKV, int8_t>::value, float, TKV>::type;
-  constexpr int MAXR = (kMaxRows * H + NT - 1) / NT;  // accumulator columns per thread
-  const int G = p.N / p.Kh;
-  extern __shared__ float smem[];
-  Smem sm;
-  sm.q = smem;
-  sm.k = sm.q + G * H;
-  sm.v = sm.k + TS * (H + 1);
-  sm.p = sm.v + TS * H;
-  sm.m = sm.p + G * TS;
-  sm.l = sm.m + G;
-  sm.c = sm.l + G;
-  sm.pa = sm.c + G;
-  sm.pm = sm.pa + G * H;
-  sm.pl = sm.pm + G;
+constexpr size_t smem_bytes(int G) {
+  return static_cast<size_t>(G) * H * sizeof(float) +
+         static_cast<size_t>(STAGES) * stage_bytes<TQ, TKV, H>();
+}
 
-  const int tid = threadIdx.x;
-  const int kh = blockIdx.x;
-  const int b = blockIdx.y;
-  const TQ* q = static_cast<const TQ*>(p.q);
-  for (int idx = tid; idx < G * H; idx += NT) {
-    sm.q[idx] = to_f(q[(static_cast<size_t>(b) * p.N + kh * G) * H + idx]);
-  }
-  for (int g = tid; g < G; g += NT) {
-    sm.m[g] = kNegInf;
-    sm.l[g] = 0.f;
-  }
-  float acc[MAXR];
-#pragma unroll
-  for (int r = 0; r < MAXR; ++r) acc[r] = 0.f;
 
-  const int P = p.P;
-  const int last = p.last[b];
-  const int qp = p.qpos[b];
-  const int sentinel = p.num_pages - 1;
-  const int n_pages = last >= 0 ? min(p.n_blocks, last / P + 1) : 0;
-  const TKV* kpool = static_cast<const TKV*>(p.k_pool);
-  const TKV* vpool = static_cast<const TKV*>(p.v_pool);
-  for (int jt = 0; jt < n_pages; ++jt) {
-    const int page = p.table[static_cast<size_t>(b) * p.max_pages + jt];
-    const int j0 = jt * P;
-    if (page == sentinel) continue;
-    if (p.window > 0 && qp - (j0 + P - 1) >= p.window) continue;
-    const size_t row0 = (static_cast<size_t>(kh) * p.num_pages + page) * P;
-    for (int t0 = 0; t0 < P && j0 + t0 <= last; t0 += TS) {
-      const int hi = min(min(TS, P - t0), last - (j0 + t0) + 1);
-      const size_t off = row0 + t0;
-      attend_tile<TKV, VT, H, MAXR>(
-          kpool + off * H, vpool + off * H, p.k_scales ? p.k_scales + off : nullptr,
-          p.v_scales ? p.v_scales + off : nullptr, 0, hi, qp - (j0 + t0), p.window,
-          p.q_blocks, G, p.scale, p.softcap, sm, acc);
+// What a tile holds: `rows` keys staged from k and v (0 = a dead tile:
+// nothing staged or computed), their scales (int8 pools), and win_base =
+// the query position of row offset 0 minus the tile's first key column
+// (key j attends row g iff j < rows and, with a window, win_base +
+// (g mod q_blocks) - j < window).
+struct Tile {
+  const unsigned char* k;
+  const unsigned char* v;
+  const float* ks;
+  const float* vs;
+  int rows;
+  int win_base;
+};
+
+// Tile i of the page slots [page_lo, page_hi) of slot b: page slot
+// jt = page_lo + i / tiles_per_page, keys t0 = (i % tiles_per_page) * TS on.
+template <typename T, int H>
+__device__ __forceinline__ Tile page_tile(const Params& p, int kh, int b, int page_lo,
+                                          int page_hi, int last, int qp, int i) {
+  const int tpp = (p.P + TS - 1) / TS;
+  const int jt = page_lo + i / tpp;
+  const int t0 = (i % tpp) * TS;
+  const int j0 = jt * p.P;
+  Tile t{nullptr, nullptr, nullptr, nullptr, 0, 0};
+  if (jt >= page_hi || j0 + t0 > last) return t;
+  const int page = p.table[static_cast<size_t>(b) * p.max_pages + jt];
+  if (page == p.num_pages - 1) return t;
+  if (p.window > 0 && qp - (j0 + p.P - 1) >= p.window) return t;
+  const size_t row = (static_cast<size_t>(kh) * p.num_pages + page) * p.P + t0;
+  t.k = static_cast<const unsigned char*>(p.k_pool) + row * H * sizeof(T);
+  t.v = static_cast<const unsigned char*>(p.v_pool) + row * H * sizeof(T);
+  t.ks = p.k_scales ? p.k_scales + row : nullptr;
+  t.vs = p.v_scales ? p.v_scales + row : nullptr;
+  t.rows = min(min(TS, p.P - t0), last - (j0 + t0) + 1);
+  t.win_base = qp - (j0 + t0);
+  return t;
+}
+
+// Tile i of the ring of (slot b, kv head kh): rows r0 = r_first + i*TS on,
+// up to row `step`; rows before the window's start are masked by win_base.
+template <typename T, int H>
+__device__ __forceinline__ Tile ring_tile(const Params& p, int kh, int b, int r_first, int i) {
+  const int r0 = r_first + i * TS;
+  const size_t row = (static_cast<size_t>(b) * p.Kh + kh) * p.R + r0;
+  Tile t;
+  t.k = static_cast<const unsigned char*>(p.ring_k) + row * H * sizeof(T);
+  t.v = static_cast<const unsigned char*>(p.ring_v) + row * H * sizeof(T);
+  t.ks = t.vs = nullptr;
+  t.rows = min(min(TS, p.R - r0), p.ring_step - r0 + 1);
+  t.win_base = p.ring_step - r0;
+  return t;
+}
+
+// Every thread of the block issues its share of the tile's 16-byte copies.
+template <typename T, int H>
+__device__ __forceinline__ void issue_tile(const Tile& t, unsigned char* stage) {
+  constexpr int RB = row_bytes<T, H>();
+  constexpr int CPR = H * static_cast<int>(sizeof(T)) / 16;  // 16-byte chunks per row
+  static_assert(CPR >= 1, "rows copy in 16-byte chunks");
+  unsigned char* sk = stage;
+  unsigned char* sv = stage + TS * RB;
+  float* sks = reinterpret_cast<float*>(stage + 2 * TS * RB);
+  for (int idx = threadIdx.x; idx < t.rows * CPR; idx += NT) {
+    const int r = idx / CPR, c = (idx % CPR) * 16;
+    const size_t src = static_cast<size_t>(r) * H * sizeof(T) + c;
+    cp_async16(sk + r * RB + c, t.k + src);
+    cp_async16(sv + r * RB + c, t.v + src);
+  }
+  if (t.ks != nullptr) {
+    // Scales in 4-float chunks: a page tile starts at a multiple of 16 keys
+    // and P is a multiple of 16, so the last chunk stays inside the page.
+    for (int idx = threadIdx.x; idx < (t.rows + 3) / 4; idx += NT) {
+      cp_async16(sks + idx * 4, t.ks + idx * 4);
+      cp_async16(sks + TS + idx * 4, t.vs + idx * 4);
     }
   }
+}
 
-  if (p.R > 0) {
-    // Set the pages' statistics aside and run the ring as a softmax of its own.
-    __syncthreads();
+// One staged tile into the warp's rows' online-softmax state. RPW: the most
+// query rows a warp owns (row g = warp + NW*i).
+template <typename T, typename VT, int H, int RPW>
+__device__ __forceinline__ void attend_tile(const unsigned char* stage, bool scaled, int rows,
+                                            int win_base, int window, int q_blocks, int G,
+                                            float scale, float softcap, const float* sq,
+                                            float (&m)[RPW], float (&l)[RPW],
+                                            float (&acc)[RPW][H / 32]) {
+  constexpr int RB = row_bytes<T, H>();
+  constexpr int VEC = 16 / static_cast<int>(sizeof(T));  // elements per 16-byte load
+  constexpr int DPL = H / 32;  // output columns per lane
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned char* sk = stage;
+  const unsigned char* sv = stage + TS * RB;
+  const float* sks = reinterpret_cast<const float*>(stage + 2 * TS * RB);
+
+  // Scores: lane j owns key j (a lane past `rows` reads a stale row, whose
+  // score is selected away below).
+  float dot[RPW];
 #pragma unroll
-    for (int r = 0; r < MAXR; ++r) {
-      const int idx = tid + r * NT;
-      if (idx < G * H) sm.pa[idx] = acc[r];
-      acc[r] = 0.f;
-    }
-    for (int g = tid; g < G; g += NT) {
-      sm.pm[g] = sm.m[g];
-      sm.pl[g] = sm.l[g];
-      sm.m[g] = kNegInf;
-      sm.l[g] = 0.f;
-    }
-    const int step = p.ring_step;  // ring rows 0..step hold this chunk's keys
-    const int r_lo = p.window > 0 ? max(0, step - p.window + 1) : 0;
-    const size_t ring0 = (static_cast<size_t>(b) * p.Kh + kh) * p.R;
-    const TQ* rk = static_cast<const TQ*>(p.ring_k) + ring0 * H;
-    const TQ* rv = static_cast<const TQ*>(p.ring_v) + ring0 * H;
-    for (int r0 = (r_lo / TS) * TS; r0 <= step; r0 += TS) {
-      const int lo = max(0, r_lo - r0);
-      const int hi = min(min(TS, p.R - r0), step - r0 + 1);
-      attend_tile<TQ, TQ, H, MAXR>(rk + static_cast<size_t>(r0) * H,
-                                   rv + static_cast<size_t>(r0) * H, nullptr, nullptr, lo, hi,
-                                   0, 0, 1, G, p.scale, p.softcap, sm, acc);
-    }
-    __syncthreads();
-    // The merge of the TPU kernel (and of engine/decode.py:_merge_stats).
+  for (int i = 0; i < RPW; ++i) dot[i] = 0.f;
+  const unsigned char* krow = sk + lane * RB;
+#pragma unroll 4
+  for (int c = 0; c < H; c += VEC) {
+    float kx[VEC];
+    load_row<T, VEC>(krow + c * sizeof(T), kx);
 #pragma unroll
-    for (int r = 0; r < MAXR; ++r) {
-      const int idx = tid + r * NT;
-      if (idx < G * H) {
-        const int g = idx / H;
-        const float m_a = sm.pm[g], m_b = sm.m[g], m_new = fmaxf(m_a, m_b);
-        const float wa = m_a > kNegInf * 0.5f ? expf(m_a - m_new) : 0.f;
-        const float wb = m_b > kNegInf * 0.5f ? expf(m_b - m_new) : 0.f;
-        acc[r] = sm.pa[idx] * wa + acc[r] * wb;
+    for (int i = 0; i < RPW; ++i) {
+      const int g = warp + NW * i;
+      if (g < G) {
+        const float4* qr = reinterpret_cast<const float4*>(sq + g * H + c);
+#pragma unroll
+        for (int e = 0; e < VEC / 4; ++e) {
+          const float4 qv = qr[e];  // the same address in every lane: a broadcast
+          dot[i] = fmaf(qv.x, kx[4 * e], dot[i]);
+          dot[i] = fmaf(qv.y, kx[4 * e + 1], dot[i]);
+          dot[i] = fmaf(qv.z, kx[4 * e + 2], dot[i]);
+          dot[i] = fmaf(qv.w, kx[4 * e + 3], dot[i]);
+        }
       }
     }
-    __syncthreads();  // every thread has read sm.m before it is overwritten
-    for (int g = tid; g < G; g += NT) {
-      const float m_a = sm.pm[g], m_b = sm.m[g], m_new = fmaxf(m_a, m_b);
-      const float wa = m_a > kNegInf * 0.5f ? expf(m_a - m_new) : 0.f;
-      const float wb = m_b > kNegInf * 0.5f ? expf(m_b - m_new) : 0.f;
-      sm.l[g] = sm.pl[g] * wa + sm.l[g] * wb;
-      sm.m[g] = m_new;
+  }
+  const float kscale = scaled && lane < rows ? sks[lane] : 1.f;
+  const float vscale = scaled && lane < rows ? sks[TS + lane] : 1.f;
+
+  float pj[RPW];
+#pragma unroll
+  for (int i = 0; i < RPW; ++i) {
+    const int g = warp + NW * i;
+    pj[i] = 0.f;
+    if (g < G) {
+      float s = dot[i] * kscale * scale;
+      if (softcap > 0.f) s = tanhf(s / softcap) * softcap;
+      bool ok = lane < rows;
+      if (window > 0) ok = ok && (win_base + (g % q_blocks) - lane < window);
+      const float x = ok ? s : kNegInf;
+      const float m_old = m[i];
+      const float m_new = fmaxf(m_old, warp_max(x));
+      const float p = m_new > kNegInf * 0.5f ? expf(x - m_new) : 0.f;
+      const float corr = m_old > kNegInf * 0.5f ? expf(m_old - m_new) : 0.f;
+      l[i] = l[i] * corr + warp_sum(p);
+      m[i] = m_new;
+#pragma unroll
+      for (int d = 0; d < DPL; ++d) acc[i][d] *= corr;
+      pj[i] = round_p<VT>(p) * vscale;
     }
   }
-  __syncthreads();
 
-  const size_t out0 = static_cast<size_t>(b) * p.N + kh * G;
+  // PV: p_j broadcast from lane j; each lane owns columns lane*DPL on.
+#pragma unroll 8
+  for (int j = 0; j < rows; ++j) {
+    float vx[DPL];
+    load_row<T, DPL>(sv + j * RB + lane * DPL * sizeof(T), vx);
 #pragma unroll
-  for (int r = 0; r < MAXR; ++r) {
-    const int idx = tid + r * NT;
-    if (idx < G * H) p.acc[out0 * H + idx] = acc[r];
+    for (int i = 0; i < RPW; ++i) {
+      if (warp + NW * i < G) {
+        const float w = __shfl_sync(0xffffffffu, pj[i], j);
+        if (w != 0.f) {
+#pragma unroll
+          for (int d = 0; d < DPL; ++d) acc[i][d] = fmaf(w, vx[d], acc[i][d]);
+        }
+      }
+    }
   }
-  for (int g = tid; g < G; g += NT) {
-    p.m[out0 + g] = sm.m[g];
-    p.l[out0 + g] = sm.l[g];
+}
+
+// Stream n_tiles tiles (tile(i) says where tile i lives, or that it is
+// dead) through the STAGES-deep ring: tile i + STAGES - 1 is copied while
+// tile i is computed.
+template <typename T, typename VT, int H, int RPW, typename TileAt>
+__device__ __forceinline__ void stream_tiles(TileAt tile, int n_tiles, unsigned char* ring,
+                                             int stage_stride, bool scaled, const Params& p,
+                                             int G, const float* sq, float (&m)[RPW],
+                                             float (&l)[RPW], float (&acc)[RPW][H / 32]) {
+#pragma unroll
+  for (int i = 0; i < STAGES - 1; ++i) {
+    if (i < n_tiles) {
+      const Tile t = tile(i);
+      if (t.rows > 0) issue_tile<T, H>(t, ring + i * stage_stride);
+    }
+    cp_async_commit();
   }
+  for (int i = 0; i < n_tiles; ++i) {
+    const int nx = i + STAGES - 1;
+    if (nx < n_tiles) {
+      const Tile t = tile(nx);
+      if (t.rows > 0) issue_tile<T, H>(t, ring + (nx % STAGES) * stage_stride);
+    }
+    cp_async_commit();
+    cp_async_wait<STAGES - 1>();  // tile i has landed (this thread's copies)
+    __syncthreads();              // ... and every other thread's
+    const Tile t = tile(i);
+    if (t.rows > 0) {
+      attend_tile<T, VT, H, RPW>(ring + (i % STAGES) * stage_stride, scaled, t.rows,
+                                 t.win_base, p.window, p.q_blocks, G, p.scale, p.softcap, sq,
+                                 m, l, acc);
+    }
+    __syncthreads();  // stage i % STAGES is free for tile i + STAGES
+  }
+}
+
+template <typename TQ, typename TKV, int H, int RPW>
+__global__ void __launch_bounds__(NT) paged_split_kernel(const Params p) {
+  using VT = typename std::conditional<std::is_same<TKV, int8_t>::value, float, TKV>::type;
+  constexpr int DPL = H / 32;
+  const int G = p.N / p.Kh;
+  const int kh = blockIdx.x, b = blockIdx.y, z = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const size_t part = (static_cast<size_t>(b) * p.Kh + kh) * p.Z + z;
+  const bool ring_split = z == p.n_split;  // only when R > 0
+  const int last = p.last[b];
+  const int qp = p.qpos[b];
+  const int n_pages = last >= 0 ? min(p.n_blocks, last / p.P + 1) : 0;
+  const int page_lo = z * p.pages_per_split;
+  const int page_hi = min(page_lo + p.pages_per_split, n_pages);
+  if (!ring_split && page_lo >= page_hi) {  // past last[b]: nothing to attend
+    for (int g = tid; g < G; g += NT) {
+      p.part_m[part * G + g] = kNegInf;
+      p.part_l[part * G + g] = 0.f;
+    }
+    return;
+  }
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* sq = reinterpret_cast<float*>(smem);  // [G][H] q widened to fp32
+  unsigned char* ring = smem + static_cast<size_t>(G) * H * sizeof(float);
+  constexpr int stride = stage_bytes<TQ, TKV, H>();
+  const TQ* q = static_cast<const TQ*>(p.q) + (static_cast<size_t>(b) * p.N + kh * G) * H;
+  for (int idx = tid; idx < G * H; idx += NT) sq[idx] = to_f(q[idx]);  // visible after the
+                                                                        // ring's first barrier
+  float m[RPW], l[RPW], acc[RPW][DPL];
+#pragma unroll
+  for (int i = 0; i < RPW; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int d = 0; d < DPL; ++d) acc[i][d] = 0.f;
+  }
+
+  if (ring_split) {
+    const int r_lo = p.window > 0 ? max(0, p.ring_step - p.window + 1) : 0;
+    const int r_first = (r_lo / TS) * TS;
+    const int n_tiles = (p.ring_step - r_first) / TS + 1;
+    stream_tiles<TQ, TQ, H, RPW>(
+        [&](int i) { return ring_tile<TQ, H>(p, kh, b, r_first, i); }, n_tiles, ring, stride,
+        false, p, G, sq, m, l, acc);
+  } else {
+    const int tpp = (p.P + TS - 1) / TS;
+    stream_tiles<TKV, VT, H, RPW>(
+        [&](int i) { return page_tile<TKV, H>(p, kh, b, page_lo, page_hi, last, qp, i); },
+        (page_hi - page_lo) * tpp, ring, stride, p.k_scales != nullptr, p, G, sq, m, l, acc);
+  }
+
+#pragma unroll
+  for (int i = 0; i < RPW; ++i) {
+    const int g = warp + NW * i;
+    if (g < G) {
+      float* out = p.part_acc + (part * G + g) * H + lane * DPL;
+#pragma unroll
+      for (int d = 0; d < DPL; ++d) out[d] = acc[i][d];
+      if (lane == 0) {
+        p.part_m[part * G + g] = m[i];
+        p.part_l[part * G + g] = l[i];
+      }
+    }
+  }
+}
+
+// The splits of one (kv head, slot) merged in split order, then the ring.
+// The splits' m and l are staged in shared memory first; each thread then
+// owns one (row, column) of acc and sums its splits' acc from device memory.
+constexpr int NT_MERGE = 256;
+
+template <int H>
+__global__ void __launch_bounds__(NT_MERGE) paged_merge_kernel(const Params p) {
+  const int G = p.N / p.Kh;
+  const int kh = blockIdx.x, b = blockIdx.y;
+  const size_t base = (static_cast<size_t>(b) * p.Kh + kh) * p.Z;
+  const size_t out0 = static_cast<size_t>(b) * p.N + kh * G;
+  extern __shared__ float sml[];  // [Z][G] m, then [Z][G] l
+  float* sm = sml;
+  float* sl = sml + p.Z * G;
+  for (int idx = threadIdx.x; idx < p.Z * G; idx += NT_MERGE) {
+    sm[idx] = p.part_m[base * G + idx];
+    sl[idx] = p.part_l[base * G + idx];
+  }
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < G * H; idx += NT_MERGE) {
+    const int g = idx / H, h = idx % H;
+    float m = kNegInf;
+    for (int s = 0; s < p.n_split; ++s) m = fmaxf(m, sm[s * G + g]);
+    float a = 0.f, l = 0.f;
+    if (m > kNegInf * 0.5f) {
+#pragma unroll 4
+      for (int s = 0; s < p.n_split; ++s) {
+        const float ms = sm[s * G + g];
+        if (ms > kNegInf * 0.5f) {  // a dead split wrote no acc
+          const float w = expf(ms - m);
+          a += w * p.part_acc[((base + s) * G + g) * H + h];
+          l += w * sl[s * G + g];
+        }
+      }
+    }
+    if (p.R > 0) {
+      // The merge of the TPU kernel (and of engine/decode.py:_merge_stats).
+      const int r = p.n_split * G + g;
+      const float m_r = sm[r];
+      const float m_new = fmaxf(m, m_r);
+      const float wa = m > kNegInf * 0.5f ? expf(m - m_new) : 0.f;
+      const float wb = m_r > kNegInf * 0.5f ? expf(m_r - m_new) : 0.f;
+      a = a * wa + p.part_acc[((base + p.n_split) * G + g) * H + h] * wb;
+      l = l * wa + sl[r] * wb;
+      m = m_new;
+    }
+    p.acc[(out0 + g) * H + h] = a;
+    if (h == 0) {
+      p.m[out0 + g] = m;
+      p.l[out0 + g] = l;
+    }
+  }
+}
+
+template <typename TQ, typename TKV, int H, int RPW>
+cudaError_t launch_split(const Params& p, int B, cudaStream_t stream) {
+  auto kern = paged_split_kernel<TQ, TKV, H, RPW>;
+  // Set once per instantiation, for the most rows it takes.
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem_bytes<TQ, TKV, H>(RPW * NW)));
+  if (attr != cudaSuccess) return attr;
+  kern<<<dim3(p.Kh, B, p.Z), NT, smem_bytes<TQ, TKV, H>(p.N / p.Kh), stream>>>(p);
+  return cudaGetLastError();
 }
 
 template <typename TQ, typename TKV, int H>
 cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
-  auto kern = paged_attention_kernel<TQ, TKV, H>;
-  const int G = p.N / p.Kh;
-  const size_t smem = smem_floats(G, H) * sizeof(float);
-  // Set once per instantiation, for the most rows it takes.
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem_floats(kMaxRows, H) * sizeof(float)));
-  if (attr != cudaSuccess) return attr;
-  kern<<<dim3(p.Kh, B), NT, smem, stream>>>(p);
+  const cudaError_t err = p.N / p.Kh <= NW ? launch_split<TQ, TKV, H, 1>(p, B, stream)
+                                           : launch_split<TQ, TKV, H, kMaxRows / NW>(p, B, stream);
+  if (err != cudaSuccess) return err;
+  const size_t merge_smem = 2 * static_cast<size_t>(p.Z) * (p.N / p.Kh) * sizeof(float);
+  static const cudaError_t merge_attr = cudaFuncSetAttribute(
+      paged_merge_kernel<H>, cudaFuncAttributeMaxDynamicSharedMemorySize, 227 * 1024);
+  if (merge_attr != cudaSuccess) return merge_attr;
+  paged_merge_kernel<H><<<dim3(p.Kh, B), NT_MERGE, merge_smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -376,17 +543,21 @@ cudaError_t dispatch_h(int H, const Params& p, int B, cudaStream_t stream) {
 
 // q_dtype: 0 = float32, 1 = bfloat16. kv_dtype: 0 = float32, 1 = bfloat16,
 // 2 = int8 (with k_scales/v_scales); a float pool has q's dtype. R = 0: no
-// ring. All tensors contiguous; returns cudaGetLastError().
+// ring. part_acc [B,Kh,Z,G,H], part_m and part_l [B,Kh,Z,G] fp32 are the
+// splits' scratch, Z = ceil(n_blocks / pages_per_split) + (R > 0). All
+// tensors contiguous; returns cudaGetLastError().
 extern "C" int pt_paged_attention(int q_dtype, int kv_dtype, const void* q, const void* k_pool,
                                   const void* v_pool, const void* k_scales,
                                   const void* v_scales, const void* table, const void* last,
                                   const void* qpos, const void* ring_k, const void* ring_v,
-                                  void* acc, void* m, void* l, int B, int N, int Kh,
-                                  int num_pages, int P, int H, int max_pages, int n_blocks,
+                                  void* acc, void* m, void* l, void* part_acc, void* part_m,
+                                  void* part_l, int B, int N, int Kh, int num_pages, int P,
+                                  int H, int max_pages, int n_blocks, int pages_per_split,
                                   int q_blocks, int R, int ring_step, int window, float scale,
                                   float softcap, void* stream) {
   if (B <= 0 || Kh <= 0 || N % Kh != 0 || N / Kh > kMaxRows || q_blocks < 1 ||
-      (N / Kh) % q_blocks != 0 || P % 16 != 0 || P <= 0 || P > 256 || n_blocks > max_pages ||
+      (N / Kh) % q_blocks != 0 || P % 16 != 0 || P <= 0 || P > 256 || n_blocks < 1 ||
+      n_blocks > max_pages || pages_per_split < 1 ||
       (R > 0 && (ring_step < 0 || ring_step >= R || q_blocks != 1)) ||
       ((kv_dtype == 2) != (k_scales != nullptr && v_scales != nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -405,6 +576,9 @@ extern "C" int pt_paged_attention(int q_dtype, int kv_dtype, const void* q, cons
   p.acc = static_cast<float*>(acc);
   p.m = static_cast<float*>(m);
   p.l = static_cast<float*>(l);
+  p.part_acc = static_cast<float*>(part_acc);
+  p.part_m = static_cast<float*>(part_m);
+  p.part_l = static_cast<float*>(part_l);
   p.N = N;
   p.Kh = Kh;
   p.num_pages = num_pages;
@@ -415,6 +589,9 @@ extern "C" int pt_paged_attention(int q_dtype, int kv_dtype, const void* q, cons
   p.R = R;
   p.ring_step = ring_step;
   p.window = window;
+  p.pages_per_split = pages_per_split;
+  p.n_split = (n_blocks + pages_per_split - 1) / pages_per_split;
+  p.Z = p.n_split + (R > 0 ? 1 : 0);
   p.scale = scale;
   p.softcap = softcap;
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -85,6 +85,21 @@ def flash_attention_plain(
     return o.reshape(B, T, N, H).to(q.dtype), lse
 
 
+def tile_bounds_test(q_pos, kv_pos, window: int = 0) -> Tuple[bool, bool]:
+    """K1's bf16 tile test from bounds alone, as ``csrc/flash_fwd.cu``
+    makes it: ``(live, full)`` for a (q tile, kv tile) given the positions
+    of its real rows and keys. ``live`` is False only when no pair can
+    attend (the kernel skips the tile); ``full`` is True only when every
+    pair attends (the kernel masks nothing there, provided the tile also
+    lies below ``valid[b]``). Positions need not be monotone: the test is
+    conservative for any positions and exact for runs of consecutive ones."""
+    q_lo, q_hi = min(q_pos), max(q_pos)
+    k_lo, k_hi = min(kv_pos), max(kv_pos)
+    live = k_lo <= q_hi and (window <= 0 or q_lo - k_hi < window)
+    full = k_hi <= q_lo and (window <= 0 or q_hi - k_lo < window)
+    return live, full
+
+
 def _check(name: str, q, k, v, extra=()) -> None:
     """The kernels' common contract; raises on what they do not take."""
     B, T, N, H = q.shape
@@ -139,14 +154,17 @@ def flash_attention_fwd(
     scale = scale if scale is not None else H**-0.5
     o = torch.empty_like(q)
     lse = torch.empty((B, N, T), device=q.device, dtype=torch.float32)
+    # The bf16 kernel's per-(batch row, kv tile) position bounds.
+    bounds = torch.empty((B, 2 * -(-S // 32)), device=q.device, dtype=torch.int32)
 
     from pilottai_tpu_torch.ops.kernels.build import load_library
 
-    lib = _bind(load_library("flash_fwd"), "pt_flash_fwd", 8)
+    lib = _bind(load_library("flash_fwd"), "pt_flash_fwd", 9)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     status = lib.pt_flash_fwd(
         _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        qpos.data_ptr(), kpos.data_ptr(), val.data_ptr(), o.data_ptr(), lse.data_ptr(),
+        qpos.data_ptr(), kpos.data_ptr(), val.data_ptr(), bounds.data_ptr(), o.data_ptr(),
+        lse.data_ptr(),
         B, T, S, N, K, H, int(window), float(scale), float(softcap), stream,
     )
     if status != 0:
@@ -342,8 +360,8 @@ def flash_attention(q, k, v, q_positions, kv_positions, valid, window=0,
 
 def _bind(lib: ctypes.CDLL, name: str, n_ptrs: int) -> ctypes.CDLL:
     """Set the argument types of ``name``: the dtype code, ``n_ptrs``
-    tensor pointers (inputs, the three index arrays, outputs), the seven
-    sizes and window, scale, softcap and the stream."""
+    tensor pointers (inputs, the three index arrays, any scratch, outputs),
+    the seven sizes and window, scale, softcap and the stream."""
     fn = getattr(lib, name)
     if fn.argtypes is None:
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float

@@ -6,13 +6,18 @@ online-softmax statistics ``(acc, m, l)`` over each slot's live pages and,
 when a ring is given, over the decode chunk's in-flight rows too, merged
 as ``engine/decode.py:_merge_stats`` merges them. The CUDA source is
 ``csrc/paged_attention.cu``; its header says what bounds it on an H100
-(the live pages' bytes) and what the design leaves for later.
+(the live pages' bytes) and what the design does about it: each slot's
+page walk is cut into splits of ``split_plan`` that run as blocks of their
+own, and a second pass merges the splits' statistics in split order.
+The wrapper allocates that pass's scratch.
 
 For a CUDA tensor the wrapper launches the kernel (or raises); for a CPU
 tensor it runs ``paged_decode_attention_plain``: gather the pages, the
-same masked softmax, the same ring merge. The TPU kernel's ``n_strip``
-(pages per grid cell) has no counterpart: its results are identical
-across strips, and the CUDA kernel has no such grid.
+same masked softmax, the same ring merge.
+``paged_decode_attention_split_plain`` is the same function with the
+kernel's split-and-merge algebra, for the tests. The TPU kernel's
+``n_strip`` (pages per grid cell) has no counterpart: its results are
+identical across strips, and the CUDA kernel has no such grid.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ launches = 0
 SOURCE = "pilottai_tpu_torch/csrc/paged_attention.cu"
 REPLACES = "pilottai_tpu/ops/pallas/paged_attention.py:58"
 MAX_ROWS = 32  # query rows per kv head the kernel takes (N / K, q_blocks included)
+KEYS_PER_SPLIT = 256  # keys' worth of page slots one block of the kernel walks
 _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _HEAD_DIMS = (32, 64, 128)
@@ -62,20 +68,14 @@ def _softmax_stats(s: torch.Tensor, v: torch.Tensor, v_dtype: torch.dtype):
     return acc, m, l
 
 
-def paged_decode_attention_plain(
-    q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor, table: torch.Tensor,
-    last_valid: torch.Tensor, q_positions: torch.Tensor, n_blocks: int, scale: float,
-    softcap: float = 0.0, window: int = 0, q_blocks: int = 1,
-    k_scales: Optional[torch.Tensor] = None, v_scales: Optional[torch.Tensor] = None,
-    ring_k: Optional[torch.Tensor] = None, ring_v: Optional[torch.Tensor] = None,
-    ring_step: int = 0,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain PyTorch K3: ``(acc [B,N,H] fp32, m [B,N], l [B,N])``."""
+def _page_stats(q, k_pool, v_pool, table, last_valid, q_positions, n_blocks, scale, softcap,
+                window, q_blocks, k_scales, v_scales):
+    """``(acc [B,K,G,H], m, l [B,K,G])`` over the first ``n_blocks`` page
+    slots of each slot's table row (no ring)."""
     B, N, H = q.shape
     K, num_pages, P, _ = k_pool.shape
     G = N // K
     dev = q.device
-    table = table.to(dev)
     kg = gather_pages(k_pool, table, n_blocks)                    # [B, K, S, H]
     vg = gather_pages(v_pool, table, n_blocks)
     if k_scales is not None:
@@ -97,24 +97,102 @@ def paged_decode_attention_plain(
         qrow = q_positions.to(dev)[:, None] + torch.arange(G, device=dev) % q_blocks  # [B, G]
         mask = mask & ((qrow[:, None, :, None] - col) < window)
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
-    acc, m, l = _softmax_stats(s, vg, v_dtype)
+    return _softmax_stats(s, vg, v_dtype)
+
+
+def _ring_stats(q, ring_k, ring_v, ring_step, scale, softcap, window):
+    """The decode chunk's ring rows ``0..ring_step`` as a softmax of their own."""
+    B, N, H = q.shape
+    K, R = ring_k.shape[1], ring_k.shape[2]
+    qg = q.reshape(B, K, N // K, H).float()
+    sr = torch.einsum("bkgh,bkrh->bkgr", qg, ring_k.float()) * scale
+    if softcap > 0.0:
+        sr = torch.tanh(sr / softcap) * softcap
+    r = torch.arange(R, device=q.device)
+    rmask = r <= ring_step
+    if window > 0:
+        rmask &= (ring_step - r) < window
+    sr = torch.where(rmask, sr, torch.full_like(sr, NEG_INF))
+    return _softmax_stats(sr, ring_v, ring_v.dtype)
+
+
+def _merge_ring(pages, ring):
+    """The TPU kernel's merge of the pages' and the ring's statistics."""
+    acc, m, l = pages
+    acc_r, m_r, l_r = ring
+    m_new = torch.maximum(m, m_r)
+    wa = torch.where(m > NEG_INF / 2, torch.exp(m - m_new), torch.zeros_like(m))
+    wb = torch.where(m_r > NEG_INF / 2, torch.exp(m_r - m_new), torch.zeros_like(m))
+    return acc * wa[..., None] + acc_r * wb[..., None], m_new, l * wa + l_r * wb
+
+
+def paged_decode_attention_plain(
+    q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor, table: torch.Tensor,
+    last_valid: torch.Tensor, q_positions: torch.Tensor, n_blocks: int, scale: float,
+    softcap: float = 0.0, window: int = 0, q_blocks: int = 1,
+    k_scales: Optional[torch.Tensor] = None, v_scales: Optional[torch.Tensor] = None,
+    ring_k: Optional[torch.Tensor] = None, ring_v: Optional[torch.Tensor] = None,
+    ring_step: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch K3: ``(acc [B,N,H] fp32, m [B,N], l [B,N])``."""
+    B, N, H = q.shape
+    table = table.to(q.device)
+    stats = _page_stats(q, k_pool, v_pool, table, last_valid, q_positions, n_blocks, scale,
+                        softcap, window, q_blocks, k_scales, v_scales)
     if ring_k is not None:
-        R = ring_k.shape[2]
-        sr = torch.einsum("bkgh,bkrh->bkgr", qg, ring_k.float()) * scale
-        if softcap > 0.0:
-            sr = torch.tanh(sr / softcap) * softcap
-        r = torch.arange(R, device=dev)
-        rmask = r <= ring_step
-        if window > 0:
-            rmask &= (ring_step - r) < window
-        sr = torch.where(rmask, sr, torch.full_like(sr, NEG_INF))
-        acc_r, m_r, l_r = _softmax_stats(sr, ring_v, ring_v.dtype)
-        m_new = torch.maximum(m, m_r)
-        wa = torch.where(m > NEG_INF / 2, torch.exp(m - m_new), torch.zeros_like(m))
-        wb = torch.where(m_r > NEG_INF / 2, torch.exp(m_r - m_new), torch.zeros_like(m))
-        acc = acc * wa[..., None] + acc_r * wb[..., None]
-        l = l * wa + l_r * wb
-        m = m_new
+        stats = _merge_ring(stats, _ring_stats(q, ring_k, ring_v, ring_step, scale, softcap,
+                                               window))
+    acc, m, l = stats
+    return acc.reshape(B, N, H), m.reshape(B, N), l.reshape(B, N)
+
+
+def split_plan(n_blocks: int, page_size: int,
+               keys_per_split: int = KEYS_PER_SPLIT) -> Tuple[int, int]:
+    """How the kernel cuts each slot's page walk: ``(pages per split,
+    splits)``. A split is ``KEYS_PER_SPLIT`` keys' worth of page slots (at
+    least one page), so a long slot spreads over many blocks whatever the
+    other slots hold; the plan depends on ``n_blocks`` and the page size
+    alone, which the host knows without reading ``last``."""
+    per = max(1, keys_per_split // page_size)
+    return per, -(-n_blocks // per)
+
+
+def paged_decode_attention_split_plain(
+    q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor, table: torch.Tensor,
+    last_valid: torch.Tensor, q_positions: torch.Tensor, n_blocks: int, scale: float,
+    softcap: float = 0.0, window: int = 0, q_blocks: int = 1,
+    k_scales: Optional[torch.Tensor] = None, v_scales: Optional[torch.Tensor] = None,
+    ring_k: Optional[torch.Tensor] = None, ring_v: Optional[torch.Tensor] = None,
+    ring_step: int = 0, keys_per_split: int = KEYS_PER_SPLIT,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain K3 with the kernel's algebra: each split of ``split_plan``
+    gets its own ``(acc, m, l)`` over its page slots (the other slots
+    turned into the sentinel), the splits are merged in split order with
+    ``m = max m_s`` and weights ``exp(m_s - m)`` (0 for a split with no
+    key), then the ring is merged as in ``paged_decode_attention_plain``."""
+    B, N, H = q.shape
+    num_pages, P = k_pool.shape[1], k_pool.shape[2]
+    table = table.to(q.device)
+    per, n_split = split_plan(n_blocks, P, keys_per_split)
+    parts = []
+    for z in range(n_split):
+        own = table[:, :n_blocks].clone()
+        own[:, : z * per] = num_pages - 1
+        own[:, (z + 1) * per:] = num_pages - 1
+        parts.append(_page_stats(q, k_pool, v_pool, own, last_valid, q_positions, n_blocks,
+                                 scale, softcap, window, q_blocks, k_scales, v_scales))
+    m = torch.stack([m_s for _, m_s, _ in parts]).amax(dim=0)
+    acc = torch.zeros_like(parts[0][0])
+    l = torch.zeros_like(m)
+    for acc_s, m_s, l_s in parts:
+        w = torch.where(m_s > NEG_INF / 2, torch.exp(m_s - m), torch.zeros_like(m_s))
+        acc = acc + w[..., None] * acc_s
+        l = l + w * l_s
+    stats = (acc, m, l)
+    if ring_k is not None:
+        stats = _merge_ring(stats, _ring_stats(q, ring_k, ring_v, ring_step, scale, softcap,
+                                               window))
+    acc, m, l = stats
     return acc.reshape(B, N, H), m.reshape(B, N), l.reshape(B, N)
 
 
@@ -207,6 +285,10 @@ def _launch(q, k_pool, v_pool, table, last_valid, q_positions, n_blocks, scale, 
     acc = torch.empty((B, N, H), device=dev, dtype=torch.float32)
     m = torch.empty((B, N), device=dev, dtype=torch.float32)
     l = torch.empty((B, N), device=dev, dtype=torch.float32)
+    per, n_split = split_plan(n_blocks, P)
+    Z = n_split + (1 if R else 0)
+    part_acc = torch.empty((B, K, Z, N // K, H), device=dev, dtype=torch.float32)
+    part_ml = torch.empty((2, B, K, Z, N // K), device=dev, dtype=torch.float32)
 
     from pilottai_tpu_torch.ops.kernels.build import load_library
 
@@ -216,7 +298,8 @@ def _launch(q, k_pool, v_pool, table, last_valid, q_positions, n_blocks, scale, 
         _Q_DTYPES[q.dtype], _KV_DTYPES[k_pool.dtype], q.data_ptr(), k_pool.data_ptr(),
         v_pool.data_ptr(), ptr(k_scales), ptr(v_scales), tbl.data_ptr(), last.data_ptr(),
         qpos.data_ptr(), ptr(ring_k), ptr(ring_v), acc.data_ptr(), m.data_ptr(), l.data_ptr(),
-        B, N, K, num_pages, P, H, tbl.shape[1], n_blocks, q_blocks, R, step, int(window),
+        part_acc.data_ptr(), part_ml[0].data_ptr(), part_ml[1].data_ptr(),
+        B, N, K, num_pages, P, H, tbl.shape[1], n_blocks, per, q_blocks, R, step, int(window),
         float(scale), float(softcap), torch.cuda.current_stream(dev).cuda_stream,
     )
     if status != 0:
@@ -232,7 +315,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn = lib.pt_paged_attention
     if fn.argtypes is None:
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [I, I] + [P] * 13 + [I] * 12 + [F, F, P]
+        fn.argtypes = [I, I] + [P] * 16 + [I] * 13 + [F, F, P]
         fn.restype = I
         lib.pt_error_string.argtypes = [I]
         lib.pt_error_string.restype = ctypes.c_char_p
