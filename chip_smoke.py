@@ -21,11 +21,12 @@ result line is printed only when every phase passed):
    same three head dims with G = 4 and G = 1, an empty row, T != S with
    offset query positions, a window, a soft-cap and a nonzero lse
    cotangent, each run twice to show bit-identical gradients (limits in
-   ``TOL``); then edge cases of the redesigned K1 and K3 (Tq and S off
-   the tiles, rows with no key, key positions out of order; K3's slots
-   ending mid-page and at a split's end, windows that leave whole splits
-   dead, 8 and 32 query rows per kv head, int8 pools at P 16 and 256).
-   K1 and K3 also run twice and must give the same bits;
+   ``TOL``); then edge cases of the redesigned K1, K3, K4 and K5 (Tq and
+   S off the tiles, rows with no key, key positions out of order; K3's
+   slots ending mid-page and at a split's end, windows that leave whole
+   splits dead, 8 and 32 query rows per kv head, int8 pools at P 16 and
+   256; K4/K5 also at G = 1 and 4 and all three head dims). K1 and K3
+   also run twice and must give the same bits;
 4. golden — the committed protocol-s checkpoint in fp32 (TF32 off) served
    through ``LLMHandler.generate_response``, once on the dense cache and
    once paged with chunked prefill; the greedy token ids must equal
@@ -130,7 +131,7 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # H100 SXM dense bf16 (tens
 # cores) and fp32 outside the tensor cores (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 # Kernel names of csrc/ that a profile lists apart, wherever they rank.
-PORT_KERNEL_NAMES = ("flash_fwd", "kv_tile_bounds", "decode_stats", "paged_split", "paged_merge",
+PORT_KERNEL_NAMES = ("flash_fwd", "tile_bounds", "decode_stats", "paged_split", "paged_merge",
                      "flash_bwd")
 
 
@@ -346,9 +347,10 @@ def check_paged(torch, pa, gen, device, name, dtype, B, N, K, H, P, lengths, rin
 
 
 def check_flash_bwd(torch, fa, gen, device, name, dtype, B, T, S, N, K, H, valid, window=0,
-                    softcap=0.0, offset=0, dlse=False):
+                    softcap=0.0, offset=0, dlse=False, shuffle=False):
     """K4 and K5 through ``flash_attention_bwd`` (twice: the gradients must
     be the same bits) against the plain backward, on K1's own (o, lse).
+    Keys at positions 0..S-1, shuffled along the key axis with ``shuffle``.
     Returns (ok, dq's gated error, dk's and dv's)."""
     dn = str(dtype)[6:]
     q = randn(torch, gen, (B, T, N, H), dtype, device)
@@ -358,6 +360,9 @@ def check_flash_bwd(torch, fa, gen, device, name, dtype, B, T, S, N, K, H, valid
     dl = randn(torch, gen, (B, T, N), torch.float32, device) if dlse else None
     qpos = (torch.arange(T, device=device, dtype=torch.int32) + offset)[None].repeat(B, 1)
     kpos = torch.arange(S, device=device, dtype=torch.int32)[None].repeat(B, 1)
+    if shuffle:
+        kpos = torch.stack([kpos[b, torch.randperm(S, generator=gen, device=device)]
+                            for b in range(B)])
     val = torch.tensor(valid, device=device, dtype=torch.int32)
     args = (q, k, v, qpos, kpos, val, window)
     o, lse = fa.flash_attention_fwd(*args, None, softcap)
@@ -393,9 +398,12 @@ def phase_kernels(torch, fa, da, pa, device, seed):
     # saw before the backward kernels existed.
     bgen = torch.Generator(device=device)
     bgen.manual_seed(seed)
-    # So do the edge cases added with the redesigned K1 and K3.
+    # So do the edge cases added with the redesigned K1 and K3, and those
+    # added with the redesigned K4 and K5.
     egen = torch.Generator(device=device)
     egen.manual_seed(seed)
+    begen = torch.Generator(device=device)
+    begen.manual_seed(seed)
     results, worst = [], {}
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype)[6:]
@@ -518,6 +526,36 @@ def phase_kernels(torch, fa, da, pa, device, seed):
             ok, err = check_paged(torch, pa, egen, device, name, dtype, **kw)
             results.append(ok)
             worst[("paged", dn)] = max(worst.get(("paged", dn), 0.0), err)
+        # K4 and K5: Tq and S off the 64-row tiles (and off K5's 32-row q
+        # tiles at head_dim 128), query rows offset into the keys, rows with
+        # no key, key positions out of order, G = 1 and G = 4, so the tile
+        # bounds meet boundary, full and dead tiles on both sides.
+        bwd_edges = [
+            ("llama3-1b H64 Tq200 S333 offset 133", dict(B=2, T=200, S=333, N=32, K=8, H=64,
+                                                         valid=[333, 150], offset=133,
+                                                         dlse=True)),
+            ("llama3-1b H64 Tq77 no-key rows window", dict(B=2, T=77, S=77, N=32, K=8, H=64,
+                                                           valid=[77, 0], offset=-10,
+                                                           window=5)),
+            ("H64 G1 Tq130 S300 shuffled keys", dict(B=2, T=130, S=300, N=4, K=4, H=64,
+                                                     valid=[300, 211], offset=170,
+                                                     shuffle=True, dlse=True)),
+            ("llama3-8b H128 Tq130 S300 shuffled softcap", dict(B=2, T=130, S=300, N=32, K=8,
+                                                                H=128, valid=[300, 211],
+                                                                offset=170, softcap=30.0,
+                                                                shuffle=True)),
+            ("llama3-8b H128 G4 Tq45 S190 window", dict(B=3, T=45, S=190, N=32, K=8, H=128,
+                                                        valid=[190, 100, 0], offset=145,
+                                                        window=30)),
+            ("H32 G1 Tq45 S190 shuffled", dict(B=3, T=45, S=190, N=4, K=4, H=32,
+                                                          valid=[190, 100, 0], offset=145,
+                                                          shuffle=True, dlse=True)),
+        ]
+        for name, kw in bwd_edges:
+            ok, err_dq, err_dkv = check_flash_bwd(torch, fa, begen, device, name, dtype, **kw)
+            results.append(ok)
+            worst[("bwd_dq", dn)] = max(worst.get(("bwd_dq", dn), 0.0), err_dq)
+            worst[("bwd_dkv", dn)] = max(worst.get(("bwd_dkv", dn), 0.0), err_dkv)
     if not all(results):
         raise SystemExit("kernel check failed")
     return worst
@@ -1525,7 +1563,8 @@ def main() -> int:
     for name, (secs, text) in build.build_log.items():
         log(f"  {name}: nvcc {secs:.1f} s")
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or "error" in line.lower():
+            if ("entry function" in line or "registers" in line or "spill" in line
+                    or "error" in line.lower()):
                 log(f"    {line.strip()}")
 
     log("== 3. kernels vs plain versions")

@@ -24,20 +24,29 @@
 // across blocks, so the gradients are the same bits on every run. q tiles
 // in which no (query, key) pair is live are skipped (causal training visits
 // about half of them), and a block whose keys all lie at or past valid[b]
-// only writes zeros. In bf16 the four products run on the tensor cores
-// through WMMA (bf16 operands, fp32 accumulate): p is rounded to bf16 for
-// dv, ds to bf16 for dk, as the TPU kernel rounds them to v's and q's
-// dtypes. In fp32 every product runs on the CUDA cores in full fp32 (never
-// TF32), so it matches the reference up to summation order.
-// Left on the table: wgmma with TMA-fed shared-memory rings, a persistent
-// schedule, and sharing one pass over the tiles with K4.
+// only writes zeros. In bf16 (flash_bwd_dkv_bf16_tc_kernel, described above
+// it) the four products run on wgmma, Hopper's warpgroup product, with s,
+// dp, p and ds in registers and the q-side operands streamed through a
+// cp.async ring; p is rounded to bf16 for dv, ds to bf16 for dk, as the TPU
+// kernel rounds them to v's and q's dtypes. In fp32 every product runs on
+// the CUDA cores in full fp32 (never TF32), so it matches the reference up
+// to summation order.
+// Left on the table: S^T and dP^T read both operands from shared memory,
+// and an m64n64k16 product reads as many bytes a cycle as shared memory
+// delivers, so K and V held in registers (they are resident) or wider
+// tiles would relieve it, at the cost of registers that now buy
+// occupancy; TMA from a producer warp and two consumer warpgroups sharing
+// each q and dO tile (a 128-key block halves the q-side traffic and puts
+// one warpgroup's products under the other's elementwise work); a
+// persistent schedule; and sharing the recomputed p with K4 in one pass.
 
 #include <climits>
 #include <cstdint>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -199,221 +208,339 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_fp32_kernel(
   }
 }
 
-// bf16 path: TC_BK = 64 keys of one kv head per block; each of its 4 warps
-// owns 16 of them end to end (the transposed s and dp tiles, p and ds, and
-// the dk and dv accumulators in WMMA fragments), so after a q tile of one
-// head is staged a warp needs only __syncwarp. Tiles arrive with 16-byte
-// loads; shared-memory rows are padded by 8 bf16 / 4 floats so fragment
-// loads spread over the banks, and every fragment pointer is 32-byte
-// aligned, as WMMA requires.
-constexpr int TC_BK = 64, TC_BQ = 64, TC_NT = 128;
+// bf16 path. A block is one warpgroup (4 warps, 128 threads) holding
+// V_BK = 64 keys of one kv head, its K and V rows staged once and resident.
+// It walks the flattened sequence of (live q tile, query head) items, BQ q
+// rows each (64; 32 at head_dim 128, where dK and dV alone take 128
+// registers a thread), and per item:
+//   S^T = K Q^T and dP^T = V dO^T: wgmma m64 x BQ, both operands K-major
+//     panels with the 128-byte swizzle, issued as two groups;
+//   p on S^T's registers while dP^T is still computed: the rows are keys and
+//     the columns q rows, so each thread reads lse (and q positions, on a
+//     boundary item) of the columns it holds from shared memory;
+//     p = 2^(s scale log2(e) - lse log2(e)), rounded to bf16 and packed as
+//     wgmma's register A operand;
+//   dV += P^T dO: wgmma m64 x H, dO read as the MN-major B operand of the
+//     same swizzled panels that dP^T read K-major;
+//   ds = p (dp - delta), times (1 - t^2) under a soft-cap, rounded and
+//     packed likewise, and dK += dS^T Q from Q's panels.
+// s, dp, p and ds never touch shared memory; dK and dV stay in registers
+// until the epilogue. Head_dim 32 is staged zero-padded to one 64-column
+// panel, so every product is wgmma at every head_dim. The items' q, dO,
+// lse, delta and q positions come through a 2-stage cp.async ring, so the
+// next item (the next query head of the same q tile, or the next live q
+// tile) arrives while this one is computed. A column whose lse is NEG_INF,
+// or past Tq, carries lse = +inf into the exponent, which gives p = 0.
+//
+// Liveness comes from position bounds, by K1's rule (tile_live, tile_full
+// in hopper.cuh): a first small launch (tile_bounds_kernel) reduces each
+// (batch row, q tile) to its q-position bounds, each block reduces its own
+// keys' (below valid[b]), and an item is skipped, taken whole (no mask) or
+// masked pair by pair. The grid starts with the first kv tiles, which
+// under causal positions have the most live q tiles; a block walks its q
+// tiles from the last.
+constexpr int V_BK = 64, V_NT = 128;
+// q rows per item.
+template <int H> __host__ __device__ constexpr int v_bq() { return H == 128 ? 32 : 64; }
+// Blocks an SM: three from head_dim 64 down (a little spilling, measured
+// faster than two without), two at 128, where dK and dV alone fill 128
+// registers a thread.
+template <int H> constexpr int v_min_blocks() { return H == 128 ? 2 : 3; }
 
 template <int H>
-constexpr size_t tc_smem_bytes() {
-  return static_cast<size_t>(2 * TC_BK * (H + 8) + 2 * TC_BQ * (H + 8) +
-                             2 * TC_BK * (TC_BQ + 8)) *
-             sizeof(__nv_bfloat16) +
-         static_cast<size_t>(2 * TC_BK * (TC_BQ + 4) + 2 * TC_BQ) * sizeof(float) +
-         static_cast<size_t>(TC_BQ + TC_BK) * sizeof(int);
+constexpr size_t v_smem_bytes() {
+  return 1024 + static_cast<size_t>(2 * V_BK + 4 * v_bq<H>()) * staged_cols<H>() *
+                    sizeof(__nv_bfloat16) +
+         static_cast<size_t>(2 * 3 * v_bq<H>()) * sizeof(float);
 }
 
 template <int H>
-__global__ void __launch_bounds__(TC_NT) flash_bwd_dkv_bf16_tc_kernel(
+__global__ void __launch_bounds__(V_NT, v_min_blocks<H>()) flash_bwd_dkv_bf16_tc_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
     const int32_t* __restrict__ qpos, const int32_t* __restrict__ kpos,
-    const int32_t* __restrict__ valid, float* __restrict__ dk, float* __restrict__ dv, int Tq,
-    int S, int N, int Kh, int window, float scale, float softcap) {
-  using namespace nvcuda;
-  constexpr int BK = TC_BK, BQ = TC_BQ, NT = TC_NT;
-  constexpr int LDH = H + 8;   // bf16 row stride of the K, V, Q and dO tiles
-  constexpr int LDP = BQ + 8;  // bf16 row stride of p^T and ds^T
-  constexpr int LDS = BQ + 4;  // float row stride of the s^T and dp^T tiles
-  constexpr int LDO = H + 4;   // float row stride of the output staging (reuses them)
-  constexpr int VEC = 8;       // bf16 per 16-byte load
-  static_assert(H % 16 == 0 && BQ % 32 == 0, "WMMA tiles");
-  static_assert(LDO <= 2 * LDS, "the output staging fits in the s and dp tiles");
+    const int32_t* __restrict__ valid, const int2* __restrict__ bounds, float* __restrict__ dk,
+    float* __restrict__ dv, int Tq, int S, int N, int Kh, int window, float scale,
+    float softcap) {
+  constexpr int BQ = v_bq<H>();
+  constexpr int HP = staged_cols<H>();
+  constexpr int CPR = HP / 8;      // 16-byte chunks per staged row
+  constexpr int KSTEPS = HP / 16;  // k-steps of S^T and dP^T over the head dim
+  constexpr int SNT = BQ / 8;      // n-tiles of s^T and dp^T
+  constexpr int ONT = HP / 8;      // n-tiles of dk and dv
+  static_assert(V_BK == 16 * (V_NT / 32) && BQ % 16 == 0 && HP % 64 == 0, "wgmma tiles");
 
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BK][LDH]
-  __nv_bfloat16* sV = sK + BK * LDH;                                 // [BK][LDH]
-  __nv_bfloat16* sQ = sV + BK * LDH;                                 // [BQ][LDH]
-  __nv_bfloat16* sDO = sQ + BQ * LDH;                                // [BQ][LDH]
-  __nv_bfloat16* sPt = sDO + BQ * LDH;                               // [BK][LDP]
-  __nv_bfloat16* sDSt = sPt + BK * LDP;                              // [BK][LDP]
-  float* sS = reinterpret_cast<float*>(sDSt + BK * LDP);             // [BK][LDS]
-  float* sDP = sS + BK * LDS;                                        // [BK][LDS]
-  float* sLse = sDP + BK * LDS;
-  float* sDelta = sLse + BQ;
-  int* sQpos = reinterpret_cast<int*>(sDelta + BQ);
-  int* sKpos = sQpos + BQ;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  // The swizzle pattern follows address bits: tiles start 1024-aligned.
+  const uint32_t smem_addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  unsigned char* base = smem_raw + ((1024 - (smem_addr & 1023)) & 1023);
+  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(base);  // [BK][HP]
+  __nv_bfloat16* sV = sK + V_BK * HP;                           // [BK][HP]
+  __nv_bfloat16* sQ = sV + V_BK * HP;                           // [2][BQ][HP]
+  __nv_bfloat16* sDO = sQ + 2 * BQ * HP;                        // [2][BQ][HP]
+  float* sLse = reinterpret_cast<float*>(sDO + 2 * BQ * HP);    // [2][BQ]
+  float* sDelta = sLse + 2 * BQ;                                // [2][BQ]
+  int* sQpos = reinterpret_cast<int*>(sDelta + 2 * BQ);         // [2][BQ]
+  auto at = [](__nv_bfloat16* tile, int r, int c, int rows) {
+    return reinterpret_cast<unsigned char*>(tile) + swizzled(r, c, rows);
+  };
 
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int j0 = blockIdx.x * BK;
-  const int kh = blockIdx.y;
-  const int b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int kh = blockIdx.x, b = blockIdx.y;
+  const int j0 = blockIdx.z * V_BK;  // the first kv tiles, the longest, first
   const int G = N / Kh;
   const int kv_end = min(S, valid[b]);
-  const int r0 = warp * 16;  // this warp's first key in the tile
+  const bool capped = softcap > 0.f;
+  const float sl2 = scale * kLog2e;
+  const float inf = __int_as_float(0x7f800000);
 
-  for (int idx = tid; idx < BK * (H / VEC); idx += NT) {
-    const int j = idx / (H / VEC), c = (idx % (H / VEC)) * VEC, s = j0 + j;
-    uint4 kx = make_uint4(0u, 0u, 0u, 0u), vx = kx;
+  // K and V go in flight first (keys past valid[b] and padded columns
+  // zero-filled); the keys' positions and bounds are read meanwhile.
+  for (int idx = tid; idx < V_BK * CPR; idx += V_NT) {
+    const int r = idx / CPR, c = (idx % CPR) * 8, s = j0 + r;
+    const bool real = s < kv_end && c < H;
+    const size_t off =
+        ((static_cast<size_t>(b) * S + (s < kv_end ? s : 0)) * Kh + kh) * H + (c < H ? c : 0);
+    cp_async16_zfill(at(sK, r, c, V_BK), k + off, real);
+    cp_async16_zfill(at(sV, r, c, V_BK), v + off, real);
+  }
+  cp_async_commit();
+  const int r_lo = warp * 16 + (lane >> 2);  // this lane's two keys: r_lo and r_lo + 8
+  const int cq = (lane & 3) * 2;             // and its column pair within an n-tile
+  int kp[2];
+  bool key_ok[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int s = j0 + r_lo + 8 * hr;
+    key_ok[hr] = s < kv_end;
+    kp[hr] = key_ok[hr] ? kpos[static_cast<size_t>(b) * S + s] : INT_MAX;
+  }
+  int kmin = INT_MAX, kmax = INT_MIN;  // over the tile's keys below valid[b], in every warp
+  for (int r = lane; r < V_BK; r += 32) {
+    const int s = j0 + r;
     if (s < kv_end) {
-      const size_t off = ((static_cast<size_t>(b) * S + s) * Kh + kh) * H + c;
-      kx = *reinterpret_cast<const uint4*>(k + off);
-      vx = *reinterpret_cast<const uint4*>(v + off);
+      const int p = kpos[static_cast<size_t>(b) * S + s];
+      kmin = min(kmin, p);
+      kmax = max(kmax, p);
     }
-    *reinterpret_cast<uint4*>(sK + j * LDH + c) = kx;
-    *reinterpret_cast<uint4*>(sV + j * LDH + c) = vx;
   }
-  for (int j = tid; j < BK; j += NT) {
-    const int s = j0 + j;
-    sKpos[j] = s < kv_end ? kpos[static_cast<size_t>(b) * S + s] : INT_MAX;
-  }
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> dk_acc[H / 16], dv_acc[H / 16];
-#pragma unroll
-  for (int nb = 0; nb < H / 16; ++nb) {
-    wmma::fill_fragment(dk_acc[nb], 0.f);
-    wmma::fill_fragment(dv_acc[nb], 0.f);
-  }
+  kmin = warp_min_i(kmin);
+  kmax = warp_max_i(kmax);
 
-  for (int t0 = 0; j0 < kv_end && t0 < Tq; t0 += BQ) {
-    if (!stage_q_tile<BQ, BK, NT>(qpos, sQpos, sKpos, b, t0, Tq, j0, kv_end, window)) continue;
-    for (int g = 0; g < G; ++g) {
-      const int n = kh * G + g;
-      __syncthreads();  // every warp is done with the previous head's tiles
-      for (int idx = tid; idx < BQ * (H / VEC); idx += NT) {
-        const int i = idx / (H / VEC), c = (idx % (H / VEC)) * VEC, t = t0 + i;
-        uint4 qx = make_uint4(0u, 0u, 0u, 0u), dx = qx;
-        if (t < Tq) {
-          const size_t off = ((static_cast<size_t>(b) * Tq + t) * N + n) * H + c;
-          qx = *reinterpret_cast<const uint4*>(q + off);
-          dx = *reinterpret_cast<const uint4*>(dout + off);
-        }
-        *reinterpret_cast<uint4*>(sQ + i * LDH + c) = qx;
-        *reinterpret_cast<uint4*>(sDO + i * LDH + c) = dx;
+  const int n_qt = (Tq + BQ - 1) / BQ;
+  const int2* q_bounds = bounds + static_cast<size_t>(b) * n_qt;
+  // The first live q tile at or before i (-1 if none), and its bounds.
+  auto next_live = [&](int i, int& qmin, int& qmax) {
+    for (; i >= 0; --i) {
+      const int2 qb = q_bounds[i];
+      qmin = qb.x;
+      qmax = qb.y;
+      if (tile_live(qmin, qmax, kmin, kmax, window)) return i;
+    }
+    return -1;
+  };
+  auto load_item = [&](int i, int g, int st) {
+    const int t0 = i * BQ, nh = kh * G + g;
+    for (int idx = tid; idx < BQ * CPR; idx += V_NT) {
+      const int r = idx / CPR, c = (idx % CPR) * 8, t = t0 + r;
+      const bool real = t < Tq && c < H;
+      const size_t off =
+          ((static_cast<size_t>(b) * Tq + min(t, Tq - 1)) * N + nh) * H + (c < H ? c : 0);
+      cp_async16_zfill(at(sQ + st * BQ * HP, r, c, BQ), q + off, real);
+      cp_async16_zfill(at(sDO + st * BQ * HP, r, c, BQ), dout + off, real);
+    }
+    const size_t row = (static_cast<size_t>(b) * N + nh) * Tq;
+    for (int idx = tid; idx < 3 * BQ; idx += V_NT) {
+      const int which = idx / BQ, r = idx % BQ, t = t0 + r, tc = min(t, Tq - 1);
+      if (which == 0) cp_async4_zfill(sLse + st * BQ + r, lse + row + tc, t < Tq);
+      if (which == 1) cp_async4_zfill(sDelta + st * BQ + r, delta + row + tc, t < Tq);
+      if (which == 2) {
+        cp_async4_zfill(sQpos + st * BQ + r, qpos + static_cast<size_t>(b) * Tq + tc, t < Tq);
       }
-      for (int i = tid; i < BQ; i += NT) {
-        const int t = t0 + i;
-        const size_t row = (static_cast<size_t>(b) * N + n) * Tq + t;
-        sLse[i] = t < Tq ? lse[row] : kNegInf;
-        sDelta[i] = t < Tq ? delta[row] : 0.f;
-      }
-      __syncthreads();
+    }
+  };
 
-      // s^T = K Q^T, then dp^T = V dO^T, for the warp's 16 keys.
+  int qmin = INT_MAX, qmax = INT_MIN;
+  int i = next_live(n_qt - 1, qmin, qmax), g = 0;
+  if (i >= 0) load_item(i, 0, 0);
+  cp_async_commit();
+
+  float dk_acc[ONT][4], dv_acc[ONT][4];
 #pragma unroll
-      for (int which = 0; which < 2; ++which) {
-        const __nv_bfloat16* A = which == 0 ? sK : sV;
-        const __nv_bfloat16* Bm = which == 0 ? sQ : sDO;
-        float* out = which == 0 ? sS : sDP;
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[BQ / 16];
+  for (int nt = 0; nt < ONT; ++nt) {
 #pragma unroll
-        for (int nb = 0; nb < BQ / 16; ++nb) wmma::fill_fragment(acc[nb], 0.f);
+    for (int e = 0; e < 4; ++e) dk_acc[nt][e] = dv_acc[nt][e] = 0.f;
+  }
+  const unsigned char* kb = reinterpret_cast<const unsigned char*>(sK);
+  const unsigned char* vb = reinterpret_cast<const unsigned char*>(sV);
+  int st = 0;
+
+  while (i >= 0) {
+    // The next item: the next query head of this q tile, else the first
+    // head of the next live q tile below it.
+    int in = i, gn = g + 1, qmin_n = qmin, qmax_n = qmax;
+    if (gn == G) {
+      gn = 0;
+      in = next_live(i - 1, qmin_n, qmax_n);
+    }
+    if (in >= 0) load_item(in, gn, st ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // K, V and this item have landed (this thread's copies)
+    fence_proxy_async();
+    __syncthreads();     // ... and every thread's
+    const unsigned char* qb = reinterpret_cast<const unsigned char*>(sQ + st * BQ * HP);
+    const unsigned char* dob = reinterpret_cast<const unsigned char*>(sDO + st * BQ * HP);
+
+    // S^T = K Q^T and dP^T = V dO^T; k-step ks starts 32 bytes per step
+    // into 64-column panel ks / 4 of each operand.
+    float sacc[SNT][4], pacc[SNT][4];
 #pragma unroll
-        for (int kk = 0; kk < H; kk += 16) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-          wmma::load_matrix_sync(a, A + r0 * LDH + kk, LDH);
+    for (int nt = 0; nt < SNT; ++nt) {
 #pragma unroll
-          for (int nb = 0; nb < BQ / 16; ++nb) {
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> bq;
-            wmma::load_matrix_sync(bq, Bm + nb * 16 * LDH + kk, LDH);
-            wmma::mma_sync(acc[nb], a, bq, acc[nb]);
+      for (int e = 0; e < 4; ++e) sacc[nt][e] = pacc[nt][e] = 0.f;
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < KSTEPS; ++ks) {
+      const int panel = ks >> 2, koff = (ks & 3) * 32;
+      wgmma_bf16(sacc, wgmma_desc(kb + panel * V_BK * 128 + koff),
+                 wgmma_desc(qb + panel * BQ * 128 + koff), ks > 0);
+    }
+    wgmma_commit();
+#pragma unroll
+    for (int ks = 0; ks < KSTEPS; ++ks) {
+      const int panel = ks >> 2, koff = (ks & 3) * 32;
+      wgmma_bf16(pacc, wgmma_desc(vb + panel * V_BK * 128 + koff),
+                 wgmma_desc(dob + panel * BQ * 128 + koff), ks > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();  // S^T has landed; dP^T is still in flight
+    wgmma_fence_operands(sacc);
+
+    // p while dP^T is computed, packed as the A operand of P^T dO; on a
+    // boundary item, the pair mask. Column c of n-tile nt is q row
+    // t0 + nt*8 + cq + (e & 1). s^T's registers keep p, times (1 - t^2)
+    // under a soft-cap: ds's factor.
+    const bool full = j0 + V_BK <= kv_end && tile_full(qmin, qmax, kmin, kmax, window);
+    const int t0 = i * BQ;
+    uint32_t pf[BQ / 16][4], dsf[BQ / 16][4];
+#pragma unroll
+    for (int nt = 0; nt < SNT; ++nt) {
+      const int col = nt * 8 + cq;
+      const float2 l2 = *reinterpret_cast<const float2*>(sLse + st * BQ + col);
+      const int2 p2 = *reinterpret_cast<const int2*>(sQpos + st * BQ + col);
+      float lb[2];
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const float l = u ? l2.y : l2.x;
+        lb[u] = t0 + col + u < Tq && l > kNegInf * 0.5f ? l * kLog2e : inf;
+      }
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        float pu[2];
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int e = 2 * hr + u;
+          float th = 0.f, p;
+          if (capped) {
+            th = tanhf(sacc[nt][e] * scale / softcap);
+            p = ex2(th * softcap * kLog2e - lb[u]);
+          } else {
+            p = ex2(fmaf(sacc[nt][e], sl2, -lb[u]));
           }
+          if (!full) p = key_ok[hr] && attends(u ? p2.y : p2.x, kp[hr], window) ? p : 0.f;
+          pu[u] = p;
+          sacc[nt][e] = capped ? p * (1.f - th * th) : p;
         }
-#pragma unroll
-        for (int nb = 0; nb < BQ / 16; ++nb) {
-          wmma::store_matrix_sync(out + r0 * LDS + nb * 16, acc[nb], LDS, wmma::mem_row_major);
-        }
-      }
-      __syncwarp();
-
-      // p^T and ds^T for the warp's keys, rounded to bf16 for the products.
-      for (int r = 0; r < 16; ++r) {
-        const int j = r0 + r;
-        const int kp = sKpos[j];
-        const bool key_ok = j0 + j < kv_end;
-#pragma unroll
-        for (int u = 0; u < BQ / 32; ++u) {
-          const int i = lane + 32 * u;
-          const float lse_i = sLse[i];
-          float s = sS[j * LDS + i] * scale, th = 0.f;
-          if (softcap > 0.f) {
-            th = tanhf(s / softcap);
-            s = th * softcap;
-          }
-          const bool ok = key_ok && t0 + i < Tq && lse_i > kNegInf * 0.5f &&
-                          attends(sQpos[i], kp, window);
-          const float p = ok ? expf(s - lse_i) : 0.f;
-          float ds = p * (sDP[j * LDS + i] - sDelta[i]);
-          if (softcap > 0.f) ds *= 1.f - th * th;
-          sPt[j * LDP + i] = __float2bfloat16(p);
-          sDSt[j * LDP + i] = __float2bfloat16(ds);
-        }
-      }
-      __syncwarp();
-
-      // dv += p^T dO and dk += ds^T Q for the warp's keys.
-#pragma unroll
-      for (int kk = 0; kk < BQ; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> ap, ads;
-        wmma::load_matrix_sync(ap, sPt + r0 * LDP + kk, LDP);
-        wmma::load_matrix_sync(ads, sDSt + r0 * LDP + kk, LDP);
-#pragma unroll
-        for (int nb = 0; nb < H / 16; ++nb) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> bd, bq;
-          wmma::load_matrix_sync(bd, sDO + kk * LDH + nb * 16, LDH);
-          wmma::mma_sync(dv_acc[nb], ap, bd, dv_acc[nb]);
-          wmma::load_matrix_sync(bq, sQ + kk * LDH + nb * 16, LDH);
-          wmma::mma_sync(dk_acc[nb], ads, bq, dk_acc[nb]);
-        }
+        pf[nt >> 1][(nt & 1) * 2 + hr] = pack_bf16(pu[0], pu[1]);
       }
     }
+
+    // dV += P^T dO: q rows kk*16 on are 16 swizzled rows into each panel of
+    // dO.
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      wgmma_bf16_rs(dv_acc, pf[kk], wgmma_desc_mn(dob + kk * 16 * 128, BQ * 128));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();  // dP^T and P^T dO have landed: P^T's registers are free
+    wgmma_fence_operands(pf);
+    wgmma_fence_operands(pacc);
+#pragma unroll
+    for (int nt = 0; nt < SNT; ++nt) {
+      const float2 d2 = *reinterpret_cast<const float2*>(sDelta + st * BQ + nt * 8 + cq);
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int e = 2 * hr;
+        dsf[nt >> 1][(nt & 1) * 2 + hr] = pack_bf16(sacc[nt][e] * (pacc[nt][e] - d2.x),
+                                                    sacc[nt][e + 1] * (pacc[nt][e + 1] - d2.y));
+      }
+    }
+
+    // dK += dS^T Q, from the same panels of Q that S^T read K-major.
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      wgmma_bf16_rs(dk_acc, dsf[kk], wgmma_desc_mn(qb + kk * 16 * 128, BQ * 128));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_fence_operands(dv_acc);
+    wgmma_fence_operands(dk_acc);
+    __syncthreads();  // every warp is done with stage st before it is refilled
+    st ^= 1;
+    i = in;
+    g = gn;
+    qmin = qmin_n;
+    qmax = qmax_n;
   }
-  // A full barrier: the staging below overlaps other warps' s and dp rows,
-  // and when no q tile ran it is the first barrier after the staging above.
-  __syncthreads();
+  cp_async_wait<0>();  // nothing may land after the block exits
 
-  float* sOut = sS;  // [BK][LDO]
+  // Every key below S is written: keys at or past valid[b] get zeros.
 #pragma unroll
-  for (int which = 0; which < 2; ++which) {
+  for (int hr = 0; hr < 2; ++hr) {
+    const int s = j0 + r_lo + 8 * hr;
+    if (s >= S) continue;
+    const size_t off = ((static_cast<size_t>(b) * S + s) * Kh + kh) * H + cq;
 #pragma unroll
-    for (int nb = 0; nb < H / 16; ++nb) {
-      wmma::store_matrix_sync(sOut + r0 * LDO + nb * 16, which == 0 ? dk_acc[nb] : dv_acc[nb],
-                              LDO, wmma::mem_row_major);
+    for (int nt = 0; nt < ONT; ++nt) {
+      if (nt * 8 >= H) continue;
+      *reinterpret_cast<float2*>(dk + off + nt * 8) =
+          make_float2(dk_acc[nt][2 * hr] * scale, dk_acc[nt][2 * hr + 1] * scale);
+      *reinterpret_cast<float2*>(dv + off + nt * 8) =
+          make_float2(dv_acc[nt][2 * hr], dv_acc[nt][2 * hr + 1]);
     }
-    __syncwarp();
-    float* dst = which == 0 ? dk : dv;
-    const float mul = which == 0 ? scale : 1.f;
-    for (int idx = lane; idx < 16 * H; idx += 32) {
-      const int j = r0 + idx / H, h = idx % H, s = j0 + j;
-      if (s < S) dst[((static_cast<size_t>(b) * S + s) * Kh + kh) * H + h] = sOut[j * LDO + h] * mul;
-    }
-    __syncwarp();
   }
 }
 
+// bounds: scratch of B * ceil(Tq / 32) int2 (32: the smallest v_bq), filled
+// by the first launch.
 template <int H>
 cudaError_t launch_bf16_tc(const void* q, const void* k, const void* v, const void* dout,
                            const void* lse, const void* delta, const void* qpos, const void* kpos,
-                           const void* valid, void* dk, void* dv, int B, int Tq, int S, int N,
-                           int Kh, int window, float scale, float softcap, cudaStream_t stream) {
-  constexpr size_t smem = tc_smem_bytes<H>();
+                           const void* valid, void* bounds, void* dk, void* dv, int B, int Tq,
+                           int S, int N, int Kh, int window, float scale, float softcap,
+                           cudaStream_t stream) {
+  constexpr int BQ = v_bq<H>();
+  constexpr size_t smem = v_smem_bytes<H>();
   auto kern = flash_bwd_dkv_bf16_tc_kernel<H>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((S + TC_BK - 1) / TC_BK, Kh, B);
-  kern<<<grid, TC_NT, smem, stream>>>(
+  tile_bounds_kernel<BQ><<<dim3((Tq + BQ - 1) / BQ, B), 32, 0, stream>>>(
+      static_cast<const int32_t*>(qpos), nullptr, static_cast<int2*>(bounds), Tq);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 grid(Kh, B, (S + V_BK - 1) / V_BK);
+  kern<<<grid, V_NT, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<const int32_t*>(qpos), static_cast<const int32_t*>(kpos),
-      static_cast<const int32_t*>(valid), static_cast<float*>(dk), static_cast<float*>(dv), Tq,
-      S, N, Kh, window, scale, softcap);
+      static_cast<const int32_t*>(valid), static_cast<const int2*>(bounds),
+      static_cast<float*>(dk), static_cast<float*>(dv), Tq, S, N, Kh, window, scale, softcap);
   return cudaGetLastError();
 }
 
@@ -443,15 +570,15 @@ cudaError_t launch_fp32(const void* q, const void* k, const void* v, const void*
 template <int H>
 cudaError_t launch(int dtype, const void* q, const void* k, const void* v, const void* dout,
                    const void* lse, const void* delta, const void* qpos, const void* kpos,
-                   const void* valid, void* dk, void* dv, int B, int Tq, int S, int N, int Kh,
-                   int window, float scale, float softcap, cudaStream_t stream) {
+                   const void* valid, void* bounds, void* dk, void* dv, int B, int Tq, int S,
+                   int N, int Kh, int window, float scale, float softcap, cudaStream_t stream) {
   switch (dtype) {
     case 0:
       return launch_fp32<H>(q, k, v, dout, lse, delta, qpos, kpos, valid, dk, dv, B, Tq, S, N,
                             Kh, window, scale, softcap, stream);
     case 1:
-      return launch_bf16_tc<H>(q, k, v, dout, lse, delta, qpos, kpos, valid, dk, dv, B, Tq, S, N,
-                               Kh, window, scale, softcap, stream);
+      return launch_bf16_tc<H>(q, k, v, dout, lse, delta, qpos, kpos, valid, bounds, dk, dv, B, Tq,
+                               S, N, Kh, window, scale, softcap, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -459,25 +586,28 @@ cudaError_t launch(int dtype, const void* q, const void* k, const void* v, const
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. lse and delta are fp32 [B,N,T]; all
-// tensors contiguous; dk and dv fp32 [B,S,K,H]. Returns cudaGetLastError().
+// dtype: 0 = float32, 1 = bfloat16. lse and delta are fp32 [B,N,T]; bounds:
+// int32 scratch of 2 * B * ceil(T / 32) for the bf16 path (unused in fp32);
+// all tensors contiguous; dk and dv fp32 [B,S,K,H]. Returns
+// cudaGetLastError().
 extern "C" int pt_flash_bwd_dkv(int dtype, const void* q, const void* k, const void* v,
                                 const void* dout, const void* lse, const void* delta,
-                                const void* qpos, const void* kpos, const void* valid, void* dk,
-                                void* dv, int B, int Tq, int S, int N, int Kh, int H, int window,
-                                float scale, float softcap, void* stream) {
+                                const void* qpos, const void* kpos, const void* valid,
+                                void* bounds, void* dk, void* dv, int B, int Tq, int S, int N,
+                                int Kh, int H, int window, float scale, float softcap,
+                                void* stream) {
   if (B <= 0 || Tq <= 0 || S <= 0 || Kh <= 0 || N % Kh != 0) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (H) {
     case 32:
-      return launch<32>(dtype, q, k, v, dout, lse, delta, qpos, kpos, valid, dk, dv, B, Tq, S, N,
-                        Kh, window, scale, softcap, st);
+      return launch<32>(dtype, q, k, v, dout, lse, delta, qpos, kpos, valid, bounds, dk, dv, B, Tq,
+                        S, N, Kh, window, scale, softcap, st);
     case 64:
-      return launch<64>(dtype, q, k, v, dout, lse, delta, qpos, kpos, valid, dk, dv, B, Tq, S, N,
-                        Kh, window, scale, softcap, st);
+      return launch<64>(dtype, q, k, v, dout, lse, delta, qpos, kpos, valid, bounds, dk, dv, B, Tq,
+                        S, N, Kh, window, scale, softcap, st);
     case 128:
-      return launch<128>(dtype, q, k, v, dout, lse, delta, qpos, kpos, valid, dk, dv, B, Tq, S, N,
-                         Kh, window, scale, softcap, st);
+      return launch<128>(dtype, q, k, v, dout, lse, delta, qpos, kpos, valid, bounds, dk, dv, B,
+                         Tq, S, N, Kh, window, scale, softcap, st);
     default:
       return cudaErrorInvalidValue;
   }

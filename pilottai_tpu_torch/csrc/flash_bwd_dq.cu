@@ -16,28 +16,34 @@
 //
 // What bounds it on an H100: 6*H flops (3*H multiply-adds: s, dp, dq) per
 // live (query, key, head) triple against T*N*H*2 + S*K*H*2 input elements,
-// so at training lengths it is bounded by operations. This first version
-// keeps every intermediate out of device memory (scores, dp and ds live in
-// shared memory, the dq accumulator in registers), skips kv tiles in which
-// no (query, key) pair is live (causal training visits about half of them)
-// and never visits keys at or past valid[b]. One block owns a (batch row,
-// query head, q tile): the q, dO, lse and delta rows are staged once and the
-// block walks the live kv tiles, so dq needs no reduction across blocks.
-// In bf16 the three products run on the tensor cores through WMMA (bf16
-// operands, fp32 accumulate; dp's bf16 products are exact in fp32, as the
-// TPU kernel's fp32 widening makes them), ds is rounded to bf16 for the dq
-// product as the TPU kernel rounds it to k's dtype. In fp32 every product
-// runs on the CUDA cores in full fp32 (never TF32), so it matches the
-// reference up to summation order.
-// Left on the table: wgmma with TMA-fed shared-memory rings, a persistent
-// schedule, and fusing K5 into one pass over the tiles.
+// so at training lengths it is bounded by operations. One block owns a
+// (batch row, query head, q tile): the q, dO, lse and delta rows are staged
+// once and the block walks the live kv tiles, so dq needs no reduction
+// across blocks and no intermediate leaves the block. Kv tiles in which no
+// (query, key) pair is live are skipped (causal training visits about half
+// of them) and keys at or past valid[b] are never visited. In bf16
+// (flash_bwd_dq_bf16_tc_kernel, described above it) the three products run
+// on wgmma, Hopper's warpgroup product, with s, dp, p and ds in registers
+// and kv tiles streamed through a cp.async ring; ds is rounded to bf16 for
+// the dq product as the TPU kernel rounds it to k's dtype, and dp's bf16
+// products are exact in fp32, as the TPU kernel's fp32 widening makes them.
+// In fp32 every product runs on the CUDA cores in full fp32 (never TF32), so
+// it matches the reference up to summation order.
+// Left on the table: S and dP read both operands from shared memory, and an
+// m64n64k16 product reads as many bytes a cycle as shared memory delivers,
+// so wider tiles or Q and dO held in registers would relieve it; TMA from
+// a producer warp and two consumer warpgroups (one tile's products under
+// the other's elementwise work); a persistent schedule; and sharing the
+// recomputed p with K5 in one pass (dq would then need a reduction across
+// blocks: atomics would break bit-identical repeats).
 
 #include <climits>
 #include <cstdint>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -171,214 +177,301 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_fp32_kernel(
   }
 }
 
-// bf16 path: TC_BQ = 64 query rows of one head per block; each of its 4
-// warps owns 16 of them end to end (s and dp tiles, ds, the dq accumulator
-// in WMMA fragments), so after the shared K/V tile is loaded a warp needs
-// only __syncwarp. Tiles arrive with 16-byte loads; shared-memory rows are
-// padded by 8 bf16 / 4 floats so fragment loads spread over the banks, and
-// every fragment pointer is 32-byte aligned, as WMMA requires.
-constexpr int TC_BQ = 64, TC_BK = 64, TC_NT = 128;
+// bf16 path. A block is one warpgroup (4 warps, 128 threads) holding
+// D_BQ = 64 query rows of one head. Per live kv tile of BK keys (64; 32 at
+// head_dim 128, which keeps s, dp and dq of three blocks an SM in the
+// register file without spilling):
+//   S = Q K^T and dP = dO V^T: wgmma m64 x BK, both operands K-major panels
+//     with the 128-byte swizzle (as K1's S), issued as two groups;
+//   p on S's registers while dP is still computed: p = 2^(s scale log2(e) -
+//     lse log2(e)); then ds = p (dp - delta), times (1 - t^2) under a
+//     soft-cap, rounded to bf16 and packed as wgmma's register A operand;
+//   dQ += dS K: wgmma m64 x H, K read as the MN-major B operand of the same
+//     swizzled panels (as K1 reads V).
+// s, dp, p and ds never touch shared memory; dQ stays in registers until
+// the epilogue scales and rounds it. Head_dim 32 is staged zero-padded to
+// one 64-column panel, so every product is wgmma at every head_dim. K and
+// V tiles come through a 2-stage cp.async ring (keys past valid[b] and
+// padded columns zero-filled), so the next tile's bytes arrive while this
+// one is computed. A row whose lse is NEG_INF, or past Tq, carries
+// lse = +inf into the exponent, which gives p = 0 exactly.
+//
+// Tile liveness comes from position bounds, by K1's rule (tile_live,
+// tile_full in hopper.cuh): a first small launch (tile_bounds_kernel)
+// reduces each (batch row, kv tile) to its key-position bounds, each block
+// reduces its own q rows', and a tile is skipped, taken whole (no mask, no
+// key positions staged) or masked pair by pair. The grid walks q tiles
+// from the last, the longest under causal positions, to the first.
+constexpr int D_BQ = 64, D_NT = 128;
+// Keys per kv tile.
+template <int H> __host__ __device__ constexpr int d_bk() { return H == 128 ? 32 : 64; }
+// Blocks an SM: four from head_dim 64 down (a little spilling, measured
+// faster than three without, and than 32-key tiles without), three at 128.
+template <int H> constexpr int d_min_blocks() { return H == 128 ? 3 : 4; }
 
 template <int H>
-constexpr size_t tc_smem_bytes() {
-  return static_cast<size_t>(2 * TC_BQ * (H + 8) + 2 * TC_BK * (H + 8) + TC_BQ * (TC_BK + 8)) *
-             sizeof(__nv_bfloat16) +
-         static_cast<size_t>(2 * TC_BQ * (TC_BK + 4) + 2 * TC_BQ) * sizeof(float) +
-         static_cast<size_t>(TC_BQ + TC_BK) * sizeof(int);
+constexpr size_t d_smem_bytes() {
+  return 1024 + static_cast<size_t>(2 * D_BQ + 4 * d_bk<H>()) * staged_cols<H>() *
+                    sizeof(__nv_bfloat16) +
+         static_cast<size_t>(2 * d_bk<H>()) * sizeof(int);
 }
 
 template <int H>
-__global__ void __launch_bounds__(TC_NT) flash_bwd_dq_bf16_tc_kernel(
+__global__ void __launch_bounds__(D_NT, d_min_blocks<H>()) flash_bwd_dq_bf16_tc_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
     const int32_t* __restrict__ qpos, const int32_t* __restrict__ kpos,
-    const int32_t* __restrict__ valid, __nv_bfloat16* __restrict__ dq, int Tq, int S, int N,
-    int Kh, int window, float scale, float softcap) {
-  using namespace nvcuda;
-  constexpr int BQ = TC_BQ, BK = TC_BK, NT = TC_NT;
-  constexpr int LDH = H + 8;   // bf16 row stride of the Q, dO, K and V tiles
-  constexpr int LDP = BK + 8;  // bf16 row stride of ds
-  constexpr int LDS = BK + 4;  // float row stride of the s and dp tiles
-  constexpr int LDO = H + 4;   // float row stride of the dq staging (reuses s and dp)
-  constexpr int VEC = 8;       // bf16 per 16-byte load
-  static_assert(H % 16 == 0 && BK % 32 == 0, "WMMA tiles");
-  static_assert(LDO <= 2 * LDS, "the dq staging fits in the s and dp tiles");
+    const int32_t* __restrict__ valid, const int2* __restrict__ bounds,
+    __nv_bfloat16* __restrict__ dq, int Tq, int S, int N, int Kh, int window, float scale,
+    float softcap) {
+  constexpr int BK = d_bk<H>();
+  constexpr int HP = staged_cols<H>();
+  constexpr int CPR = HP / 8;      // 16-byte chunks per staged row
+  constexpr int KSTEPS = HP / 16;  // k-steps of S and dP over the head dim
+  constexpr int SNT = BK / 8;      // n-tiles of s and dp
+  constexpr int ONT = HP / 8;      // n-tiles of dq
+  static_assert(D_BQ == 16 * (D_NT / 32) && BK % 16 == 0 && HP % 64 == 0, "wgmma tiles");
 
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BQ][LDH]
-  __nv_bfloat16* sDO = sQ + BQ * LDH;                                // [BQ][LDH]
-  __nv_bfloat16* sK = sDO + BQ * LDH;                                // [BK][LDH]
-  __nv_bfloat16* sV = sK + BK * LDH;                                 // [BK][LDH]
-  __nv_bfloat16* sDS = sV + BK * LDH;                                // [BQ][LDP]
-  float* sS = reinterpret_cast<float*>(sDS + BQ * LDP);              // [BQ][LDS]
-  float* sDP = sS + BQ * LDS;                                        // [BQ][LDS]
-  float* sLse = sDP + BQ * LDS;
-  float* sDelta = sLse + BQ;
-  int* sQpos = reinterpret_cast<int*>(sDelta + BQ);
-  int* sKpos = sQpos + BQ;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  // The swizzle pattern follows address bits: tiles start 1024-aligned.
+  const uint32_t smem_addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  unsigned char* base = smem_raw + ((1024 - (smem_addr & 1023)) & 1023);
+  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(base);  // [BQ][HP]
+  __nv_bfloat16* sDO = sQ + D_BQ * HP;                          // [BQ][HP]
+  __nv_bfloat16* sK = sDO + D_BQ * HP;                          // [2][BK][HP]
+  __nv_bfloat16* sV = sK + 2 * BK * HP;                         // [2][BK][HP]
+  int* sKpos = reinterpret_cast<int*>(sV + 2 * BK * HP);        // [2][BK]
+  auto at = [](__nv_bfloat16* tile, int r, int c, int rows) {
+    return reinterpret_cast<unsigned char*>(tile) + swizzled(r, c, rows);
+  };
 
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int q0 = blockIdx.x * BQ;
-  const int n = blockIdx.y;
-  const int b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * D_BQ;  // the longest q tiles first
   const int kh = n / (N / Kh);
   const int kv_end = min(S, valid[b]);
-  const int r0 = warp * 16;  // this warp's first row in the tile
+  const bool capped = softcap > 0.f;
+  const float sl2 = scale * kLog2e;
+  const float inf = __int_as_float(0x7f800000);
 
-  for (int idx = tid; idx < BQ * (H / VEC); idx += NT) {
-    const int i = idx / (H / VEC), c = (idx % (H / VEC)) * VEC, t = q0 + i;
-    uint4 qx = make_uint4(0u, 0u, 0u, 0u), dx = qx;
-    if (t < Tq) {
-      const size_t off = ((static_cast<size_t>(b) * Tq + t) * N + n) * H + c;
-      qx = *reinterpret_cast<const uint4*>(q + off);
-      dx = *reinterpret_cast<const uint4*>(dout + off);
-    }
-    *reinterpret_cast<uint4*>(sQ + i * LDH + c) = qx;
-    *reinterpret_cast<uint4*>(sDO + i * LDH + c) = dx;
+  // The q and dO rows go in flight first (rows past Tq and padded columns
+  // zero-filled); the rows' statistics and positions are read meanwhile.
+  for (int idx = tid; idx < D_BQ * CPR; idx += D_NT) {
+    const int i = idx / CPR, c = (idx % CPR) * 8, t = q0 + i;
+    const bool real = t < Tq && c < H;
+    const size_t off =
+        ((static_cast<size_t>(b) * Tq + min(t, Tq - 1)) * N + n) * H + (c < H ? c : 0);
+    cp_async16_zfill(at(sQ, i, c, D_BQ), q + off, real);
+    cp_async16_zfill(at(sDO, i, c, D_BQ), dout + off, real);
   }
-  for (int i = tid; i < BQ; i += NT) {
+  cp_async_commit();
+  const int r_lo = warp * 16 + (lane >> 2);  // this lane's two rows: r_lo and r_lo + 8
+  const int cq = (lane & 3) * 2;             // and its column pair within an n-tile
+  int qp[2];
+  float lb[2], dl[2];  // lse * log2(e) (+inf where p is 0) and delta of the two rows
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int t = q0 + r_lo + 8 * hr;
+    qp[hr] = INT_MIN;
+    lb[hr] = inf;
+    dl[hr] = 0.f;
+    if (t < Tq) {
+      const size_t row = (static_cast<size_t>(b) * N + n) * Tq + t;
+      const float l = lse[row];
+      qp[hr] = qpos[static_cast<size_t>(b) * Tq + t];
+      lb[hr] = l > kNegInf * 0.5f ? l * kLog2e : inf;
+      dl[hr] = delta[row];
+    }
+  }
+  int qmin = INT_MAX, qmax = INT_MIN;  // over the tile's real rows, in every warp
+  for (int i = lane; i < D_BQ; i += 32) {
     const int t = q0 + i;
-    const size_t row = (static_cast<size_t>(b) * N + n) * Tq + t;
-    sQpos[i] = t < Tq ? qpos[static_cast<size_t>(b) * Tq + t] : INT_MIN;
-    sLse[i] = t < Tq ? lse[row] : kNegInf;
-    sDelta[i] = t < Tq ? delta[row] : 0.f;
-  }
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> dacc[H / 16];
-#pragma unroll
-  for (int nb = 0; nb < H / 16; ++nb) wmma::fill_fragment(dacc[nb], 0.f);
-
-  for (int j0 = 0; j0 < kv_end; j0 += BK) {
-    __syncthreads();  // every warp is done with the previous tile
-    for (int j = tid; j < BK; j += NT) {
-      const int s = j0 + j;
-      sKpos[j] = s < kv_end ? kpos[static_cast<size_t>(b) * S + s] : INT_MAX;
-    }
-    __syncthreads();
-    int live = 0;
-    for (int idx = tid; idx < BQ * BK && !live; idx += NT) {
-      const int i = idx / BK, j = idx % BK;
-      live = q0 + i < Tq && j0 + j < kv_end && attends(sQpos[i], sKpos[j], window);
-    }
-    if (!__syncthreads_or(live)) continue;
-
-    for (int idx = tid; idx < BK * (H / VEC); idx += NT) {
-      const int j = idx / (H / VEC), c = (idx % (H / VEC)) * VEC, s = j0 + j;
-      uint4 kx = make_uint4(0u, 0u, 0u, 0u), vx = kx;
-      if (s < kv_end) {
-        const size_t off = ((static_cast<size_t>(b) * S + s) * Kh + kh) * H + c;
-        kx = *reinterpret_cast<const uint4*>(k + off);
-        vx = *reinterpret_cast<const uint4*>(v + off);
-      }
-      *reinterpret_cast<uint4*>(sK + j * LDH + c) = kx;
-      *reinterpret_cast<uint4*>(sV + j * LDH + c) = vx;
-    }
-    __syncthreads();
-
-    // s = Q K^T and dp = dO V^T for the warp's 16 rows against the tile.
-    {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> sacc[BK / 16], pacc[BK / 16];
-#pragma unroll
-      for (int nb = 0; nb < BK / 16; ++nb) {
-        wmma::fill_fragment(sacc[nb], 0.f);
-        wmma::fill_fragment(pacc[nb], 0.f);
-      }
-#pragma unroll
-      for (int kk = 0; kk < H; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> aq, ad;
-        wmma::load_matrix_sync(aq, sQ + r0 * LDH + kk, LDH);
-        wmma::load_matrix_sync(ad, sDO + r0 * LDH + kk, LDH);
-#pragma unroll
-        for (int nb = 0; nb < BK / 16; ++nb) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> kb, vb;
-          wmma::load_matrix_sync(kb, sK + nb * 16 * LDH + kk, LDH);
-          wmma::mma_sync(sacc[nb], aq, kb, sacc[nb]);
-          wmma::load_matrix_sync(vb, sV + nb * 16 * LDH + kk, LDH);
-          wmma::mma_sync(pacc[nb], ad, vb, pacc[nb]);
-        }
-      }
-#pragma unroll
-      for (int nb = 0; nb < BK / 16; ++nb) {
-        wmma::store_matrix_sync(sS + r0 * LDS + nb * 16, sacc[nb], LDS, wmma::mem_row_major);
-        wmma::store_matrix_sync(sDP + r0 * LDS + nb * 16, pacc[nb], LDS, wmma::mem_row_major);
-      }
-    }
-    __syncwarp();
-
-    // ds for the warp's rows, rounded to bf16 for the dq product.
-    for (int r = 0; r < 16; ++r) {
-      const int i = r0 + r;
-      const int qp = sQpos[i];
-      const float lse_i = sLse[i], delta_i = sDelta[i];
-      const bool row_ok = q0 + i < Tq && lse_i > kNegInf * 0.5f;
-#pragma unroll
-      for (int u = 0; u < BK / 32; ++u) {
-        const int j = lane + 32 * u;
-        float s = sS[i * LDS + j] * scale, th = 0.f;
-        if (softcap > 0.f) {
-          th = tanhf(s / softcap);
-          s = th * softcap;
-        }
-        const bool ok = row_ok && j0 + j < kv_end && attends(qp, sKpos[j], window);
-        const float p = ok ? expf(s - lse_i) : 0.f;
-        float ds = p * (sDP[i * LDS + j] - delta_i);
-        if (softcap > 0.f) ds *= 1.f - th * th;
-        sDS[i * LDP + j] = __float2bfloat16(ds);
-      }
-    }
-    __syncwarp();
-
-    // dq += ds K for the warp's rows.
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, sDS + r0 * LDP + kk, LDP);
-#pragma unroll
-      for (int nb = 0; nb < H / 16; ++nb) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> kb;
-        wmma::load_matrix_sync(kb, sK + kk * LDH + nb * 16, LDH);
-        wmma::mma_sync(dacc[nb], a, kb, dacc[nb]);
-      }
-    }
-  }
-  // A full barrier: the staging below overlaps other warps' s and dp rows,
-  // and when no tile ran it is the first barrier after the staging above.
-  __syncthreads();
-
-  float* sOut = sS;  // [BQ][LDO]
-#pragma unroll
-  for (int nb = 0; nb < H / 16; ++nb) {
-    wmma::store_matrix_sync(sOut + r0 * LDO + nb * 16, dacc[nb], LDO, wmma::mem_row_major);
-  }
-  __syncwarp();
-  for (int idx = lane; idx < 16 * H; idx += 32) {
-    const int i = r0 + idx / H, h = idx % H, t = q0 + i;
     if (t < Tq) {
-      dq[((static_cast<size_t>(b) * Tq + t) * N + n) * H + h] =
-          __float2bfloat16(sOut[i * LDO + h] * scale);
+      const int p = qpos[static_cast<size_t>(b) * Tq + t];
+      qmin = min(qmin, p);
+      qmax = max(qmax, p);
+    }
+  }
+  qmin = warp_min_i(qmin);
+  qmax = warp_max_i(qmax);
+
+  const int n_tiles = (kv_end + BK - 1) / BK;
+  const int2* kv_bounds = bounds + static_cast<size_t>(b) * ((S + BK - 1) / BK);
+  // The first live tile at or after j (n_tiles if none), and its bounds.
+  auto next_live = [&](int j, int& kmin, int& kmax) {
+    for (; j < n_tiles; ++j) {
+      const int2 kb = kv_bounds[j];
+      kmin = kb.x;
+      kmax = kb.y;
+      if (tile_live(qmin, qmax, kmin, kmax, window)) return j;
+    }
+    return n_tiles;
+  };
+  auto is_full = [&](int j, int kmin, int kmax) {
+    return (j + 1) * BK <= kv_end && tile_full(qmin, qmax, kmin, kmax, window);
+  };
+  auto load_kv = [&](int j, int st, bool full) {
+    const int j0 = j * BK;
+    for (int idx = tid; idx < BK * CPR; idx += D_NT) {
+      const int r = idx / CPR, c = (idx % CPR) * 8, s = j0 + r;
+      const bool real = s < kv_end && c < H;
+      const size_t off =
+          ((static_cast<size_t>(b) * S + (s < kv_end ? s : 0)) * Kh + kh) * H + (c < H ? c : 0);
+      cp_async16_zfill(at(sK + st * BK * HP, r, c, BK), k + off, real);
+      cp_async16_zfill(at(sV + st * BK * HP, r, c, BK), v + off, real);
+    }
+    for (int r = tid; r < BK && !full; r += D_NT) {
+      const int s = j0 + r;
+      sKpos[st * BK + r] = s < kv_end ? kpos[static_cast<size_t>(b) * S + s] : INT_MAX;
+    }
+  };
+
+  int kmin = INT_MAX, kmax = INT_MIN;
+  int j = next_live(0, kmin, kmax);
+  if (j < n_tiles) load_kv(j, 0, is_full(j, kmin, kmax));
+  cp_async_commit();
+
+  float dacc[ONT][4];
+#pragma unroll
+  for (int nt = 0; nt < ONT; ++nt) dacc[nt][0] = dacc[nt][1] = dacc[nt][2] = dacc[nt][3] = 0.f;
+  const unsigned char* qb = reinterpret_cast<const unsigned char*>(sQ);
+  const unsigned char* dob = reinterpret_cast<const unsigned char*>(sDO);
+  int st = 0;
+
+  while (j < n_tiles) {
+    int kmin_n = INT_MAX, kmax_n = INT_MIN;
+    const int jn = next_live(j + 1, kmin_n, kmax_n);
+    if (jn < n_tiles) load_kv(jn, st ^ 1, is_full(jn, kmin_n, kmax_n));
+    cp_async_commit();
+    cp_async_wait<1>();  // q, dO and tile j have landed (this thread's copies)
+    fence_proxy_async();
+    __syncthreads();     // ... and every thread's
+    const unsigned char* kb = reinterpret_cast<const unsigned char*>(sK + st * BK * HP);
+    const unsigned char* vb = reinterpret_cast<const unsigned char*>(sV + st * BK * HP);
+
+    // S = Q K^T and dP = dO V^T; k-step ks starts 32 bytes per step into
+    // 64-column panel ks / 4 of each operand.
+    float sacc[SNT][4], pacc[SNT][4];
+#pragma unroll
+    for (int nt = 0; nt < SNT; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sacc[nt][e] = pacc[nt][e] = 0.f;
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < KSTEPS; ++ks) {
+      const int panel = ks >> 2, koff = (ks & 3) * 32;
+      wgmma_bf16(sacc, wgmma_desc(qb + panel * D_BQ * 128 + koff),
+                 wgmma_desc(kb + panel * BK * 128 + koff), ks > 0);
+    }
+    wgmma_commit();
+#pragma unroll
+    for (int ks = 0; ks < KSTEPS; ++ks) {
+      const int panel = ks >> 2, koff = (ks & 3) * 32;
+      wgmma_bf16(pacc, wgmma_desc(dob + panel * D_BQ * 128 + koff),
+                 wgmma_desc(vb + panel * BK * 128 + koff), ks > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();  // S has landed; dP is still in flight
+    wgmma_fence_operands(sacc);
+
+    // p while dP is computed; on a boundary tile, the pair mask. s's
+    // registers keep p, times (1 - t^2) under a soft-cap: ds's factor.
+    const bool full = is_full(j, kmin, kmax);
+    const int j0 = j * BK;
+#pragma unroll
+    for (int nt = 0; nt < SNT; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int hr = e >> 1;
+        float th = 0.f, p;
+        if (capped) {
+          th = tanhf(sacc[nt][e] * scale / softcap);
+          p = ex2(th * softcap * kLog2e - lb[hr]);
+        } else {
+          p = ex2(fmaf(sacc[nt][e], sl2, -lb[hr]));
+        }
+        if (!full) {
+          const int col = nt * 8 + cq + (e & 1);
+          const bool ok = j0 + col < kv_end && attends(qp[hr], sKpos[st * BK + col], window);
+          p = ok ? p : 0.f;
+        }
+        sacc[nt][e] = capped ? p * (1.f - th * th) : p;
+      }
+    }
+    wgmma_wait<0>();
+    wgmma_fence_operands(pacc);
+    // ds, rounded to bf16 and packed as the A operand of dS K: n-tiles 2kk
+    // and 2kk + 1 are k-step kk.
+    uint32_t dsf[BK / 16][4];
+#pragma unroll
+    for (int nt = 0; nt < SNT; ++nt) {
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int e = 2 * hr;
+        dsf[nt >> 1][(nt & 1) * 2 + hr] = pack_bf16(sacc[nt][e] * (pacc[nt][e] - dl[hr]),
+                                                    sacc[nt][e + 1] * (pacc[nt][e + 1] - dl[hr]));
+      }
+    }
+
+    // dQ += dS K: keys kk*16 on are 16 swizzled rows into each of K's panels.
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      wgmma_bf16_rs(dacc, dsf[kk], wgmma_desc_mn(kb + kk * 16 * 128, BK * 128));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_fence_operands(dacc);
+    __syncthreads();  // every warp is done with stage st before it is refilled
+    st ^= 1;
+    j = jn;
+    kmin = kmin_n;
+    kmax = kmax_n;
+  }
+  cp_async_wait<0>();  // nothing may land after the block exits
+
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int t = q0 + r_lo + 8 * hr;
+    if (t >= Tq) continue;
+    __nv_bfloat16* row = dq + ((static_cast<size_t>(b) * Tq + t) * N + n) * H + cq;
+#pragma unroll
+    for (int nt = 0; nt < ONT; ++nt) {
+      if (nt * 8 >= H) continue;
+      *reinterpret_cast<__nv_bfloat162*>(row + nt * 8) =
+          __floats2bfloat162_rn(dacc[nt][2 * hr] * scale, dacc[nt][2 * hr + 1] * scale);
     }
   }
 }
 
+// bounds: scratch of B * ceil(S / 32) int2 (32: the smallest d_bk), filled by
+// the first launch.
 template <int H>
 cudaError_t launch_bf16_tc(const void* q, const void* k, const void* v, const void* dout,
                            const void* lse, const void* delta, const void* qpos, const void* kpos,
-                           const void* valid, void* dq, int B, int Tq, int S, int N, int Kh,
-                           int window, float scale, float softcap, cudaStream_t stream) {
-  constexpr size_t smem = tc_smem_bytes<H>();
+                           const void* valid, void* bounds, void* dq, int B, int Tq, int S, int N,
+                           int Kh, int window, float scale, float softcap, cudaStream_t stream) {
+  constexpr int BK = d_bk<H>();
+  constexpr size_t smem = d_smem_bytes<H>();
   auto kern = flash_bwd_dq_bf16_tc_kernel<H>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((Tq + TC_BQ - 1) / TC_BQ, N, B);
-  kern<<<grid, TC_NT, smem, stream>>>(
+  tile_bounds_kernel<BK><<<dim3((S + BK - 1) / BK, B), 32, 0, stream>>>(
+      static_cast<const int32_t*>(kpos), static_cast<const int32_t*>(valid),
+      static_cast<int2*>(bounds), S);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 grid(N, B, (Tq + D_BQ - 1) / D_BQ);
+  kern<<<grid, D_NT, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<const int32_t*>(qpos), static_cast<const int32_t*>(kpos),
-      static_cast<const int32_t*>(valid), static_cast<__nv_bfloat16*>(dq), Tq, S, N, Kh, window,
-      scale, softcap);
+      static_cast<const int32_t*>(valid), static_cast<const int2*>(bounds),
+      static_cast<__nv_bfloat16*>(dq), Tq, S, N, Kh, window, scale, softcap);
   return cudaGetLastError();
 }
 
@@ -407,15 +500,15 @@ cudaError_t launch_fp32(const void* q, const void* k, const void* v, const void*
 template <int H>
 cudaError_t launch(int dtype, const void* q, const void* k, const void* v, const void* dout,
                    const void* lse, const void* delta, const void* qpos, const void* kpos,
-                   const void* valid, void* dq, int B, int Tq, int S, int N, int Kh, int window,
-                   float scale, float softcap, cudaStream_t stream) {
+                   const void* valid, void* bounds, void* dq, int B, int Tq, int S, int N, int Kh,
+                   int window, float scale, float softcap, cudaStream_t stream) {
   switch (dtype) {
     case 0:
       return launch_fp32<H>(q, k, v, dout, lse, delta, qpos, kpos, valid, dq, B, Tq, S, N, Kh,
                             window, scale, softcap, stream);
     case 1:
-      return launch_bf16_tc<H>(q, k, v, dout, lse, delta, qpos, kpos, valid, dq, B, Tq, S, N, Kh,
-                               window, scale, softcap, stream);
+      return launch_bf16_tc<H>(q, k, v, dout, lse, delta, qpos, kpos, valid, bounds, dq, B, Tq, S,
+                               N, Kh, window, scale, softcap, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -423,25 +516,26 @@ cudaError_t launch(int dtype, const void* q, const void* k, const void* v, const
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. lse and delta are fp32 [B,N,T]; all
-// tensors contiguous; dq in q's dtype. Returns cudaGetLastError().
+// dtype: 0 = float32, 1 = bfloat16. lse and delta are fp32 [B,N,T]; bounds:
+// int32 scratch of 2 * B * ceil(S / 32) for the bf16 path (unused in fp32);
+// all tensors contiguous; dq in q's dtype. Returns cudaGetLastError().
 extern "C" int pt_flash_bwd_dq(int dtype, const void* q, const void* k, const void* v,
                                const void* dout, const void* lse, const void* delta,
-                               const void* qpos, const void* kpos, const void* valid, void* dq,
-                               int B, int Tq, int S, int N, int Kh, int H, int window,
-                               float scale, float softcap, void* stream) {
+                               const void* qpos, const void* kpos, const void* valid,
+                               void* bounds, void* dq, int B, int Tq, int S, int N, int Kh, int H,
+                               int window, float scale, float softcap, void* stream) {
   if (B <= 0 || Tq <= 0 || S <= 0 || Kh <= 0 || N % Kh != 0) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (H) {
     case 32:
-      return launch<32>(dtype, q, k, v, dout, lse, delta, qpos, kpos, valid, dq, B, Tq, S, N, Kh,
-                        window, scale, softcap, st);
+      return launch<32>(dtype, q, k, v, dout, lse, delta, qpos, kpos, valid, bounds, dq, B, Tq, S,
+                        N, Kh, window, scale, softcap, st);
     case 64:
-      return launch<64>(dtype, q, k, v, dout, lse, delta, qpos, kpos, valid, dq, B, Tq, S, N, Kh,
-                        window, scale, softcap, st);
+      return launch<64>(dtype, q, k, v, dout, lse, delta, qpos, kpos, valid, bounds, dq, B, Tq, S,
+                        N, Kh, window, scale, softcap, st);
     case 128:
-      return launch<128>(dtype, q, k, v, dout, lse, delta, qpos, kpos, valid, dq, B, Tq, S, N,
-                         Kh, window, scale, softcap, st);
+      return launch<128>(dtype, q, k, v, dout, lse, delta, qpos, kpos, valid, bounds, dq, B, Tq,
+                         S, N, Kh, window, scale, softcap, st);
     default:
       return cudaErrorInvalidValue;
   }

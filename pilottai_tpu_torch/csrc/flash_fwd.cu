@@ -39,6 +39,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr float kNegInf = -1073741824.0f;  // -2^30, the JAX package's NEG_INF
@@ -222,16 +224,16 @@ __global__ void __launch_bounds__(NT) flash_fwd_fp32_kernel(
 // a tile can hold a live pair only if kmin <= qmax and (no window or
 // qmin - kmax < window), and every pair is live if kmax <= qmin, (no
 // window or qmax - kmin < window) and the tile lies below valid[b]; only
-// tiles in between are masked pair by pair. A first small launch
-// (kv_tile_bounds_kernel) reduces each (batch row, kv tile) to its bounds
-// once, so a block tests a tile with one load, and dead tiles are never
-// loaded; a full tile stages no key positions. Without a soft-cap the
-// scores stay unscaled and the scale rides in the exponent. The grid walks
-// q tiles from the last, the longest under causal positions, to the first.
+// tiles in between are masked pair by pair (tile_live, tile_full in
+// hopper.cuh). A first small launch (tile_bounds_kernel) reduces each
+// (batch row, kv tile) to its bounds once, so a block tests a tile with
+// one load, and dead tiles are never loaded; a full tile stages no key
+// positions. Without a soft-cap the scores stay unscaled and the scale
+// rides in the exponent. The grid walks q tiles from the last, the
+// longest under causal positions, to the first.
 constexpr int F_BQ = 64, F_NT = 128;
 // Keys per kv tile.
 template <int H> __host__ __device__ constexpr int f_bk() { return H == 128 ? 32 : 64; }
-constexpr float kLog2e = 1.4426950408889634f;
 
 // From head_dim 64 on, both products run on wgmma with Q, K and V in the
 // swizzled layout (plus 1 KB to align it); at 32 on mma.sync from padded
@@ -245,18 +247,6 @@ constexpr size_t f_smem_bytes() {
          static_cast<size_t>(F_BQ + 2 * f_bk<H>()) * sizeof(int);
 }
 
-__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src, bool real) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  const int n = real ? 16 : 0;  // 0 source bytes: the 16 bytes are zero-filled
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(n)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
   const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
@@ -277,150 +267,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-// 2^x on the special-function unit (relative error 2^-22, denormals to 0):
-// the softmax's exponentials, whose p only ever weighs a sum.
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-// Hopper's warpgroup product: a descriptor names a K-major operand tile in
-// shared memory stored with the 128-byte swizzle, 8-row groups 1024 bytes
-// apart.
-__device__ __forceinline__ uint64_t wgmma_desc(const void* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  return static_cast<uint64_t>((a & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
-}
-// d (m64 x nN, the same per-warp layout as mma.sync's m16n8 accumulators)
-// += A . B^T over one k16 step; accumulate = 0 overwrites d.
-__device__ __forceinline__ void wgmma_bf16(float (&d)[8][4], uint64_t da, uint64_t db,
-                                           int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]),
-        "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]),
-        "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]),
-        "+f"(d[7][2]), "+f"(d[7][3])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-__device__ __forceinline__ void wgmma_bf16(float (&d)[4][4], uint64_t da, uint64_t db,
-                                           int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]),
-        "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-// d (m64 x nN) += A . B over one k16 step, A from registers in mma.sync's
-// A-fragment layout and B an MN-major tile (rows of k, N contiguous) with
-// the 128-byte swizzle.
-__device__ __forceinline__ void wgmma_bf16_rs(float (&d)[16][4], const uint32_t (&a)[4],
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
-      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
-      "%57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]),
-        "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]),
-        "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]),
-        "+f"(d[7][2]), "+f"(d[7][3]), "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
-        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]), "+f"(d[10][0]), "+f"(d[10][1]),
-        "+f"(d[10][2]), "+f"(d[10][3]), "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]),
-        "+f"(d[11][3]), "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
-        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]), "+f"(d[14][0]),
-        "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]), "+f"(d[15][0]), "+f"(d[15][1]),
-        "+f"(d[15][2]), "+f"(d[15][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-__device__ __forceinline__ void wgmma_bf16_rs(float (&d)[8][4], const uint32_t (&a)[4],
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]),
-        "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]),
-        "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]),
-        "+f"(d[7][2]), "+f"(d[7][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-__device__ __forceinline__ uint64_t wgmma_desc_mn(const void* p, int panel_bytes) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  return static_cast<uint64_t>((a & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(panel_bytes >> 4) << 16) |  // 64-column panels apart
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
-}
-// The wgmma's accumulators are written asynchronously: keep the compiler
-// from moving their reads above the wait.
-template <int NT>
-__device__ __forceinline__ void wgmma_fence_operands(float (&d)[NT][4]) {
-#pragma unroll
-  for (int i = 0; i < NT; ++i) {
-    asm volatile("" : "+f"(d[i][0]), "+f"(d[i][1]), "+f"(d[i][2]), "+f"(d[i][3])::"memory");
-  }
-}
-// Byte offset of element (r, c), c a multiple of 8, in a K-major tile of
-// `rows` rows stored as 64-column panels with the 128-byte swizzle: the
-// 16-byte chunk (c mod 64) / 8 of row r sits at chunk ((c mod 64) / 8) xor
-// (r mod 8) of its 128-byte row.
-__device__ __forceinline__ int swizzled(int r, int c, int rows) {
-  return (c >> 6) * rows * 128 + r * 128 + ((((c & 63) >> 3) ^ (r & 7)) << 4);
-}
-__device__ __forceinline__ int warp_min_i(int x) {
-  for (int o = 16; o > 0; o >>= 1) x = min(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-__device__ __forceinline__ int warp_max_i(int x) {
-  for (int o = 16; o > 0; o >>= 1) x = max(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-// bounds[b][t] = (min, max) kv position over kv tile t's keys below
-// valid[b] (INT_MAX, INT_MIN for a tile with none). One warp per tile.
-template <int BK>
-__global__ void __launch_bounds__(32) kv_tile_bounds_kernel(const int32_t* __restrict__ kpos,
-                                                           const int32_t* __restrict__ valid,
-                                                           int2* __restrict__ bounds, int S) {
-  const int t = blockIdx.x, b = blockIdx.y, lane = threadIdx.x;
-  const int kv_end = min(S, valid[b]);
-  int kmin = INT_MAX, kmax = INT_MIN;
-  for (int r = lane; r < BK; r += 32) {
-    const int s = t * BK + r;
-    if (s < kv_end) {
-      const int kp = kpos[static_cast<size_t>(b) * S + s];
-      kmin = min(kmin, kp);
-      kmax = max(kmax, kp);
-    }
-  }
-  kmin = warp_min_i(kmin);
-  kmax = warp_max_i(kmax);
-  if (lane == 0) bounds[static_cast<size_t>(b) * gridDim.x + t] = make_int2(kmin, kmax);
 }
 
 template <int H>
@@ -500,14 +346,13 @@ __global__ void __launch_bounds__(F_NT, 4) flash_fwd_bf16_kernel(
       const int2 kb = j == 0 ? first : tile_bounds[j];
       kmin = kb.x;
       kmax = kb.y;
-      if (kmin <= qmax && (window <= 0 || static_cast<long long>(qmin) - kmax < window)) return j;
+      if (tile_live(qmin, qmax, kmin, kmax, window)) return j;
     }
     return n_tiles;
   };
   // Every pair of tile j live: no per-pair mask, so no key positions staged.
   auto is_full = [&](int j, int kmin, int kmax) {
-    return (j + 1) * F_BK <= kv_end && kmax <= qmin &&
-           (window <= 0 || static_cast<long long>(qmax) - kmin < window);
+    return (j + 1) * F_BK <= kv_end && tile_full(qmin, qmax, kmin, kmax, window);
   };
   auto load_kv = [&](int j, int st, bool full) {
     const int j0 = j * F_BK;
@@ -547,7 +392,7 @@ __global__ void __launch_bounds__(F_NT, 4) flash_fwd_bf16_kernel(
     if (jn < n_tiles) load_kv(jn, st ^ 1, is_full(jn, kmin_n, kmax_n));
     cp_async_commit();
     cp_async_wait<1>();  // Q and tile j have landed (this thread's copies)
-    if (WG) asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // for wgmma's reads
+    if (WG) fence_proxy_async();  // for wgmma's reads
     __syncthreads();     // ... and every thread's
     if (QREG && !have_q) {
 #pragma unroll
@@ -570,15 +415,15 @@ __global__ void __launch_bounds__(F_NT, 4) flash_fwd_bf16_kernel(
       // step into 64-column panel ks / 4 of each operand.
       const unsigned char* qb = reinterpret_cast<const unsigned char*>(sQ);
       const unsigned char* kb = reinterpret_cast<const unsigned char*>(tK);
-      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+      wgmma_fence();
 #pragma unroll
       for (int ks = 0; ks < KSTEPS; ++ks) {
         const int panel = ks >> 2, koff = (ks & 3) * 32;
         wgmma_bf16(sacc, wgmma_desc(qb + panel * F_BQ * 128 + koff),
                    wgmma_desc(kb + panel * F_BK * 128 + koff), ks > 0);
       }
-      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      wgmma_commit();
+      wgmma_wait<0>();
       wgmma_fence_operands(sacc);
     }
 #pragma unroll
@@ -665,13 +510,13 @@ __global__ void __launch_bounds__(F_NT, 4) flash_fwd_bf16_kernel(
     if constexpr (WG) {
       // Keys kk*16 on are 16 swizzled rows into each of V's panels.
       const unsigned char* vb = reinterpret_cast<const unsigned char*>(tV);
-      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+      wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < F_BK / 16; ++kk) {
         wgmma_bf16_rs(oacc, pf[kk], wgmma_desc_mn(vb + kk * 16 * 128, F_BK * 128));
       }
-      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      wgmma_commit();
+      wgmma_wait<0>();
       wgmma_fence_operands(oacc);
     }
 #pragma unroll
@@ -728,7 +573,7 @@ cudaError_t launch_bf16_tc(const void* q, const void* k, const void* v, const vo
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  kv_tile_bounds_kernel<BK><<<dim3((S + BK - 1) / BK, B), 32, 0, stream>>>(
+  tile_bounds_kernel<BK><<<dim3((S + BK - 1) / BK, B), 32, 0, stream>>>(
       static_cast<const int32_t*>(kpos), static_cast<const int32_t*>(valid),
       static_cast<int2*>(bounds), S);
   err = cudaGetLastError();

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface. It is compiled with
 ``nvcc`` for ``sm_90a`` into ``build/pilottai_tpu_torch/<name>-<hash>.so``
-at first use and loaded with ``ctypes``; the hash covers the source and
-the flags, so an edited kernel rebuilds and an unchanged one loads.
+at first use and loaded with ``ctypes``; the hash covers the source, the
+``csrc`` headers it includes (``#include "hopper.cuh"``) and the flags,
+so an edited kernel or header rebuilds and an unchanged one loads.
 Nothing is built when a module is imported: the CPU tests import every
 module on a machine with no ``nvcc``.
 
@@ -16,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -48,14 +50,41 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels are built on a machine with the CUDA toolkit")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def source_bytes(src: Path, seen=None) -> bytes:
+    """The bytes a build of ``src`` reads from its tree: the source and,
+    recursively, every header it includes with quotes (resolved beside the
+    including file, as the preprocessor does)."""
+    seen = set() if seen is None else seen
+    src = Path(src).resolve()
+    if src in seen:
+        return b""
+    seen.add(src)
+    data = src.read_bytes()
+    parts = [data]
+    for name in _INCLUDE.findall(data):
+        header = src.parent / name.decode()
+        if header.exists():
+            parts.append(source_bytes(header, seen))
+    return b"".join(parts)
+
+
+def library_path(name: str, src: Path) -> Path:
+    """Where the build of ``src`` lands: named by the hash of what it reads
+    and the flags."""
+    digest = hashlib.sha256(source_bytes(src) + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+
+
 def build_sources(sources: Mapping[str, Path]) -> Dict[str, ctypes.CDLL]:
     """Compile ``{name: path to .cu}`` in parallel (or reuse the build of
     an identical source) and load each library."""
     pending = {}
     libs: Dict[str, ctypes.CDLL] = {}
     for name, src in sources.items():
-        digest = hashlib.sha256(Path(src).read_bytes() + " ".join(NVCC_FLAGS).encode())
-        out = BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+        out = library_path(name, src)
         if out.exists():
             libs[name] = ctypes.CDLL(str(out))
             continue

@@ -14,7 +14,9 @@ CUDA tensors they launch the kernels (or raise), for CPU tensors they run
 ``flash_attention_plain`` and ``flash_attention_bwd_plain``, the same
 functions in plain PyTorch. The plain versions materialize the
 [B, N, T, S] logits and exist to test the kernels against, not to serve
-or train. Unlike the TPU kernels there is no size floor and no padding
+or train; ``flash_attention_bwd_tiled_plain`` walks the backward tile by
+tile with the kernels' tile rule (``tile_bounds``, ``tile_rule``), for
+the CPU tests of that plan. Unlike the TPU kernels there is no size floor and no padding
 to blocks (``_pad_to_blocks`` is not carried): every kernel masks its own
 ragged edges.
 
@@ -85,19 +87,45 @@ def flash_attention_plain(
     return o.reshape(B, T, N, H).to(q.dtype), lse
 
 
-def tile_bounds_test(q_pos, kv_pos, window: int = 0) -> Tuple[bool, bool]:
-    """K1's bf16 tile test from bounds alone, as ``csrc/flash_fwd.cu``
-    makes it: ``(live, full)`` for a (q tile, kv tile) given the positions
-    of its real rows and keys. ``live`` is False only when no pair can
-    attend (the kernel skips the tile); ``full`` is True only when every
-    pair attends (the kernel masks nothing there, provided the tile also
-    lies below ``valid[b]``). Positions need not be monotone: the test is
-    conservative for any positions and exact for runs of consecutive ones."""
-    q_lo, q_hi = min(q_pos), max(q_pos)
-    k_lo, k_hi = min(kv_pos), max(kv_pos)
+def tile_rule(q_lo: int, q_hi: int, k_lo: int, k_hi: int, window: int = 0) -> Tuple[bool, bool]:
+    """The bf16 kernels' tile test from position bounds alone, as
+    ``csrc/hopper.cuh:tile_live`` and ``tile_full`` make it: ``(live,
+    full)`` for a (q tile, kv tile) whose real rows' positions span
+    ``[q_lo, q_hi]`` and real keys' ``[k_lo, k_hi]``. ``live`` is False
+    only when no pair can attend (the kernel skips the tile); ``full`` is
+    True only when every pair attends (the kernel masks nothing there,
+    provided the tile also lies below ``valid[b]``)."""
     live = k_lo <= q_hi and (window <= 0 or q_lo - k_hi < window)
     full = k_hi <= q_lo and (window <= 0 or q_hi - k_lo < window)
     return live, full
+
+
+def tile_bounds_test(q_pos, kv_pos, window: int = 0) -> Tuple[bool, bool]:
+    """``tile_rule`` on the positions of a tile's real rows and keys.
+    Positions need not be monotone: the test is conservative for any
+    positions and exact for runs of consecutive ones."""
+    return tile_rule(min(q_pos), max(q_pos), min(kv_pos), max(kv_pos), window)
+
+
+_INT_MAX, _INT_MIN = 2**31 - 1, -(2**31)
+
+
+def tile_bounds(positions: torch.Tensor, block: int,
+                limit: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain ``tile_bounds_kernel`` (``csrc/hopper.cuh``): the lowest and
+    highest position in each tile of ``block`` rows of ``positions
+    [B, L]``, over the rows below ``limit[b]`` (``valid``; None = L), as
+    two int64 ``[B, ceil(L / block)]``; a tile with no such row gets
+    (INT_MAX, INT_MIN), which no tile test calls live. K4 reduces the keys
+    this way (with ``valid``), K5 the queries (without)."""
+    B, L = positions.shape
+    n = -(-L // block)
+    pos = torch.nn.functional.pad(positions.long(), (0, n * block - L))
+    end = torch.full((B,), L, device=pos.device) if limit is None else limit.long().clamp(max=L)
+    real = torch.arange(n * block, device=pos.device)[None] < end[:, None]
+    lo = torch.where(real, pos, _INT_MAX).reshape(B, n, block).amin(-1)
+    hi = torch.where(real, pos, _INT_MIN).reshape(B, n, block).amax(-1)
+    return lo, hi
 
 
 def _check(name: str, q, k, v, extra=()) -> None:
@@ -223,6 +251,67 @@ def flash_attention_bwd_plain(
     return dq.reshape(B, T, N, H).to(q.dtype), dk, dv
 
 
+def flash_attention_bwd_tiled_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    q_positions: torch.Tensor, kv_positions: torch.Tensor, valid: torch.Tensor,
+    window: int, o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+    dlse: Optional[torch.Tensor] = None, scale: Optional[float] = None,
+    softcap: float = 0.0, block_q: int = 64, block_k: int = 64,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``flash_attention_bwd_plain`` walked tile by tile as the bf16 K4
+    and K5 walk it, for the tests: each (q tile, kv tile) below ``valid[b]``
+    is skipped, taken whole (no pair mask) or masked pair by pair, from the
+    bounds ``tile_bounds`` gives and the rule ``tile_rule`` states; a tile
+    is taken whole only if it also lies below ``valid[b]``. A row whose lse
+    is NEG_INF gets p = 0 in every tile. Same rounding points as the plain
+    version."""
+    B, T, N, H = q.shape
+    _, S, K, _ = k.shape
+    G = N // K
+    scale = scale if scale is not None else H**-0.5
+    delta = _delta(o, do, dlse).reshape(B, K, G, T)
+    lse = lse.reshape(B, T, K, G).permute(0, 2, 3, 1).float()          # [B,K,G,T]
+    qg = q.reshape(B, T, K, G, H)
+    dog = do.reshape(B, T, K, G, H)
+    q_lo, q_hi = tile_bounds(q_positions, block_q)
+    k_lo, k_hi = tile_bounds(kv_positions, block_k, valid)
+    dq = torch.zeros(B, T, K, G, H, device=q.device)
+    dk = torch.zeros(B, S, K, H, device=q.device)
+    dv = torch.zeros_like(dk)
+    for b in range(B):
+        kv_end = min(S, int(valid[b]))
+        for i in range(-(-T // block_q)):
+            t0, t1 = i * block_q, min(T, (i + 1) * block_q)
+            qp = q_positions[b, t0:t1, None].long()
+            for j in range(-(-kv_end // block_k)):
+                j0, j1 = j * block_k, min(kv_end, (j + 1) * block_k)
+                live, full = tile_rule(int(q_lo[b, i]), int(q_hi[b, i]), int(k_lo[b, j]),
+                                       int(k_hi[b, j]), window)
+                if not live:
+                    continue
+                qt, dot = qg[b, t0:t1].float(), dog[b, t0:t1]
+                kt, vt = k[b, j0:j1], v[b, j0:j1]
+                s = torch.einsum("tkgh,skh->kgts", qt, kt.float()) * scale
+                if softcap > 0.0:
+                    th = torch.tanh(s / softcap)
+                    s = th * softcap
+                lse_t = lse[b, :, :, t0:t1, None]
+                ok = lse_t > NEG_INF / 2
+                if not (full and (j + 1) * block_k <= kv_end):
+                    kp = kv_positions[b, None, j0:j1].long()
+                    ok = ok & (kp <= qp) & ((qp - kp < window) if window > 0 else True)
+                p = torch.where(ok, torch.exp(s - lse_t), torch.zeros_like(s))
+                dp = torch.einsum("tkgh,skh->kgts", dot.float(), vt.float())
+                ds = p * (dp - delta[b, :, :, t0:t1, None])
+                if softcap > 0.0:
+                    ds = ds * (1.0 - th * th)
+                dq[b, t0:t1] += torch.einsum("kgts,skh->tkgh", ds.to(k.dtype).float(), kt.float())
+                dk[b, j0:j1] += torch.einsum("kgts,tkgh->skh", ds.to(q.dtype).float(), qt)
+                dv[b, j0:j1] += torch.einsum("kgts,tkgh->skh", p.to(v.dtype).float(),
+                                             dot.to(v.dtype).float())
+    return (dq * scale).reshape(B, T, N, H).to(q.dtype), dk * scale, dv
+
+
 def flash_attention_bwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q_positions: torch.Tensor, kv_positions: torch.Tensor, valid: torch.Tensor,
@@ -249,7 +338,10 @@ def flash_attention_bwd(
 def bwd_operands(q, k, v, q_positions, kv_positions, valid, window, o, lse, do,
                  dlse=None, scale=None, softcap=0.0) -> dict:
     """What K4 and K5 read, checked and laid out for them: ``do``
-    contiguous, lse rows and delta fp32 ``[B, N, T]``, int32 positions."""
+    contiguous, lse rows and delta fp32 ``[B, N, T]``, int32 positions,
+    and the int32 scratch in which each bf16 kernel's first launch puts
+    its tile bounds (K4's per kv tile, K5's per q tile; one after the
+    other on the stream, so they share it)."""
     do = do.contiguous()
     lse_rows = lse.transpose(1, 2).contiguous()                       # [B, N, T]
     delta = _delta(o, do, dlse)
@@ -257,9 +349,12 @@ def bwd_operands(q, k, v, q_positions, kv_positions, valid, window, o, lse, do,
     if do.shape != q.shape or do.dtype != q.dtype or lse_rows.dtype != torch.float32:
         raise ValueError("flash_attention_bwd: do must match q in shape and dtype, and lse "
                          "must be fp32 [B,T,N]")
-    qpos, kpos, val = _index_args(q, q_positions, kv_positions, valid, k.shape[1])
+    B, T = q.shape[:2]
+    S = k.shape[1]
+    qpos, kpos, val = _index_args(q, q_positions, kv_positions, valid, S)
+    bounds = torch.empty((B, 2 * -(-max(T, S) // 32)), device=q.device, dtype=torch.int32)
     return dict(q=q, k=k, v=v, do=do, lse=lse_rows, delta=delta, qpos=qpos, kpos=kpos,
-                valid=val, window=int(window),
+                valid=val, bounds=bounds, window=int(window),
                 scale=float(scale if scale is not None else q.shape[-1] ** -0.5),
                 softcap=float(softcap))
 
@@ -267,12 +362,12 @@ def bwd_operands(q, k, v, q_positions, kv_positions, valid, window, o, lse, do,
 def _launch_bwd(name: str, ops: dict, outs) -> None:
     from pilottai_tpu_torch.ops.kernels.build import load_library
 
-    lib = _bind(load_library(name), f"pt_{name}", 9 + len(outs))
+    lib = _bind(load_library(name), f"pt_{name}", 10 + len(outs))
     q, k = ops["q"], ops["k"]
     B, T, N, H = q.shape
     _, S, K, _ = k.shape
     ptrs = [ops[key].data_ptr() for key in
-            ("q", "k", "v", "do", "lse", "delta", "qpos", "kpos", "valid")]
+            ("q", "k", "v", "do", "lse", "delta", "qpos", "kpos", "valid", "bounds")]
     status = getattr(lib, f"pt_{name}")(
         _DTYPES[q.dtype], *ptrs, *(t.data_ptr() for t in outs), B, T, S, N, K, H,
         ops["window"], ops["scale"], ops["softcap"], torch.cuda.current_stream(q.device).cuda_stream,

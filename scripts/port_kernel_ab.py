@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
 """Time two versions of the port's CUDA kernels on one card, in turns.
 
-Builds ``flash_fwd.cu``, ``decode_attention.cu`` and ``paged_attention.cu``
-from two source trees (A, typically the parent commit unpacked with ``git
+Builds the five kernels (``flash_fwd.cu``, ``decode_attention.cu``,
+``paged_attention.cu``, ``flash_bwd_dq.cu``, ``flash_bwd_dkv.cu``) from two
+source trees (A, typically the parent commit unpacked with ``git
 archive``, and B, the working tree), binds each with its own tree's
 wrapper (a kernel's C interface may differ between the two), checks each
 against the plain PyTorch versions, and times both at the main path's
 shapes in the order A, B, B, A, so drift on the card shows up as A
-disagreeing with itself. Times are the median of CUDA-event-timed
-launches queued back to back with the L2 cache flushed before each
-(``chip_smoke.Timer``).
+disagreeing with itself. The yardsticks, timed once: SDPA's forward at
+K1's shapes and its backward (dq, dk and dv in one call) at K4's and
+K5's. Times are the median of CUDA-event-timed launches queued back to
+back with the L2 cache flushed before each (``chip_smoke.Timer``).
 
     git archive HEAD pilottai_tpu_torch | tar -x -C .scratch/parent
     python3 scripts/port_kernel_ab.py --a .scratch/parent/pilottai_tpu_torch \\
@@ -30,7 +32,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
-KERNELS = ("flash_fwd", "decode_attention", "paged_attention")
+KERNELS = ("flash_fwd", "decode_attention", "paged_attention", "flash_bwd_dq",
+           "flash_bwd_dkv")
 # (name, B, T or S, valid or last, N, K, H): K1 at the llama3-8b serving
 # shapes and the llama3-1b training shape, K2 at the dense wave's.
 FLASH_CASES = [("prefill T256 valid 184", 8, 256, 184, 32, 8, 128),
@@ -41,6 +44,8 @@ DECODE_CASES = [("decode S2048 last 216", 8, 2048, 216),
 # K3 at the paged llama3-8b wave's step: 129 pages of 128, one long slot and
 # seven short ones, the ring 16 rows deep at step 8.
 PAGED_LAST = [6097] + [215] * 7
+# K4 and K5 at the llama3-1b training step's attention: (B, T, N, K, H).
+BWD_SHAPE = (4, 2048, 32, 8, 64)
 
 
 def load_wrappers(pkg: Path, tag: str) -> dict:
@@ -101,8 +106,22 @@ def main() -> int:
     kw = dict(q_positions=x["qpos"], n_blocks=x["max_pages"], scale=H**-0.5, ring_k=x["rk"],
               ring_v=x["rv"], ring_step=step)
     inputs["paged wave step"] = ("paged", (x["q"], x["k"], x["v"], x["table"], x["last"]), kw)
+    B, T, N, K, H = BWD_SHAPE
+    q, do = (chip_smoke.randn(torch, gen, (B, T, N, H), bf, dev) for _ in range(2))
+    k, v = (chip_smoke.randn(torch, gen, (B, T, K, H), bf, dev) for _ in range(2))
+    pos = torch.arange(T, device=dev, dtype=torch.int32)[None].repeat(B, 1)
+    val = torch.full((B,), T, device=dev, dtype=torch.int32)
+    o, lse = wrappers["B"]["flash_attention"].flash_attention_plain(q, k, v, pos, pos, val)
+    bwd_args = (q, k, v, pos, pos, val, 0, o, lse, do)
+    bwd_ops = {tag: w["flash_attention"].bwd_operands(*bwd_args) for tag, w in wrappers.items()}
+    inputs["train bwd dq T2048 H64"] = ("bwd_dq", bwd_args, {})
+    inputs["train bwd dkv T2048 H64"] = ("bwd_dkv", bwd_args, {})
 
     def run(w, kind, a, kw):
+        if kind == "bwd_dq":
+            return w["flash_attention"].flash_bwd_dq(kw["ops"])
+        if kind == "bwd_dkv":
+            return w["flash_attention"].flash_bwd_dkv(kw["ops"])
         if kind == "flash":
             return w["flash_attention"].flash_attention_fwd(*a)[0]
         if kind == "decode":
@@ -111,6 +130,10 @@ def main() -> int:
         return acc / l[..., None]
 
     def plain(w, kind, a, kw):
+        if kind == "bwd_dq":
+            return w["flash_attention"].flash_attention_bwd_plain(*a)[0]
+        if kind == "bwd_dkv":
+            return torch.stack(w["flash_attention"].flash_attention_bwd_plain(*a)[1:])
         if kind == "flash":
             return w["flash_attention"].flash_attention_plain(*a)[0]
         if kind == "decode":
@@ -137,13 +160,29 @@ def main() -> int:
                       iters=args.iters)
         results[f"SDPA {name}"] = [ms]
         print(f"SDPA {name:<28} {ms:9.4f} ms", flush=True)
+    # SDPA's backward at K4's and K5's shape: dq, dk and dv in one call.
+    q, k, v, pos, _, val, _, _, _, do = bwd_args
+    G = q.shape[2] // k.shape[2]
+    qs = q.transpose(1, 2).detach().requires_grad_()
+    ks, vs = (x.transpose(1, 2).repeat_interleave(G, dim=1).detach().requires_grad_()
+              for x in (k, v))
+    out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=prefill_mask(pos, pos, val)[:, None])
+    ms = timer.ms(lambda: torch.autograd.grad(out, (qs, ks, vs), do.transpose(1, 2),
+                                              retain_graph=True), iters=args.iters)
+    del out
+    results["SDPA backward train T2048 H64"] = [ms]
+    print(f"SDPA {'backward train T2048 H64':<28} {ms:9.4f} ms", flush=True)
     for tag in ("A", "B", "B", "A"):
         build.load_library = lambda name, tag=tag: libs[tag][name]
         w = wrappers[tag]
         for name, (kind, a, kw) in inputs.items():
+            if kind.startswith("bwd"):
+                kw = {"ops": bwd_ops[tag]}
             ref = refs[name]
-            got = run(w, kind, a, kw).float()
-            scale = ref.abs().amax().clamp_min(1.0) if kind == "decode" else 1.0
+            got = run(w, kind, a, kw)
+            got = (torch.stack(got) if isinstance(got, tuple) else got).float()
+            scale = (ref.abs().amax().clamp_min(1.0) if kind == "decode" else
+                     ref.abs().amax() if kind.startswith("bwd") else 1.0)
             err = ((got - ref).abs().max() / scale).item()
             ms = timer.ms(lambda: run(w, kind, a, kw), iters=args.iters)
             results.setdefault(f"{tag} {name}", []).append(ms)
