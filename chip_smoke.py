@@ -16,7 +16,8 @@ result line is printed only when every phase passed):
    versions at llama3-8b (head_dim 128), llama3-1b (64) and protocol-s (32)
    shapes, in bf16 and fp32, with windows, soft-caps, ragged lengths and
    empty rows; K3 also with a sentinel page inside a table row, the ring at
-   its first and last row, ``q_blocks=2`` and int8 pools; K4 and K5 (the
+   its first and last row, ``q_blocks=2``, int8 pools and page sizes 8, 24,
+   100 and 512 (off the multiples of 16 and past one split); K4 and K5 (the
    flash backward: dq, and dk with dv) against the plain backward at the
    same three head dims with G = 4 and G = 1, an empty row, T != S with
    offset query positions, a window, a soft-cap and a nonzero lse
@@ -31,9 +32,11 @@ result line is printed only when every phase passed):
    through ``LLMHandler.generate_response``, once on the dense cache and
    once paged with chunked prefill; the greedy token ids must equal
    ``assets/protocol_s_golden.json`` and ``protocol_s_paged_golden.json``
-   (the JAX engine's). Each path's launch counters, reset just before it,
-   must show its kernels: K1 and K2 on the dense path, K1 and K3 with K2 at
-   zero on the paged one, where prefill segments must have run;
+   (the JAX engine's), the paged one twice: at the asset's 16-key pages and
+   at 8-key pages, the smallest the config takes. Each path's launch
+   counters, reset just before it, must show its kernels: K1 and K2 on the
+   dense path, K1 and K3 with K2 at zero on the paged ones, where prefill
+   segments must have run;
 5. full width — llama3-8b in bf16 from random init, (a) on the dense cache:
    8 concurrent JSON-mode greedy requests, the counters > 0 and one prompt's
    first-token logits through K1 against the plain K1 (``TOL_E2E``); (b)
@@ -57,7 +60,10 @@ result line is printed only when every phase passed):
    K1, K4 and K5 (``TOL_E2E_TRAIN``);
 6. last, each path's kernels timed at the shapes that path gave them (bf16
    at phase 5's and 7b's, fp32 at phase 4's and 7a's; K3 with the L2
-   flushed and warm); the kernels line, then the result line.
+   flushed and warm), with the yardstick's terms printed beside the fp32
+   rows (torch and CUDA versions, the TF32 flags, and the device kernels of
+   one SDPA forward and backward, which name the backend that ran); the
+   kernels line, then the result line.
 
 ``--kernels-only`` stops after phase 3; ``--seed`` changes the kernel
 checks' inputs and the llama3-8b and llama3-1b weights.
@@ -81,7 +87,10 @@ from pathlib import Path
 
 NEG_INF = -2.0**30
 # Limits against the plain versions, per dtype, on unit-variance inputs.
-# fp32: only the order of summation differs. bf16: the kernel rounds p to
+# fp32: the order of summation differs, and K1 and K5 run their products in
+# 3xTF32, which keeps about 21 bits of each operand and drops terms of
+# 2^-22 relative (tests/test_torch_tf32_split.py holds that arithmetic
+# within these limits on the CPU). bf16: the kernel rounds p to
 # bf16 against its running max and the plain version against the row max,
 # so the attention output ("out": K1's o, K2's acc / l and o) moves by that
 # rounding; K1's o is then rounded to bf16 once more, which the relative
@@ -127,8 +136,13 @@ TOL_TRAIN_GOLDEN = {"loss": 3e-5, "grad_norm": 1e-4}
 # carry the difference to every gradient.
 TOL_E2E_TRAIN = 4e-2
 TRAIN_STEPS = 8
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # H100 SXM dense bf16 (tensor
-# cores) and fp32 outside the tensor cores (NVIDIA data sheet)
+# H100 SXM dense bf16 on the tensor cores (NVIDIA data sheet), and for fp32
+# the fp32-accurate tensor-core rate, TF32's 495e12 over the three products
+# of 3xTF32: the least time this card takes for fp32-accurate products. The
+# yardstick does the same: SDPA's fp32 path runs PyTorch's memory-efficient
+# attention, whose sm80+ fp32 GEMMs are CUTLASS's OpMultiplyAddFastF32
+# (mem_eff_attention/gemm_kernel_utils.h in PyTorch's headers).
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 495e12 / 3}
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 # Kernel names of csrc/ that a profile lists apart, wherever they rank.
 PORT_KERNEL_NAMES = ("flash_fwd", "tile_bounds", "decode_stats", "paged_split", "paged_merge",
@@ -238,18 +252,18 @@ def check_flash(torch, fa, gen, device, name, dtype, B, T, N, K, H, valid,
 
 
 def compare_stats(kernel, plain, tol_name):
-    """Hold a kernel's ``(acc, m, l)`` to its plain version's: acc (as acc /
-    max(l, 1) in bf16), the normalised output, m and relative l on rows
-    with keys; rows with no key must be exact. Returns (ok, gated error,
-    the log line's numbers)."""
+    """Hold a kernel's ``(acc, m, l)`` to its plain version's: acc as acc /
+    max(l, 1), the normalised output, m and relative l on rows with keys;
+    rows with no key must be exact. Returns (ok, gated error, the log
+    line's numbers)."""
     a_k, m_k, l_k = kernel
     a_p, m_p, l_p = plain
     empty = m_p <= NEG_INF / 2
     live = ~empty
     tol = TOL[tol_name]
-    # acc is unnormalized: its scale is l (up to S). In bf16 its error is
-    # held as acc / max(l, 1), in units of the attention output; fp32 holds
-    # acc itself.
+    # acc is unnormalized: its scale is l (up to S keys' worth), so its
+    # error is held as acc / max(l, 1), in units of the attention output,
+    # in both dtypes; the raw acc error is printed beside it.
     d_acc = (a_k - a_p).abs()
     err_acc = d_acc[live].max().item() if live.any() else 0.0
     err_acc_l = ((d_acc / l_p.clamp_min(1.0)[..., None])[live].max().item()
@@ -260,14 +274,12 @@ def compare_stats(kernel, plain, tol_name):
              .abs()[live].max().item()) if live.any() else 0.0
     empty_ok = bool((m_k[empty] == m_p[empty]).all() and (l_k[empty] == 0).all()
                     and (a_k[empty] == 0).all())
-    gated_acc = err_acc_l if tol_name == "bfloat16" else err_acc
-    ok = (max(gated_acc, err_o) <= tol["out"] and max(err_m, err_l) <= tol["stats"]
+    ok = (max(err_acc_l, err_o) <= tol["out"] and max(err_m, err_l) <= tol["stats"]
           and empty_ok)
     text = (f"acc {err_acc:.2e} acc/l {err_acc_l:.2e} o {err_o:.2e} m {err_m:.2e} "
             f"l(rel) {err_l:.2e} empty rows exact={empty_ok} ({int(empty.sum())} rows) "
-            f"tol {tol_text(tol_name, rel=False)} "
-            f"(acc{'/l' if tol_name == 'bfloat16' else ''} gated) {'ok' if ok else 'FAIL'}")
-    return ok, max(gated_acc, err_o, err_m, err_l), text
+            f"tol {tol_text(tol_name, rel=False)} (acc/l gated) {'ok' if ok else 'FAIL'}")
+    return ok, max(err_acc_l, err_o, err_m, err_l), text
 
 
 def check_decode(torch, da, gen, device, name, dtype, B, N, K, S, H, last,
@@ -404,6 +416,9 @@ def phase_kernels(torch, fa, da, pa, device, seed):
     egen.manual_seed(seed)
     begen = torch.Generator(device=device)
     begen.manual_seed(seed)
+    # And the K3 page sizes added with the page-size repair.
+    pgen = torch.Generator(device=device)
+    pgen.manual_seed(seed)
     results, worst = [], {}
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype)[6:]
@@ -526,6 +541,36 @@ def phase_kernels(torch, fa, da, pa, device, seed):
             ok, err = check_paged(torch, pa, egen, device, name, dtype, **kw)
             results.append(ok)
             worst[("paged", dn)] = max(worst.get(("paged", dn), 0.0), err)
+        # K3 at page sizes off the multiples of 16 and past one split (any
+        # page from 8 on, as the JAX engine takes): a page's last tile cut
+        # short, int8 scales that do not start 16-byte aligned, a page that
+        # is a split of its own; slots end mid-page.
+        paged_sizes = [
+            ("protocol-s H32 P8 ring@5", dict(
+                B=4, N=8, K=4, H=32, P=8, lengths=[415, 37, 0, 9], ring=16, step=5)),
+            ("protocol-s H32 P8 int8 window", dict(
+                B=4, N=8, K=4, H=32, P=8, lengths=[415, 63, 0, 9], quantized=True, window=100)),
+            ("llama3-8b P24 window softcap hole", dict(
+                B=4, N=32, K=8, H=128, P=24, lengths=[1000, 25, 0, 47], window=300,
+                softcap=30.0, hole=(0, 5))),
+            ("llama3-1b H64 P24 int8 ring@3", dict(
+                B=4, N=32, K=8, H=64, P=24, lengths=[700, 23, 0, 49], quantized=True, ring=16,
+                step=3)),
+            ("llama3-1b H64 P100 ring@15", dict(
+                B=4, N=32, K=8, H=64, P=100, lengths=[1777, 100, 0, 250], ring=16, step=15)),
+            ("llama3-8b P100 int8 softcap hole", dict(
+                B=4, N=32, K=8, H=128, P=100, lengths=[2050, 101, 0, 399], quantized=True,
+                softcap=30.0, hole=(0, 4))),
+            ("llama3-8b P512 ring@0", dict(
+                B=4, N=32, K=8, H=128, P=512, lengths=[3000, 513, 0, 1], ring=16, step=0)),
+            ("protocol-s H32 P512 int8 window", dict(
+                B=4, N=8, K=4, H=32, P=512, lengths=[1500, 511, 0, 600], quantized=True,
+                window=700)),
+        ]
+        for name, kw in paged_sizes:
+            ok, err = check_paged(torch, pa, pgen, device, name, dtype, **kw)
+            results.append(ok)
+            worst[("paged", dn)] = max(worst.get(("paged", dn), 0.0), err)
         # K4 and K5: Tq and S off the 64-row tiles (and off K5's 32-row q
         # tiles at head_dim 128), query rows offset into the keys, rows with
         # no key, key positions out of order, G = 1 and G = 4, so the tile
@@ -599,10 +644,10 @@ def launches_text(launches):
             f"flash_bwd_dkv {launches['bwd_dkv']}")
 
 
-def phase_golden(torch, kernels, root, asset, paged):
-    """Serve the golden prompts with the asset's engine settings and hold
-    the ids to it. Returns the path's launches and the shapes its fp32
-    kernels saw."""
+def phase_golden(torch, kernels, root, asset, paged, page_size=None):
+    """Serve the golden prompts with the asset's engine settings (the page
+    size replaced by ``page_size``, if given) and hold the ids to it.
+    Returns the path's launches and the shapes its fp32 kernels saw."""
     from pilottai_tpu_torch import LLMConfig, LLMHandler, PROTOCOL_S_NPZ
     from pilottai_tpu_torch.engine.types import ChatMessage, ToolSpec
     from pilottai_tpu_torch.models.transformer import forward_prefill
@@ -611,6 +656,8 @@ def phase_golden(torch, kernels, root, asset, paged):
     torch.backends.cudnn.allow_tf32 = False
     log("  TF32 off for matmuls and cuDNN (torch.backends.*.allow_tf32 = False)")
     golden = json.loads((root / "pilottai_tpu_torch" / "assets" / asset).read_text())
+    if page_size is not None:
+        golden["engine"] = dict(golden["engine"], engine_page_size=page_size)
     log(f"  {asset}: engine {golden['engine']}")
 
     async def run():
@@ -743,13 +790,10 @@ async def profile_wave(handler, requests, label):
     return report_profile(prof, wall_us, f"wave ({label})")
 
 
-def report_profile(prof, wall_us, label, top=8):
-    """Log the device's busy share of ``wall_us`` and the kernels that fill
-    it, from a finished ``torch.profiler`` run; returns the share. Only the
-    device's own kernel rows count: an operator row (``aten::mm``, an
-    autograd Function) carries the time of the kernels it launched, and a
-    user annotation (``Optimizer.step#AdamW.step``) spans them on the
-    device, so either would count them twice."""
+def device_rows(prof):
+    """(device µs, name, count) of each device kernel a finished
+    ``torch.profiler`` run saw, operator rows and user annotations left
+    out."""
     from torch.autograd import DeviceType
 
     rows = []
@@ -762,6 +806,17 @@ def report_profile(prof, wall_us, label, top=8):
             dev = getattr(evt, "self_cuda_time_total", 0.0)
         if dev > 0:
             rows.append((dev, evt.key, evt.count))
+    return rows
+
+
+def report_profile(prof, wall_us, label, top=8):
+    """Log the device's busy share of ``wall_us`` and the kernels that fill
+    it, from a finished ``torch.profiler`` run; returns the share. Only the
+    device's own kernel rows count: an operator row (``aten::mm``, an
+    autograd Function) carries the time of the kernels it launched, and a
+    user annotation (``Optimizer.step#AdamW.step``) spans them on the
+    device, so either would count them twice."""
+    rows = device_rows(prof)
     busy = sum(r[0] for r in rows)
     if not rows:
         log(f"  profiled {label}: the profiler saw no device time (busy share not measured)")
@@ -1343,7 +1398,8 @@ def time_kernels(torch, fa, da, device, timer, gen, dtype, cfg, flash, decode, l
     return kernels
 
 
-def time_paged(torch, pa, device, timer, gen, dtype, shape, launched, worst, suffix=""):
+def time_paged(torch, pa, device, timer, gen, dtype, shape, launched, worst, suffix="",
+               **extra):
     """Time K3 (kernel, plain version, SDPA over panels gathered beforehand)
     at one paged path's decode step: its slots' lengths and block table, a
     pool of its size, the ring ``step`` rows into a chunk. Returns its entry
@@ -1400,7 +1456,7 @@ def time_paged(torch, pa, device, timer, gen, dtype, shape, launched, worst, suf
               + 2 * 4 * B + 4 * B * N * H + 2 * 4 * B * N)
     e = entry("paged_attention" + suffix, pa, launched, worst[("paged", dn)], k3, k3_plain,
               k3_lib, flops, nbytes, dn, tol_text(dn, False), gather_ms=gather_ms,
-              warm_ms=k3_warm, launches_per_request=launched / shape["requests"])
+              warm_ms=k3_warm, launches_per_request=launched / shape["requests"], **extra)
     log(f"  K3 paged     {dn:<8} q [{B},{N},{H}] P {P} pool {num_pages} pages, last {last}, "
         f"ring {R} at step {step}: kernel {k3:.4f} ms (L2 warm {k3_warm:.4f} ms), plain "
         f"{k3_plain:.4f} ms, SDPA "
@@ -1481,6 +1537,58 @@ def time_train_kernels(torch, fa, device, timer, gen, dtype, shape, launches, wo
     return out
 
 
+def sdpa_yardstick(torch, device, gen, shape):
+    """What the fp32 rows' library call is: torch and CUDA versions, the
+    TF32 flags, and the device kernels of one SDPA forward and one backward
+    (explicit mask, fp32) at the golden training shape, from
+    ``torch.profiler``; the kernel names say which backend ran and whether
+    its products are TF32-split. Returns the names."""
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    from pilottai_tpu_torch.ops.attention import prefill_mask
+
+    cfg = shape["model"]
+    N, K, H = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    B, T = shape["B"], shape["T"]
+    qs = randn(torch, gen, (B, N, T, H), torch.float32, device).requires_grad_()
+    ks, vs = (randn(torch, gen, (B, N, T, H), torch.float32, device).requires_grad_()
+              for _ in range(2))
+    pos = torch.arange(T, device=device, dtype=torch.int32)[None].repeat(B, 1)
+    mask = prefill_mask(pos, pos, torch.tensor(shape["lens"], device=device,
+                                               dtype=torch.int32))[:, None]
+    reps = 3
+
+    def profiled(fn):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        return sorted(device_rows(prof), reverse=True)
+
+    out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask)
+    dout = torch.ones_like(out)
+    rows = {
+        "forward": profiled(lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask)),
+        "backward": profiled(lambda: torch.autograd.grad(out, (qs, ks, vs), dout,
+                                                         retain_graph=True)),
+    }
+    log(f"  yardstick: torch {torch.__version__}, CUDA {torch.version.cuda}; "
+        f"torch.backends.cuda.matmul.allow_tf32 {torch.backends.cuda.matmul.allow_tf32}, "
+        f"torch.backends.cudnn.allow_tf32 {torch.backends.cudnn.allow_tf32}, float32 matmul "
+        f"precision {torch.get_float32_matmul_precision()!r}; SDPA backends enabled: flash "
+        f"{torch.backends.cuda.flash_sdp_enabled()}, memory-efficient "
+        f"{torch.backends.cuda.mem_efficient_sdp_enabled()}, math "
+        f"{torch.backends.cuda.math_sdp_enabled()}")
+    for label in ("forward", "backward"):
+        log(f"  SDPA fp32 {label} q [{B},{N},{T},{H}] with a mask, device kernels ({reps} "
+            f"profiled calls, device time a call): " +
+            ("; ".join(f"{key[:110]} {dev / reps:.1f} us" for dev, key, _ in rows[label])
+             or "none seen (not measured)"))
+    return {label: [key for _, key, _ in r] for label, r in rows.items()}
+
+
 def phase_timing(torch, kernels, device, seed, worst, paths):
     """Every path's kernels, each at the shapes its own run gave it: bf16 at
     the llama3-8b waves', fp32 at the golden protocol-s requests'."""
@@ -1507,22 +1615,29 @@ def phase_timing(torch, kernels, device, seed, worst, paths):
     out[0]["launches_paged"] = p_launches["flash"]
     out.append(time_paged(torch, pa, device, timer, gen, torch.bfloat16, p_shape,
                           p_launches["paged"], worst))
+    yard = sdpa_yardstick(torch, device, gen, paths["train_golden"][1])
     g_launches, g_shapes = paths["golden"]
     fp32 = time_kernels(
         torch, fa, da, device, timer, gen, torch.float32, g_shapes["model"],
         flash=g_shapes["flash"], decode=g_shapes["decode"], launches=g_launches, worst=worst,
         suffix="_fp32")
     gp_launches, gp_shapes = paths["golden_paged"]
+    p8_launches = paths["golden_paged_p8"][0]
     fp32[0]["launches_paged"] = gp_launches["flash"]
+    fp32[0]["launches_paged_p8"] = p8_launches["flash"]
     gp_shape = dict(gp_shapes["paged"], model=gp_shapes["model"], requests=gp_shapes["requests"])
     fp32.append(time_paged(torch, pa, device, timer, gen, torch.float32, gp_shape,
-                           gp_launches["paged"], worst, suffix="_fp32"))
+                           gp_launches["paged"], worst, suffix="_fp32",
+                           launches_p8=p8_launches["paged"]))
     t_launches, t_shape = paths["train_full"]
     out += time_train_kernels(torch, fa, device, timer, gen, torch.bfloat16, t_shape,
                               t_launches, worst)
     g_launches, g_shape = paths["train_golden"]
     fp32 += time_train_kernels(torch, fa, device, timer, gen, torch.float32, g_shape,
                                g_launches, worst, suffix="_fp32")
+    for e in fp32:
+        if e["name"].startswith("flash_"):
+            e["library_kernels"] = yard["backward" if "bwd" in e["name"] else "forward"]
     return out + fp32
 
 
@@ -1577,6 +1692,10 @@ def main() -> int:
     log("== 4b. golden protocol-s token ids (fp32), paged cache, chunked prefill")
     paths["golden_paged"] = phase_golden(torch, kernels, root, "protocol_s_paged_golden.json",
                                          paged=True)
+    log("== 4b. again at engine_page_size 8, the smallest page the config takes")
+    paths["golden_paged_p8"] = phase_golden(torch, kernels, root,
+                                            "protocol_s_paged_golden.json", paged=True,
+                                            page_size=8)
     log("== 5a. llama3-8b full width, bf16, dense cache, 8 concurrent JSON requests")
     paths["full"] = phase_full_width(torch, kernels, args.seed)
     gc.collect()

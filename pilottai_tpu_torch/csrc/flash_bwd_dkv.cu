@@ -18,19 +18,21 @@
 // What bounds it on an H100: 8*H flops (4*H multiply-adds: s, dp, dv, dk)
 // per live (query, key, head) triple, so at training lengths it is bounded
 // by operations. One block owns a (batch row, kv head, kv tile): its K and V
-// tile stays resident in shared memory, and the block loops over the live q
-// tiles and the G query heads, accumulating dk and dv inside the block, as
-// the TPU kernel's in-cell group sum does. No atomics and no reduction
-// across blocks, so the gradients are the same bits on every run. q tiles
-// in which no (query, key) pair is live are skipped (causal training visits
-// about half of them), and a block whose keys all lie at or past valid[b]
-// only writes zeros. In bf16 (flash_bwd_dkv_bf16_tc_kernel, described above
-// it) the four products run on wgmma, Hopper's warpgroup product, with s,
-// dp, p and ds in registers and the q-side operands streamed through a
-// cp.async ring; p is rounded to bf16 for dv, ds to bf16 for dk, as the TPU
-// kernel rounds them to v's and q's dtypes. In fp32 every product runs on
-// the CUDA cores in full fp32 (never TF32), so it matches the reference up
-// to summation order.
+// tile stays resident, and the block loops over the live q tiles and the G
+// query heads, accumulating dk and dv inside the block, as the TPU kernel's
+// in-cell group sum does. No atomics and no reduction across blocks, so the
+// gradients are the same bits on every run. q tiles in which no (query,
+// key) pair is live are skipped (causal training visits about half of
+// them), and a block whose keys all lie at or past valid[b] only writes
+// zeros. In bf16 (flash_bwd_dkv_bf16_tc_kernel, described above it) the
+// four products run on wgmma, Hopper's warpgroup product, with s, dp, p and
+// ds in registers and the q-side operands streamed through a cp.async
+// ring; p is rounded to bf16 for dv, ds to bf16 for dk, as the TPU kernel
+// rounds them to v's and q's dtypes. In fp32 (flash_bwd_dkv_fp32_kernel,
+// described above it) the four products run on the tensor cores in 3xTF32,
+// at fp32's accuracy and the fp32-accurate tensor-core rate (495e12 / 3
+// FLOP/s, where the CUDA cores cap full fp32 at 67e12), with the same
+// ring, walk and tile rule.
 // Left on the table: S^T and dP^T read both operands from shared memory,
 // and an m64n64k16 product reads as many bytes a cycle as shared memory
 // delivers, so K and V held in registers (they are resident) or wider
@@ -56,154 +58,378 @@ __device__ __forceinline__ bool attends(int qp, int kp, int window) {
   return kp <= qp && (window <= 0 || qp - kp < window);
 }
 
-// Stages the positions of the q tile at t0 and says whether any of its
-// (query, key) pairs with the block's keys is live. Uniform across the block.
-template <int BQ, int BK, int NT>
-__device__ __forceinline__ bool stage_q_tile(const int32_t* __restrict__ qpos, int* sQpos,
-                                             const int* sKpos, int b, int t0, int Tq, int j0,
-                                             int kv_end, int window) {
-  __syncthreads();  // every reader of the previous q tile is done
-  for (int i = threadIdx.x; i < BQ; i += NT) {
-    const int t = t0 + i;
-    sQpos[i] = t < Tq ? qpos[static_cast<size_t>(b) * Tq + t] : INT_MIN;
-  }
-  __syncthreads();
-  int live = 0;
-  for (int idx = threadIdx.x; idx < BQ * BK && !live; idx += NT) {
-    const int i = idx / BK, j = idx % BK;
-    live = t0 + i < Tq && j0 + j < kv_end && attends(sQpos[i], sKpos[j], window);
-  }
-  return __syncthreads_or(live);
+// fp32 path: the same function with all four products on the tensor cores
+// in 3xTF32 (hopper.cuh), which keeps about fp32's accuracy. A block holds
+// W_BK = 64 keys of one kv head with eight warps: four key warps of 16
+// keys, times two q groups. Grid, item walk and tile rule are the bf16
+// body's (below), with items of W_BQ = 64 q rows of one query head, and q
+// group g takes rows 32g to 32g + 31 of every item, so two warps share
+// each SM sub-partition's work on a key's walk (a lone warp walking every
+// item would wait on its own products); at the end group 1 hands its dK
+// and dV to group 0 through shared memory, which adds them in a fixed
+// order and writes. At head_dim 32 each warp keeps its keys' K and V rows
+// in registers for the whole walk, as the split A fragments of S^T and
+// dP^T (64 registers; at 64 and 128 they would not fit beside dK and dV,
+// and are read from shared memory and split at each use instead). Items
+// come through a 3-stage ring (2 at head_dim 128, for shared memory). Per
+// item, each warp runs mma.sync m16n8k8 in 3xTF32 on its 16 keys and 32
+// q rows:
+//   S^T = K Q^T and dP^T = V dO^T, Q and dO read as B operands;
+//   p and ds on their accumulator registers (p = 2^(s scale log2(e) - lse
+//     log2(e)), ds = p (dp - delta), times (1 - t^2) under a soft-cap);
+//   dV += P^T dO and dK += dS^T Q with the accumulators as A operands in
+//     place: the q rows of each k8 step are permuted (column t holds q row
+//     2t, column t + 4 row 2t + 1, as the accumulator does), and dO's and
+//     Q's B elements are read from the same permuted rows.
+// Staged rows are H + 4 floats apart, so every fragment read hits 32
+// banks. Items in which none of a warp's keys is live are skipped by that
+// warp, and a warp whose every pair is live masks nothing. dK and dV stay
+// in registers until the epilogue; no atomics, bit-identical repeats.
+constexpr int W_BK = 64, W_BQ = 64;  // keys a block, q rows an item
+constexpr int W_KW = 4, W_QG = 2;      // key warps, q groups
+constexpr int W_NT = 32 * W_KW * W_QG;
+constexpr int W_GQ = W_BQ / W_QG;      // q rows a group takes of an item
+// Items in the ring.
+template <int H> __host__ __device__ constexpr int w_stages() { return H == 128 ? 2 : 3; }
+// An item of the walk: q tile i (-1 past the last) of query head g, and
+// the q tile's position bounds.
+struct Item {
+  int i, g, qmin, qmax;
+};
+// K and V resident in registers as split fragments at head_dim 32.
+template <int H> __host__ __device__ constexpr bool w_kvreg() { return H == 32; }
+
+// Dynamic shared memory for Tq query rows: K, V, the ring, then the q tile
+// bounds.
+template <int H>
+size_t w_smem_bytes(int Tq) {
+  return static_cast<size_t>(2 * W_BK + 2 * w_stages<H>() * W_BQ) * (H + 4) * sizeof(float) +
+         static_cast<size_t>(w_stages<H>() * 3 * W_BQ) * sizeof(float) +
+         static_cast<size_t>((Tq + W_BQ - 1) / W_BQ) * sizeof(int2);
 }
 
-// fp32 path. A block holds BK keys of one kv head. Per q tile of BQ rows and
-// per query head, Q and dO are staged with rows padded to H+1 floats; each
-// thread computes BK*BQ/NT (p, ds) pairs, then accumulates its dk and dv
-// column for BK*H/NT keys.
-template <int H, int BK, int BQ, int NT>
-__global__ void __launch_bounds__(NT) flash_bwd_dkv_fp32_kernel(
+template <int H>
+__global__ void __launch_bounds__(W_NT, 1) flash_bwd_dkv_fp32_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     const float* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, const int32_t* __restrict__ qpos,
     const int32_t* __restrict__ kpos, const int32_t* __restrict__ valid,
-    float* __restrict__ dk, float* __restrict__ dv, int Tq, int S, int N, int Kh, int window,
-    float scale, float softcap) {
-  static_assert(NT % H == 0, "each column is owned by NT / H threads");
-  constexpr int COLS_GROUPS = NT / H;
-  constexpr int RPT = BK / COLS_GROUPS;  // keys accumulated per thread
-  constexpr int HS = H + 1;
+    const int2* __restrict__ bounds, float* __restrict__ dk, float* __restrict__ dv, int Tq,
+    int S, int N, int Kh, int window, float scale, float softcap) {
+  constexpr int LD = H + 4;      // fp32 row stride of the staged tiles
+  constexpr int CPR = H / 4;     // 16-byte chunks per row
+  constexpr int KSTEPS = H / 8;  // k-steps of S^T and dP^T over the head dim
+  constexpr int SNT = W_GQ / 8;  // n-tiles of a warp's s^T and dp^T
+  constexpr int ONT = H / 8;     // n-tiles of dk and dv
+  constexpr int W_STAGES = w_stages<H>();
+  constexpr bool KVREG = w_kvreg<H>();
+  static_assert(W_BK == 16 * W_KW && W_QG == 2, "a key warp owns 16 keys; two q groups");
 
-  extern __shared__ float smem[];
-  float* sK = smem;                 // [BK][H+1]
-  float* sV = sK + BK * HS;         // [BK][H+1]
-  float* sQ = sV + BK * HS;         // [BQ][H+1]
-  float* sDO = sQ + BQ * HS;        // [BQ][H+1]
-  float* sP = sDO + BQ * HS;        // [BK][BQ]
-  float* sDS = sP + BK * BQ;        // [BK][BQ]
-  float* sLse = sDS + BK * BQ;      // [BQ]
-  float* sDelta = sLse + BQ;        // [BQ]
-  int* sQpos = reinterpret_cast<int*>(sDelta + BQ);  // [BQ]
-  int* sKpos = sQpos + BQ;                           // [BK]
+  extern __shared__ __align__(16) float smem_w[];
+  float* sK = smem_w;                                              // [BK][LD]
+  float* sV = sK + W_BK * LD;                                      // [BK][LD]
+  float* sQ = sV + W_BK * LD;                                      // [STAGES][BQ][LD]
+  float* sDO = sQ + W_STAGES * W_BQ * LD;                          // [STAGES][BQ][LD]
+  float* sLse = sDO + W_STAGES * W_BQ * LD;                        // [STAGES][BQ]
+  float* sDelta = sLse + W_STAGES * W_BQ;                          // [STAGES][BQ]
+  int* sQpos = reinterpret_cast<int*>(sDelta + W_STAGES * W_BQ);  // [STAGES][BQ]
+  int2* sBounds = reinterpret_cast<int2*>(sQpos + W_STAGES * W_BQ);  // [ceil(Tq / BQ)]
 
-  const int tid = threadIdx.x;
-  const int j0 = blockIdx.x * BK;
-  const int kh = blockIdx.y;
-  const int b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int warp = (tid >> 5) % W_KW, grp = (tid >> 5) / W_KW;  // key warp, q group
+  const int kh = blockIdx.x, b = blockIdx.y;
+  const int j0 = blockIdx.z * W_BK;  // the first kv tiles, the longest, first
   const int G = N / Kh;
   const int kv_end = min(S, valid[b]);
+  const bool capped = softcap > 0.f;
+  const float sl2 = scale * kLog2e;
+  const float inf = __int_as_float(0x7f800000);
 
-  for (int idx = tid; idx < BK * H; idx += NT) {
-    const int j = idx / H, hh = idx % H, s = j0 + j;
-    float kx = 0.f, vx = 0.f;
+  // K and V go in flight first (keys past valid[b] zero-filled); the keys'
+  // positions and bounds are read meanwhile.
+  for (int idx = tid; idx < W_BK * CPR; idx += W_NT) {
+    const int r = idx / CPR, c = (idx % CPR) * 4, s = j0 + r;
+    const bool real = s < kv_end;
+    const size_t off = ((static_cast<size_t>(b) * S + (real ? s : 0)) * Kh + kh) * H + c;
+    cp_async16_zfill(sK + r * LD + c, k + off, real);
+    cp_async16_zfill(sV + r * LD + c, v + off, real);
+  }
+  cp_async_commit();
+  // The batch row's q tile bounds, staged once: the walk reads them from
+  // shared memory, not one dependent load from device memory a q tile.
+  const int n_qt = (Tq + W_BQ - 1) / W_BQ;
+  const int2* q_bounds = bounds + static_cast<size_t>(b) * n_qt;
+  for (int idx = tid; idx < n_qt; idx += W_NT) sBounds[idx] = q_bounds[idx];
+  const int r_lo = warp * 16 + (lane >> 2);  // this lane's two keys: r_lo and r_lo + 8
+  const int tq = lane & 3;
+  const int cq = tq * 2;                     // and its column pair within an n-tile
+  int kp[2];
+  bool key_ok[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int s = j0 + r_lo + 8 * hr;
+    key_ok[hr] = s < kv_end;
+    kp[hr] = key_ok[hr] ? kpos[static_cast<size_t>(b) * S + s] : INT_MAX;
+  }
+  // The block's key bounds (over every lane) and the warp's (lane l < 16
+  // and l - 16 read the warp's key l % 16), over keys below valid[b].
+  int kmin = INT_MAX, kmax = INT_MIN, wkmin = INT_MAX, wkmax = INT_MIN;
+  for (int r = lane; r < W_BK; r += 32) {
+    const int s = j0 + r;
     if (s < kv_end) {
-      const size_t off = ((static_cast<size_t>(b) * S + s) * Kh + kh) * H + hh;
-      kx = k[off];
-      vx = v[off];
-    }
-    sK[j * HS + hh] = kx;
-    sV[j * HS + hh] = vx;
-  }
-  for (int j = tid; j < BK; j += NT) {
-    const int s = j0 + j;
-    sKpos[j] = s < kv_end ? kpos[static_cast<size_t>(b) * S + s] : INT_MAX;
-  }
-
-  const int h = tid % H;
-  const int r0 = tid / H;
-  float dk_acc[RPT], dv_acc[RPT];
-#pragma unroll
-  for (int r = 0; r < RPT; ++r) dk_acc[r] = dv_acc[r] = 0.f;
-
-  for (int t0 = 0; j0 < kv_end && t0 < Tq; t0 += BQ) {
-    if (!stage_q_tile<BQ, BK, NT>(qpos, sQpos, sKpos, b, t0, Tq, j0, kv_end, window)) continue;
-    for (int g = 0; g < G; ++g) {
-      const int n = kh * G + g;
-      __syncthreads();  // the previous head's readers are done with sQ/sDO/sP/sDS
-      for (int idx = tid; idx < BQ * H; idx += NT) {
-        const int i = idx / H, hh = idx % H, t = t0 + i;
-        const size_t off = ((static_cast<size_t>(b) * Tq + t) * N + n) * H + hh;
-        sQ[i * HS + hh] = t < Tq ? q[off] : 0.f;
-        sDO[i * HS + hh] = t < Tq ? dout[off] : 0.f;
-      }
-      for (int i = tid; i < BQ; i += NT) {
-        const int t = t0 + i;
-        const size_t row = (static_cast<size_t>(b) * N + n) * Tq + t;
-        sLse[i] = t < Tq ? lse[row] : kNegInf;
-        sDelta[i] = t < Tq ? delta[row] : 0.f;
-      }
-      __syncthreads();
-
-      for (int idx = tid; idx < BK * BQ; idx += NT) {
-        const int j = idx / BQ, i = idx % BQ;
-        const float* kr = sK + j * HS;
-        const float* vr = sV + j * HS;
-        const float* qr = sQ + i * HS;
-        const float* dr = sDO + i * HS;
-        float dot = 0.f, dp = 0.f;
-#pragma unroll 16
-        for (int hh = 0; hh < H; ++hh) {
-          dot = fmaf(qr[hh], kr[hh], dot);
-          dp = fmaf(dr[hh], vr[hh], dp);
-        }
-        float s = dot * scale, th = 0.f;
-        if (softcap > 0.f) {
-          th = tanhf(s / softcap);
-          s = th * softcap;
-        }
-        const bool ok = t0 + i < Tq && j0 + j < kv_end && sLse[i] > kNegInf * 0.5f &&
-                        attends(sQpos[i], sKpos[j], window);
-        const float p = ok ? expf(s - sLse[i]) : 0.f;
-        float ds = p * (dp - sDelta[i]);
-        if (softcap > 0.f) ds *= 1.f - th * th;
-        sP[idx] = p;
-        sDS[idx] = ds;
-      }
-      __syncthreads();
-
-#pragma unroll
-      for (int r = 0; r < RPT; ++r) {
-        const int j = r0 + r * COLS_GROUPS;
-        const float* pr = sP + j * BQ;
-        const float* dsr = sDS + j * BQ;
-        float a = dv_acc[r], c = dk_acc[r];
-#pragma unroll 8
-        for (int i = 0; i < BQ; ++i) {
-          a = fmaf(pr[i], sDO[i * HS + h], a);
-          c = fmaf(dsr[i], sQ[i * HS + h], c);
-        }
-        dv_acc[r] = a;
-        dk_acc[r] = c;
-      }
+      const int p = kpos[static_cast<size_t>(b) * S + s];
+      kmin = min(kmin, p);
+      kmax = max(kmax, p);
     }
   }
+  {
+    const int s = j0 + warp * 16 + (lane & 15);
+    if (s < kv_end) wkmin = wkmax = kpos[static_cast<size_t>(b) * S + s];
+  }
+  kmin = warp_min_i(kmin);
+  kmax = warp_max_i(kmax);
+  wkmin = warp_min_i(wkmin);
+  wkmax = warp_max_i(wkmax);
+  const bool warp_keys_real = j0 + warp * 16 + 16 <= kv_end;
+  __syncthreads();  // sBounds is staged
 
+  // The first q tile at or before i that the block's keys can serve (-1 if
+  // none), and its bounds.
+  auto next_live = [&](int i, int& qmin, int& qmax) {
+    for (; i >= 0; --i) {
+      const int2 qb = sBounds[i];
+      qmin = qb.x;
+      qmax = qb.y;
+      if (tile_live(qmin, qmax, kmin, kmax, window)) return i;
+    }
+    return -1;
+  };
+  auto load_item = [&](int i, int gi, int st) {
+    const int t0 = i * W_BQ, nh = kh * G + gi;
+    for (int idx = tid; idx < W_BQ * CPR; idx += W_NT) {
+      const int r = idx / CPR, c = (idx % CPR) * 4, t = t0 + r;
+      const size_t off = ((static_cast<size_t>(b) * Tq + min(t, Tq - 1)) * N + nh) * H + c;
+      cp_async16_zfill(sQ + (st * W_BQ + r) * LD + c, q + off, t < Tq);
+      cp_async16_zfill(sDO + (st * W_BQ + r) * LD + c, dout + off, t < Tq);
+    }
+    const size_t row = (static_cast<size_t>(b) * N + nh) * Tq;
+    for (int idx = tid; idx < 3 * W_BQ; idx += W_NT) {
+      const int which = idx / W_BQ, r = idx % W_BQ, t = t0 + r, tc = min(t, Tq - 1);
+      if (which == 0) cp_async4_zfill(sLse + st * W_BQ + r, lse + row + tc, t < Tq);
+      if (which == 1) cp_async4_zfill(sDelta + st * W_BQ + r, delta + row + tc, t < Tq);
+      if (which == 2) {
+        cp_async4_zfill(sQpos + st * W_BQ + r, qpos + static_cast<size_t>(b) * Tq + tc, t < Tq);
+      }
+    }
+  };
+  // The A fragment of k-step ks of a staged K or V tile: the warp's keys
+  // r_lo, r_lo + 8, columns 8ks + tq, + 4.
+  auto kv_frag = [&](FragA& f, const float* tile, int ks) {
+    const float* p = tile + r_lo * LD + ks * 8 + tq;
+    split_a(f, p[0], p[8 * LD], p[4], p[8 * LD + 4]);
+  };
+
+  // The next item: the next query head of this q tile, else the first head
+  // of the next live q tile below it.
+  auto advance = [&](Item it) {
+    if (it.i >= 0 && ++it.g == G) {
+      it.g = 0;
+      it.i = next_live(it.i - 1, it.qmin, it.qmax);
+    }
+    return it;
+  };
+  // The items in flight: ring[0] is computed now, ring[s] is s items ahead
+  // and sits in stage (st + s) % STAGES.
+  Item ring[W_STAGES];
+  ring[0] = Item{-1, 0, INT_MAX, INT_MIN};
+  ring[0].i = next_live(n_qt - 1, ring[0].qmin, ring[0].qmax);
 #pragma unroll
-  for (int r = 0; r < RPT; ++r) {
-    const int s = j0 + r0 + r * COLS_GROUPS;
-    if (s < S) {
-      const size_t off = ((static_cast<size_t>(b) * S + s) * Kh + kh) * H + h;
-      dk[off] = dk_acc[r] * scale;
-      dv[off] = dv_acc[r];
+  for (int s = 1; s < W_STAGES; ++s) ring[s] = advance(ring[s - 1]);
+#pragma unroll
+  for (int s = 0; s + 1 < W_STAGES; ++s) {
+    if (ring[s].i >= 0) load_item(ring[s].i, ring[s].g, s);
+    cp_async_commit();
+  }
+
+  float acc[2][ONT][4];  // dV, then dK
+#pragma unroll
+  for (int nt = 0; nt < ONT; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[0][nt][e] = acc[1][nt][e] = 0.f;
+  }
+  FragA kf[KVREG ? KSTEPS : 1], vf[KVREG ? KSTEPS : 1];
+  bool have_kv = false;
+  int st = 0;
+
+  while (ring[0].i >= 0) {
+    const int i = ring[0].i, qmin = ring[0].qmin, qmax = ring[0].qmax;
+    const Item& ahead = ring[W_STAGES - 1];
+    if (ahead.i >= 0) load_item(ahead.i, ahead.g, (st + W_STAGES - 1) % W_STAGES);
+    cp_async_commit();
+    cp_async_wait<W_STAGES - 1>();  // K, V and this item have landed (this thread's copies)
+    __syncthreads();                // ... and every thread's
+    if (KVREG && !have_kv) {
+#pragma unroll
+      for (int ks = 0; ks < KSTEPS; ++ks) {
+        kv_frag(kf[KVREG ? ks : 0], sK, ks);
+        kv_frag(vf[KVREG ? ks : 0], sV, ks);
+      }
+      have_kv = true;
+    }
+    if (tile_live(qmin, qmax, wkmin, wkmax, window)) {
+      // This q group's rows of the item.
+      const float* tQ = sQ + (st * W_BQ + grp * W_GQ) * LD;
+      const float* tDO = sDO + (st * W_BQ + grp * W_GQ) * LD;
+      const int sr = st * W_BQ + grp * W_GQ;  // its first row's statistics
+
+      // S^T = K Q^T and dP^T = V dO^T for the warp's 16 keys, issued
+      // together.
+      float sp[2][SNT][4];
+      auto& sacc = sp[0];
+      auto& pacc = sp[1];
+#pragma unroll
+      for (int nt = 0; nt < SNT; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sacc[nt][e] = pacc[nt][e] = 0.f;
+      }
+#pragma unroll
+      for (int ks = 0; ks < KSTEPS; ++ks) {
+        FragA kva[2];
+        if (KVREG) {
+          kva[0] = kf[KVREG ? ks : 0];
+          kva[1] = vf[KVREG ? ks : 0];
+        } else {
+          kv_frag(kva[0], sK, ks);
+          kv_frag(kva[1], sV, ks);
+        }
+        FragB qdb[2][SNT];
+#pragma unroll
+        for (int nt = 0; nt < SNT; ++nt) {
+          const int at = (nt * 8 + (lane >> 2)) * LD + ks * 8 + tq;
+          split_b(qdb[0][nt], tQ[at], tQ[at + 4]);
+          split_b(qdb[1][nt], tDO[at], tDO[at + 4]);
+        }
+        mma_3xtf32(sp, 0, kva, qdb);
+      }
+
+      // p and ds; on a boundary item, the pair mask. Column c of n-tile nt
+      // is q row t0 + nt*8 + cq + (e & 1); a column past Tq or whose lse is
+      // NEG_INF carries lse = +inf, which gives p = 0.
+      const bool full = warp_keys_real && tile_full(qmin, qmax, wkmin, wkmax, window);
+      const int t0 = i * W_BQ + grp * W_GQ;
+#pragma unroll
+      for (int nt = 0; nt < SNT; ++nt) {
+        const int col = nt * 8 + cq;
+        const float2 l2 = *reinterpret_cast<const float2*>(sLse + sr + col);
+        const float2 d2 = *reinterpret_cast<const float2*>(sDelta + sr + col);
+        const int2 p2 = *reinterpret_cast<const int2*>(sQpos + sr + col);
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const float l = u ? l2.y : l2.x;
+          const float lb = t0 + col + u < Tq && l > kNegInf * 0.5f ? l * kLog2e : inf;
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr) {
+            const int e = 2 * hr + u;
+            float th = 0.f, p;
+            if (capped) {
+              th = tanhf(sacc[nt][e] * scale / softcap);
+              p = ex2(th * softcap * kLog2e - lb);
+            } else {
+              p = ex2(fmaf(sacc[nt][e], sl2, -lb));
+            }
+            if (!full) p = key_ok[hr] && attends(u ? p2.y : p2.x, kp[hr], window) ? p : 0.f;
+            float ds = p * (pacc[nt][e] - (u ? d2.y : d2.x));
+            if (capped) ds *= 1.f - th * th;
+            sacc[nt][e] = p;
+            pacc[nt][e] = ds;
+          }
+        }
+      }
+
+      // dV += P^T dO and dK += dS^T Q: n-tile kk of P^T and dS^T is k-step
+      // kk, its column tq q row 2tq and column tq + 4 q row 2tq + 1; dO's
+      // and Q's B elements come from those rows. The item's products sum in
+      // fresh accumulators, added to dK and dV on the CUDA cores: the tensor
+      // cores' accumulation truncates, and its error would grow with every
+      // item summed into dK and dV.
+      constexpr int NC = ONT < 4 ? ONT : 4;  // n-tiles a pass
+      float item[2][ONT][4];  // this item's dV and dK
+#pragma unroll
+      for (int nt = 0; nt < ONT; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) item[0][nt][e] = item[1][nt][e] = 0.f;
+      }
+#pragma unroll
+      for (int kk = 0; kk < SNT; ++kk) {
+        FragA pda[2];
+        split_a(pda[0], sacc[kk][0], sacc[kk][2], sacc[kk][1], sacc[kk][3]);
+        split_a(pda[1], pacc[kk][0], pacc[kk][2], pacc[kk][1], pacc[kk][3]);
+        const int at = (kk * 8 + cq) * LD + (lane >> 2);
+#pragma unroll
+        for (int c = 0; c < ONT; c += NC) {
+          FragB oqb[2][NC];
+#pragma unroll
+          for (int i = 0; i < NC; ++i) {
+            const int x = at + (c + i) * 8;
+            split_b(oqb[0][i], tDO[x], tDO[x + LD]);
+            split_b(oqb[1][i], tQ[x], tQ[x + LD]);
+          }
+          mma_3xtf32(item, c, pda, oqb);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+#pragma unroll
+        for (int nt = 0; nt < ONT; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[r][nt][e] += item[r][nt][e];
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with stage st before it is refilled
+    st = st + 1 == W_STAGES ? 0 : st + 1;
+#pragma unroll
+    for (int s = 0; s + 1 < W_STAGES; ++s) ring[s] = ring[s + 1];
+    ring[W_STAGES - 1] = advance(ring[W_STAGES - 1]);
+  }
+  cp_async_wait<0>();  // nothing may land after the block exits
+  __syncthreads();     // the ring is free for the hand-over
+
+  // q group 1 hands its dV and dK to group 0 through the ring's memory;
+  // group 0 adds them and writes. Every key below S is written: keys at or
+  // past valid[b] get zeros.
+  float* xacc = sQ;  // [2][BK][LD]
+  if (grp == 1) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        float* row = xacc + (r * W_BK + r_lo + 8 * hr) * LD + cq;
+#pragma unroll
+        for (int nt = 0; nt < ONT; ++nt) {
+          *reinterpret_cast<float2*>(row + nt * 8) =
+              make_float2(acc[r][nt][2 * hr], acc[r][nt][2 * hr + 1]);
+        }
+      }
+    }
+  }
+  __syncthreads();
+  if (grp != 0) return;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int s = j0 + r_lo + 8 * hr;
+    if (s >= S) continue;
+    const size_t off = ((static_cast<size_t>(b) * S + s) * Kh + kh) * H + cq;
+    const float* xv = xacc + (r_lo + 8 * hr) * LD + cq;
+    const float* xk = xacc + (W_BK + r_lo + 8 * hr) * LD + cq;
+#pragma unroll
+    for (int nt = 0; nt < ONT; ++nt) {
+      const float2 v1 = *reinterpret_cast<const float2*>(xv + nt * 8);
+      const float2 k1 = *reinterpret_cast<const float2*>(xk + nt * 8);
+      *reinterpret_cast<float2*>(dk + off + nt * 8) =
+          make_float2((acc[1][nt][2 * hr] + k1.x) * scale, (acc[1][nt][2 * hr + 1] + k1.y) * scale);
+      *reinterpret_cast<float2*>(dv + off + nt * 8) =
+          make_float2(acc[0][nt][2 * hr] + v1.x, acc[0][nt][2 * hr + 1] + v1.y);
     }
   }
 }
@@ -544,26 +770,30 @@ cudaError_t launch_bf16_tc(const void* q, const void* k, const void* v, const vo
   return cudaGetLastError();
 }
 
+// bounds: scratch of B * ceil(Tq / 32) int2, filled by the first launch.
 template <int H>
 cudaError_t launch_fp32(const void* q, const void* k, const void* v, const void* dout,
                         const void* lse, const void* delta, const void* qpos, const void* kpos,
-                        const void* valid, void* dk, void* dv, int B, int Tq, int S, int N, int Kh,
-                        int window, float scale, float softcap, cudaStream_t stream) {
-  constexpr int BK = 32, BQ = 32, NT = 128;
-  constexpr size_t smem =
-      (2 * BK * (H + 1) + 2 * BQ * (H + 1) + 2 * BK * BQ + 2 * BQ) * sizeof(float) +
-      (BQ + BK) * sizeof(int);
-  auto kern = flash_bwd_dkv_fp32_kernel<H, BK, BQ, NT>;
+                        const void* valid, void* bounds, void* dk, void* dv, int B, int Tq, int S,
+                        int N, int Kh, int window, float scale, float softcap,
+                        cudaStream_t stream) {
+  const size_t smem = w_smem_bytes<H>(Tq);
+  auto kern = flash_bwd_dkv_fp32_kernel<H>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((S + BK - 1) / BK, Kh, B);
-  kern<<<grid, NT, smem, stream>>>(
+  tile_bounds_kernel<W_BQ><<<dim3((Tq + W_BQ - 1) / W_BQ, B), 32, 0, stream>>>(
+      static_cast<const int32_t*>(qpos), nullptr, static_cast<int2*>(bounds), Tq);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 grid(Kh, B, (S + W_BK - 1) / W_BK);
+  kern<<<grid, W_NT, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<const int32_t*>(qpos),
       static_cast<const int32_t*>(kpos), static_cast<const int32_t*>(valid),
-      static_cast<float*>(dk), static_cast<float*>(dv), Tq, S, N, Kh, window, scale, softcap);
+      static_cast<const int2*>(bounds), static_cast<float*>(dk), static_cast<float*>(dv), Tq, S,
+      N, Kh, window, scale, softcap);
   return cudaGetLastError();
 }
 
@@ -574,8 +804,8 @@ cudaError_t launch(int dtype, const void* q, const void* k, const void* v, const
                    int N, int Kh, int window, float scale, float softcap, cudaStream_t stream) {
   switch (dtype) {
     case 0:
-      return launch_fp32<H>(q, k, v, dout, lse, delta, qpos, kpos, valid, dk, dv, B, Tq, S, N,
-                            Kh, window, scale, softcap, stream);
+      return launch_fp32<H>(q, k, v, dout, lse, delta, qpos, kpos, valid, bounds, dk, dv, B, Tq,
+                            S, N, Kh, window, scale, softcap, stream);
     case 1:
       return launch_bf16_tc<H>(q, k, v, dout, lse, delta, qpos, kpos, valid, bounds, dk, dv, B, Tq,
                                S, N, Kh, window, scale, softcap, stream);
@@ -587,9 +817,9 @@ cudaError_t launch(int dtype, const void* q, const void* k, const void* v, const
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. lse and delta are fp32 [B,N,T]; bounds:
-// int32 scratch of 2 * B * ceil(T / 32) for the bf16 path (unused in fp32);
-// all tensors contiguous; dk and dv fp32 [B,S,K,H]. Returns
-// cudaGetLastError().
+// int32 scratch of 2 * B * ceil(T / 32), where the first launch puts the q
+// tiles' position bounds; all tensors contiguous; dk and dv fp32 [B,S,K,H].
+// Returns cudaGetLastError().
 extern "C" int pt_flash_bwd_dkv(int dtype, const void* q, const void* k, const void* v,
                                 const void* dout, const void* lse, const void* delta,
                                 const void* qpos, const void* kpos, const void* valid,

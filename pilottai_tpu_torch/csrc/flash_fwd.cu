@@ -14,24 +14,18 @@
 // What bounds it on an H100: at long T the work is compute (4*H multiply-adds
 // per live (query, key, head) pair against T*(N+2K)*H inputs), so the kernel
 // is bounded by operations; at short T by the bytes of q, k, v and o. Both
-// kernels keep every intermediate out of device memory, skip kv tiles in
+// bodies keep every intermediate out of device memory, skip kv tiles in
 // which no (query, key) pair is live (causal prefill reads about half of
 // them) and never visit keys at or past valid[b]. In bf16 both products run
-// on the tensor cores with scores, probabilities and the output accumulator
-// in registers and K/V loads in flight (flash_fwd_bf16_kernel, described
-// above it); in fp32 they run on the CUDA cores in full fp32
-// (flash_fwd_fp32_kernel), so the fp32 path matches the reference to
-// summation order (tensor cores would round to TF32). The bf16 body runs
-// both products on wgmma, Hopper's warpgroup product; its tiles arrive by
+// on wgmma, Hopper's warpgroup product, with scores, probabilities and the
+// output accumulator in registers and K/V loads in flight
+// (flash_fwd_bf16_kernel, described above it); its tiles arrive by
 // cp.async from the same threads: TMA from a producer warp, two consumer
-// warpgroups and a persistent schedule are the next steps.
-//
-// fp32 kernel layout: BQ query rows of one head of one batch row, NT threads.
-// Per kv tile of BK keys: K and V are staged in shared memory (K rows
-// padded to H+1 floats so a warp reading 32 different keys hits 32 banks),
-// each thread computes BQ*BK/NT scores, one warp per row runs the online
-// softmax update, and each thread accumulates its output column for BQ*H/NT
-// rows. A row that has seen no live key keeps m = NEG_INF and p = 0.
+// warpgroups and a persistent schedule are the next steps. In fp32 both
+// products run on the tensor cores too, in 3xTF32 (flash_fwd_fp32_kernel,
+// described above it): fp32's accuracy at the fp32-accurate tensor-core
+// rate (495e12 / 3 FLOP/s), where full fp32 on the CUDA cores would cap it
+// at 67e12.
 
 #include <climits>
 #include <cstdint>
@@ -49,153 +43,375 @@ __device__ __forceinline__ bool attends(int qp, int kp, int window) {
   return kp <= qp && (window <= 0 || qp - kp < window);
 }
 
-__device__ __forceinline__ float warp_max(float x) {
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+// fp32 path: the same function with both products on the tensor cores in
+// 3xTF32 (hopper.cuh), which keeps about fp32's accuracy. A block holds 32
+// rows, flattened (position, head) rows of one kv head of one batch row:
+// row R = t*G + g is query position t of query head kh*G + g, so the G
+// heads that share a kv head share each K and V tile, and a warp's 16 rows
+// span 16/G positions. Grid (kv head, batch row, row tile), the last row
+// tiles, the longest under causal positions, first. Four warps: two row
+// warps of 16 rows, times two key groups. The block walks super-tiles of
+// two kv tiles of BK keys, and key group k takes kv tile k of each, with
+// an online softmax of its own; at the end group 1 hands its (m, l, O) to
+// group 0 through shared memory, which merges them and writes o and lse.
+// So a row's keys are walked by two warps at once, and the golden serving
+// shape (4096 rows, 128 blocks) puts a warp on each of about 512 of the
+// card's 528 SM sub-partitions: a lone warp walking every tile would wait
+// on its own products. Per kv tile of BK keys, each warp runs:
+//   S = Q K^T: mma.sync m16n8k8 in 3xTF32, Q's split A fragments held in
+//     registers for the whole walk (read from shared memory at head_dim
+//     128, where they would take 128 registers), K read as the B operand;
+//   the online softmax on S's accumulator registers, as the bf16 head_dim
+//     32 path runs it (row statistics over the 4 lanes of a row);
+//   O += P V: P's accumulator registers are the A operand in place, with
+//     the keys of each k8 step permuted (column t holds key 2t, column t + 4
+//     key 2t + 1, as the accumulator does), and V's B elements read from
+//     the same permuted rows; O stays in registers until the epilogue.
+// Staged rows are H + 4 floats apart: an A-layout or K^T read (row g,
+// column t) and a permuted V read (row 2t or 2t + 1, column g) then hit 32
+// banks. K and V come through a 2-stage cp.async ring (keys past valid[b]
+// zero-filled); kv tiles are live, full or masked pair by pair from the
+// bounds pass (staged in shared memory once) and the block's and the
+// warp's own position bounds, as in the bf16 body, and a super-tile with no
+// live kv tile is never loaded.
+constexpr int R_ROWW = 2;     // row warps, 16 rows each
+constexpr int R_GROUPS = 2;   // key groups
+constexpr int R_NT = 32 * R_ROWW * R_GROUPS;
+constexpr int R_BR = 16 * R_ROWW;  // flattened rows a block
+// Keys per kv tile, a key group's share of a super-tile.
+template <int H> __host__ __device__ constexpr int r_bk() { return H == 128 ? 32 : 64; }
+// Q's split fragments in registers (H of them) up to head_dim 64.
+template <int H> __host__ __device__ constexpr bool r_qreg() { return H <= 64; }
+
+// Dynamic shared memory for S keys: Q, the two stages of K, V and key
+// positions, then the kv tile bounds.
+template <int H>
+size_t r_smem_bytes(int S) {
+  constexpr int BKS = R_GROUPS * r_bk<H>();
+  return static_cast<size_t>(R_BR + 4 * BKS) * (H + 4) * sizeof(float) +
+         static_cast<size_t>(2 * BKS) * sizeof(int) +
+         static_cast<size_t>((S + r_bk<H>() - 1) / r_bk<H>()) * sizeof(int2);
 }
 
-template <int H, int BQ, int BK, int NT>
-__global__ void __launch_bounds__(NT) flash_fwd_fp32_kernel(
+template <int H>
+__global__ void __launch_bounds__(R_NT) flash_fwd_fp32_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     const int32_t* __restrict__ qpos, const int32_t* __restrict__ kpos,
-    const int32_t* __restrict__ valid, float* __restrict__ o, float* __restrict__ lse,
-    int Tq, int S, int N, int Kh, int window, float scale, float softcap) {
-  static_assert(NT % H == 0, "each column is owned by NT / H threads");
-  static_assert(BK % 32 == 0, "one warp covers a score row in BK/32 steps");
-  constexpr int NW = NT / 32;
-  constexpr int COLS_GROUPS = NT / H;        // threads sharing a column
-  constexpr int RPT = BQ / COLS_GROUPS;      // rows accumulated per thread
-  constexpr int KSTRIDE = H + 1;
+    const int32_t* __restrict__ valid, const int2* __restrict__ bounds, float* __restrict__ o,
+    float* __restrict__ lse, int Tq, int S, int N, int Kh, int window, float scale,
+    float softcap) {
+  constexpr int BK = r_bk<H>();
+  constexpr int BKS = R_GROUPS * BK;  // keys a super-tile
+  constexpr int LD = H + 4;           // fp32 row stride of the staged tiles
+  constexpr int CPR = H / 4;          // 16-byte chunks per row
+  constexpr int KSTEPS = H / 8;       // k-steps of Q K^T over the head dim
+  constexpr int SNT = BK / 8;         // n-tiles of a score row block
+  constexpr int ONT = H / 8;          // n-tiles of the output
+  constexpr bool QREG = r_qreg<H>();
+  static_assert(R_BR == 32 && R_GROUPS == 2, "one lane per block row; two key groups");
 
-  extern __shared__ float smem[];
-  float* sQ = smem;                       // [BQ][H]
-  float* sK = sQ + BQ * H;                // [BK][H+1]
-  float* sV = sK + BK * KSTRIDE;          // [BK][H]
-  float* sP = sV + BK * H;                // [BQ][BK]
-  float* sM = sP + BQ * BK;               // [BQ]
-  float* sL = sM + BQ;                    // [BQ]
-  float* sC = sL + BQ;                    // [BQ] per-tile correction
-  int* sQpos = reinterpret_cast<int*>(sC + BQ);  // [BQ]
-  int* sKpos = sQpos + BQ;                       // [BK]
+  extern __shared__ __align__(16) float smem_f32[];
+  float* sQ = smem_f32;                                  // [BR][LD]
+  float* sK = sQ + R_BR * LD;                            // [2][BKS][LD]
+  float* sV = sK + 2 * BKS * LD;                         // [2][BKS][LD]
+  int* sKpos = reinterpret_cast<int*>(sV + 2 * BKS * LD);  // [2][BKS]
+  int2* sBounds = reinterpret_cast<int2*>(sKpos + 2 * BKS);  // [ceil(S / BK)]
 
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int q0 = blockIdx.x * BQ;
-  const int n = blockIdx.y;
-  const int b = blockIdx.z;
-  const int kh = n / (N / Kh);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rw = warp % R_ROWW, kg = warp / R_ROWW;  // row warp, key group
+  const int kh = blockIdx.x, b = blockIdx.y;
+  const int G = N / Kh;
+  const int n_rows = Tq * G;
+  const int R0 = (gridDim.z - 1 - blockIdx.z) * R_BR;  // the longest row tiles first
   const int kv_end = min(S, valid[b]);
+  const bool capped = softcap > 0.f;
+  const float sl2 = capped ? kLog2e : scale * kLog2e;
+  const float m_unit = capped ? 1.f : scale;
+  // Where flattened row R lives in q and o.
+  auto row_off = [&](int R) {
+    const int t = R / G;
+    return ((static_cast<size_t>(b) * Tq + t) * N + kh * G + (R - t * G)) * H;
+  };
 
-  for (int idx = tid; idx < BQ * H; idx += NT) {
-    const int i = idx / H, h = idx % H, t = q0 + i;
-    sQ[idx] = t < Tq ? q[((static_cast<size_t>(b) * Tq + t) * N + n) * H + h] : 0.f;
+  for (int idx = tid; idx < R_BR * CPR; idx += R_NT) {
+    const int r = idx / CPR, c = (idx % CPR) * 4, R = R0 + r;
+    const bool real = R < n_rows;
+    cp_async16_zfill(sQ + r * LD + c, q + row_off(real ? R : 0) + c, real);
   }
-  for (int i = tid; i < BQ; i += NT) {
-    const int t = q0 + i;
-    sQpos[i] = t < Tq ? qpos[static_cast<size_t>(b) * Tq + t] : INT_MIN;
-    sM[i] = kNegInf;
-    sL[i] = 0.f;
+  cp_async_commit();
+  // The batch row's kv tile bounds, staged once: the walk reads them from
+  // shared memory, not one dependent load from device memory a tile.
+  const int2* tile_bounds = bounds + static_cast<size_t>(b) * ((S + BK - 1) / BK);
+  for (int idx = tid; idx < (S + BK - 1) / BK; idx += R_NT) sBounds[idx] = tile_bounds[idx];
+
+  // Lane l reads block row l's position: the block's bounds come from every
+  // lane, a row warp's from its half, each lane's two rows' by shuffle.
+  const int Rl = R0 + lane;
+  const bool real_l = Rl < n_rows;
+  const int qp_l = real_l ? qpos[static_cast<size_t>(b) * Tq + Rl / G] : INT_MIN;
+  int wqmin = real_l ? qp_l : INT_MAX, wqmax = qp_l;
+#pragma unroll
+  for (int off = 1; off < 16; off <<= 1) {
+    wqmin = min(wqmin, __shfl_xor_sync(0xffffffffu, wqmin, off));
+    wqmax = max(wqmax, __shfl_xor_sync(0xffffffffu, wqmax, off));
   }
+  const int qmin = min(wqmin, __shfl_xor_sync(0xffffffffu, wqmin, 16));
+  const int qmax = max(wqmax, __shfl_xor_sync(0xffffffffu, wqmax, 16));
+  wqmin = __shfl_sync(0xffffffffu, wqmin, rw * 16);
+  wqmax = __shfl_sync(0xffffffffu, wqmax, rw * 16);
+  const int r_lo = rw * 16 + (lane >> 2);  // this lane's two rows: r_lo and r_lo + 8
+  const int tq = lane & 3;
+  const int cq = tq * 2;                   // and its column pair within an n-tile
+  const int qp0 = __shfl_sync(0xffffffffu, qp_l, r_lo);
+  const int qp1 = __shfl_sync(0xffffffffu, qp_l, r_lo + 8);
 
-  const int h = tid % H;
-  const int r0 = tid / H;
-  float acc[RPT];
+  const int n_tiles = (kv_end + BK - 1) / BK;
+  const int n_super = (n_tiles + R_GROUPS - 1) / R_GROUPS;
+  __syncthreads();  // sBounds is staged
+  // Whether kv tile jt can hold a live pair, or holds only live pairs, for
+  // rows with positions in [lo, hi].
+  auto tile_is_live = [&](int jt, int lo, int hi) {
+    return jt < n_tiles && tile_live(lo, hi, sBounds[jt].x, sBounds[jt].y, window);
+  };
+  auto tile_is_full = [&](int jt, int lo, int hi) {
+    return (jt + 1) * BK <= kv_end && tile_full(lo, hi, sBounds[jt].x, sBounds[jt].y, window);
+  };
+  // The first super-tile at or after J with a kv tile the block's rows can
+  // attend (n_super if none).
+  auto next_live = [&](int J) {
+    for (; J < n_super; ++J) {
+      if (tile_is_live(2 * J, qmin, qmax) || tile_is_live(2 * J + 1, qmin, qmax)) return J;
+    }
+    return n_super;
+  };
+  auto load_kv = [&](int J, int st) {
+    const int j0 = J * BKS;
+    for (int idx = tid; idx < BKS * CPR; idx += R_NT) {
+      const int r = idx / CPR, c = (idx % CPR) * 4, s = j0 + r;
+      const bool real = s < kv_end;
+      const size_t off = ((static_cast<size_t>(b) * S + (real ? s : 0)) * Kh + kh) * H + c;
+      cp_async16_zfill(sK + (st * BKS + r) * LD + c, k + off, real);
+      cp_async16_zfill(sV + (st * BKS + r) * LD + c, v + off, real);
+    }
+    // Key positions, unless every pair of both kv tiles is live.
+    if (tile_is_full(2 * J, qmin, qmax) && tile_is_full(2 * J + 1, qmin, qmax)) return;
+    for (int r = tid; r < BKS; r += R_NT) {
+      const int s = j0 + r;
+      sKpos[st * BKS + r] = s < kv_end ? kpos[static_cast<size_t>(b) * S + s] : INT_MAX;
+    }
+  };
+  // Q's A fragment of k-step ks: rows r_lo, r_lo + 8, columns 8ks + tq, + 4.
+  auto q_frag = [&](FragA& f, int ks) {
+    const float* p = sQ + r_lo * LD + ks * 8 + tq;
+    split_a(f, p[0], p[8 * LD], p[4], p[8 * LD + 4]);
+  };
+
+  int J = next_live(0);
+  if (J < n_super) load_kv(J, 0);
+  cp_async_commit();
+
+  float oacc[ONT][4];
 #pragma unroll
-  for (int r = 0; r < RPT; ++r) acc[r] = 0.f;
+  for (int nt = 0; nt < ONT; ++nt) oacc[nt][0] = oacc[nt][1] = oacc[nt][2] = oacc[nt][3] = 0.f;
+  float m_row[2] = {kNegInf, kNegInf};
+  float l_part[2] = {0.f, 0.f};  // this lane's share of the row sums
+  FragA qf[QREG ? KSTEPS : 1];
+  bool have_q = false;
+  int st = 0;
 
-  for (int j0 = 0; j0 < kv_end; j0 += BK) {
-    __syncthreads();  // previous tile's readers are done with sK/sV/sP/sKpos
-    for (int j = tid; j < BK; j += NT) {
-      const int s = j0 + j;
-      sKpos[j] = s < kv_end ? kpos[static_cast<size_t>(b) * S + s] : INT_MAX;
-    }
-    __syncthreads();
-    // Tile skip: no live (query, key) pair in this tile contributes nothing.
-    int live = 0;
-    for (int idx = tid; idx < BQ * BK && !live; idx += NT) {
-      const int i = idx / BK, j = idx % BK;
-      live = q0 + i < Tq && j0 + j < kv_end && attends(sQpos[i], sKpos[j], window);
-    }
-    if (!__syncthreads_or(live)) continue;
-
-    for (int idx = tid; idx < BK * H; idx += NT) {
-      const int j = idx / H, hh = idx % H, s = j0 + j;
-      float kx = 0.f, vx = 0.f;
-      if (s < kv_end) {
-        const size_t off = ((static_cast<size_t>(b) * S + s) * Kh + kh) * H + hh;
-        kx = k[off];
-        vx = v[off];
-      }
-      sK[j * KSTRIDE + hh] = kx;
-      sV[j * H + hh] = vx;
-    }
-    __syncthreads();
-
-    for (int idx = tid; idx < BQ * BK; idx += NT) {
-      const int i = idx / BK, j = idx % BK;
-      const float* qr = sQ + i * H;
-      const float* kr = sK + j * KSTRIDE;
-      float dot = 0.f;
-#pragma unroll 16
-      for (int hh = 0; hh < H; ++hh) dot = fmaf(qr[hh], kr[hh], dot);
-      float s = dot * scale;
-      if (softcap > 0.f) s = tanhf(s / softcap) * softcap;
-      const bool ok = q0 + i < Tq && j0 + j < kv_end && attends(sQpos[i], sKpos[j], window);
-      sP[idx] = ok ? s : kNegInf;
-    }
-    __syncthreads();
-
-    for (int i = warp; i < BQ; i += NW) {
-      float* row = sP + i * BK;
-      float mx = kNegInf;
-      for (int j = lane; j < BK; j += 32) mx = fmaxf(mx, row[j]);
-      mx = warp_max(mx);
-      const float m_old = sM[i];
-      const float m_new = fmaxf(m_old, mx);
-      const bool any = m_new > kNegInf * 0.5f;
-      float psum = 0.f;
-      for (int j = lane; j < BK; j += 32) {
-        const float p = any ? expf(row[j] - m_new) : 0.f;
-        psum += p;
-        row[j] = p;
-      }
-      psum = warp_sum(psum);
-      if (lane == 0) {
-        const float corr = any ? expf(m_old - m_new) : 1.f;
-        sC[i] = corr;
-        sL[i] = sL[i] * corr + psum;
-        sM[i] = m_new;
-      }
-    }
-    __syncthreads();
-
+  while (J < n_super) {
+    const int Jn = next_live(J + 1);
+    if (Jn < n_super) load_kv(Jn, st ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // Q and super-tile J have landed (this thread's copies)
+    __syncthreads();     // ... and every thread's
+    if (QREG && !have_q) {
 #pragma unroll
-    for (int r = 0; r < RPT; ++r) {
-      const int i = r0 + r * COLS_GROUPS;
-      const float* prow = sP + i * BK;
-      float a = acc[r] * sC[i];
-#pragma unroll 8
-      for (int j = 0; j < BK; ++j) a = fmaf(prow[j], sV[j * H + h], a);
-      acc[r] = a;
+      for (int ks = 0; ks < KSTEPS; ++ks) q_frag(qf[QREG ? ks : 0], ks);
+      have_q = true;
+    }
+    // This key group's kv tile; a warp whose rows attend nothing there
+    // skips it.
+    const int jt = J * R_GROUPS + kg;
+    if (tile_is_live(jt, wqmin, wqmax)) {
+      const float* tK = sK + (st * BKS + kg * BK) * LD;
+      const float* tV = sV + (st * BKS + kg * BK) * LD;
+      const int* tKpos = sKpos + st * BKS + kg * BK;
+      const int j0 = jt * BK;
+
+      // S = Q K^T for the warp's 16 rows.
+      float s_acc[1][SNT][4];
+      auto& sacc = s_acc[0];
+#pragma unroll
+      for (int nt = 0; nt < SNT; ++nt) sacc[nt][0] = sacc[nt][1] = sacc[nt][2] = sacc[nt][3] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < KSTEPS; ++ks) {
+        FragA qa[1];
+        if (QREG) {
+          qa[0] = qf[QREG ? ks : 0];
+        } else {
+          q_frag(qa[0], ks);
+        }
+        FragB kb[1][SNT];
+#pragma unroll
+        for (int nt = 0; nt < SNT; ++nt) {
+          const float* kr = tK + (nt * 8 + (lane >> 2)) * LD + ks * 8 + tq;
+          split_b(kb[0][nt], kr[0], kr[4]);
+        }
+        mma_3xtf32(s_acc, 0, qa, kb);
+      }
+
+      // Scale, soft-cap and, on a boundary tile, the pair mask.
+      const bool full = tile_is_full(jt, wqmin, wqmax);
+#pragma unroll
+      for (int nt = 0; nt < SNT; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float s = sacc[nt][e];
+          if (capped) s = tanhf(s * scale / softcap) * softcap;
+          if (!full) {
+            const int col = nt * 8 + cq + (e & 1);
+            const bool ok =
+                j0 + col < kv_end && attends(e < 2 ? qp0 : qp1, tKpos[col], window);
+            s = ok ? s : kNegInf;
+          }
+          sacc[nt][e] = s;
+        }
+      }
+
+      // Online softmax of the lane's two rows (the 4 lanes of a row agree
+      // on its max).
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        float mx = kNegInf;
+#pragma unroll
+        for (int nt = 0; nt < SNT; ++nt) {
+          mx = fmaxf(mx, fmaxf(sacc[nt][2 * hr], sacc[nt][2 * hr + 1]));
+        }
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m_row[hr], mx);
+        const bool any = m_new > kNegInf * 0.5f;
+        const float corr = any ? ex2((m_row[hr] - m_new) * sl2) : 1.f;
+        const float mb = m_new * sl2;
+        float psum = 0.f;
+#pragma unroll
+        for (int nt = 0; nt < SNT; ++nt) {
+#pragma unroll
+          for (int e = 2 * hr; e < 2 * hr + 2; ++e) {
+            const float p = any ? ex2(fmaf(sacc[nt][e], sl2, -mb)) : 0.f;
+            psum += p;
+            sacc[nt][e] = p;
+          }
+        }
+        l_part[hr] = l_part[hr] * corr + psum;
+        m_row[hr] = m_new;
+#pragma unroll
+        for (int nt = 0; nt < ONT; ++nt) {
+          oacc[nt][2 * hr] *= corr;
+          oacc[nt][2 * hr + 1] *= corr;
+        }
+      }
+
+      // O += P V: n-tile kk of P is k-step kk, its column tq key 2tq and
+      // column tq + 4 key 2tq + 1; V's B elements come from those rows. The
+      // tile's products sum in fresh accumulators, one for the even and one
+      // for the odd k-steps, added to O on the CUDA cores: the tensor cores'
+      // accumulation truncates, and its error would grow with every tile
+      // summed into O.
+      constexpr int NC = ONT < 4 ? ONT : 4;  // n-tiles a pass
+      float pv[2][ONT][4];
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+#pragma unroll
+        for (int nt = 0; nt < ONT; ++nt) pv[u][nt][0] = pv[u][nt][1] = pv[u][nt][2] = pv[u][nt][3] = 0.f;
+      }
+#pragma unroll
+      for (int kk = 0; kk < SNT; kk += 2) {
+        FragA pa[2];
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          split_a(pa[u], sacc[kk + u][0], sacc[kk + u][2], sacc[kk + u][1], sacc[kk + u][3]);
+        }
+#pragma unroll
+        for (int c = 0; c < ONT; c += NC) {
+          FragB vb[2][NC];
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            const float* vr = tV + ((kk + u) * 8 + cq) * LD + (lane >> 2) + c * 8;
+#pragma unroll
+            for (int i = 0; i < NC; ++i) split_b(vb[u][i], vr[i * 8], vr[LD + i * 8]);
+          }
+          mma_3xtf32(pv, c, pa, vb);
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < ONT; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) oacc[nt][e] += pv[0][nt][e] + pv[1][nt][e];
+      }
+    }
+    __syncthreads();  // every warp is done with stage st before it is refilled
+    st ^= 1;
+    J = Jn;
+  }
+  cp_async_wait<0>();  // nothing may land after the block exits
+  __syncthreads();     // the stages are free for the hand-over
+
+  // Key group 1 hands its rows' (m, l, O) to group 0 through the stages'
+  // memory; group 0 merges them, rescaled to the larger max, and writes.
+  float* xo = sK;                 // [BR][LD]
+  float* xm = xo + R_BR * LD;     // [BR]
+  float* xl = xm + R_BR;          // [BR]
+  float l_row[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    float l = l_part[hr];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    l_row[hr] = l;
+  }
+  if (kg == 1) {
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int row = r_lo + 8 * hr;
+#pragma unroll
+      for (int nt = 0; nt < ONT; ++nt) {
+        *reinterpret_cast<float2*>(xo + row * LD + nt * 8 + cq) =
+            make_float2(oacc[nt][2 * hr], oacc[nt][2 * hr + 1]);
+      }
+      if (tq == 0) {
+        xm[row] = m_row[hr];
+        xl[row] = l_row[hr];
+      }
     }
   }
   __syncthreads();
-
+  if (kg != 0) return;
 #pragma unroll
-  for (int r = 0; r < RPT; ++r) {
-    const int i = r0 + r * COLS_GROUPS;
-    const int t = q0 + i;
-    if (t >= Tq) continue;
-    const float l = sL[i];
-    const float out = l > 0.f ? acc[r] / fmaxf(l, 1e-30f) : 0.f;
-    o[((static_cast<size_t>(b) * Tq + t) * N + n) * H + h] = out;
-    if (h == 0) {
-      lse[(static_cast<size_t>(b) * N + n) * Tq + t] =
-          l > 0.f ? sM[i] + logf(fmaxf(l, 1e-30f)) : kNegInf;
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = r_lo + 8 * hr;
+    const float m1 = xm[row];
+    const float m = fmaxf(m_row[hr], m1);
+    const float c0 = m_row[hr] > kNegInf * 0.5f ? ex2((m_row[hr] - m) * sl2) : 0.f;
+    const float c1 = m1 > kNegInf * 0.5f ? ex2((m1 - m) * sl2) : 0.f;
+    const float l = l_row[hr] * c0 + xl[row] * c1;
+    const int R = R0 + row;
+    if (R >= n_rows) continue;
+    float* orow = o + row_off(R) + cq;
+#pragma unroll
+    for (int nt = 0; nt < ONT; ++nt) {
+      const float2 x = *reinterpret_cast<const float2*>(xo + row * LD + nt * 8 + cq);
+      const float o0 = oacc[nt][2 * hr] * c0 + x.x * c1;
+      const float o1 = oacc[nt][2 * hr + 1] * c0 + x.y * c1;
+      *reinterpret_cast<float2*>(orow + nt * 8) =
+          l > 0.f ? make_float2(o0 / fmaxf(l, 1e-30f), o1 / fmaxf(l, 1e-30f))
+                  : make_float2(0.f, 0.f);
+    }
+    if (tq == 0) {
+      const int t = R / G;
+      lse[(static_cast<size_t>(b) * N + kh * G + (R - t * G)) * Tq + t] =
+          l > 0.f ? m * m_unit + logf(fmaxf(l, 1e-30f)) : kNegInf;
     }
   }
 }
@@ -588,24 +804,29 @@ cudaError_t launch_bf16_tc(const void* q, const void* k, const void* v, const vo
   return cudaGetLastError();
 }
 
+// bounds: scratch of B * ceil(S / 32) int2, filled by the first launch.
 template <int H>
 cudaError_t launch_fp32(const void* q, const void* k, const void* v, const void* qpos,
-                        const void* kpos, const void* valid, void* o, void* lse, int B, int Tq,
-                        int S, int N, int Kh, int window, float scale, float softcap,
-                        cudaStream_t stream) {
-  constexpr int BQ = 32, BK = 64, NT = 128;
-  constexpr size_t smem = (BQ * H + BK * (H + 1) + BK * H + BQ * BK + 3 * BQ) * sizeof(float) +
-                          (BQ + BK) * sizeof(int);
-  auto kern = flash_fwd_fp32_kernel<H, BQ, BK, NT>;
+                        const void* kpos, const void* valid, void* bounds, void* o, void* lse,
+                        int B, int Tq, int S, int N, int Kh, int window, float scale,
+                        float softcap, cudaStream_t stream) {
+  constexpr int BK = r_bk<H>();
+  const size_t smem = r_smem_bytes<H>(S);
+  auto kern = flash_fwd_fp32_kernel<H>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((Tq + BQ - 1) / BQ, N, B);
-  kern<<<grid, NT, smem, stream>>>(
+  tile_bounds_kernel<BK><<<dim3((S + BK - 1) / BK, B), 32, 0, stream>>>(
+      static_cast<const int32_t*>(kpos), static_cast<const int32_t*>(valid),
+      static_cast<int2*>(bounds), S);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 grid(Kh, B, (Tq * (N / Kh) + R_BR - 1) / R_BR);
+  kern<<<grid, R_NT, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const int32_t*>(qpos), static_cast<const int32_t*>(kpos),
-      static_cast<const int32_t*>(valid), static_cast<float*>(o), static_cast<float*>(lse), Tq, S,
-      N, Kh, window, scale, softcap);
+      static_cast<const int32_t*>(valid), static_cast<const int2*>(bounds),
+      static_cast<float*>(o), static_cast<float*>(lse), Tq, S, N, Kh, window, scale, softcap);
   return cudaGetLastError();
 }
 
@@ -616,8 +837,8 @@ cudaError_t launch(int dtype, const void* q, const void* k, const void* v, const
                    cudaStream_t stream) {
   switch (dtype) {
     case 0:
-      return launch_fp32<H>(q, k, v, qpos, kpos, valid, o, lse, B, Tq, S, N, Kh, window, scale,
-                            softcap, stream);
+      return launch_fp32<H>(q, k, v, qpos, kpos, valid, bounds, o, lse, B, Tq, S, N, Kh, window,
+                            scale, softcap, stream);
     case 1:
       return launch_bf16_tc<H>(q, k, v, qpos, kpos, valid, bounds, o, lse, B, Tq, S, N, Kh,
                                window, scale, softcap, stream);
@@ -628,9 +849,9 @@ cudaError_t launch(int dtype, const void* q, const void* k, const void* v, const
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. bounds: int32 scratch of 2 * B * ceil(S / 32)
-// for the bf16 path (unused in fp32). All tensors contiguous; returns
-// cudaGetLastError().
+// dtype: 0 = float32, 1 = bfloat16. bounds: int32 scratch of 2 * B * ceil(S / 32),
+// where the first launch puts the kv tiles' position bounds. All tensors
+// contiguous; returns cudaGetLastError().
 extern "C" int pt_flash_fwd(int dtype, const void* q, const void* k, const void* v,
                             const void* qpos, const void* kpos, const void* valid, void* bounds,
                             void* o, void* lse, int B, int Tq, int S, int N, int Kh, int H,

@@ -2,7 +2,9 @@
 // (flash_fwd.cu), K4 (flash_bwd_dq.cu) and K5 (flash_bwd_dkv.cu): cp.async
 // copies into shared memory, the warpgroup product (wgmma) on operands
 // stored as 64-column panels with the 128-byte swizzle, and the pass that
-// reduces positions to per-tile bounds with the tile rule that reads them.
+// reduces positions to per-tile bounds with the tile rule that reads them;
+// and, for the fp32 bodies of K1 and K5, fp32-accurate products on the
+// tensor cores (3xTF32, below).
 //
 // Operand layout. A tile of `rows` rows and a multiple of 64 bf16 columns
 // is stored as 64-column panels, panel after panel, each row of a panel 128
@@ -197,6 +199,76 @@ __device__ __forceinline__ int warp_min_i(int x) {
 __device__ __forceinline__ int warp_max_i(int x) {
   for (int o = 16; o > 0; o >>= 1) x = max(x, __shfl_xor_sync(0xffffffffu, x, o));
   return x;
+}
+
+// 3xTF32: an fp32 product on the tensor cores at about fp32's accuracy,
+// as CUTLASS's OpMultiplyAddFastF32 computes it. Each fp32 operand x is
+// split as hi = tf32(x), lo = tf32(x - hi) (x - hi is exact; cvt.rna keeps
+// 10 mantissa bits, round to nearest, ties away from zero), so hi + lo
+// holds about 21 of x's 24 bits, and a . b = a_lo b_hi + a_hi b_lo + a_hi
+// b_hi in fp32 accumulators (the lo lo term, 2^-22 relative, is dropped).
+// The product is mma.sync m16n8k8 .tf32 (wgmma's m64 tiles are too wide
+// for the fp32 bodies' head_dim 32, and ldmatrix serves 16-bit types only):
+// A (16 x 8, row-major) holds elements (row g, col t), (g + 8, t), (g, t +
+// 4), (g + 8, t + 4) in registers 0-3, B (8 x 8, k x n) holds (k t, n g)
+// and (k t + 4, n g), with g = lane / 4 and t = lane % 4; the accumulator
+// is the m16n8 layout described at the top.
+__device__ __forceinline__ uint32_t tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32(x);
+  lo = tf32(x - __uint_as_float(hi));
+}
+// An m16n8k8 A fragment, split.
+struct FragA {
+  uint32_t hi[4], lo[4];
+};
+__device__ __forceinline__ void split_a(FragA& f, float a0, float a1, float a2, float a3) {
+  split_tf32(a0, f.hi[0], f.lo[0]);
+  split_tf32(a1, f.hi[1], f.lo[1]);
+  split_tf32(a2, f.hi[2], f.lo[2]);
+  split_tf32(a3, f.hi[3], f.lo[3]);
+}
+// Not volatile, so the compiler may reorder independent products.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// An m16n8k8 B fragment, split.
+struct FragB {
+  uint32_t hi[2], lo[2];
+};
+__device__ __forceinline__ void split_b(FragB& f, float b0, float b1) {
+  split_tf32(b0, f.hi[0], f.lo[0]);
+  split_tf32(b1, f.hi[1], f.lo[1]);
+}
+// d[r][c + i] += a[r] . b[r][i] for r < R, i < NC in 3xTF32, the small
+// terms first, issued term by term over all R * NC tiles (a tile's three
+// products are dependent; the tiles' are not).
+template <int R, int NC, int N>
+__device__ __forceinline__ void mma_3xtf32(float (&d)[R][N][4], int c, const FragA (&a)[R],
+                                           const FragB (&b)[R][NC]) {
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+#pragma unroll
+    for (int i = 0; i < NC; ++i) mma_tf32(d[r][c + i], a[r].lo, b[r][i].hi[0], b[r][i].hi[1]);
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+#pragma unroll
+    for (int i = 0; i < NC; ++i) mma_tf32(d[r][c + i], a[r].hi, b[r][i].lo[0], b[r][i].lo[1]);
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+#pragma unroll
+    for (int i = 0; i < NC; ++i) mma_tf32(d[r][c + i], a[r].hi, b[r][i].hi[0], b[r][i].hi[1]);
+  }
 }
 
 // bounds[b][t] = (min, max) position over tile t's BT rows below the row

@@ -63,8 +63,10 @@
 // Modes: bf16 and fp32 pools (q and the ring in the pool's dtype), int8 pools
 // with scales (q and the ring in bf16 or fp32), q_blocks >= 1 (speculative
 // rows: row = head*q_blocks + d sits at position qpos + d), ring or none,
-// window, softcap; head_dim 32, 64, 128; P a multiple of 16 up to 256; at
-// most 32 query rows per kv head. The engine refuses speculation and KV
+// window, softcap; head_dim 32, 64, 128; any page size P >= 8 (the JAX
+// engine's floor: a page is walked in tiles of 32 keys, the last one of a
+// page cut to what the page holds, and a page longer than a split is a
+// split of its own); at most 32 query rows per kv head. The engine refuses speculation and KV
 // quantization (later slices), so int8 pools and q_blocks > 1 run only in
 // the kernel checks of chip_smoke.py and the CPU tests of the plain version.
 
@@ -129,6 +131,11 @@ __device__ __forceinline__ float warp_sum(float x) {
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+// One 4-byte element: a page's scales start wherever P puts them.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -249,11 +256,15 @@ __device__ __forceinline__ void issue_tile(const Tile& t, unsigned char* stage) 
     cp_async16(sv + r * RB + c, t.v + src);
   }
   if (t.ks != nullptr) {
-    // Scales in 4-float chunks: a page tile starts at a multiple of 16 keys
-    // and P is a multiple of 16, so the last chunk stays inside the page.
-    for (int idx = threadIdx.x; idx < (t.rows + 3) / 4; idx += NT) {
-      cp_async16(sks + idx * 4, t.ks + idx * 4);
-      cp_async16(sks + TS + idx * 4, t.vs + idx * 4);
+    // Scales one float at a time: with P not a multiple of 4 a tile's
+    // scales are not 16-byte aligned, and only the tile's own rows are read.
+    for (int idx = threadIdx.x; idx < 2 * t.rows; idx += NT) {
+      const int r = idx % t.rows;
+      if (idx < t.rows) {
+        cp_async4(sks + r, t.ks + r);
+      } else {
+        cp_async4(sks + TS + r, t.vs + r);
+      }
     }
   }
 }
@@ -556,7 +567,7 @@ extern "C" int pt_paged_attention(int q_dtype, int kv_dtype, const void* q, cons
                                   int q_blocks, int R, int ring_step, int window, float scale,
                                   float softcap, void* stream) {
   if (B <= 0 || Kh <= 0 || N % Kh != 0 || N / Kh > kMaxRows || q_blocks < 1 ||
-      (N / Kh) % q_blocks != 0 || P % 16 != 0 || P <= 0 || P > 256 || n_blocks < 1 ||
+      (N / Kh) % q_blocks != 0 || P < 8 || n_blocks < 1 ||
       n_blocks > max_pages || pages_per_split < 1 ||
       (R > 0 && (ring_step < 0 || ring_step >= R || q_blocks != 1)) ||
       ((kv_dtype == 2) != (k_scales != nullptr && v_scales != nullptr))) {

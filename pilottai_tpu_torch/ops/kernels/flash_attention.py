@@ -88,7 +88,7 @@ def flash_attention_plain(
 
 
 def tile_rule(q_lo: int, q_hi: int, k_lo: int, k_hi: int, window: int = 0) -> Tuple[bool, bool]:
-    """The bf16 kernels' tile test from position bounds alone, as
+    """The kernels' tile test from position bounds alone, as
     ``csrc/hopper.cuh:tile_live`` and ``tile_full`` make it: ``(live,
     full)`` for a (q tile, kv tile) whose real rows' positions span
     ``[q_lo, q_hi]`` and real keys' ``[k_lo, k_hi]``. ``live`` is False
@@ -182,7 +182,8 @@ def flash_attention_fwd(
     scale = scale if scale is not None else H**-0.5
     o = torch.empty_like(q)
     lse = torch.empty((B, N, T), device=q.device, dtype=torch.float32)
-    # The bf16 kernel's per-(batch row, kv tile) position bounds.
+    # The per-(batch row, kv tile) position bounds that K1's first launch
+    # writes, in both dtypes.
     bounds = torch.empty((B, 2 * -(-S // 32)), device=q.device, dtype=torch.int32)
 
     from pilottai_tpu_torch.ops.kernels.build import load_library
@@ -259,7 +260,7 @@ def flash_attention_bwd_tiled_plain(
     softcap: float = 0.0, block_q: int = 64, block_k: int = 64,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``flash_attention_bwd_plain`` walked tile by tile as the bf16 K4
-    and K5 walk it, for the tests: each (q tile, kv tile) below ``valid[b]``
+    and K5 (and the fp32 K5) walk it, for the tests: each (q tile, kv tile) below ``valid[b]``
     is skipped, taken whole (no pair mask) or masked pair by pair, from the
     bounds ``tile_bounds`` gives and the rule ``tile_rule`` states; a tile
     is taken whole only if it also lies below ``valid[b]``. A row whose lse
@@ -339,9 +340,9 @@ def bwd_operands(q, k, v, q_positions, kv_positions, valid, window, o, lse, do,
                  dlse=None, scale=None, softcap=0.0) -> dict:
     """What K4 and K5 read, checked and laid out for them: ``do``
     contiguous, lse rows and delta fp32 ``[B, N, T]``, int32 positions,
-    and the int32 scratch in which each bf16 kernel's first launch puts
-    its tile bounds (K4's per kv tile, K5's per q tile; one after the
-    other on the stream, so they share it)."""
+    and the int32 scratch in which a kernel's first launch puts its tile
+    bounds (K4's per kv tile in bf16, K5's per q tile in both dtypes; one
+    after the other on the stream, so they share it)."""
     do = do.contiguous()
     lse_rows = lse.transpose(1, 2).contiguous()                       # [B, N, T]
     delta = _delta(o, do, dlse)

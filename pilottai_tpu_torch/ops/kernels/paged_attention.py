@@ -37,6 +37,7 @@ SOURCE = "pilottai_tpu_torch/csrc/paged_attention.cu"
 REPLACES = "pilottai_tpu/ops/pallas/paged_attention.py:58"
 MAX_ROWS = 32  # query rows per kv head the kernel takes (N / K, q_blocks included)
 KEYS_PER_SPLIT = 256  # keys' worth of page slots one block of the kernel walks
+MIN_PAGE = 8  # the smallest page the kernel takes, engine_page_size's floor
 _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _HEAD_DIMS = (32, 64, 128)
@@ -44,15 +45,17 @@ _HEAD_DIMS = (32, 64, 128)
 
 def check_kernel_shapes(n_heads: int, n_kv_heads: int, head_dim: int, page_size: int,
                         q_blocks: int = 1) -> None:
-    """Raise ``ValueError`` for a shape the CUDA kernel does not take."""
+    """Raise ``ValueError`` for a shape the CUDA kernel does not take. Any
+    page size from ``MIN_PAGE`` on is served (``LLMConfig`` holds
+    ``engine_page_size`` to the same floor)."""
     G = n_heads // max(n_kv_heads, 1)
     if (head_dim not in _HEAD_DIMS or n_heads % n_kv_heads or G > MAX_ROWS or q_blocks < 1
-            or G % q_blocks or page_size % 16 or not 16 <= page_size <= 256):
+            or G % q_blocks or page_size < MIN_PAGE):
         raise ValueError(
             f"paged_attention: the CUDA kernel takes head_dim in {_HEAD_DIMS}, at most "
-            f"{MAX_ROWS} query rows per kv head and a page size that is a multiple of 16 up "
-            f"to 256; got heads {n_heads}/{n_kv_heads}, head_dim {head_dim}, page size "
-            f"{page_size}, q_blocks {q_blocks}"
+            f"{MAX_ROWS} query rows per kv head and a page size of at least {MIN_PAGE}; got "
+            f"heads {n_heads}/{n_kv_heads}, head_dim {head_dim}, page size {page_size}, "
+            f"q_blocks {q_blocks}"
         )
 
 

@@ -154,6 +154,56 @@ def test_split_merge_at_the_kernels_split_size():
             torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
 
 
+@pytest.mark.parametrize("quantized", [False, True], ids=["fp32", "int8"])
+@pytest.mark.parametrize("page", [8, 24, 100, 512])
+def test_split_merge_at_every_page_size_the_engine_serves(page, quantized):
+    """Page sizes off the multiples of 16 and past one split (the JAX
+    engine takes any page from 8 on), at the kernel's own split plan: the
+    split-and-merge plain K3 against the TPU kernel in interpret mode, slots
+    ending mid-page, one slot empty, in fp32 and on int8 pools with scales;
+    with a ring and a window on fp32 pools."""
+    rng = np.random.default_rng(page + quantized)
+    lengths = (600, 37, 0, 257)
+    pages = -(-max(lengths) // page)
+    num_pages = sum(-(-n // page) for n in lengths) + 2
+    table = np.full((4, pages), num_pages - 1, np.int32)
+    it = iter(rng.permutation(num_pages - 1))
+    for b, n in enumerate(lengths):
+        for j in range(-(-n // page)):
+            table[b, j] = next(it)
+    k_pool = rng.normal(size=(K, num_pages, page, H)).astype(np.float32)
+    v_pool = rng.normal(size=(K, num_pages, page, H)).astype(np.float32)
+    ks = vs = None
+    if quantized:
+        kq, ks = quantize_kv(jnp.asarray(k_pool))
+        vq, vs = quantize_kv(jnp.asarray(v_pool))
+        k_pool, v_pool, ks, vs = (np.asarray(a) for a in (kq, vq, ks, vs))
+    last = np.asarray(lengths, np.int32) - 1
+    qpos = last + 4
+    q = rng.normal(size=(4, 2 * K, H)).astype(np.float32)
+    ring = {} if quantized else dict(ring_k=rng.normal(size=(4, K, 8, H)).astype(np.float32),
+                                     ring_v=rng.normal(size=(4, K, 8, H)).astype(np.float32))
+    common = dict(n_blocks=pages, scale=H**-0.5, window=0 if quantized else 300,
+                  softcap=30.0 if quantized else 0.0)
+    got = k3.paged_decode_attention_split_plain(
+        _t(q), _t(k_pool), _t(v_pool), _t(table), _t(last), _t(qpos), **common,
+        k_scales=_t(ks), v_scales=_t(vs), ring_step=3, **{n: _t(a) for n, a in ring.items()})
+    want = jpaged_attention(
+        jnp.asarray(q), _j(k_pool), _j(v_pool), _j(table), _j(last), q_positions=_j(qpos),
+        k_scales=_j(ks), v_scales=_j(vs), ring_step=jnp.int32(3) if ring else None,
+        interpret=True, **common, **{n: _j(a) for n, a in ring.items()})
+    assert k3.split_plan(pages, page)[1] >= 2 or page == 512
+    acc_s, m_s, l_s = (a.numpy() for a in got)
+    acc_j, m_j, l_j = (np.asarray(a) for a in want)
+    empty = m_j <= NEG_INF / 2
+    np.testing.assert_allclose(acc_s, acc_j, atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(m_s[~empty], m_j[~empty], atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(l_s[~empty], l_j[~empty], atol=1e-5, rtol=1e-5)
+    np.testing.assert_array_equal(m_s[empty], m_j[empty])
+    np.testing.assert_array_equal(l_s[empty], 0.0)
+    assert empty[2].all() != bool(ring)     # the empty slot sees only its ring
+
+
 # --------------------------------------------------------------------- #
 # K1: tile liveness from the bounds of the positions
 # --------------------------------------------------------------------- #

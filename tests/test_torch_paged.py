@@ -146,11 +146,13 @@ def test_plain_k3_matches_the_tpu_kernel(case):
 def test_k3_wrapper_refuses_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="head_dim"):
         k3.check_kernel_shapes(32, 8, 96, 128)
-    with pytest.raises(ValueError, match="page size"):
-        k3.check_kernel_shapes(32, 8, 128, 24)
     with pytest.raises(ValueError, match="query rows"):
         k3.check_kernel_shapes(64, 1, 64, 16)
-    k3.check_kernel_shapes(32, 8, 128, 128)
+    # Every page size the JAX engine serves (engine_page_size >= 8).
+    for page_size in (8, 24, 100, 128, 512):
+        k3.check_kernel_shapes(32, 8, 128, page_size)
+    with pytest.raises(ValueError, match="page size of at least 8"):
+        k3.check_kernel_shapes(32, 8, 128, 4)
     x = _k3_inputs(np.random.default_rng(0))
     q = torch.zeros((B, K * 2, H))
     with pytest.raises(ValueError, match="int8 pools"):
