@@ -26,8 +26,11 @@ result line is printed only when every phase passed):
    S off the tiles, rows with no key, key positions out of order; K3's
    slots ending mid-page and at a split's end, windows that leave whole
    splits dead, 8 and 32 query rows per kv head, int8 pools at P 16 and
-   256; K4/K5 also at G = 1 and 4 and all three head dims). K1 and K3
-   also run twice and must give the same bits;
+   256; K4/K5 also at G = 1 and 4 and all three head dims; K2's split
+   walk: slots ending on a split's last key and the next one's first, a
+   window crossing splits, every slot empty, a batch wide enough for one
+   split, G = 1 and 8, the golden fp32 step). K1, K2 and K3 also run twice
+   and must give the same bits;
 4. golden — the committed protocol-s checkpoint in fp32 (TF32 off) served
    through ``LLMHandler.generate_response``, once on the dense cache and
    once paged with chunked prefill; the greedy token ids must equal
@@ -38,8 +41,9 @@ result line is printed only when every phase passed):
    dense path, K1 and K3 with K2 at zero on the paged ones, where prefill
    segments must have run;
 5. full width — llama3-8b in bf16 from random init, (a) on the dense cache:
-   8 concurrent JSON-mode greedy requests, the counters > 0 and one prompt's
-   first-token logits through K1 against the plain K1 (``TOL_E2E``); (b)
+   8 concurrent JSON-mode greedy requests, the counters > 0, one prompt's
+   first-token logits through K1 against the plain K1 and one decode step
+   of the live wave through K2 against the plain K2 (``TOL_E2E``); (b)
    paged, switched on by ``engine_max_seq=8192`` alone: one ~6000-token
    prompt (prefilled in 1024-token segments) and seven short ones, K1 and
    K3 > 0 with K2 at zero, every page back on the free list, and one decode
@@ -59,11 +63,12 @@ result line is printed only when every phase passed):
    gradient through the kernels against the same step through the plain
    K1, K4 and K5 (``TOL_E2E_TRAIN``);
 6. last, each path's kernels timed at the shapes that path gave them (bf16
-   at phase 5's and 7b's, fp32 at phase 4's and 7a's; K3 with the L2
-   flushed and warm), with the yardstick's terms printed beside the fp32
-   rows (torch and CUDA versions, the TF32 flags, and the device kernels of
-   one SDPA forward and backward, which name the backend that ran); the
-   kernels line, then the result line.
+   at phase 5's and 7b's, fp32 at phase 4's and 7a's; K2 and K3 with the
+   L2 flushed and warm, K2 also as the profiler's device time a launch,
+   in the harness and in phase 5a's profiled wave), with the yardstick's
+   terms printed beside the fp32 rows (torch and CUDA versions, the TF32
+   flags, and the device kernels of one SDPA forward and backward, which
+   name the backend that ran); the kernels line, then the result line.
 
 ``--kernels-only`` stops after phase 3; ``--seed`` changes the kernel
 checks' inputs and the llama3-8b and llama3-1b weights.
@@ -145,7 +150,7 @@ TRAIN_STEPS = 8
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 495e12 / 3}
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 # Kernel names of csrc/ that a profile lists apart, wherever they rank.
-PORT_KERNEL_NAMES = ("flash_fwd", "tile_bounds", "decode_stats", "paged_split", "paged_merge",
+PORT_KERNEL_NAMES = ("flash_fwd", "tile_bounds", "decode_split", "paged_split", "paged_merge",
                      "flash_bwd")
 
 
@@ -283,19 +288,24 @@ def compare_stats(kernel, plain, tol_name):
 
 
 def check_decode(torch, da, gen, device, name, dtype, B, N, K, S, H, last,
-                 window=0, softcap=0.0):
+                 window=0, softcap=0.0, shift=1):
+    """K2 against its plain version, query positions ``shift`` past each
+    slot's last key (a few steps into a decode chunk when above 1). Run
+    twice: the statistics must be the same bits."""
     q = randn(torch, gen, (B, N, H), dtype, device)
     kc = randn(torch, gen, (B, K, S, H), dtype, device)
     vc = randn(torch, gen, (B, K, S, H), dtype, device)
     lst = torch.tensor(last, device=device, dtype=torch.int32)
-    qpos = torch.clamp(lst, min=0) + 1
+    qpos = torch.clamp(lst, min=0) + shift
     scale = H**-0.5
     got = da.decode_attention(q, kc, vc, lst, qpos, scale, softcap, window, return_stats=True)
+    again = da.decode_attention(q, kc, vc, lst, qpos, scale, softcap, window, return_stats=True)
     torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
     want = da.decode_attention_plain(q, kc, vc, lst, qpos, scale, softcap, window)
     ok, err, text = compare_stats(got, want, str(dtype)[6:])
-    log(f"  K2 {name:<34} {str(dtype)[6:]:<8} {text}")
-    return ok, err
+    log(f"  K2 {name:<34} {str(dtype)[6:]:<8} {text} repeat bit-identical {same}")
+    return ok and same, err
 
 
 def paged_inputs(torch, gen, device, dtype, B, N, K, H, P, lengths, step=0, ring=0,
@@ -416,9 +426,12 @@ def phase_kernels(torch, fa, da, pa, device, seed):
     egen.manual_seed(seed)
     begen = torch.Generator(device=device)
     begen.manual_seed(seed)
-    # And the K3 page sizes added with the page-size repair.
+    # And the K3 page sizes added with the page-size repair, and K2's split
+    # edges added with its split walk.
     pgen = torch.Generator(device=device)
     pgen.manual_seed(seed)
+    dgen = torch.Generator(device=device)
+    dgen.manual_seed(seed)
     results, worst = [], {}
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype)[6:]
@@ -601,6 +614,32 @@ def phase_kernels(torch, fa, da, pa, device, seed):
             results.append(ok)
             worst[("bwd_dq", dn)] = max(worst.get(("bwd_dq", dn), 0.0), err_dq)
             worst[("bwd_dkv", dn)] = max(worst.get(("bwd_dkv", dn), 0.0), err_dkv)
+        # K2's split walk (split_count splits of whole 32-key tiles a (kv
+        # head, slot), merged by the last split to arrive): slots ending on a
+        # split's last key and on the next one's first, a window that starts
+        # inside a split, every slot empty, a batch wide enough for one split,
+        # G = 1 and 8, and the golden fp32 step (one live slot of four).
+        decode_edges = [
+            ("llama3-8b Z9 split ends", dict(B=8, N=32, K=8, S=2048, H=128,
+                                             last=[575, 576, 63, 64, 2047, 95, 0, 1151])),
+            ("llama3-8b window crosses splits", dict(B=8, N=32, K=8, S=2048, H=128,
+                                                     last=[2047, 700, 333, 100, -1, 64, 1500,
+                                                           31], window=300, softcap=30.0,
+                                                     shift=9)),
+            ("llama3-8b every slot empty", dict(B=8, N=32, K=8, S=2048, H=128,
+                                                last=[-1] * 8)),
+            ("llama3-8b B66 one split", dict(B=66, N=32, K=8, S=256, H=128,
+                                             last=[(37 * i) % 256 - 1 for i in range(66)])),
+            ("H64 G8 S1024 window", dict(B=4, N=32, K=4, S=1024, H=64,
+                                         last=[1023, 400, -1, 32], window=100, shift=5)),
+            ("H64 G1 S1024", dict(B=4, N=8, K=8, S=1024, H=64, last=[1023, 511, 0, -1])),
+            ("protocol-s golden step", dict(B=4, N=8, K=4, S=512, H=32,
+                                            last=[462, -1, -1, -1])),
+        ]
+        for name, kw in decode_edges:
+            ok, err = check_decode(torch, da, dgen, device, name, dtype, **kw)
+            results.append(ok)
+            worst[("decode", dn)] = max(worst.get(("decode", dn), 0.0), err)
     if not all(results):
         raise SystemExit("kernel check failed")
     return worst
@@ -787,7 +826,7 @@ async def profile_wave(handler, requests, label):
             for p, n in requests])
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    return report_profile(prof, wall_us, f"wave ({label})")
+    return report_profile(prof, wall_us, f"wave ({label})"), device_rows(prof)
 
 
 def device_rows(prof):
@@ -880,31 +919,52 @@ def logits_agreement(got, want, rows):
     }
 
 
-def paged_step_check(torch, pa, batcher):
-    """One decode step of the batcher's live paged state (on its device
-    thread, between two chunks) through K3 and through the plain K3: the
+@contextlib.contextmanager
+def plain_decode_attention(da):
+    """Route the dense decode step's prefix attention through the plain K2
+    while inside."""
+    from pilottai_tpu_torch.engine import decode
+
+    kernel = decode.decode_attention
+
+    def plain(q, k, v, last, q_positions, scale, softcap, window, return_stats):
+        return da.decode_attention_plain(q, k, v, last, q_positions, scale, softcap, window)
+
+    decode.decode_attention = plain
+    try:
+        yield
+    finally:
+        decode.decode_attention = kernel
+
+
+def decode_step_check(torch, mod, batcher):
+    """One decode step of the batcher's live state (on its device thread,
+    between two chunks) through its decode kernel, K2 on the dense cache or
+    K3 on the paged one, and through that kernel's plain version: the
     logits of every live slot. The step writes only fresh rings, never the
-    cache, and its K3 launches are taken back out of the count."""
+    cache, and its launches are taken back out of the count."""
     from pilottai_tpu_torch.engine import decode
 
     cfg, cache, dstate = batcher.cfg, batcher.cache, batcher.dstate
     dev = batcher.device
-    n0 = pa.launches
-    table = torch.from_numpy(batcher.alloc.table.copy()).to(dev)
+    n0 = mod.launches
     pos = cache.lengths.clone()
-    n_blocks = max(-(-int(pos.max()) // batcher.page_size), 1)
+    kw = {}
+    if batcher.paged:
+        kw = dict(table=torch.from_numpy(batcher.alloc.table.copy()).to(dev),
+                  n_blocks=max(-(-int(pos.max()) // batcher.page_size), 1))
 
     def step():
         rings = decode.new_rings(cfg, batcher.n_slots, batcher.chunk_size,
                                  cache.layers[0][0].dtype, dev)
         return decode.decode_step_logits(batcher.params, cfg, cache, dstate.tokens, pos,
-                                         pos - 1, rings, 0, table=table, n_blocks=n_blocks)
+                                         pos - 1, rings, 0, **kw)
 
     got = step()
-    with plain_paged_attention(pa):
+    with plain_paged_attention(mod) if batcher.paged else plain_decode_attention(mod):
         want = step()
     torch.cuda.synchronize()
-    pa.launches = n0
+    mod.launches = n0
     live = torch.nonzero(~dstate.done).flatten()
     out = logits_agreement(got, want, live)
     out["finite"] = bool(torch.isfinite(got).all())
@@ -916,12 +976,13 @@ def phase_full_width(torch, kernels, seed):
     from pilottai_tpu_torch import LLMConfig, LLMHandler
     from pilottai_tpu_torch.models.transformer import forward_prefill
 
-    fa = kernels["flash"]
+    fa, da = kernels["flash"], kernels["decode"]
     cfg = LLMConfig(provider="cuda", model_name="llama3-8b", dtype="bfloat16",
                     engine_slots=8, engine_admit_batch=8, engine_max_seq=2048,
                     engine_chunk=16, seed=seed)
     prompts = [[FULL_PROMPT.format(i=i)] for i in range(8)]
     shapes = {}
+    state = {}
 
     async def run():
         handler = LLMHandler(cfg)
@@ -938,6 +999,16 @@ def phase_full_width(torch, kernels, seed):
         await handler.generate_response(prompts[0], params=GenerationParams(
             temperature=0.0, max_new_tokens=4), json_mode=True)
         batcher = handler.backend.batcher
+        decode = batcher._decode
+
+        def watching():
+            # The first step with all eight slots live is checked against
+            # the plain K2.
+            if "e2e" not in state and all(s is not None for s in batcher._slots):
+                state["e2e"] = decode_step_check(torch, da, batcher)
+            decode()
+
+        batcher._decode = watching
         batcher.completed.clear()
         seen = record_requests(handler)
         torch.cuda.reset_peak_memory_stats()
@@ -950,6 +1021,7 @@ def phase_full_width(torch, kernels, seed):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = counts(kernels)
+        batcher._decode = decode
         shapes["prompt_lens"] = [len(r.prompt_ids) for r in seen]
         shapes["gen_lens"] = [len(r.future.result()) for r in seen]
         timings = list(batcher.completed)
@@ -967,7 +1039,11 @@ def phase_full_width(torch, kernels, seed):
         finite = bool(torch.isfinite(logits).all()) and tuple(logits.shape) == (1, T, 384)
         e2e = logits_agreement(logits[0, T - 1][None], ref[0, T - 1][None], [0])
         shapes["model"] = handler.backend.model_cfg
-        await profile_wave(handler, [(p, 16) for p in prompts], "8 x 16 tokens")
+        _, rows = await profile_wave(handler, [(p, 16) for p in prompts], "8 x 16 tokens")
+        # K2's device time a launch inside the wave, beside the harness's.
+        k2 = [(dev, count) for dev, key, count in rows if "decode_split" in key]
+        if k2:
+            shapes["wave_k2"] = (sum(d for d, _ in k2), sum(c for _, c in k2))
         await handler.stop()
         return replies, wall, launches, timings, peak, finite, e2e
 
@@ -986,10 +1062,20 @@ def phase_full_width(torch, kernels, seed):
         f"(bf16): max |diff| {e2e['max_diff']:.3e} over max |logit| {e2e['max_logit']:.3e} "
         f"= {e2e['rel']:.3e}, tol {TOL_E2E:g}; same argmax {e2e['same_argmax']} "
         f"(top-2 margin {e2e['margin']:.3e}) {'ok' if e2e_ok else 'FAIL'}")
+    step = state.get("e2e")
+    step_ok = bool(step) and step["finite"] and step["rel"] <= TOL_E2E and step["argmax_ok"]
+    if step:
+        log(f"  one decode step of the live wave (slot lengths {step['lengths']}), K2 vs plain "
+            f"K2 (bf16): max |diff| {step['max_diff']:.3e} over max |logit| "
+            f"{step['max_logit']:.3e} = {step['rel']:.3e}, tol {TOL_E2E:g}; same argmax "
+            f"{step['same_argmax']} (smallest top-2 margin {step['margin']:.3e}); finite "
+            f"{step['finite']} {'ok' if step_ok else 'FAIL'}")
+    else:
+        log("  the wave never had all eight slots live: no decode-step check")
     log(f"  launches on this run: {launches_text(launches)}")
     if launches["flash"] <= 0 or launches["decode"] <= 0 or launches["paged"] != 0:
         raise SystemExit("the dense main path did not go through K1 and K2 alone")
-    if parsed != 8 or not finite or not e2e_ok:
+    if parsed != 8 or not finite or not e2e_ok or not step_ok:
         raise SystemExit("full-width outputs are wrong")
     return launches, shapes
 
@@ -1040,7 +1126,7 @@ def phase_full_width_paged(torch, kernels, seed):
                 # The first step with all eight live is checked against the
                 # plain K3; the last one gives K3's timing shape.
                 if "e2e" not in state:
-                    state["e2e"] = paged_step_check(torch, pa, batcher)
+                    state["e2e"] = decode_step_check(torch, pa, batcher)
                 state["last"] = [int(n) - 1 for n in batcher.cache.lengths.tolist()]
                 state["table"] = batcher.alloc.table.tolist()
             decode()
@@ -1080,8 +1166,8 @@ def phase_full_width_paged(torch, kernels, seed):
             num_pages=batcher.num_pages, P=batcher.page_size, R=batcher.chunk_size,
             model=handler.backend.model_cfg,
         )
-        out["busy"] = await profile_wave(handler, [(p, 16) for p in requests],
-                                         "1 long + 7 short x 16 tokens")
+        out["busy"], _ = await profile_wave(handler, [(p, 16) for p in requests],
+                                            "1 long + 7 short x 16 tokens")
         await handler.stop()
         return out
 
@@ -1337,6 +1423,23 @@ def entry(name, mod, launched, err, ms, plain, lib, flops, nbytes, dtype_name, t
     }
 
 
+def profiled_launch_ms(torch, fn, name, iters=20):
+    """The device time a launch of the kernel named ``name`` that ``fn``
+    launches, from ``torch.profiler`` over ``iters`` calls queued back to
+    back (L2 warm): the kernel's own duration, where a pair of CUDA events
+    brackets the launch too. None if the profiler saw no such kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    rows = [(dev, count) for dev, key, count in device_rows(prof) if name in key]
+    return sum(d for d, _ in rows) / sum(c for _, c in rows) / 1e3 if rows else None
+
+
 def time_kernels(torch, fa, da, device, timer, gen, dtype, cfg, flash, decode, launches,
                  worst, suffix=""):
     """Time K1 and K2 (kernel, plain version, SDPA) at one path's shapes in
@@ -1374,6 +1477,11 @@ def time_kernels(torch, fa, da, device, timer, gen, dtype, cfg, flash, decode, l
     vc = randn(torch, gen, (B, K, S, H), dtype, device)
     lst = torch.tensor(last, device=device, dtype=torch.int32)
     k2 = timer.ms(lambda: da.decode_attention(qd, kc, vc, lst, lst, return_stats=True))
+    k2_warm = timer.ms(lambda: da.decode_attention(qd, kc, vc, lst, lst, return_stats=True),
+                       flush=False)
+    k2_profiled = profiled_launch_ms(
+        torch, lambda: da.decode_attention(qd, kc, vc, lst, lst, return_stats=True),
+        "decode_split")
     k2_plain = timer.ms(lambda: da.decode_attention_plain(qd, kc, vc, lst, lst, H**-0.5))
     kce, vce = kc.repeat_interleave(G, dim=1), vc.repeat_interleave(G, dim=1)
     dmask = (torch.arange(S, device=device)[None, :] <= lst[:, None])[:, None, None, :]
@@ -1387,14 +1495,25 @@ def time_kernels(torch, fa, da, device, timer, gen, dtype, cfg, flash, decode, l
         entry("flash_fwd" + suffix, fa, launches["flash"], worst[("flash", dn)], k1, k1_plain,
               k1_lib, k1_flops, k1_bytes, dn, tol_text(dn, True)),
         entry("decode_attention" + suffix, da, launches["decode"], worst[("decode", dn)], k2,
-              k2_plain, k2_lib, k2_flops, k2_bytes, dn, tol_text(dn, False)),
+              k2_plain, k2_lib, k2_flops, k2_bytes, dn, tol_text(dn, False), warm_ms=k2_warm,
+              profiled_ms=k2_profiled,
+              splits=da.split_count(B, K, S, torch.cuda.get_device_properties(device)
+                                    .multi_processor_count)),
     ]
+    wave = decode.get("wave")
+    if wave:
+        kernels[1]["wave_ms"] = wave[0] / wave[1] / 1e3
+        kernels[1]["wave_launches_profiled"] = wave[1]
+    profiled_text = "not measured" if k2_profiled is None else f"{k2_profiled:.4f} ms"
+    wave_text = (f", in the profiled wave {kernels[1]['wave_ms']:.4f} ms a launch "
+                 f"({wave[1]} launches)" if wave else "")
     log(f"  K1 flash_fwd {dn:<8} q [{flash['B']},{T},{N},{H}] valid {lens}: kernel {k1:.4f} ms, "
         f"plain {k1_plain:.4f} ms, SDPA {k1_lib:.4f} ms, bound {kernels[0]['bound_ms']:.5f} ms "
         f"({kernels[0]['bound_by']})")
-    log(f"  K2 decode    {dn:<8} q [{B},{N},{H}] cache S {S} last {last}: kernel {k2:.4f} ms, "
-        f"plain {k2_plain:.4f} ms, SDPA {k2_lib:.4f} ms, bound {kernels[1]['bound_ms']:.5f} ms "
-        f"({kernels[1]['bound_by']})")
+    log(f"  K2 decode    {dn:<8} q [{B},{N},{H}] cache S {S} last {last}, "
+        f"{kernels[1]['splits']} splits: kernel {k2:.4f} ms (L2 warm {k2_warm:.4f} ms, "
+        f"profiled {profiled_text} a launch{wave_text}), plain {k2_plain:.4f} ms, SDPA "
+        f"{k2_lib:.4f} ms, bound {kernels[1]['bound_ms']:.5f} ms ({kernels[1]['bound_by']})")
     return kernels
 
 
@@ -1609,7 +1728,8 @@ def phase_timing(torch, kernels, device, seed, worst, paths):
     out = time_kernels(
         torch, fa, da, device, timer, gen, torch.bfloat16, shapes["model"],
         flash=dict(B=len(lens), T=T, lens=lens),
-        decode=dict(B=len(lens), S=2048, last=[n + 32 for n in lens]),
+        decode=dict(B=len(lens), S=2048, last=[n + 32 for n in lens],
+                    wave=shapes.get("wave_k2")),
         launches=launches, worst=worst)
     p_launches, p_shape = paths["full_paged"]
     out[0]["launches_paged"] = p_launches["flash"]

@@ -17,9 +17,10 @@
 // What bounds it on an H100: 6*H flops (3*H multiply-adds: s, dp, dq) per
 // live (query, key, head) triple against T*N*H*2 + S*K*H*2 input elements,
 // so at training lengths it is bounded by operations. One block owns a
-// (batch row, query head, q tile): the q, dO, lse and delta rows are staged
-// once and the block walks the live kv tiles, so dq needs no reduction
-// across blocks and no intermediate leaves the block. Kv tiles in which no
+// (batch row, head, q tile) — in fp32, 32 flattened (position, head) rows of
+// one kv head: the q, dO, lse and delta rows are staged once and the block
+// walks the live kv tiles, so dq needs no reduction across blocks and no
+// intermediate leaves the block. Kv tiles in which no
 // (query, key) pair is live are skipped (causal training visits about half
 // of them) and keys at or past valid[b] are never visited. In bf16
 // (flash_bwd_dq_bf16_tc_kernel, described above it) the three products run
@@ -27,8 +28,13 @@
 // and kv tiles streamed through a cp.async ring; ds is rounded to bf16 for
 // the dq product as the TPU kernel rounds it to k's dtype, and dp's bf16
 // products are exact in fp32, as the TPU kernel's fp32 widening makes them.
-// In fp32 every product runs on the CUDA cores in full fp32 (never TF32), so
-// it matches the reference up to summation order.
+// In fp32 (flash_bwd_dq_fp32_kernel, described above it) the three products
+// run on the tensor cores in 3xTF32, at fp32's accuracy and the
+// fp32-accurate tensor-core rate (495e12 / 3 FLOP/s, where the CUDA cores
+// cap full fp32 at 67e12), with the same tile rule, K and V streamed through
+// a cp.async ring and shared by the G heads of a kv head; at the golden
+// training shape it is latency-bound, which its two key groups a block
+// answer.
 // Left on the table: S and dP read both operands from shared memory, and an
 // m64n64k16 product reads as many bytes a cycle as shared memory delivers,
 // so wider tiles or Q and dO held in registers would relieve it; TMA from
@@ -53,127 +59,368 @@ __device__ __forceinline__ bool attends(int qp, int kp, int window) {
   return kp <= qp && (window <= 0 || qp - kp < window);
 }
 
-// fp32 path. A block holds BQ query rows of one head; per kv tile of BK
-// keys, K and V are staged with rows padded to H+1 floats (a warp reading
-// 32 keys hits 32 banks), each thread computes BQ*BK/NT (s, dp, ds)
-// triples, and each thread accumulates its dq column for BQ*H/NT rows.
-template <int H, int BQ, int BK, int NT>
-__global__ void __launch_bounds__(NT) flash_bwd_dq_fp32_kernel(
+// fp32 path: the same function with all three products on the tensor cores
+// in 3xTF32 (hopper.cuh), which keeps about fp32's accuracy. A block holds
+// 32 rows, flattened (position, head) rows of one kv head of one batch row:
+// row R = t*G + g is query position t of query head kh*G + g, so the G
+// heads that share a kv head share each staged K and V tile. Grid (kv
+// head, batch row, row tile), the last row tiles, the longest under causal
+// positions, first. Four warps: two row warps of 16 rows, times two key
+// groups. The block walks super-tiles of two kv tiles of BK keys, and key
+// group k takes kv tile k of each, summing dq for its rows on its own; at
+// the end group 1 hands its dq to group 0 through shared memory, which adds
+// the two in a fixed order, scales and writes, so repeats are
+// bit-identical. Per kv tile, each warp runs mma.sync m16n8k8 in 3xTF32 on
+// its 16 rows:
+//   S = Q K^T and dP = dO V^T, issued together: Q's and dO's split A
+//     fragments held in registers for the whole walk at head_dim 32 (read
+//     from shared memory and split at each use at 64 and 128, where they
+//     would not fit beside dq), K and V read as B operands;
+//   p and ds on S's and dP's accumulator registers: p = 2^(s scale log2(e)
+//     - lse log2(e)), ds = p (dp - delta), times (1 - t^2) under a
+//     soft-cap; a row past Tq or whose lse is NEG_INF carries lse = +inf
+//     into the exponent, which gives p = 0;
+//   dQ += dS K with dS's accumulator registers as the A operand in place:
+//     the keys of each k8 step are permuted (column t holds key 2t, column
+//     t + 4 key 2t + 1, as the accumulator does), and K's B elements are
+//     read from the same permuted rows. Each tile's product sums in fresh
+//     accumulators (one for the even and one for the odd k-steps, four
+//     n-tiles a pass), added to dq on the CUDA cores: the tensor cores'
+//     accumulation truncates, and its error would grow with every tile
+//     summed into dq.
+// Staged rows are H + 4 floats apart: an A-layout or K^T read (row g,
+// column t) and a permuted K read (row 2t or 2t + 1, column g) then hit 32
+// banks. K and V come through a 2-stage cp.async ring (keys past valid[b]
+// zero-filled), so the next super-tile arrives while this one is computed.
+// Kv tiles are live, full or masked pair by pair from the position bounds
+// that the first launch (tile_bounds_kernel) writes to the bounds scratch,
+// staged in shared memory once, against the block's and the warp's own
+// row bounds, as in the bf16 body; a super-tile with no live kv tile is
+// never loaded, and key positions are staged only for one that is not
+// full.
+// At the golden training shape (q [4,512,8,32]) the body is bound by
+// latency, not by the card's rates: 512 blocks of 4 warps, each warp
+// walking up to 4 super-tiles of ~290 mma.sync (dependent in threes) and
+// ~250 split, load and elementwise instructions. Hence two warps a row
+// (the key groups) on each block's walk and Q and dO held in registers,
+// rather than wider tiles.
+constexpr int Q_ROWW = 2;     // row warps, 16 rows each
+constexpr int Q_GROUPS = 2;   // key groups
+constexpr int Q_NT = 32 * Q_ROWW * Q_GROUPS;
+constexpr int Q_BR = 16 * Q_ROWW;     // flattened rows a block
+constexpr int kMaxSmem = 227 * 1024;  // an H100 block's dynamic shared memory
+// Keys per kv tile, a key group's share of a super-tile.
+template <int H> __host__ __device__ constexpr int q_bk() { return H == 128 ? 32 : 64; }
+// Q's and dO's split fragments in registers (2H of them) at head_dim 32.
+template <int H> __host__ __device__ constexpr bool q_reg() { return H == 32; }
+
+// Dynamic shared memory for S keys: Q, dO, the two stages of K, V and key
+// positions, then the kv tile bounds.
+template <int H>
+size_t q_smem_bytes(int S) {
+  constexpr int BKS = Q_GROUPS * q_bk<H>();
+  return static_cast<size_t>(2 * Q_BR + 4 * BKS) * (H + 4) * sizeof(float) +
+         static_cast<size_t>(2 * BKS) * sizeof(int) +
+         static_cast<size_t>((S + q_bk<H>() - 1) / q_bk<H>()) * sizeof(int2);
+}
+
+template <int H>
+__global__ void __launch_bounds__(Q_NT) flash_bwd_dq_fp32_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     const float* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, const int32_t* __restrict__ qpos,
-    const int32_t* __restrict__ kpos, const int32_t* __restrict__ valid, float* __restrict__ dq,
-    int Tq, int S, int N, int Kh, int window, float scale, float softcap) {
-  static_assert(NT % H == 0, "each column is owned by NT / H threads");
-  constexpr int COLS_GROUPS = NT / H;
-  constexpr int RPT = BQ / COLS_GROUPS;  // rows accumulated per thread
-  constexpr int KS = H + 1;
+    const int32_t* __restrict__ kpos, const int32_t* __restrict__ valid,
+    const int2* __restrict__ bounds, float* __restrict__ dq, int Tq, int S, int N, int Kh,
+    int window, float scale, float softcap) {
+  constexpr int BK = q_bk<H>();
+  constexpr int BKS = Q_GROUPS * BK;      // keys a super-tile
+  constexpr int LD = H + 4;               // fp32 row stride of the staged tiles
+  constexpr int CPR = H / 4;              // 16-byte chunks per row
+  constexpr int KSTEPS = H / 8;           // k-steps of S and dP over the head dim
+  constexpr int SNT = BK / 8;             // n-tiles of a warp's s and dp
+  constexpr int ONT = H / 8;              // n-tiles of dq
+  constexpr int NCS = SNT < 4 ? SNT : 4;  // n-tiles of S and dP a pass
+  constexpr int NC = ONT < 4 ? ONT : 4;   // n-tiles of dQ a pass
+  constexpr bool QREG = q_reg<H>();
+  static_assert(Q_BR == 32 && Q_GROUPS == 2, "one lane per block row; two key groups");
 
-  extern __shared__ float smem[];
-  float* sQ = smem;                 // [BQ][H]
-  float* sDO = sQ + BQ * H;         // [BQ][H]
-  float* sK = sDO + BQ * H;         // [BK][H+1]
-  float* sV = sK + BK * KS;         // [BK][H+1]
-  float* sDS = sV + BK * KS;        // [BQ][BK]
-  float* sLse = sDS + BQ * BK;      // [BQ]
-  float* sDelta = sLse + BQ;        // [BQ]
-  int* sQpos = reinterpret_cast<int*>(sDelta + BQ);  // [BQ]
-  int* sKpos = sQpos + BQ;                           // [BK]
+  extern __shared__ __align__(16) float smem_q[];
+  float* sQ = smem_q;                                        // [BR][LD]
+  float* sDO = sQ + Q_BR * LD;                               // [BR][LD]
+  float* sK = sDO + Q_BR * LD;                               // [2][BKS][LD]
+  float* sV = sK + 2 * BKS * LD;                             // [2][BKS][LD]
+  int* sKpos = reinterpret_cast<int*>(sV + 2 * BKS * LD);    // [2][BKS]
+  int2* sBounds = reinterpret_cast<int2*>(sKpos + 2 * BKS);  // [ceil(S / BK)]
 
-  const int tid = threadIdx.x;
-  const int q0 = blockIdx.x * BQ;
-  const int n = blockIdx.y;
-  const int b = blockIdx.z;
-  const int kh = n / (N / Kh);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rw = warp % Q_ROWW, kg = warp / Q_ROWW;  // row warp, key group
+  const int kh = blockIdx.x, b = blockIdx.y;
+  const int G = N / Kh;
+  const int n_rows = Tq * G;
+  const int R0 = (gridDim.z - 1 - blockIdx.z) * Q_BR;  // the longest row tiles first
   const int kv_end = min(S, valid[b]);
+  const bool capped = softcap > 0.f;
+  const float sl2 = scale * kLog2e;
+  const float inf = __int_as_float(0x7f800000);
+  // Where flattened row R lives in q, dO and dq, and in lse and delta.
+  auto row_off = [&](int R) {
+    const int t = R / G;
+    return ((static_cast<size_t>(b) * Tq + t) * N + kh * G + (R - t * G)) * H;
+  };
+  auto stat_off = [&](int R) {
+    const int t = R / G;
+    return (static_cast<size_t>(b) * N + kh * G + (R - t * G)) * Tq + t;
+  };
 
-  for (int idx = tid; idx < BQ * H; idx += NT) {
-    const int i = idx / H, h = idx % H, t = q0 + i;
-    const size_t off = ((static_cast<size_t>(b) * Tq + t) * N + n) * H + h;
-    sQ[idx] = t < Tq ? q[off] : 0.f;
-    sDO[idx] = t < Tq ? dout[off] : 0.f;
+  // The q and dO rows go in flight first (rows past the last zero-filled);
+  // the bounds, positions and row statistics are read meanwhile.
+  for (int idx = tid; idx < Q_BR * CPR; idx += Q_NT) {
+    const int r = idx / CPR, c = (idx % CPR) * 4, R = R0 + r;
+    const bool real = R < n_rows;
+    const size_t off = row_off(real ? R : 0) + c;
+    cp_async16_zfill(sQ + r * LD + c, q + off, real);
+    cp_async16_zfill(sDO + r * LD + c, dout + off, real);
   }
-  for (int i = tid; i < BQ; i += NT) {
-    const int t = q0 + i;
-    const size_t row = (static_cast<size_t>(b) * N + n) * Tq + t;
-    sQpos[i] = t < Tq ? qpos[static_cast<size_t>(b) * Tq + t] : INT_MIN;
-    sLse[i] = t < Tq ? lse[row] : kNegInf;
-    sDelta[i] = t < Tq ? delta[row] : 0.f;
+  cp_async_commit();
+  // The batch row's kv tile bounds, staged once: the walk reads them from
+  // shared memory, not one dependent load from device memory a tile.
+  const int2* tile_bounds = bounds + static_cast<size_t>(b) * ((S + BK - 1) / BK);
+  for (int idx = tid; idx < (S + BK - 1) / BK; idx += Q_NT) sBounds[idx] = tile_bounds[idx];
+
+  // Lane l reads block row l's position: the block's bounds come from every
+  // lane, a row warp's from its half, each lane's two rows' by shuffle.
+  const int Rl = R0 + lane;
+  const bool real_l = Rl < n_rows;
+  const int qp_l = real_l ? qpos[static_cast<size_t>(b) * Tq + Rl / G] : INT_MIN;
+  int wqmin = real_l ? qp_l : INT_MAX, wqmax = qp_l;
+#pragma unroll
+  for (int off = 1; off < 16; off <<= 1) {
+    wqmin = min(wqmin, __shfl_xor_sync(0xffffffffu, wqmin, off));
+    wqmax = max(wqmax, __shfl_xor_sync(0xffffffffu, wqmax, off));
   }
-
-  const int h = tid % H;
-  const int r0 = tid / H;
-  float acc[RPT];
+  const int qmin = min(wqmin, __shfl_xor_sync(0xffffffffu, wqmin, 16));
+  const int qmax = max(wqmax, __shfl_xor_sync(0xffffffffu, wqmax, 16));
+  wqmin = __shfl_sync(0xffffffffu, wqmin, rw * 16);
+  wqmax = __shfl_sync(0xffffffffu, wqmax, rw * 16);
+  const int r_lo = rw * 16 + (lane >> 2);  // this lane's two rows: r_lo and r_lo + 8
+  const int tq = lane & 3;
+  const int cq = tq * 2;                   // and its column pair within an n-tile
+  int qp[2];
+  float lb[2], dl[2];  // lse * log2(e) (+inf where p is 0) and delta of the two rows
 #pragma unroll
-  for (int r = 0; r < RPT; ++r) acc[r] = 0.f;
-
-  for (int j0 = 0; j0 < kv_end; j0 += BK) {
-    __syncthreads();  // the previous tile's readers are done with sK/sV/sDS/sKpos
-    for (int j = tid; j < BK; j += NT) {
-      const int s = j0 + j;
-      sKpos[j] = s < kv_end ? kpos[static_cast<size_t>(b) * S + s] : INT_MAX;
-    }
-    __syncthreads();
-    int live = 0;
-    for (int idx = tid; idx < BQ * BK && !live; idx += NT) {
-      const int i = idx / BK, j = idx % BK;
-      live = q0 + i < Tq && j0 + j < kv_end && attends(sQpos[i], sKpos[j], window);
-    }
-    if (!__syncthreads_or(live)) continue;
-
-    for (int idx = tid; idx < BK * H; idx += NT) {
-      const int j = idx / H, hh = idx % H, s = j0 + j;
-      float kx = 0.f, vx = 0.f;
-      if (s < kv_end) {
-        const size_t off = ((static_cast<size_t>(b) * S + s) * Kh + kh) * H + hh;
-        kx = k[off];
-        vx = v[off];
-      }
-      sK[j * KS + hh] = kx;
-      sV[j * KS + hh] = vx;
-    }
-    __syncthreads();
-
-    for (int idx = tid; idx < BQ * BK; idx += NT) {
-      const int i = idx / BK, j = idx % BK;
-      const float* qr = sQ + i * H;
-      const float* dr = sDO + i * H;
-      const float* kr = sK + j * KS;
-      const float* vr = sV + j * KS;
-      float dot = 0.f, dp = 0.f;
-#pragma unroll 16
-      for (int hh = 0; hh < H; ++hh) {
-        dot = fmaf(qr[hh], kr[hh], dot);
-        dp = fmaf(dr[hh], vr[hh], dp);
-      }
-      float s = dot * scale, th = 0.f;
-      if (softcap > 0.f) {
-        th = tanhf(s / softcap);
-        s = th * softcap;
-      }
-      const bool ok = q0 + i < Tq && j0 + j < kv_end && sLse[i] > kNegInf * 0.5f &&
-                      attends(sQpos[i], sKpos[j], window);
-      const float p = ok ? expf(s - sLse[i]) : 0.f;
-      float ds = p * (dp - sDelta[i]);
-      if (softcap > 0.f) ds *= 1.f - th * th;
-      sDS[idx] = ds;
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int r = 0; r < RPT; ++r) {
-      const float* dsr = sDS + (r0 + r * COLS_GROUPS) * BK;
-      float a = acc[r];
-#pragma unroll 8
-      for (int j = 0; j < BK; ++j) a = fmaf(dsr[j], sK[j * KS + h], a);
-      acc[r] = a;
+  for (int hr = 0; hr < 2; ++hr) {
+    const int R = R0 + r_lo + 8 * hr;
+    qp[hr] = __shfl_sync(0xffffffffu, qp_l, r_lo + 8 * hr);
+    lb[hr] = inf;
+    dl[hr] = 0.f;
+    if (R < n_rows) {
+      const float l = lse[stat_off(R)];
+      lb[hr] = l > kNegInf * 0.5f ? l * kLog2e : inf;
+      dl[hr] = delta[stat_off(R)];
     }
   }
 
+  const int n_tiles = (kv_end + BK - 1) / BK;
+  const int n_super = (n_tiles + Q_GROUPS - 1) / Q_GROUPS;
+  __syncthreads();  // sBounds is staged
+  // Whether kv tile jt can hold a live pair, or holds only live pairs, for
+  // rows with positions in [lo, hi].
+  auto tile_is_live = [&](int jt, int lo, int hi) {
+    return jt < n_tiles && tile_live(lo, hi, sBounds[jt].x, sBounds[jt].y, window);
+  };
+  auto tile_is_full = [&](int jt, int lo, int hi) {
+    return (jt + 1) * BK <= kv_end && tile_full(lo, hi, sBounds[jt].x, sBounds[jt].y, window);
+  };
+  // The first super-tile at or after J with a kv tile the block's rows can
+  // attend (n_super if none).
+  auto next_live = [&](int J) {
+    for (; J < n_super; ++J) {
+      if (tile_is_live(2 * J, qmin, qmax) || tile_is_live(2 * J + 1, qmin, qmax)) return J;
+    }
+    return n_super;
+  };
+  auto load_kv = [&](int J, int st) {
+    const int j0 = J * BKS;
+    for (int idx = tid; idx < BKS * CPR; idx += Q_NT) {
+      const int r = idx / CPR, c = (idx % CPR) * 4, s = j0 + r;
+      const bool real = s < kv_end;
+      const size_t off = ((static_cast<size_t>(b) * S + (real ? s : 0)) * Kh + kh) * H + c;
+      cp_async16_zfill(sK + (st * BKS + r) * LD + c, k + off, real);
+      cp_async16_zfill(sV + (st * BKS + r) * LD + c, v + off, real);
+    }
+    // Key positions, unless every pair of both kv tiles is live.
+    if (tile_is_full(2 * J, qmin, qmax) && tile_is_full(2 * J + 1, qmin, qmax)) return;
+    for (int r = tid; r < BKS; r += Q_NT) {
+      const int s = j0 + r;
+      sKpos[st * BKS + r] = s < kv_end ? kpos[static_cast<size_t>(b) * S + s] : INT_MAX;
+    }
+  };
+  // The A fragment of k-step ks of a staged row tile (Q or dO): rows r_lo,
+  // r_lo + 8, columns 8ks + tq, + 4.
+  auto row_frag = [&](FragA& f, const float* tile, int ks) {
+    const float* p = tile + r_lo * LD + ks * 8 + tq;
+    split_a(f, p[0], p[8 * LD], p[4], p[8 * LD + 4]);
+  };
+
+  int J = next_live(0);
+  if (J < n_super) load_kv(J, 0);
+  cp_async_commit();
+
+  float dqa[ONT][4];
 #pragma unroll
-  for (int r = 0; r < RPT; ++r) {
-    const int t = q0 + r0 + r * COLS_GROUPS;
-    if (t < Tq) dq[((static_cast<size_t>(b) * Tq + t) * N + n) * H + h] = acc[r] * scale;
+  for (int nt = 0; nt < ONT; ++nt) dqa[nt][0] = dqa[nt][1] = dqa[nt][2] = dqa[nt][3] = 0.f;
+  FragA qf[QREG ? KSTEPS : 1], df[QREG ? KSTEPS : 1];
+  bool have_rows = false;
+  int st = 0;
+
+  while (J < n_super) {
+    const int Jn = next_live(J + 1);
+    if (Jn < n_super) load_kv(Jn, st ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // Q, dO and super-tile J have landed (this thread's copies)
+    __syncthreads();     // ... and every thread's
+    if (QREG && !have_rows) {
+#pragma unroll
+      for (int ks = 0; ks < KSTEPS; ++ks) {
+        row_frag(qf[QREG ? ks : 0], sQ, ks);
+        row_frag(df[QREG ? ks : 0], sDO, ks);
+      }
+      have_rows = true;
+    }
+    // This key group's kv tile; a warp whose rows attend nothing there
+    // skips it.
+    const int jt = J * Q_GROUPS + kg;
+    if (tile_is_live(jt, wqmin, wqmax)) {
+      const float* tK = sK + (st * BKS + kg * BK) * LD;
+      const float* tV = sV + (st * BKS + kg * BK) * LD;
+      const int* tKpos = sKpos + st * BKS + kg * BK;
+      const int j0 = jt * BK;
+
+      // S = Q K^T and dP = dO V^T for the warp's 16 rows, issued together.
+      float sp[2][SNT][4];
+      auto& sacc = sp[0];
+      auto& pacc = sp[1];
+#pragma unroll
+      for (int nt = 0; nt < SNT; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sacc[nt][e] = pacc[nt][e] = 0.f;
+      }
+#pragma unroll
+      for (int ks = 0; ks < KSTEPS; ++ks) {
+        FragA rows[2];
+        if (QREG) {
+          rows[0] = qf[QREG ? ks : 0];
+          rows[1] = df[QREG ? ks : 0];
+        } else {
+          row_frag(rows[0], sQ, ks);
+          row_frag(rows[1], sDO, ks);
+        }
+#pragma unroll
+        for (int c = 0; c < SNT; c += NCS) {
+          FragB kvb[2][NCS];
+#pragma unroll
+          for (int i = 0; i < NCS; ++i) {
+            const int at = ((c + i) * 8 + (lane >> 2)) * LD + ks * 8 + tq;
+            split_b(kvb[0][i], tK[at], tK[at + 4]);
+            split_b(kvb[1][i], tV[at], tV[at + 4]);
+          }
+          mma_3xtf32(sp, c, rows, kvb);
+        }
+      }
+
+      // p and ds; on a boundary tile, the pair mask. s's registers keep ds.
+      const bool full = tile_is_full(jt, wqmin, wqmax);
+#pragma unroll
+      for (int nt = 0; nt < SNT; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int hr = e >> 1;
+          float th = 0.f, p;
+          if (capped) {
+            th = tanhf(sacc[nt][e] * scale / softcap);
+            p = ex2(th * softcap * kLog2e - lb[hr]);
+          } else {
+            p = ex2(fmaf(sacc[nt][e], sl2, -lb[hr]));
+          }
+          if (!full) {
+            const int col = nt * 8 + cq + (e & 1);
+            const bool ok = j0 + col < kv_end && attends(qp[hr], tKpos[col], window);
+            p = ok ? p : 0.f;
+          }
+          float ds = p * (pacc[nt][e] - dl[hr]);
+          if (capped) ds *= 1.f - th * th;
+          sacc[nt][e] = ds;
+        }
+      }
+
+      // dQ += dS K: n-tile kk of dS is k-step kk, its column tq key 2tq and
+      // column tq + 4 key 2tq + 1; K's B elements come from those rows. The
+      // tile's product sums in fresh accumulators, NC n-tiles a pass.
+#pragma unroll
+      for (int c = 0; c < ONT; c += NC) {
+        float part[2][NC][4];
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+#pragma unroll
+          for (int i = 0; i < NC; ++i) {
+            part[u][i][0] = part[u][i][1] = part[u][i][2] = part[u][i][3] = 0.f;
+          }
+        }
+#pragma unroll
+        for (int kk = 0; kk < SNT; kk += 2) {
+          FragA da[2];
+          FragB kb[2][NC];
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            split_a(da[u], sacc[kk + u][0], sacc[kk + u][2], sacc[kk + u][1], sacc[kk + u][3]);
+            const float* kr = tK + ((kk + u) * 8 + cq) * LD + (lane >> 2) + c * 8;
+#pragma unroll
+            for (int i = 0; i < NC; ++i) split_b(kb[u][i], kr[i * 8], kr[LD + i * 8]);
+          }
+          mma_3xtf32(part, 0, da, kb);
+        }
+#pragma unroll
+        for (int i = 0; i < NC; ++i) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dqa[c + i][e] += part[0][i][e] + part[1][i][e];
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with stage st before it is refilled
+    st ^= 1;
+    J = Jn;
+  }
+  cp_async_wait<0>();  // nothing may land after the block exits
+  __syncthreads();     // the stages are free for the hand-over
+
+  // Key group 1 hands its rows' dq to group 0 through the stages' memory;
+  // group 0 adds the two, scales and writes.
+  float* xo = sK;  // [BR][LD]
+  if (kg == 1) {
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int row = r_lo + 8 * hr;
+#pragma unroll
+      for (int nt = 0; nt < ONT; ++nt) {
+        *reinterpret_cast<float2*>(xo + row * LD + nt * 8 + cq) =
+            make_float2(dqa[nt][2 * hr], dqa[nt][2 * hr + 1]);
+      }
+    }
+  }
+  __syncthreads();
+  if (kg != 0) return;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = r_lo + 8 * hr;
+    const int R = R0 + row;
+    if (R >= n_rows) continue;
+    float* orow = dq + row_off(R) + cq;
+#pragma unroll
+    for (int nt = 0; nt < ONT; ++nt) {
+      const float2 x = *reinterpret_cast<const float2*>(xo + row * LD + nt * 8 + cq);
+      *reinterpret_cast<float2*>(orow + nt * 8) =
+          make_float2((dqa[nt][2 * hr] + x.x) * scale, (dqa[nt][2 * hr + 1] + x.y) * scale);
+    }
   }
 }
 
@@ -475,25 +722,34 @@ cudaError_t launch_bf16_tc(const void* q, const void* k, const void* v, const vo
   return cudaGetLastError();
 }
 
+// bounds: scratch of B * ceil(S / 32) int2, filled by the first launch.
 template <int H>
 cudaError_t launch_fp32(const void* q, const void* k, const void* v, const void* dout,
                         const void* lse, const void* delta, const void* qpos, const void* kpos,
-                        const void* valid, void* dq, int B, int Tq, int S, int N, int Kh,
-                        int window, float scale, float softcap, cudaStream_t stream) {
-  constexpr int BQ = 32, BK = 64, NT = 128;
-  constexpr size_t smem = (2 * BQ * H + 2 * BK * (H + 1) + BQ * BK + 2 * BQ) * sizeof(float) +
-                          (BQ + BK) * sizeof(int);
-  auto kern = flash_bwd_dq_fp32_kernel<H, BQ, BK, NT>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+                        const void* valid, void* bounds, void* dq, int B, int Tq, int S, int N,
+                        int Kh, int window, float scale, float softcap, cudaStream_t stream) {
+  constexpr int BK = q_bk<H>();
+  const size_t smem = q_smem_bytes<H>(S);
+  auto kern = flash_bwd_dq_fp32_kernel<H>;
+  // Set once per instantiation, to the most a block may take; each launch
+  // asks for what its S needs.
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (attr != cudaSuccess) return attr;
+  if (smem > static_cast<size_t>(kMaxSmem)) return cudaErrorInvalidValue;
+  tile_bounds_kernel<BK><<<dim3((S + BK - 1) / BK, B), 32, 0, stream>>>(
+      static_cast<const int32_t*>(kpos), static_cast<const int32_t*>(valid),
+      static_cast<int2*>(bounds), S);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const dim3 grid((Tq + BQ - 1) / BQ, N, B);
-  kern<<<grid, NT, smem, stream>>>(
+  const dim3 grid(Kh, B, (Tq * (N / Kh) + Q_BR - 1) / Q_BR);
+  kern<<<grid, Q_NT, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<const int32_t*>(qpos),
       static_cast<const int32_t*>(kpos), static_cast<const int32_t*>(valid),
-      static_cast<float*>(dq), Tq, S, N, Kh, window, scale, softcap);
+      static_cast<const int2*>(bounds), static_cast<float*>(dq), Tq, S, N, Kh, window, scale,
+      softcap);
   return cudaGetLastError();
 }
 
@@ -504,8 +760,8 @@ cudaError_t launch(int dtype, const void* q, const void* k, const void* v, const
                    int window, float scale, float softcap, cudaStream_t stream) {
   switch (dtype) {
     case 0:
-      return launch_fp32<H>(q, k, v, dout, lse, delta, qpos, kpos, valid, dq, B, Tq, S, N, Kh,
-                            window, scale, softcap, stream);
+      return launch_fp32<H>(q, k, v, dout, lse, delta, qpos, kpos, valid, bounds, dq, B, Tq, S,
+                            N, Kh, window, scale, softcap, stream);
     case 1:
       return launch_bf16_tc<H>(q, k, v, dout, lse, delta, qpos, kpos, valid, bounds, dq, B, Tq, S,
                                N, Kh, window, scale, softcap, stream);
@@ -517,7 +773,7 @@ cudaError_t launch(int dtype, const void* q, const void* k, const void* v, const
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. lse and delta are fp32 [B,N,T]; bounds:
-// int32 scratch of 2 * B * ceil(S / 32) for the bf16 path (unused in fp32);
+// int32 scratch of 2 * B * ceil(S / 32), the kv tile bounds of the first launch;
 // all tensors contiguous; dq in q's dtype. Returns cudaGetLastError().
 extern "C" int pt_flash_bwd_dq(int dtype, const void* q, const void* k, const void* v,
                                const void* dout, const void* lse, const void* delta,

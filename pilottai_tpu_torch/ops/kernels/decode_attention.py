@@ -7,17 +7,24 @@ per-step read of the cache prefix as online-softmax statistics
 XLA function ``engine/decode.py:_prefix_stats_dense`` and what its
 Pallas kernel computes with ``return_stats=True``. The CUDA source is
 ``csrc/decode_attention.cu``; its header says what bounds it on an H100
-(the cache bytes) and what the design does about it.
+(the cache bytes, and at a decode step the latency of too few blocks) and
+what the design does about it: each (kv head, slot)'s live keys are cut
+into ``split_count`` splits by ``split_bounds``, each split a block of its
+own, and the last split to finish merges them in split order, all in one
+launch. The wrapper allocates the splits' scratch and keeps their arrival
+counters.
 
 For a CUDA tensor the wrapper launches the kernel (or raises); for a CPU
 tensor it runs ``decode_attention_plain``. The normalized form
 (``return_stats=False``) divides the kernel's statistics in the wrapper.
+``decode_attention_split_plain`` is the same function with the kernel's
+split-and-merge algebra, for the tests.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -29,8 +36,42 @@ launches = 0
 SOURCE = "pilottai_tpu_torch/csrc/decode_attention.cu"
 REPLACES = "pilottai_tpu/ops/pallas/decode_attention.py:51"
 MAX_GROUP = 8  # query heads per kv head the kernel takes
+TILE = 32  # keys a tile of the kernel's walk: splits are runs of whole tiles
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)
+# Per (device index, stream): the int32 arrival counters of the splits,
+# zero between launches (the last split of each (kv head, slot) resets its
+# own), and the device's SM count.
+_arrivals: Dict[Tuple[int, int], torch.Tensor] = {}
+_sm_count: Dict[int, int] = {}
+
+
+def split_count(B: int, n_kv_heads: int, S: int, n_sm: int) -> int:
+    """Splits of each (kv head, slot)'s key range: enough blocks that the
+    grid covers the ``n_sm`` SMs about four times, and no more splits than
+    a panel of ``S`` keys has tiles. From the shapes alone: the host never
+    reads ``last``."""
+    return max(1, min(-(-4 * n_sm // (B * n_kv_heads)), -(-S // TILE)))
+
+
+def split_bounds(last_valid, q_positions, window: int, S: int, n_split: int, z: int):
+    """Keys ``[lo, hi]`` of split ``z`` of each slot, as the kernel's
+    ``split_range`` computes them on the device: the live range
+    ``[max(0, q_pos - window + 1) (0 without a window), min(last, S - 1)]``
+    cut into ``n_split`` runs of whole ``TILE``-key tiles, each run as long
+    as the longest (the last ones shorter or empty). ``lo > hi`` marks a
+    split with no key. Elementwise over tensors of slots."""
+    last = torch.as_tensor(last_valid).long()
+    qpos = torch.as_tensor(q_positions).long()
+    s_end = last.clamp(max=S - 1)
+    s_begin = (qpos - window + 1).clamp(min=0) if window > 0 else torch.zeros_like(s_end)
+    n_keys = s_end - s_begin + 1
+    n_tiles = (n_keys.clamp(min=0) + TILE - 1) // TILE
+    per = (n_tiles + n_split - 1) // n_split
+    lo = s_begin + z * per * TILE
+    hi = torch.minimum(s_end, lo + per * TILE - 1)
+    empty = (n_keys <= 0) | (z * per >= n_tiles)
+    return torch.where(empty, 0, lo), torch.where(empty, -1, hi)
 
 
 def decode_attention_plain(
@@ -55,6 +96,45 @@ def decode_attention_plain(
     p = torch.where(m[..., None] > NEG_INF / 2, torch.exp(s - m[..., None]), torch.zeros_like(s))
     l = p.sum(dim=-1)
     acc = torch.einsum("bkgs,bksh->bkgh", p.to(v_cache.dtype).float(), v_cache.float())
+    return acc.reshape(B, N, H), m.reshape(B, N), l.reshape(B, N)
+
+
+def decode_attention_split_plain(
+    q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+    last_valid: torch.Tensor, q_positions: torch.Tensor,
+    scale: float, softcap: float = 0.0, window: int = 0, n_split: int = 1,
+):
+    """Plain K2 with the kernel's algebra: split ``z`` of ``n_split`` gets
+    its own ``(acc, m, l)`` over the keys ``split_bounds`` gives it, and the
+    splits are merged in split order with ``m = max m_s`` and weights
+    ``exp(m_s - m)`` (0 for a split with no key). Returns what
+    ``decode_attention_plain`` returns."""
+    B, N, H = q.shape
+    _, K, S, _ = k_cache.shape
+    G = N // K
+    qg = q.reshape(B, K, G, H).float()
+    s = torch.einsum("bkgh,bksh->bkgs", qg, k_cache.float()) * scale
+    if softcap > 0.0:
+        s = torch.tanh(s / softcap) * softcap
+    col = torch.arange(S, device=q.device)[None, :]
+    parts = []
+    for z in range(n_split):
+        lo, hi = split_bounds(last_valid.to(q.device), q_positions.to(q.device), window, S,
+                              n_split, z)
+        own = ((col >= lo[:, None]) & (col <= hi[:, None]))[:, None, None, :]
+        s_z = torch.where(own, s, torch.full_like(s, NEG_INF))
+        m_z = s_z.amax(dim=-1)
+        p = torch.where(m_z[..., None] > NEG_INF / 2, torch.exp(s_z - m_z[..., None]),
+                        torch.zeros_like(s_z))
+        acc_z = torch.einsum("bkgs,bksh->bkgh", p.to(v_cache.dtype).float(), v_cache.float())
+        parts.append((acc_z, m_z, p.sum(dim=-1)))
+    m = torch.stack([m_z for _, m_z, _ in parts]).amax(dim=0)
+    acc = torch.zeros_like(parts[0][0])
+    l = torch.zeros_like(m)
+    for acc_z, m_z, l_z in parts:
+        w = torch.where(m_z > NEG_INF / 2, torch.exp(m_z - m), torch.zeros_like(m_z))
+        acc = acc + w[..., None] * acc_z
+        l = l + w * l_z
     return acc.reshape(B, N, H), m.reshape(B, N), l.reshape(B, N)
 
 
@@ -108,18 +188,32 @@ def _launch(q, k_cache, v_cache, last_valid, q_positions, scale, softcap, window
     qpos = q_positions.to(device=q.device, dtype=torch.int32).contiguous()
     if last.shape != (B,) or qpos.shape != (B,):
         raise ValueError("decode_attention: last_valid and q_positions must be [B]")
-    acc = torch.empty((B, N, H), device=q.device, dtype=torch.float32)
-    m = torch.empty((B, N), device=q.device, dtype=torch.float32)
-    l = torch.empty((B, N), device=q.device, dtype=torch.float32)
+    dev = q.device
+    acc = torch.empty((B, N, H), device=dev, dtype=torch.float32)
+    m = torch.empty((B, N), device=dev, dtype=torch.float32)
+    l = torch.empty((B, N), device=dev, dtype=torch.float32)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if dev.index not in _sm_count:
+        _sm_count[dev.index] = torch.cuda.get_device_properties(dev).multi_processor_count
+    Z = split_count(B, K, S, _sm_count[dev.index])
+    part = arrivals = None
+    if Z > 1:
+        # Each split's acc, m and l; and the arrival counters, zeroed once.
+        part = torch.empty(B * K * Z * (N // K) * (H + 2), device=dev, dtype=torch.float32)
+        arrivals = _arrivals.get((dev.index, stream))
+        if arrivals is None or arrivals.numel() < B * K:
+            arrivals = torch.zeros(B * K, device=dev, dtype=torch.int32)
+            _arrivals[(dev.index, stream)] = arrivals
 
     from pilottai_tpu_torch.ops.kernels.build import load_library
 
     lib = _bind(load_library("decode_attention"))
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     status = lib.pt_decode_attention(
         _DTYPES[q.dtype], q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         last.data_ptr(), qpos.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(),
-        B, N, K, S, H, int(window), float(scale), float(softcap), stream,
+        ptr(part), ptr(arrivals), B, N, K, S, H, Z, int(window), float(scale), float(softcap),
+        stream,
     )
     if status != 0:
         raise RuntimeError(
@@ -134,7 +228,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn = lib.pt_decode_attention
     if fn.argtypes is None:
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [I, P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, F, P]
+        fn.argtypes = [I] + [P] * 10 + [I] * 7 + [F, F, P]
         fn.restype = I
         lib.pt_error_string.argtypes = [I]
         lib.pt_error_string.restype = ctypes.c_char_p

@@ -14,7 +14,8 @@ training shapes; fp32 (TF32 off for PyTorch's own products, as
 shapes. The yardsticks, timed once: SDPA's forward at K1's shapes and its
 backward (dq, dk and dv in one call) at K4's and K5's. Times are the
 median of CUDA-event-timed launches queued back to back with the L2 cache
-flushed before each (``chip_smoke.Timer``).
+flushed before each (``chip_smoke.Timer``); K2 and K3 also with the L2
+left warm (a spin kernel between launches in place of the flush).
 
     git archive HEAD pilottai_tpu_torch | tar -x -C .scratch/parent
     python3 scripts/port_kernel_ab.py --a .scratch/parent/pilottai_tpu_torch \\
@@ -49,9 +50,12 @@ FLASH_CASES = [("prefill T256 valid 184", "bfloat16", 8, 256, 184, 32, 8, 128),
                ("train T2048 causal H64", "bfloat16", 4, 2048, 2048, 32, 8, 64),
                ("fp32 serve T512 valid 415", "float32", 1, 512, 415, 8, 4, 32),
                ("fp32 train T512 causal H32", "float32", 4, 512, 512, 8, 4, 32)]
-# (name, B, S, last): K2 at the dense wave's shapes.
-DECODE_CASES = [("decode S2048 last 216", 8, 2048, 216),
-                ("decode S2048 last 2015", 8, 2048, 2015)]
+# (name, dtype, B, N, K, H, S, last): K2 at the dense llama3-8b wave's
+# shapes in bf16 and at the golden protocol-s step in fp32 (one live slot of
+# four).
+DECODE_CASES = [("decode S2048 last 216", "bfloat16", 8, 32, 8, 128, 2048, [216] * 8),
+                ("decode S2048 last 2015", "bfloat16", 8, 32, 8, 128, 2048, [2015] * 8),
+                ("fp32 decode S512 last 462", "float32", 4, 8, 4, 32, 512, [462, -1, -1, -1])]
 # K3 at the paged llama3-8b wave's step: 129 pages of 128, one long slot and
 # seven short ones, the ring 16 rows deep at step 8.
 PAGED_LAST = [6097] + [215] * 7
@@ -150,12 +154,13 @@ def main() -> int:
         pos = torch.arange(T, device=dev, dtype=torch.int32)[None].repeat(B, 1)
         val = torch.full((B,), n, device=dev, dtype=torch.int32)
         inputs[name] = ("flash", (q, k, v, pos, pos, val), {})
-    N, K, H = 32, 8, 128
-    for name, B, S, last in DECODE_CASES:
-        q = chip_smoke.randn(torch, gen, (B, N, H), bf, dev)
-        kc, vc = (chip_smoke.randn(torch, gen, (B, K, S, H), bf, dev) for _ in range(2))
-        lst = torch.full((B,), last, device=dev, dtype=torch.int32)
+    for name, dtype, B, N, K, H, S, last in DECODE_CASES:
+        dt = getattr(torch, dtype)
+        q = chip_smoke.randn(torch, gen, (B, N, H), dt, dev)
+        kc, vc = (chip_smoke.randn(torch, gen, (B, K, S, H), dt, dev) for _ in range(2))
+        lst = torch.tensor(last, device=dev, dtype=torch.int32)
         inputs[name] = ("decode", (q, kc, vc, lst, lst), {})
+    N, K, H = 32, 8, 128
     P, R, step, num_pages = 128, 16, 8, 129
     x = chip_smoke.paged_inputs(torch, gen, dev, bf, len(PAGED_LAST), N, K, H, P,
                                 [n + 1 for n in PAGED_LAST], step, R,
@@ -220,6 +225,18 @@ def main() -> int:
                       iters=args.iters)
         results[f"SDPA {name}"] = [ms]
         print(f"SDPA {name:<28} {ms:9.4f} ms", flush=True)
+    # SDPA over K2's panels repeated to the query heads, the cache masked.
+    for name, (kind, a, _) in inputs.items():
+        if kind != "decode":
+            continue
+        q, kc, vc, lst, _ = a
+        G = q.shape[1] // kc.shape[1]
+        kce, vce = (x.repeat_interleave(G, dim=1) for x in (kc, vc))
+        dmask = (torch.arange(kc.shape[2], device=dev)[None, :] <= lst[:, None])[:, None, None]
+        ms = timer.ms(lambda: F.scaled_dot_product_attention(q[:, :, None], kce, vce,
+                                                             attn_mask=dmask), iters=args.iters)
+        results[f"SDPA {name}"] = [ms]
+        print(f"SDPA {name:<28} {ms:9.4f} ms", flush=True)
     # SDPA's backward at K4's and K5's shapes: dq, dk and dv in one call.
     for name, (kind, a, kw) in inputs.items():
         if kind != "bwd_dq":
@@ -251,7 +268,12 @@ def main() -> int:
             err = ((got - ref).abs().max() / scale).item()
             ms = timer.ms(lambda: run(w, kind, a, kw), iters=args.iters)
             results.setdefault(f"{tag} {name}", []).append(ms)
-            print(f"{tag} {name:<28} {ms:9.4f} ms  err {err:.2e}", flush=True)
+            warm = ""
+            if kind in ("decode", "paged"):
+                ms_warm = timer.ms(lambda: run(w, kind, a, kw), iters=args.iters, flush=False)
+                results.setdefault(f"{tag} {name} L2 warm", []).append(ms_warm)
+                warm = f" (L2 warm {ms_warm:.4f} ms)"
+            print(f"{tag} {name:<28} {ms:9.4f} ms{warm}  err {err:.2e}", flush=True)
     print(json.dumps({"device": smi, "ms": results}), flush=True)
     return 0
 

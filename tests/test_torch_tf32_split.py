@@ -1,6 +1,7 @@
-"""The arithmetic of the fp32 bodies of K1 and K5 on the card, on the CPU.
+"""The arithmetic of the fp32 bodies of K1, K4 and K5 on the card, on the CPU.
 
-Those bodies run every product on the tensor cores in 3xTF32: each fp32
+Those bodies run every product on the tensor cores in 3xTF32 (K4's since
+it was redesigned like K5's): each fp32
 operand x is split as ``hi = tf32(x)``, ``lo = tf32(x - hi)`` (``tf32`` is
 ``cvt.rna.tf32.f32``: 10 mantissa bits kept, round to nearest, ties away
 from zero), and a product is ``hi*hi + hi*lo + lo*hi`` accumulated in
@@ -17,7 +18,10 @@ versions stay exact fp32. Then:
 2. the protocol-s golden streams, dense and paged with chunked prefill,
    with the split K1: the ids must equal the committed golden ones;
 3. three golden ``Trainer.step`` calls with the split K1, K4 and K5,
-   within ``chip_smoke.TOL_TRAIN_GOLDEN`` of the JAX trainer's.
+   within ``chip_smoke.TOL_TRAIN_GOLDEN`` of the JAX trainer's;
+4. K4's dq at the golden training shape with each kv tile's split product
+   summed on its own before it is added, as the fp32 K4 sums each tile in
+   fresh tensor-core accumulators, within the card's fp32 limit.
 """
 
 import asyncio
@@ -253,3 +257,27 @@ def test_golden_training_steps_hold_with_split_products(split_products):
         rl = abs(float(metrics["loss"]) - want["loss"]) / abs(want["loss"])
         rn = abs(float(metrics["grad_norm"]) - want["grad_norm"]) / abs(want["grad_norm"])
         assert rl <= tol["loss"] and rn <= tol["grad_norm"], (step, rl, rn)
+
+
+# --------------------------------------------------------------------- #
+# 4. K4's dq tile by tile at the golden training shape
+# --------------------------------------------------------------------- #
+
+def test_dq_summed_tile_by_tile_at_the_golden_training_shape(monkeypatch):
+    """q [4,512,8,32] on 4 kv heads, causal, ragged valid lengths: each
+    64-key tile's dq product through the split, summed on its own and then
+    added in fp32 (``flash_attention_bwd_tiled_plain``), against the exact
+    fp32 plain backward."""
+    B, T, N, K, H = 4, 512, 8, 4, 32
+    rng = np.random.default_rng(17)
+    q, do = (torch.from_numpy(rng.standard_normal((B, T, N, H), np.float32)) for _ in range(2))
+    k, v = (torch.from_numpy(rng.standard_normal((B, T, K, H), np.float32)) for _ in range(2))
+    pos = torch.arange(T, dtype=torch.int32)[None].repeat(B, 1)
+    val = torch.tensor([512, 415, 300, 1], dtype=torch.int32)
+    o, lse = fa.flash_attention_plain(q, k, v, pos, pos, val)
+    dq_exact = fa.flash_attention_bwd_plain(q, k, v, pos, pos, val, 0, o, lse, do)[0]
+    monkeypatch.setattr(fa, "torch", _SplitTorch())
+    dq = fa.flash_attention_bwd_tiled_plain(q, k, v, pos, pos, val, 0, o, lse, do,
+                                            block_q=64, block_k=64)[0]
+    _assert_within_limit(dq, dq_exact, "dq")
+    assert not torch.equal(dq, dq_exact)
