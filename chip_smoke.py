@@ -35,11 +35,15 @@ result line is printed only when every phase passed):
    through ``LLMHandler.generate_response``, once on the dense cache and
    once paged with chunked prefill; the greedy token ids must equal
    ``assets/protocol_s_golden.json`` and ``protocol_s_paged_golden.json``
-   (the JAX engine's), the paged one twice: at the asset's 16-key pages and
-   at 8-key pages, the smallest the config takes. Each path's launch
+   (the JAX engine's), each at the decode pipeline's defaults (chunks as
+   CUDA graphs, two in flight, overlapped admission, adaptive chunks, the
+   fused greedy epilogue) and again with those knobs off, the paged one
+   also at 8-key pages, the smallest the config takes. Each path's launch
    counters, reset just before it, must show its kernels: K1 and K2 on the
    dense path, K1 and K3 with K2 at zero on the paged ones, where prefill
-   segments must have run;
+   segments must have run; K2 (dense) or K3 (paged) once per layer per
+   decode step dispatched, graph replays included. The chunk graphs
+   captured, their capture seconds and their shared pool are printed;
 5. full width — llama3-8b in bf16 from random init, (a) on the dense cache:
    8 concurrent JSON-mode greedy requests, the counters > 0, one prompt's
    first-token logits through K1 against the plain K1 and one decode step
@@ -48,7 +52,13 @@ result line is printed only when every phase passed):
    prompt (prefilled in 1024-token segments) and seven short ones, K1 and
    K3 > 0 with K2 at zero, every page back on the free list, and one decode
    step of the wave's live state through K3 against the plain K3
-   (``TOL_E2E``);
+   (``TOL_E2E``). Both decode-step checks run on the device thread's
+   stream between two dispatches, and both paths launch their decode
+   kernel once per layer per step. Then five more waves of each: TTFT
+   p50, TPOT p50 and decode tokens/s per wave, with the median and the
+   spread; (c) five waves of each under torch.profiler, on fresh engines:
+   the device's busy share (after every plain wave: the profiler leaves
+   the process's launches slower);
 7. training — (a) golden: four ``Trainer.step`` calls on protocol-s in fp32
    (TF32 off) from the shipped checkpoint, on ``protocol_batches(4, 512,
    seed=11)``; the batches' hash and each step's loss and grad norm must
@@ -683,10 +693,35 @@ def launches_text(launches):
             f"flash_bwd_dkv {launches['bwd_dkv']}")
 
 
-def phase_golden(torch, kernels, root, asset, paged, page_size=None):
+# The decode pipeline's knobs all off: one chunk in flight, admission on the
+# device thread, fixed chunks, the sampler (4a and 4b also run the defaults).
+SERIAL_KNOBS = dict(engine_pipeline=1, engine_overlap_admission=False,
+                    engine_chunk_policy="fixed", engine_fused_epilogue=False)
+
+
+def graph_text(batcher):
+    g = batcher.graph_report()
+    pool = "not measured" if g["pool_bytes"] is None else f"{g['pool_bytes'] / 2**20:.1f} MiB"
+    return (f"chunk graphs captured {g['graphs']}, capture {g['capture_s']:.3f} s, "
+            f"shared pool {pool}")
+
+
+def per_step_check(launches, batcher, steps, label):
+    """The decode kernel of the path (K2 dense, K3 paged) launches once per
+    layer per dispatched step, replays included; the other one never."""
+    mine, other = ("paged", "decode") if batcher.paged else ("decode", "paged")
+    per = launches[mine] / max(steps, 1)
+    log(f"  {label}: {steps} decode steps dispatched, {launches[mine]} {mine}_attention "
+        f"launches = {per:g} a step ({batcher.cfg.n_layers} layers); {graph_text(batcher)}")
+    if steps <= 0 or launches[mine] != batcher.cfg.n_layers * steps or launches[other] != 0:
+        raise SystemExit(f"{label}: the decode kernel did not launch once per layer per step")
+
+
+def phase_golden(torch, kernels, root, asset, paged, page_size=None, knobs=None):
     """Serve the golden prompts with the asset's engine settings (the page
-    size replaced by ``page_size``, if given) and hold the ids to it.
-    Returns the path's launches and the shapes its fp32 kernels saw."""
+    size replaced by ``page_size``, the pipeline knobs by ``knobs``, if
+    given) and hold the ids to it. Returns the path's launches and the
+    shapes its fp32 kernels saw."""
     from pilottai_tpu_torch import LLMConfig, LLMHandler, PROTOCOL_S_NPZ
     from pilottai_tpu_torch.engine.types import ChatMessage, ToolSpec
     from pilottai_tpu_torch.models.transformer import forward_prefill
@@ -697,6 +732,7 @@ def phase_golden(torch, kernels, root, asset, paged, page_size=None):
     golden = json.loads((root / "pilottai_tpu_torch" / "assets" / asset).read_text())
     if page_size is not None:
         golden["engine"] = dict(golden["engine"], engine_page_size=page_size)
+    golden["engine"] = dict(golden["engine"], **(knobs or {}))
     log(f"  {asset}: engine {golden['engine']}")
 
     async def run():
@@ -707,6 +743,7 @@ def phase_golden(torch, kernels, root, asset, paged, page_size=None):
         ))
         await handler.start()
         seen = record_requests(handler)
+        batcher = handler.backend.batcher
         try:
             out = []
             reset(kernels)
@@ -719,14 +756,16 @@ def phase_golden(torch, kernels, root, asset, paged, page_size=None):
                     json_mode=case["json_mode"],
                 )
                 out.append((list(seen[0].prompt_ids), seen[0].future.result()))
-            return out, handler.backend.batcher, counts(kernels)
+            return out, batcher
         finally:
             await handler.stop()
 
     t0 = time.perf_counter()
-    got, batcher, launches = asyncio.run(run())
+    got, batcher = asyncio.run(run())
+    launches = counts(kernels)      # read once the engine's threads have stopped
     n = len(golden["cases"])
     log(f"  launches on this run ({n} requests, fp32): {launches_text(launches)}")
+    per_step_check(launches, batcher, batcher.blocks_dispatched, "golden")
     if paged:
         log(f"  paged: {batcher.num_pages} pages of {batcher.page_size}, prefill segments "
             f"{batcher.prefill_segments}, free pages after {batcher.alloc.free_pages}")
@@ -808,25 +847,98 @@ def long_prompt(n_chars: int) -> str:
             "one JSON object with the keys task_complete, action, arguments and reasoning.")
 
 
-async def profile_wave(handler, requests, label):
-    """One more wave under torch.profiler: the device's busy share of the
-    wall time and the kernels that fill it. ``requests`` are (messages,
-    max_new_tokens) pairs."""
+WAVES = 5
+
+
+def median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2]
+
+
+async def timed_waves(handler, requests, label, long_first=False, n_waves=WAVES,
+                      profiled=False):
+    """``n_waves`` waves of ``requests`` ((messages, max_new_tokens) pairs,
+    greedy JSON). Plain waves give per wave the TTFT p50 (of the short
+    prompts, the long one apart when ``long_first``: it is sent first and
+    the rest once its segmented prefill has begun, as in 5b), the TPOT p50
+    and the decode tokens/s. ``profiled`` waves run under torch.profiler
+    and give the device's busy share of the wall instead: once the profiler
+    has traced the card, launches in the process stay slower on the host
+    (a graph replay by ~20 ms on this card), so every plain wave of a run
+    comes before its first profiled one. Logs each wave, then the median
+    and the spread; returns the waves and the first wave's device rows
+    (profiled). Uses the engine's public entry points and the batcher's
+    ``completed`` log only, so a parent tree's engine runs it too
+    (``scripts/port_serving_ab.py``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from pilottai_tpu_torch.engine.types import GenerationParams
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        await asyncio.gather(*[
-            handler.generate_response(p, params=GenerationParams(
-                temperature=0.0, max_new_tokens=n), json_mode=True)
-            for p, n in requests])
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    return report_profile(prof, wall_us, f"wave ({label})"), device_rows(prof)
+    batcher = handler.backend.batcher
+
+    def send(messages, n):
+        return asyncio.ensure_future(handler.generate_response(
+            messages, params=GenerationParams(temperature=0.0, max_new_tokens=n),
+            json_mode=True))
+
+    waves, rows0 = [], None
+    for w in range(n_waves):
+        batcher.completed.clear()
+        with (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if profiled
+              else contextlib.nullcontext()) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if long_first:
+                seg0 = batcher.prefill_segments
+                tasks = [send(*requests[0])]
+                while (batcher._segmenting is None and batcher.prefill_segments == seg0
+                       and not tasks[0].done()):
+                    await asyncio.sleep(0.001)
+                tasks += [send(*r) for r in requests[1:]]
+            else:
+                tasks = [send(*r) for r in requests]
+            await asyncio.gather(*tasks)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        if profiled:
+            rows = device_rows(prof)
+            if w == 0:
+                rows0 = rows
+                report_profile(prof, wall * 1e6, f"wave 1 of {n_waves} ({label})")
+            wave = {"busy": sum(r[0] for r in rows) / (wall * 1e6) if rows else None,
+                    "wall_s": wall}
+        else:
+            timings = list(batcher.completed)
+            long_t = [t["ttft_s"] for t in timings if long_first and t["prompt_tokens"] > 1000]
+            short = [t for t in timings if not (long_first and t["prompt_tokens"] > 1000)]
+            wave = {
+                "ttft_ms": median(t["ttft_s"] for t in short) * 1e3,
+                "ttft_long_ms": long_t[0] * 1e3 if long_t else None,
+                "tpot_ms": median((t["e2e_s"] - t["ttft_s"]) / max(t["tokens"] - 1, 1)
+                                  for t in timings) * 1e3,
+                "tokens_s": sum(t["tokens"] for t in timings) / wall,
+                "wall_s": wall,
+            }
+        waves.append(wave)
+        log(f"  {'profiled ' if profiled else ''}wave {w + 1}: " + ", ".join(
+            f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}" for k, v in wave.items()))
+    for key in waves[0]:
+        vals = [wv[key] for wv in waves if wv[key] is not None]
+        if vals:
+            log(f"  {label}, {n_waves} waves: {key} median {median(vals):.4f} "
+                f"(min {min(vals):.4f}, max {max(vals):.4f})")
+        else:
+            log(f"  {label}, {n_waves} waves: {key} not measured")
+    return waves, rows0
+
+
+async def settle(batcher):
+    """Wait until every dispatched chunk has been handed to the reader and
+    folded: the launch counters and the steps dispatched then agree."""
+    while batcher._results.qsize() or any(s is not None for s in batcher._slots):
+        await asyncio.sleep(0.01)
+    await asyncio.sleep(0.05)
 
 
 def device_rows(prof):
@@ -1013,6 +1125,7 @@ def phase_full_width(torch, kernels, seed):
         seen = record_requests(handler)
         torch.cuda.reset_peak_memory_stats()
         reset(kernels)
+        steps0 = batcher.blocks_dispatched
         t0 = time.perf_counter()
         replies = await asyncio.gather(*[
             handler.generate_response(p, params=GenerationParams(**params), json_mode=True)
@@ -1020,7 +1133,9 @@ def phase_full_width(torch, kernels, seed):
         ])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        await settle(batcher)
         launches = counts(kernels)
+        per_step_check(launches, batcher, batcher.blocks_dispatched - steps0, "dense wave")
         batcher._decode = decode
         shapes["prompt_lens"] = [len(r.prompt_ids) for r in seen]
         shapes["gen_lens"] = [len(r.future.result()) for r in seen]
@@ -1039,11 +1154,9 @@ def phase_full_width(torch, kernels, seed):
         finite = bool(torch.isfinite(logits).all()) and tuple(logits.shape) == (1, T, 384)
         e2e = logits_agreement(logits[0, T - 1][None], ref[0, T - 1][None], [0])
         shapes["model"] = handler.backend.model_cfg
-        _, rows = await profile_wave(handler, [(p, 16) for p in prompts], "8 x 16 tokens")
-        # K2's device time a launch inside the wave, beside the harness's.
-        k2 = [(dev, count) for dev, key, count in rows if "decode_split" in key]
-        if k2:
-            shapes["wave_k2"] = (sum(d for d, _ in k2), sum(c for _, c in k2))
+        shapes["waves"], _ = await timed_waves(handler, [(p, 64) for p in prompts],
+                                               "dense, 8 x 64 tokens")
+        log(f"  after the waves: {graph_text(batcher)}")
         await handler.stop()
         return replies, wall, launches, timings, peak, finite, e2e
 
@@ -1078,6 +1191,44 @@ def phase_full_width(torch, kernels, seed):
     if parsed != 8 or not finite or not e2e_ok or not step_ok:
         raise SystemExit("full-width outputs are wrong")
     return launches, shapes
+
+
+def phase_busy(torch, seed):
+    """The device's busy share of five profiled waves of each llama3-8b
+    workload, each on a fresh engine after one plain warm-up wave (the
+    graphs captured). Runs after 5a and 5b, whose plain waves must not
+    follow a profiled one. Returns K2's device time and launches in the
+    first dense wave."""
+    from pilottai_tpu_torch import LLMConfig, LLMHandler
+
+    dense = [[FULL_PROMPT.format(i=i)] for i in range(8)]
+    out = {}
+    for label, max_seq, prompts, long_first in (
+            ("dense, 8 x 64 tokens", 2048, dense, False),
+            ("paged, 1 long + 7 short x 64 tokens", 8192, [[long_prompt(5900)]] + dense[:7],
+             True)):
+        async def run():
+            handler = LLMHandler(LLMConfig(provider="cuda", model_name="llama3-8b",
+                                           dtype="bfloat16", engine_slots=8,
+                                           engine_admit_batch=8, engine_max_seq=max_seq,
+                                           engine_chunk=16, seed=seed))
+            await handler.start()
+            try:
+                reqs = [(p, 64) for p in prompts]
+                await timed_waves(handler, reqs, f"{label}, warm-up", long_first, 1)
+                return await timed_waves(handler, reqs, label, long_first, profiled=True)
+            finally:
+                await handler.stop()
+
+        _, rows = asyncio.run(run())
+        if "wave_k2" not in out:
+            # K2's device time a launch inside the wave, beside the harness's.
+            k2 = [(dev, count) for dev, key, count in rows if "decode_split" in key]
+            if k2:
+                out["wave_k2"] = (sum(d for d, _ in k2), sum(c for _, c in k2))
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
 
 
 def parses(text: str) -> bool:
@@ -1137,6 +1288,7 @@ def phase_full_width_paged(torch, kernels, seed):
         seg0 = batcher.prefill_segments
         torch.cuda.reset_peak_memory_stats()
         reset(kernels)
+        steps0 = batcher.blocks_dispatched
         t0 = time.perf_counter()
         def send(p):
             return asyncio.ensure_future(handler.generate_response(
@@ -1153,7 +1305,9 @@ def phase_full_width_paged(torch, kernels, seed):
         replies = await asyncio.gather(*tasks)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        await settle(batcher)
         launches = counts(kernels)
+        per_step_check(launches, batcher, batcher.blocks_dispatched - steps0, "paged wave")
         batcher._decode = decode
         out = dict(
             replies=replies, wall=wall, launches=launches,
@@ -1166,8 +1320,10 @@ def phase_full_width_paged(torch, kernels, seed):
             num_pages=batcher.num_pages, P=batcher.page_size, R=batcher.chunk_size,
             model=handler.backend.model_cfg,
         )
-        out["busy"], _ = await profile_wave(handler, [(p, 16) for p in requests],
-                                            "1 long + 7 short x 16 tokens")
+        out["waves"], _ = await timed_waves(handler, [(p, 64) for p in requests],
+                                            "paged, 1 long + 7 short x 64 tokens",
+                                            long_first=True)
+        log(f"  after the waves: {graph_text(batcher)}")
         await handler.stop()
         return out
 
@@ -1809,9 +1965,15 @@ def main() -> int:
     paths = {}
     log("== 4a. golden protocol-s token ids (fp32), dense cache")
     paths["golden"] = phase_golden(torch, kernels, root, "protocol_s_golden.json", paged=False)
+    log("== 4a. again with the decode pipeline's knobs off")
+    phase_golden(torch, kernels, root, "protocol_s_golden.json", paged=False,
+                 knobs=SERIAL_KNOBS)
     log("== 4b. golden protocol-s token ids (fp32), paged cache, chunked prefill")
     paths["golden_paged"] = phase_golden(torch, kernels, root, "protocol_s_paged_golden.json",
                                          paged=True)
+    log("== 4b. again with the decode pipeline's knobs off")
+    phase_golden(torch, kernels, root, "protocol_s_paged_golden.json", paged=True,
+                 knobs=SERIAL_KNOBS)
     log("== 4b. again at engine_page_size 8, the smallest page the config takes")
     paths["golden_paged_p8"] = phase_golden(torch, kernels, root,
                                             "protocol_s_paged_golden.json", paged=True,
@@ -1827,6 +1989,8 @@ def main() -> int:
     paths["full_paged"] = phase_full_width_paged(torch, kernels, args.seed)
     gc.collect()
     torch.cuda.empty_cache()
+    log("== 5c. the device's busy share: five profiled waves of each llama3-8b workload")
+    paths["full"][1].update(phase_busy(torch, args.seed))
     log("== 7a. golden training: protocol-s fp32, 4 steps against the JAX trainer")
     paths["train_golden"] = phase_train_golden(torch, kernels, root)
     log("== 7b. llama3-1b full width, bf16 compute, fp32 master weights, remat, 8 steps of 4 x "

@@ -27,7 +27,8 @@ ROADMAP = {
     "prefix": "P2 (prefix cache)",
     "spec": "P4 (speculative decoding)",
     "quant": "P5 (weight and KV quantization)",
-    "batcher": "P6 (full batcher)",
+    "reliability": "P6b (retries, rate limits, deadlines and the reliability ladder)",
+    "sched": "P6c (scheduling policies: priority, gangs and pre-warming)",
     "kvtier": "P7 (KV cache tier)",
     "serve": "P8 (Serve, agents and the document pipeline on the port)",
     "models": "P9 (Gemma, MoE and Hugging Face checkpoints)",
@@ -49,19 +50,14 @@ _LATER: Dict[str, Tuple[Tuple[Any, ...], str]] = {
     "engine_quant": ((None, "none"), "quant"),
     "engine_quant_group": ((128,), "quant"),
     "engine_kv_quantize": ((None,), "quant"),
-    "engine_chunk_policy": (("fixed",), "batcher"),
-    "engine_chunk_buckets": ((None,), "batcher"),
-    "engine_pipeline": ((1,), "batcher"),
-    "engine_overlap_admission": ((False,), "batcher"),
-    "engine_fused_epilogue": ((False,), "batcher"),
-    "engine_sched_policy": (("fifo",), "batcher"),
-    "engine_gang_wait_ms": ((50.0,), "batcher"),
-    "engine_priority_aging_s": ((2.0,), "batcher"),
-    "engine_prewarm_depth": ((0,), "batcher"),
-    "max_rpm": ((None,), "batcher"),
-    "retries": ((0,), "batcher"),
-    "retry_delay": ((1.0,), "batcher"),
-    "reliability": ((None,), "batcher"),
+    "engine_sched_policy": (("fifo",), "sched"),
+    "engine_gang_wait_ms": ((50.0,), "sched"),
+    "engine_priority_aging_s": ((2.0,), "sched"),
+    "engine_prewarm_depth": ((0,), "sched"),
+    "max_rpm": ((None,), "reliability"),
+    "retries": ((0,), "reliability"),
+    "retry_delay": ((1.0,), "reliability"),
+    "reliability": ((None,), "reliability"),
     "engine_kvcache_host_mb": ((0,), "kvtier"),
     "engine_kvcache_policy": (("cost",), "kvtier"),
     "cell_disagg": ((None,), "serve"),
@@ -97,8 +93,8 @@ class SamplingConfig(BaseModel):
 class LLMConfig(BaseModel):
     """The port's engine configuration: one device, KV in the cache dtype
     (dense, or paged from ``engine_max_seq`` 4096 on), no prefix cache,
-    no speculation, no quantization, a fixed chunk size and the unfused
-    sampling epilogue."""
+    no speculation, no quantization. The decode pipeline's five knobs
+    have the JAX package's names, defaults and meaning."""
 
     model_config = ConfigDict(extra="forbid", protected_namespaces=())
 
@@ -113,6 +109,17 @@ class LLMConfig(BaseModel):
     engine_admit_batch: int = Field(default=8, ge=1)
     engine_max_seq: Optional[int] = None    # KV length cap (default min(model max, 2048))
     engine_chunk: int = Field(default=16, ge=1)
+    # Decode chunks dispatched ahead of the host's folds.
+    engine_pipeline: int = Field(default=2, ge=1)
+    # Admission staging (selection, pages, numpy packing) on its own thread.
+    engine_overlap_admission: bool = True
+    # "adaptive" sizes each chunk from the live budgets, quantised up to
+    # engine_chunk_buckets (None: the quartile ladder of engine_chunk).
+    engine_chunk_policy: Literal["fixed", "adaptive"] = "adaptive"
+    engine_chunk_buckets: Optional[Tuple[int, ...]] = None
+    # Vocab-tiled projection + argmax when every occupied slot is greedy
+    # and unconstrained.
+    engine_fused_epilogue: bool = True
     # Paged KV (ops/paged.py): None pages when engine_max_seq >= 4096.
     engine_paged_kv: Optional[bool] = None
     engine_page_size: int = Field(default=128, ge=8)

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
 DeviceLike = Optional[Union[str, torch.device]]
@@ -27,3 +28,16 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device} requested but CUDA is not available")
     return device
+
+
+def upload(data, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """Host data (a list or a numpy array) as a tensor on ``device``,
+    without waiting for the device. On CUDA the data goes through pinned
+    memory with a non-blocking copy: ``torch.tensor(data, device=...)``
+    would wait for every kernel queued on the stream, decode chunks in
+    flight included. The caching host allocator keeps the pinned block
+    until the copy has run."""
+    t = torch.as_tensor(np.asarray(data), dtype=dtype)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)

@@ -1,36 +1,59 @@
-"""A minimal continuous batcher (the port's counterpart of the core of
-``pilottai_tpu/engine/batcher.py``).
+"""The continuous batcher (the port's counterpart of the core of
+``pilottai_tpu/engine/batcher.py``): fixed slots, a FIFO backlog, and
+three threads that keep the card fed during decode.
 
-Fixed slots, a FIFO backlog and one device thread that alternates
-admission groups (``decode.admit_group``) with fixed-size decode chunks
-(``decode.decode_chunk``), folds the tokens on the host, resolves each
-request's future at EOS, budget or a full context, and frees its slot.
+* **The device thread** issues every device op, on its own stream, in
+  program order: the device side of slot releases, admission prefills
+  (``decode.admit_group``), chunked-prefill segments, and decode chunks,
+  which ``engine/graphs.py`` replays as captured CUDA graphs. It
+  dispatches up to ``pipeline_depth`` chunks ahead of the host: each
+  chunk's ``(tokens, valid)`` go to pinned host buffers with a
+  non-blocking copy behind an event, and it never waits for the device.
+* **The reader thread** folds each chunk once its event has completed:
+  the tokens go into their slots, a request's future resolves at EOS,
+  budget or a full context, and its slot and pages are released. Each
+  chunk carries the slots' generations at dispatch, so a chunk that was
+  in flight when a slot changed hands never folds into the new occupant.
+  The first token of an admission is copied the same way from its
+  dispatch and folded by the reader before any later chunk's tokens.
+* **The prep thread** (``overlap_admission``) drains the backlog,
+  selects a group, allocates its pages under the lock and packs its numpy
+  staging, so the device thread only enqueues the prefill behind the
+  chunks in flight. Without it the device thread does the same inline.
+
+Chunk sizes follow ``chunk_policy``: "fixed" dispatches ``chunk_size``
+steps; "adaptive" sizes each dispatch from the live slots' remaining
+budgets (less what the chunks in flight will add) and quantises it up to
+``chunk_buckets``. With ``fused_epilogue`` a dispatch whose occupied
+slots are all greedy and unconstrained runs the vocab-tiled greedy
+epilogue instead of the sampler.
 
 With ``paged=True`` the KV cache is a shared page pool
 (``ops/paged.py``): a request reserves the pages of ``min(prompt +
 max_new_tokens, max_seq)`` tokens when it is selected, the FIFO head
-waits while the pool is short, and its pages return on finish, cancel or
-failure. A prompt whose length passes ``2 × prefill_chunk`` admits in
-segments: one ``extend_prompt_paged`` segment per device-loop cycle
-while the live slots keep decoding between them, then the final segment
-through ``admit_group_prefix_paged``. No other admission runs meanwhile,
-so admission order holds.
+waits while the pool is short, and its pages return at fold time. A
+prompt whose length passes ``2 x prefill_chunk`` admits in segments: one
+``extend_prompt_paged`` segment per device-loop cycle while the live
+slots keep decoding between them, then the final segment through
+``admit_group_prefix_paged``. Selection waits while a segmentation
+runs, so admission order holds.
 
-Overlapped admission, adaptive chunk sizes, in-flight recovery (a failed
-segmented prefill fails its request here; the JAX batcher re-admits it),
-the watchdog and DAG ordering come with the full-batcher slice (ROADMAP
-P6).
+Retries, rate limits, deadlines and the reliability ladder (ROADMAP P6b)
+and the scheduling policies (P6c) are not here; a failed dispatch fails
+its requests (the JAX batcher re-admits them).
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
+import math
 import queue
 import threading
 import time
 from concurrent.futures import Future
 from dataclasses import dataclass, field
-from typing import Any, Deque, Dict, List, Optional, Tuple
+from typing import Any, Deque, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -49,11 +72,11 @@ from pilottai_tpu_torch.engine.decode import (
     DecodeState,
     admit_group,
     admit_group_prefix_paged,
-    decode_chunk,
     extend_prompt_paged,
     pack_admit_meta,
     release_decode,
 )
+from pilottai_tpu_torch.engine.graphs import ChunkRunner
 from pilottai_tpu_torch.engine.sampling import SamplingState
 from pilottai_tpu_torch.models.common import ModelConfig
 from pilottai_tpu_torch.ops.kernels.paged_attention import check_kernel_shapes
@@ -66,6 +89,11 @@ MIN_BUCKET = 64
 #: Smallest tail bucket of a prefix admission (the final segment of a
 #: chunked prefill), so a short tail is not padded to a whole prompt bucket.
 MIN_TAIL_BUCKET = 8
+#: Smallest rung of the prefix bound that keys the paged chunk graphs.
+MIN_DECODE_BUCKET = 128
+#: Admission groups the prep thread may stage ahead of the device thread.
+PREP_DEPTH = 2
+
 
 @dataclass
 class GenRequest:
@@ -80,8 +108,8 @@ class GenRequest:
     future: Future = field(default_factory=Future)
     submitted_at: float = field(default_factory=time.perf_counter)
     first_token_at: Optional[float] = None
-    # Set by the caller (any thread) to abandon the request; the device
-    # loop frees its slot at the next fold.
+    # Set by the caller (any thread) to abandon the request; the reader
+    # frees its slot at the next fold.
     cancelled: bool = False
 
 
@@ -90,6 +118,56 @@ class _Slot:
     request: GenRequest
     prompt_len: int
     generated: List[int] = field(default_factory=list)
+    first_pending: bool = True  # the prefill's token has not been folded yet
+    est_pending: float = 0.0    # tokens the chunks in flight are expected to add
+    hi_pending: int = 0         # the most tokens they can add
+
+
+@dataclass
+class _Prepared:
+    """One admission group staged for the device thread: slots reserved,
+    pages allocated, numpy staging packed. ``prefix_len`` > 0 is the final
+    segment of a chunked prefill, whose first ``prefix_len`` tokens sit in
+    the ``chain`` pages."""
+
+    group: List[Tuple[int, GenRequest]]
+    tokens: np.ndarray
+    meta_i32: np.ndarray
+    meta_f32: np.ndarray
+    page_rows: Optional[np.ndarray] = None
+    prefix_len: int = 0
+    chain: Optional[np.ndarray] = None
+
+
+@dataclass
+class _SegmentStart:
+    """A long prompt selected for chunked prefill: ``[slot, request,
+    tokens written]``, its pages allocated."""
+
+    seg: List[Any]
+
+
+class _HostCopy:
+    """Device tensors' copy to the host, started where it is made: on
+    CUDA a non-blocking copy into pinned buffers behind an event, which
+    ``wait`` synchronizes on; on the CPU a plain copy (the tensors are the
+    chunk's reused buffers, so they are copied before the next chunk)."""
+
+    def __init__(self, tensors: Sequence[torch.Tensor]) -> None:
+        self.event = None
+        if tensors[0].device.type == "cuda":
+            self.host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
+            for h, t in zip(self.host, tensors):
+                h.copy_(t, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+        else:
+            self.host = [t.clone() for t in tensors]
+
+    def wait(self) -> List[np.ndarray]:
+        if self.event is not None:
+            self.event.synchronize()
+        return [h.numpy() for h in self.host]
 
 
 def _pow2_at_least(n: int, floor: int) -> int:
@@ -100,7 +178,7 @@ def _pow2_at_least(n: int, floor: int) -> int:
 
 
 class ContinuousBatcher:
-    """Slots, backlog and the device thread that serves them."""
+    """Slots, backlog and the threads that serve them."""
 
     def __init__(
         self,
@@ -115,7 +193,14 @@ class ContinuousBatcher:
         page_size: int = 128,
         num_pages: Optional[int] = None,
         prefill_chunk: Optional[int] = None,
+        pipeline_depth: int = 2,
+        overlap_admission: bool = True,
+        chunk_policy: str = "adaptive",
+        chunk_buckets: Optional[Sequence[int]] = None,
+        fused_epilogue: bool = True,
     ) -> None:
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
         self.cfg = cfg
         self.params = params
         self.device = device
@@ -125,8 +210,30 @@ class ContinuousBatcher:
         self.chunk_size = chunk_size
         self.paged = paged
         self.page_size = page_size
+        self.pipeline_depth = max(1, int(pipeline_depth))
+        self.overlap_admission = overlap_admission
+        self.fused_epilogue = fused_epilogue
+        if chunk_policy not in ("fixed", "adaptive"):
+            raise ValueError(f"unknown chunk_policy {chunk_policy!r}; supported: 'fixed', "
+                             "'adaptive'")
+        self.chunk_policy = chunk_policy
+        if chunk_policy == "adaptive":
+            if chunk_buckets:
+                buckets = {int(b) for b in chunk_buckets}
+                bad = sorted(b for b in buckets if not 1 <= b <= chunk_size)
+                if bad:
+                    raise ValueError(f"chunk_buckets {bad} outside [1, chunk_size={chunk_size}]")
+            else:
+                # The quartile ladder: {4, 8, 12, 16} at the default chunk 16.
+                buckets = {max(1, (chunk_size * q) // 4) for q in (1, 2, 3, 4)}
+            # The largest bucket covers a full fixed chunk, or a saturated
+            # wave would need several dispatches where one did.
+            self.chunk_buckets = sorted(buckets | {chunk_size})
+        else:
+            self.chunk_buckets = [chunk_size]
         self.alloc: Optional[PageAllocator] = None
-        # Guards the allocator's free list and block table.
+        # Guards the slots, their generations, the allocator's free list
+        # and block table, the backlog and the release and first-read lists.
         self._lock = threading.Lock()
         if paged:
             # Default pool: what a dense cache would spend on
@@ -162,52 +269,85 @@ class ContinuousBatcher:
         )
         # In-flight segmented admission: [slot, request, tokens written].
         self._segmenting: Optional[List[Any]] = None
+        self._seg_pending = False  # a _SegmentStart is staged, not yet taken
         #: Chunked-prefill segments run (``extend_prompt_paged`` calls).
         self.prefill_segments = 0
+        #: Decode steps dispatched, and those in which some slot emitted
+        #: (their ratio is the chunk utilization the adaptive policy raises).
+        self.blocks_dispatched = 0
+        self.blocks_useful = 0
         self.dstate = DecodeState.create(n_slots, device)
         self.sampling = SamplingState.create(n_slots, device)
+        self.runner = ChunkRunner(
+            params, cfg, self.cache, self.dstate, self.sampling, device,
+            max_pages=self.alloc.table.shape[1] if self.alloc is not None else None,
+        )
+        self.stream = torch.cuda.Stream(device) if device.type == "cuda" else None
         self._slots: List[Optional[_Slot]] = [None] * n_slots
+        # Bumped when a slot gets a new occupant; chunks carry a snapshot.
+        self._gen = [0] * n_slots
+        self._release: List[int] = []           # folded out, device side not yet released
+        self._prep_reserved: set = set()        # selected, not yet installed
+        self._first_reads: List[Tuple[List[Tuple[int, int]], _HostCopy]] = []
+        self._drain_queued = False              # a first-read sentinel is in _results
         self._backlog: Deque[GenRequest] = collections.deque()
         self._pending: "queue.Queue[GenRequest]" = queue.Queue()
+        self._prepped: "queue.Queue[Any]" = queue.Queue()
+        self._results: "queue.Queue[Any]" = queue.Queue(maxsize=self.pipeline_depth)
         self._wake = threading.Event()
+        self._prep_wake = threading.Event()
         self._stop = threading.Event()
-        self._thread: Optional[threading.Thread] = None
+        self._threads: List[threading.Thread] = []
         # Completed requests' timings (host clock), newest last.
         self.completed: Deque[Dict[str, float]] = collections.deque(maxlen=4096)
 
     # ------------------------------------------------------------------ #
+    # Lifecycle
+    # ------------------------------------------------------------------ #
 
     def start(self) -> None:
-        if self._thread is None:
-            self._thread = threading.Thread(
-                target=self._run, name="pilottai-torch-device-loop", daemon=True
-            )
-            self._thread.start()
+        if self._threads:
+            return
+        loops = [(self._run, "device-loop"), (self._read_loop, "reader")]
+        if self.overlap_admission:
+            loops.append((self._prep_loop, "admit-prep"))
+        for target, name in loops:
+            t = threading.Thread(target=target, name=f"pilottai-torch-{name}", daemon=True)
+            t.start()
+            self._threads.append(t)
 
     def stop(self) -> None:
         self._stop.set()
         self._wake.set()
-        if self._thread is not None:
-            self._thread.join(timeout=60)
-            self._thread = None
+        self._prep_wake.set()
+        for t in self._threads:
+            t.join(timeout=60)
+        self._threads = []
+        if self.device.type == "cuda":
+            # Chunks dispatched just before the stop may still run.
+            torch.cuda.synchronize(self.device)
         err = RuntimeError("engine stopped")
+        self._drain_pending()
         while True:
             try:
-                req = self._pending.get_nowait()
+                item = self._prepped.get_nowait()
             except queue.Empty:
                 break
-            self._backlog.append(req)
+            pairs = [tuple(item.seg[:2])] if isinstance(item, _SegmentStart) else item.group
+            self._fail_group(pairs, err)
         if self._segmenting is not None:
-            self._backlog.append(self._segmenting[1])
-            self._end_segmentation(release=True)
-        for req in self._backlog:
-            if not req.future.done():
-                req.future.set_exception(err)
-        self._backlog.clear()
-        for i, slot in enumerate(self._slots):
-            if slot is not None and not slot.request.future.done():
-                slot.request.future.set_exception(err)
-            self._slots[i] = None
+            self._fail_group([tuple(self._segmenting[:2])], err)
+            self._end_segmentation()
+        with self._lock:
+            for req in self._backlog:
+                if not req.future.done():
+                    req.future.set_exception(err)
+            self._backlog.clear()
+            for i, slot in enumerate(self._slots):
+                if slot is not None:
+                    self._drop_slot_locked(i)
+                    if not slot.request.future.done():
+                        slot.request.future.set_exception(err)
 
     def submit(self, request: GenRequest) -> Future:
         """Queue a request (any thread). Prompts longer than the keep
@@ -222,74 +362,258 @@ class ContinuousBatcher:
             request.prompt_ids = request.prompt_ids[-keep:]
         self._pending.put(request)
         self._wake.set()
+        self._prep_wake.set()
         return request.future
 
+    def graph_report(self) -> Dict[str, Any]:
+        """The chunk graphs: how many were captured, the seconds capture
+        took, and the bytes their shared memory pool holds (None where it
+        is not known)."""
+        return {"graphs": self.runner.graphs_captured,
+                "capture_s": self.runner.capture_seconds,
+                "pool_bytes": self.runner.pool_bytes()}
+
     # ------------------------------------------------------------------ #
-    # Device thread
+    # Buckets and chunk planning (lock held where noted)
     # ------------------------------------------------------------------ #
 
     def _bucket(self, n: int) -> int:
         """Power-of-two prompt bucket with a ``MIN_BUCKET`` floor."""
         return min(_pow2_at_least(n, MIN_BUCKET), self.max_seq_len)
 
+    def _decode_bucket(self, n: int) -> int:
+        """Prefix-bound rung of a paged chunk: the prompt ladder with a
+        ``MIN_DECODE_BUCKET`` floor, so the graphs stay O(log S)."""
+        return max(self._bucket(n), min(MIN_DECODE_BUCKET, self.max_seq_len))
+
+    def _occupied(self) -> List[_Slot]:
+        return [s for s in self._slots if s is not None]
+
+    def _chunk_useful(self) -> bool:
+        """Some occupied slot still has budget that its folded tokens and
+        the chunks in flight do not cover (lock held)."""
+        return any(
+            max(0, len(s.generated) - 1) + s.est_pending < s.request.max_new_tokens - 1
+            for s in self._occupied()
+        )
+
+    def _pick_chunk_blocks(self) -> int:
+        """The next dispatch's steps (lock held). "fixed": ``chunk_size``.
+        "adaptive": each live slot's remaining need (budget less what is
+        folded and in flight), the mean of them, or the smallest while
+        requests wait for a slot (a finishing slot's release then comes at
+        the earliest chunk boundary); quantised up to the bucket ladder."""
+        if self.chunk_policy != "adaptive":
+            return self.chunk_size
+        needs = []
+        for s in self._occupied():
+            rem = s.request.max_new_tokens - 1 - max(0, len(s.generated) - 1) - s.est_pending
+            if rem > 0:
+                needs.append(max(math.ceil(rem), 1))
+        if not needs:
+            return self.chunk_buckets[0]
+        target = sum(needs) / len(needs)
+        if self._backlog or self._pending.qsize() or self._prepped.qsize():
+            target = min(target, float(min(needs)))
+        for b in self.chunk_buckets:
+            if b >= target:
+                return b
+        return self.chunk_buckets[-1]
+
+    # ------------------------------------------------------------------ #
+    # Device thread
+    # ------------------------------------------------------------------ #
+
     def _run(self) -> None:
-        if self.device.type == "cuda":
+        ctx = contextlib.nullcontext()
+        if self.stream is not None:
             torch.cuda.set_device(self.device)
+            # The weights and the cache were made on the default stream.
+            self.stream.wait_stream(torch.cuda.default_stream(self.device))
+            ctx = torch.cuda.stream(self.stream)
+        with ctx:
+            while not self._stop.is_set():
+                try:
+                    self._apply_releases()
+                    issued = self._admit()
+                    with self._lock:
+                        useful = self._chunk_useful()
+                        drain = (not useful and bool(self._first_reads)
+                                 and not self._drain_queued)
+                        self._drain_queued |= drain
+                    if useful:
+                        self._decode()
+                    elif drain:
+                        self._put_result(None)   # the reader folds first tokens, in order
+                    elif not issued:
+                        self._wake.wait(timeout=0.05)
+                        self._wake.clear()
+                except Exception as exc:  # noqa: BLE001 — device loop boundary
+                    self._fail_all(exc)
+
+    def _put_result(self, item: Any) -> None:
+        """Hand a chunk (or a first-read sentinel) to the reader; blocks
+        while ``pipeline_depth`` chunks wait to be folded."""
         while not self._stop.is_set():
             try:
-                while True:
-                    try:
-                        self._backlog.append(self._pending.get_nowait())
-                    except queue.Empty:
-                        break
-                admitted = self._admit()
-                if any(s is not None for s in self._slots):
-                    self._decode()
-                elif not admitted:
-                    self._wake.wait(timeout=0.05)
-                    self._wake.clear()
-            except Exception as exc:  # noqa: BLE001 — device loop boundary
-                self._fail_all(exc)
+                self._results.put(item, timeout=0.5)
+                return
+            except queue.Full:
+                continue
 
-    def _fail_all(self, exc: Exception) -> None:
-        """A failed dispatch fails every occupant (recovery is ROADMAP P6)."""
-        for i, slot in enumerate(self._slots):
-            if slot is not None:
-                if not slot.request.future.done():
-                    slot.request.future.set_exception(exc)
-                self._release(i)
-
-    def _release(self, idx: int) -> None:
-        self._slots[idx] = None
-        release_decode(self.dstate, [idx])
-        free_slots(self.cache, [idx])
-        if self.alloc is not None:
-            with self._lock:
-                self.alloc.release(idx)
+    def _apply_releases(self) -> None:
+        """Stop the slots the reader released, on the device, before any
+        admission can reuse them."""
+        with self._lock:
+            released, self._release = self._release, []
+        if released:
+            release_decode(self.dstate, released)
+            free_slots(self.cache, released)
+            self._prep_wake.set()
 
     def _admit(self) -> bool:
         """One admission step: advance a segmented prefill by one segment,
-        or select and admit a group (and start a segmentation behind it).
-        True when device work was issued."""
+        or dispatch the staged groups (staged here when admission does not
+        overlap). True when device work was issued."""
         if self._segmenting is not None:
             self._advance_segment()
             return True
+        items: List[Any] = []
+        if self.overlap_admission:
+            while True:
+                try:
+                    items.append(self._prepped.get_nowait())
+                except queue.Empty:
+                    break
+            if items:
+                self._prep_wake.set()
+        else:
+            self._drain_pending()
+            items = self._stage()
+        for item in items:
+            if isinstance(item, _SegmentStart):
+                # Selection stops at a long prompt, so nothing follows it.
+                self._segmenting = item.seg
+                self._advance_segment()
+            else:
+                self._dispatch_prefill(item)
+        return bool(items)
+
+    def _dispatch_prefill(self, prep: _Prepared) -> None:
+        """Install a staged group and enqueue its prefill; the first tokens'
+        copy starts here and the reader folds it. A failed admission fails
+        this group only and returns its slots and pages."""
+        with self._lock:
+            for idx, req in prep.group:
+                self._slots[idx] = _Slot(request=req, prompt_len=len(req.prompt_ids))
+                self._gen[idx] += 1
+                self._prep_reserved.discard(idx)
+            stamps = [(idx, self._gen[idx]) for idx, _ in prep.group]
+        try:
+            if prep.prefix_len:
+                self.cache, self.dstate, self.sampling, first = admit_group_prefix_paged(
+                    self.params, self.cfg, self.cache, self.dstate, self.sampling, prep.chain,
+                    prep.tokens, prep.page_rows, prep.meta_i32, prep.meta_f32,
+                )
+            else:
+                self.cache, self.dstate, self.sampling, first = admit_group(
+                    self.params, self.cfg, self.cache, self.dstate, self.sampling, prep.tokens,
+                    prep.meta_i32, prep.meta_f32, page_rows=prep.page_rows,
+                )
+            copy = _HostCopy([first])
+        except Exception as exc:  # noqa: BLE001 — contain to this group
+            self._fail_group(prep.group, exc)
+            return
+        with self._lock:
+            self._first_reads.append((stamps, copy))
+
+    def _decode(self) -> None:
+        """Plan one decode chunk under the lock, dispatch it and hand it to
+        the reader."""
+        with self._lock:
+            if not self._chunk_useful():
+                return
+            n = self._pick_chunk_blocks()
+            occupied = self._occupied()
+            # The longest cache any live slot can hold at this chunk's
+            # start: folded decode tokens plus all the chunks in flight can
+            # add (the first token enters the cache with the first step).
+            bound = max(
+                s.prompt_len + min(max(0, len(s.generated) - 1) + s.hi_pending,
+                                   s.request.max_new_tokens - 1)
+                for s in occupied
+            )
+            for s in occupied:
+                s.est_pending += n
+                s.hi_pending += n
+            fused = self.fused_epilogue and all(
+                s.request.temperature <= 0.0 and not s.request.json_mode for s in occupied
+            )
+            stamp = tuple(self._gen)
+            table = self.alloc.table.copy() if self.alloc is not None else None
+        n_blocks = None
+        if table is not None:
+            n_blocks = min(-(-self._decode_bucket(bound) // self.page_size), table.shape[1])
+        toks, valid = self.runner.run(n, fused, n_blocks, table)
+        with self._lock:
+            self.blocks_dispatched += n
+        self._put_result((_HostCopy([toks, valid]), stamp, n))
+
+    # ------------------------------------------------------------------ #
+    # Admission staging (the prep thread, or the device thread inline)
+    # ------------------------------------------------------------------ #
+
+    def _prep_loop(self) -> None:
+        while not self._stop.is_set():
+            self._drain_pending()
+            with self._lock:
+                idle = (self._segmenting is not None or self._seg_pending
+                        or not self._backlog)
+            made = False
+            if not idle and self._prepped.qsize() < PREP_DEPTH:
+                for item in self._stage():
+                    self._prepped.put(item)
+                    made = True
+            if made:
+                self._wake.set()
+            else:
+                self._prep_wake.wait(timeout=0.02)
+                self._prep_wake.clear()
+
+    def _drain_pending(self) -> None:
+        with self._lock:
+            while True:
+                try:
+                    self._backlog.append(self._pending.get_nowait())
+                except queue.Empty:
+                    break
+
+    def _stage(self) -> List[Any]:
+        """Select the next group and pack it; a long prompt behind it comes
+        as a ``_SegmentStart``."""
         group, seg = self._select()
+        items: List[Any] = []
         if group:
-            self._admit_group(group)
+            try:
+                items.append(self._prepare(group))
+            except Exception as exc:  # noqa: BLE001 — host-side staging only
+                self._fail_group(group, exc)
         if seg is not None:
-            self._segmenting = seg
-            self._advance_segment()
-        return bool(group) or seg is not None
+            self._seg_pending = True
+            items.append(_SegmentStart(seg))
+        return items
 
     def _select(self) -> Tuple[List[Tuple[int, GenRequest]], Optional[List[Any]]]:
         """FIFO selection of the next admission group; on the paged pool
         each member's pages are reserved here. A long prompt ends the
-        group and is returned as the segmentation to start."""
-        free = [i for i, s in enumerate(self._slots) if s is None]
+        group and is returned as the segmentation to start. A slot whose
+        release the device has not applied yet is not selectable: that
+        release would stop its new occupant."""
         group: List[Tuple[int, GenRequest]] = []
         seg = None
         with self._lock:
+            free = [i for i, s in enumerate(self._slots)
+                    if s is None and i not in self._release and i not in self._prep_reserved]
             while self._backlog and len(group) < min(len(free), self.admit_batch):
                 req = self._backlog[0]
                 if req.cancelled or req.future.done():
@@ -299,7 +623,7 @@ class ContinuousBatcher:
                     len(req.prompt_ids) > 2 * self.prefill_chunk
                 )
                 if group and long_req:
-                    break  # the next cycle segments it
+                    break  # the next selection segments it
                 idx = free[len(group)]
                 if self.alloc is not None:
                     # Clamped to slot capacity: decode stops at a full
@@ -307,16 +631,17 @@ class ContinuousBatcher:
                     # be met and would stall the FIFO head for good.
                     need = min(len(req.prompt_ids) + req.max_new_tokens, self.max_seq_len)
                     if not self.alloc.allocate(idx, need):
-                        break  # the head waits for pages; completions free them
+                        break  # the head waits for pages; folds free them
                 self._backlog.popleft()
+                self._prep_reserved.add(idx)
                 if long_req:
                     seg = [idx, req, 0]
                     break
                 group.append((idx, req))
         return group, seg
 
-    def _meta(self, group: List[Tuple[int, GenRequest]], rows: int):
-        mi, mf = pack_admit_meta(rows, pad_slot=self.n_slots)
+    def _meta(self, group: List[Tuple[int, GenRequest]]):
+        mi, mf = pack_admit_meta(len(group), pad_slot=self.n_slots)
         for row, (idx, req) in enumerate(group):
             mi[AI_SLOT, row] = idx
             mi[AI_TOPK, row] = req.top_k
@@ -328,6 +653,15 @@ class ContinuousBatcher:
             mf[AF_TEMP, row] = req.temperature
             mf[AF_TOPP, row] = req.top_p
         return mi, mf
+
+    def _prepare(self, group: List[Tuple[int, GenRequest]]) -> _Prepared:
+        mi, mf = self._meta(group)
+        tokens = np.zeros((len(group), self._bucket(max(len(r.prompt_ids) for _, r in group))),
+                          np.int64)
+        for row, (_, req) in enumerate(group):
+            tokens[row, : len(req.prompt_ids)] = req.prompt_ids
+        rows = self._page_rows([idx for idx, _ in group]) if self.alloc is not None else None
+        return _Prepared(group=group, tokens=tokens, meta_i32=mi, meta_f32=mf, page_rows=rows)
 
     def _page_rows(self, slots: List[int]) -> np.ndarray:
         """The slots' block-table rows, copied under the lock."""
@@ -343,120 +677,117 @@ class ContinuousBatcher:
             pages[:k] = self.alloc.table[idx, :k]
         return pages
 
-    def _admit_group(self, group: List[Tuple[int, GenRequest]], prefix_len: int = 0) -> None:
-        """Prefill and install a group. With ``prefix_len`` (the final
-        segment of a chunked prefill) the group's first ``prefix_len``
-        tokens already sit in its slots' leading pages. A failed admission
-        fails this group only and returns its slots and pages."""
-        A = len(group)
-        mi, mf = self._meta(group, A)
-        for idx, req in group:
-            self._slots[idx] = _Slot(request=req, prompt_len=len(req.prompt_ids))
-        try:
-            if prefix_len:
-                (idx, req), = group
-                tail = req.prompt_ids[prefix_len:]
-                tokens = np.zeros((1, _pow2_at_least(len(tail), MIN_TAIL_BUCKET)), np.int64)
-                tokens[0, : len(tail)] = tail
-                mi[AI_LEN, 0] = len(tail)
-                mi[AI_PLEN] = prefix_len
-                self.cache, self.dstate, self.sampling, first = admit_group_prefix_paged(
-                    self.params, self.cfg, self.cache, self.dstate, self.sampling,
-                    self._chain(idx, prefix_len), tokens, self._page_rows([idx]), mi, mf,
-                )
-            else:
-                T = self._bucket(max(len(r.prompt_ids) for _, r in group))
-                tokens = np.zeros((A, T), np.int64)
-                for row, (_, req) in enumerate(group):
-                    tokens[row, : len(req.prompt_ids)] = req.prompt_ids
-                rows = (self._page_rows([idx for idx, _ in group])
-                        if self.alloc is not None else None)
-                self.cache, self.dstate, self.sampling, first = admit_group(
-                    self.params, self.cfg, self.cache, self.dstate, self.sampling, tokens,
-                    mi, mf, page_rows=rows,
-                )
-            first_host = first.cpu().numpy()
-        except Exception as exc:  # noqa: BLE001 — contain to this group
-            for idx, req in group:
-                self._release(idx)
-                if not req.future.done():
-                    req.future.set_exception(exc)
-            return
-        now = time.perf_counter()
-        for row, (idx, req) in enumerate(group):
-            req.first_token_at = now
-            self._fold(idx, [int(first_host[row])])
-
-    def _end_segmentation(self, release: bool) -> None:
-        idx = self._segmenting[0]
+    def _end_segmentation(self) -> None:
         self._segmenting = None
-        if release:
-            with self._lock:
-                self.alloc.release(idx)
+        self._seg_pending = False
+        self._prep_wake.set()
 
     def _advance_segment(self) -> None:
         """Run one chunked-prefill segment of the segmenting request, or
-        its final segment, which admits it."""
+        dispatch its final segment, which admits it."""
         idx, req, done = self._segmenting
         if req.cancelled or req.future.done():
-            self._end_segmentation(release=True)
+            # Abandoned by its caller: return the slot and the pages.
+            with self._lock:
+                self._prep_reserved.discard(idx)
+                self._drop_slot_locked(idx)
+            self._end_segmentation()
             return
-        try:
-            if len(req.prompt_ids) - done > self.prefill_chunk:
-                seg = self.prefill_chunk
-                tokens = np.asarray([req.prompt_ids[done: done + seg]], np.int64)
+        if len(req.prompt_ids) - done > self.prefill_chunk:
+            seg = self.prefill_chunk
+            tokens = np.asarray([req.prompt_ids[done: done + seg]], np.int64)
+            try:
                 self.cache = extend_prompt_paged(
                     self.params, self.cfg, self.cache, self._chain(idx, done), done, tokens,
                     [seg], self._page_rows([idx]),
                 )
-                self.prefill_segments += 1
-                self._segmenting[2] = done + seg
+            except Exception as exc:  # noqa: BLE001 — contain to this request
+                self._fail_group([(idx, req)], exc)
+                self._end_segmentation()
                 return
-        except Exception as exc:  # noqa: BLE001 — contain to this request
-            self._end_segmentation(release=True)
-            if not req.future.done():
-                req.future.set_exception(exc)
+            self.prefill_segments += 1
+            self._segmenting[2] = done + seg
             return
-        self._end_segmentation(release=False)
-        self._admit_group([(idx, req)], prefix_len=done)
+        tail = req.prompt_ids[done:]
+        tokens = np.zeros((1, _pow2_at_least(len(tail), MIN_TAIL_BUCKET)), np.int64)
+        tokens[0, : len(tail)] = tail
+        mi, mf = self._meta([(idx, req)])
+        mi[AI_LEN, 0] = len(tail)
+        mi[AI_PLEN] = done
+        prep = _Prepared(group=[(idx, req)], tokens=tokens, meta_i32=mi, meta_f32=mf,
+                         page_rows=self._page_rows([idx]), prefix_len=done,
+                         chain=self._chain(idx, done))
+        self._end_segmentation()
+        self._dispatch_prefill(prep)
 
-    def _decode(self) -> None:
-        table = n_blocks = None
-        if self.alloc is not None:
-            # The chunk's block table: a host copy taken under the lock,
-            # uploaded before the first K3 launch (a blocking copy, so the
-            # host buffer is free to change once it returns). K3 visits
-            # the pages of the longest live prefix.
-            with self._lock:
-                table_np = self.alloc.table.copy()
-            table = torch.from_numpy(table_np).to(self.device)
-            longest = max(
-                s.prompt_len + len(s.generated) - 1 for s in self._slots if s is not None
-            )
-            n_blocks = min(max(-(-longest // self.page_size), 1), table_np.shape[1])
-        toks, valid, self.cache, self.dstate, self.sampling = decode_chunk(
-            self.params, self.cfg, self.cache, self.dstate, self.sampling, self.chunk_size,
-            table=table, n_blocks=n_blocks,
-        )
-        toks_h = toks.cpu().numpy()
-        valid_h = valid.cpu().numpy()
-        for b in range(self.n_slots):
-            if self._slots[b] is None:
+    # ------------------------------------------------------------------ #
+    # Reader thread
+    # ------------------------------------------------------------------ #
+
+    def _read_loop(self) -> None:
+        while True:
+            try:
+                item = self._results.get(timeout=0.1)
+            except queue.Empty:
+                if self._stop.is_set():
+                    break
                 continue
-            self._fold(b, [int(t) for t, ok in zip(toks_h[:, b], valid_h[:, b]) if ok])
+            try:
+                if item is None:
+                    with self._lock:
+                        self._drain_queued = False
+                    self._fold_first_reads()
+                else:
+                    self._process_chunk(*item)
+            except Exception as exc:  # noqa: BLE001 — reader boundary
+                self._fail_all(exc)
+            self._wake.set()
 
-    def _fold(self, idx: int, new_tokens: List[int]) -> None:
-        """Append a slot's new tokens one by one, finishing it at the
-        first completion rule that fires."""
-        slot = self._slots[idx]
-        if not new_tokens:
-            self._check_finished(idx)
-        for tok in new_tokens:
-            slot.generated.append(tok)
-            if self._check_finished(idx):
-                break
+    def _fold_first_reads(self) -> None:
+        """Fold the admissions' first tokens (their copies started at
+        dispatch). Entries carry the slot's generation, so a stale one can
+        never feed the slot's next occupant."""
+        with self._lock:
+            groups, self._first_reads = self._first_reads, []
+        hosts = [copy.wait()[0] for _, copy in groups]
+        now = time.perf_counter()
+        with self._lock:
+            for (stamps, _), host in zip(groups, hosts):
+                for row, (idx, gen) in enumerate(stamps):
+                    slot = self._slots[idx]
+                    if slot is None or not slot.first_pending or gen != self._gen[idx]:
+                        continue
+                    slot.first_pending = False
+                    slot.request.first_token_at = now
+                    slot.generated.append(int(host[row]))
+                    self._check_finished(idx)
+
+    def _process_chunk(self, copy: _HostCopy, stamp: Tuple[int, ...], n_blocks: int) -> None:
+        """Fold one chunk into its slots once its copy has landed. First
+        tokens sampled before the chunk ran fold first."""
+        self._fold_first_reads()
+        toks_h, valid_h = copy.wait()
+        with self._lock:
+            for b, slot in enumerate(self._slots):
+                if slot is None or stamp[b] != self._gen[b]:
+                    continue
+                # This chunk leaves the in-flight ledger, tokens or not.
+                slot.est_pending = max(0.0, slot.est_pending - n_blocks)
+                slot.hi_pending = max(0, slot.hi_pending - n_blocks)
+                if slot.first_pending:
+                    continue
+                new_tokens = [int(t) for t, ok in zip(toks_h[:, b], valid_h[:, b]) if ok]
+                if not new_tokens:
+                    self._check_finished(b)
+                for tok in new_tokens:
+                    slot.generated.append(tok)
+                    if self._check_finished(b):
+                        break
+            self.blocks_useful += int(valid_h.any(axis=1).sum())
 
     def _check_finished(self, idx: int) -> bool:
+        """Apply the completion rules to a slot (lock held); a finished
+        slot resolves its future and is released, its pages at once."""
         slot = self._slots[idx]
         req = slot.request
         out = slot.generated
@@ -468,7 +799,7 @@ class ContinuousBatcher:
         )
         if not finished:
             return False
-        self._release(idx)
+        self._drop_slot_locked(idx)
         if eos:
             out = out[:-1]
         now = time.perf_counter()
@@ -481,3 +812,39 @@ class ContinuousBatcher:
         if not req.future.done():
             req.future.set_result(out)
         return True
+
+    # ------------------------------------------------------------------ #
+    # Releases and failures (any thread)
+    # ------------------------------------------------------------------ #
+
+    def _drop_slot_locked(self, idx: int) -> None:
+        """Free a slot on the host (lock held): its pages return now, its
+        device state stops at the device thread's next cycle."""
+        self._slots[idx] = None
+        self._release.append(idx)
+        if self.alloc is not None:
+            self.alloc.release(idx)
+        self._wake.set()
+        self._prep_wake.set()
+
+    def _fail_group(self, group: Sequence[Tuple[int, GenRequest]], exc: Exception) -> None:
+        """Fail one admission group's requests and return their slots and
+        pages."""
+        with self._lock:
+            for idx, req in group:
+                self._prep_reserved.discard(idx)
+                slot = self._slots[idx]
+                if slot is None or slot.request is req:
+                    self._drop_slot_locked(idx)
+                if not req.future.done():
+                    req.future.set_exception(exc)
+
+    def _fail_all(self, exc: Exception) -> None:
+        """A failed dispatch or fold fails every occupant (recovery is
+        ROADMAP P6b)."""
+        with self._lock:
+            for i, slot in enumerate(self._slots):
+                if slot is not None:
+                    self._drop_slot_locked(i)
+                    if not slot.request.future.done():
+                        slot.request.future.set_exception(exc)

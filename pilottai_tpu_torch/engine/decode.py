@@ -1,7 +1,6 @@
 """Chunked decode and fused admission on the dense or the paged KV cache
 (the port's counterpart of ``pilottai_tpu/engine/decode.py``; prefix
-caching, speculation and the fused greedy epilogue wait for later
-slices).
+caching and speculation wait for later slices).
 
 The chunk keeps the JAX engine's KV trick: inside a chunk the big
 per-layer cache panels are read-only. Each step's fresh K/V goes to a
@@ -11,9 +10,18 @@ the prefix through kernel K2 (``ops/kernels/decode_attention.py``) as
 online-softmax statistics, attends the ring with plain tensor ops, and
 merges the two with ``_merge_stats``. On the paged cache one launch of
 kernel K3 (``ops/kernels/paged_attention.py``) per layer reads the live
-pages through the block table with the ring fused in. JAX's
-``lax.while_loop`` becomes a Python loop that stops early once every
-slot is done (one device read per step).
+pages through the block table with the ring fused in.
+
+``decode_chunk`` is capturable: once it starts it does no host work (no
+device read, no data-dependent shape), and every tensor it carries
+across chunks is a persistent buffer updated in place, so a CUDA graph of
+it (``engine/graphs.py``) reads and writes the live state. Where JAX's
+``lax.while_loop`` exits once every slot is done, the chunk runs all its
+``n`` steps, with the step index static as in the TPU's compiled chunk;
+a step after every slot is done changes nothing that is folded. With
+``fused_epilogue`` (every occupied slot greedy and unconstrained, which
+the batcher checks per dispatch) the logits projection and the argmax
+run as one vocab-tiled reduction (``fused_greedy_epilogue``).
 
 Long prompts on the paged cache admit in segments (chunked prefill):
 ``extend_prompt_paged`` prefills one segment against the pages already
@@ -34,6 +42,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from pilottai_tpu_torch.device import upload
 from pilottai_tpu_torch.engine.sampling import SamplingState, admit_sampling, sample_core
 from pilottai_tpu_torch.models.common import ModelConfig, rms_norm, rope_tables
 from pilottai_tpu_torch.models.transformer import (
@@ -120,24 +129,27 @@ def admit_decode(
     budgets: Sequence[int],      # [A] max_new_tokens - 1; <= 0 admits as done
     live: Sequence[bool],        # [A] False rows are padding
 ) -> DecodeState:
+    """Install admitted rows in place (a captured chunk reads this
+    storage)."""
     B = state.tokens.shape[0]
     rows = [i for i, s in enumerate(slots) if live[i] and 0 <= int(s) < B]
     if rows:
         dev = state.tokens.device
-        sl = torch.tensor([int(slots[i]) for i in rows], dtype=torch.long, device=dev)
-        bud = torch.tensor([int(budgets[i]) for i in rows], dtype=torch.int32, device=dev)
-        state.tokens[sl] = first_tokens[torch.tensor(rows, device=dev)]
+        sl = upload([int(slots[i]) for i in rows], torch.long, dev)
+        bud = upload([int(budgets[i]) for i in rows], torch.int32, dev)
+        state.tokens[sl] = first_tokens[upload(rows, torch.long, dev)]
         state.done[sl] = bud <= 0
         state.budget[sl] = torch.clamp(bud, min=0)
     return state
 
 
 def release_decode(state: DecodeState, slots: Sequence[int]) -> DecodeState:
-    """Host-side completion or cancel: stop decoding these slots."""
-    live = [int(s) for s in slots if 0 <= int(s) < state.tokens.shape[0]]
-    if live:
-        state.done[live] = True
-        state.budget[live] = 0
+    """Host-side completion or cancel: stop decoding these slots (fills,
+    so nothing waits for the device)."""
+    for s in slots:
+        if 0 <= int(s) < state.tokens.shape[0]:
+            state.done[int(s)] = True
+            state.budget[int(s)] = 0
     return state
 
 
@@ -202,6 +214,70 @@ def new_rings(cfg: ModelConfig, n_slots: int, n_steps: int, dtype: torch.dtype,
     ]
 
 
+@dataclass
+class ChunkBuffers:
+    """What one chunk variant writes besides the state: the rings and the
+    per-step outputs. Allocated once per captured graph (a replay writes
+    the same storage); the reader copies ``tokens`` and ``valid`` to the
+    host before the next replay of the same graph overwrites them."""
+
+    rings: List[Tuple[torch.Tensor, torch.Tensor]]
+    tokens: torch.Tensor  # [n, B] int32 — the token sampled at each step
+    valid: torch.Tensor   # [n, B] bool — the slot was active entering the step
+
+    @classmethod
+    def create(cls, cfg: ModelConfig, n_slots: int, n_steps: int, dtype: torch.dtype,
+               device: torch.device) -> "ChunkBuffers":
+        return cls(
+            rings=new_rings(cfg, n_slots, n_steps, dtype, device),
+            tokens=torch.zeros((n_steps, n_slots), dtype=torch.int32, device=device),
+            valid=torch.zeros((n_steps, n_slots), dtype=torch.bool, device=device),
+        )
+
+
+# Vocab tile of the fused epilogue, the JAX package's: the [B, tile] fp32
+# logits block of one tile is all that exists at a time.
+EPILOGUE_VOCAB_TILE = 8192
+
+
+def _head_tile(params: Dict[str, Any], off: int, end: int) -> torch.Tensor:
+    """Columns ``[off, end)`` of the unembedding head ``[E, V]``: the
+    untied ``lm_head``, or the transposed tied embedding."""
+    if "lm_head" in params:
+        return params["lm_head"][:, off:end]
+    return params["embed"][off:end].t()
+
+
+def fused_greedy_epilogue(
+    cfg: ModelConfig, params: Dict[str, Any], h: torch.Tensor,
+    tile: int = EPILOGUE_VOCAB_TILE,
+) -> torch.Tensor:
+    """Greedy sampling fused into the logits projection: final-normed
+    hidden states ``h [B, T, E]`` to argmax ids ``[B, T]`` int32, equal to
+    ``argmax(_unembed(cfg, params, h), -1)``. The JAX function's
+    algorithm: the projection runs tile by tile over the vocab with a
+    running (max, argmax) carry, so the ``[B, T, V]`` logits never exist;
+    tiling splits the output axis, never the contraction, so each logit is
+    the same dot product, with ``_unembed``'s operand dtypes; the softcap
+    applies per tile; the in-tile argmax takes the first maximum and the
+    carry replaces only on a strictly greater one, so ties go to the
+    lowest index as ``torch.argmax``'s do."""
+    B, T, E = h.shape
+    x = h.reshape(B * T, E).float()
+    best = torch.full((B * T,), -float("inf"), dtype=torch.float32, device=h.device)
+    idx = torch.zeros((B * T,), dtype=torch.int32, device=h.device)
+    for off in range(0, cfg.vocab_size, tile):
+        end = min(off + tile, cfg.vocab_size)
+        logits = x @ _head_tile(params, off, end).float()
+        if cfg.logit_softcap > 0.0:
+            logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
+        m = logits.amax(dim=-1)
+        better = m > best
+        idx = torch.where(better, torch.argmax(logits, dim=-1).to(torch.int32) + off, idx)
+        best = torch.where(better, m, best)
+    return idx.reshape(B, T)
+
+
 def decode_step_logits(
     params: Dict[str, Any],
     cfg: ModelConfig,
@@ -213,11 +289,15 @@ def decode_step_logits(
     i: int,                     # chunk step: ring rows 0..i attend, row i is written here
     table: Optional[torch.Tensor] = None,  # [B, max_pages] — the paged cache's block table
     n_blocks: Optional[int] = None,        # pages per slot K3 visits (default all)
+    fused_epilogue: bool = False,
 ) -> torch.Tensor:
     """One decode step's forward for every slot: writes this step's K/V
     into ring row ``i`` of each layer and returns the ``[B, V]`` fp32
-    logits. The dense cache reads its prefix through K2 and merges the
-    ring; the paged cache makes one K3 launch per layer, ring fused."""
+    logits, or with ``fused_epilogue`` the ``[B]`` int32 greedy ids of
+    ``fused_greedy_epilogue`` (the logits never exist). The dense cache
+    reads its prefix through K2 and merges the ring; the paged cache makes
+    one K3 launch per layer, ring fused. The one step function of the
+    eager and the captured chunk alike."""
     B = tokens.shape[0]
     G = cfg.n_heads // cfg.n_kv_heads
     windows = cfg.window_sizes()
@@ -254,6 +334,8 @@ def decode_step_logits(
             cfg, lp, x, attn.to(x.dtype).reshape(B, 1, cfg.n_heads, cfg.head_dim)
         )
     h = rms_norm(x, params["final_norm"]["scale"], cfg.rms_eps)
+    if fused_epilogue:
+        return fused_greedy_epilogue(cfg, params, h)[:, 0]
     return _unembed(cfg, params, h)[:, 0]
 
 
@@ -266,57 +348,64 @@ def decode_chunk(
     n_steps: int,
     table: Optional[torch.Tensor] = None,  # [B, max_pages] int32 — paged cache only
     n_blocks: Optional[int] = None,        # pages per slot K3 visits (default all)
+    fused_epilogue: bool = False,          # every occupied slot greedy and unconstrained
+    bufs: Optional[ChunkBuffers] = None,   # a captured variant's buffers (default fresh)
 ) -> Tuple[torch.Tensor, torch.Tensor, AnyCache, DecodeState, SamplingState]:
-    """Run up to ``n_steps`` decode steps for every slot.
+    """Run ``n_steps`` decode steps for every slot, with no host work:
+    capturable as one CUDA graph.
 
     Returns ``(tokens [n, B], valid [n, B], cache, dstate, sampling)``;
     ``valid[i, b]`` marks tokens actually generated (slot active entering
     step i). Slots flip ``done`` on device at EOS, budget or a full
-    context; the loop stops once every slot is done. The cache, decode
-    state and sampling state are updated in place. The paged cache needs
-    the chunk's block table on the device (a snapshot: the host
-    allocator may change its rows after the call)."""
+    context. Every step runs; once every slot is done a step leaves the
+    budgets, tokens, lengths and JSON states as they were and marks
+    nothing valid, so the result equals an early-exit loop's. The cache,
+    decode state and sampling state are updated in place. The paged cache
+    reads the block table given (the batcher's static table buffer)."""
     B = dstate.tokens.shape[0]
     dev = dstate.tokens.device
     paged = isinstance(cache, PagedKVCache)
     if paged and table is None:
         raise ValueError("paged decode needs the block table")
+    if bufs is None:
+        bufs = ChunkBuffers.create(cfg, B, n_steps, cache.layers[0][0].dtype, dev)
+    if bufs.tokens.shape != (n_steps, B):
+        raise ValueError(f"chunk buffers {tuple(bufs.tokens.shape)} for {n_steps} steps")
     S = table.shape[1] * cache.page_size if paged else cache.max_len
     start = cache.lengths.clone()          # frozen during the chunk
     prefix_last = start - 1                # max valid prefix key index (-1: empty)
-    rings = new_rings(cfg, B, n_steps, cache.layers[0][0].dtype, dev)
-    tokens, done, budget = dstate.tokens, dstate.done, dstate.budget
     offset = torch.zeros((B,), dtype=torch.int32, device=dev)
-    out_t = torch.zeros((n_steps, B), dtype=torch.int32, device=dev)
-    out_v = torch.zeros((n_steps, B), dtype=torch.bool, device=dev)
+    tokens, done, budget = dstate.tokens, dstate.done, dstate.budget
 
     for i in range(n_steps):
-        if bool(done.all()):
-            break
         active = ~done
         pos = start + offset
-        logits = decode_step_logits(
-            params, cfg, cache, tokens, pos, prefix_last, rings, i,
+        out = decode_step_logits(
+            params, cfg, cache, tokens, pos, prefix_last, bufs.rings, i,
             table=table if paged else None, n_blocks=n_blocks,
+            fused_epilogue=fused_epilogue,
         )
-        sampled, sampling = sample_core(logits, sampling, json_remaining=budget)
+        if fused_epilogue:
+            sampled = out
+        else:
+            sampled, sampling = sample_core(out, sampling, json_remaining=budget,
+                                            json_gate=active.any())
         act = active.to(torch.int32)
-        budget = budget - act
         hit_eos = (sampling.eos_id >= 0) & (sampled == sampling.eos_id)
         ctx_full = (pos + 1) >= (S - 1)
-        done = done | (active & (hit_eos | (budget <= 0) | ctx_full))
-        tokens = torch.where(active, sampled, tokens)
-        offset = offset + act
-        out_t[i] = sampled
-        out_v[i] = active
+        budget.sub_(act)
+        done.logical_or_(active & (hit_eos | (budget <= 0) | ctx_full))
+        tokens.copy_(torch.where(active, sampled, tokens))
+        offset.add_(act)
+        bufs.tokens[i].copy_(sampled)
+        bufs.valid[i].copy_(active)
 
-    ring_ks, ring_vs = [r[0] for r in rings], [r[1] for r in rings]
+    ring_ks, ring_vs = [r[0] for r in bufs.rings], [r[1] for r in bufs.rings]
     if paged:
         cache = write_chunk_rows_paged(cache, table, ring_ks, ring_vs, start, offset)
     else:
         cache = write_chunk_rows(cache, ring_ks, ring_vs, start, offset)
-    dstate.tokens, dstate.done, dstate.budget = tokens, done, budget
-    return out_t, out_v, cache, dstate, sampling
+    return bufs.tokens, bufs.valid, cache, dstate, sampling
 
 
 def sample_prefill_tokens(
@@ -338,8 +427,8 @@ def sample_prefill_tokens(
     rows = [i for i, s in enumerate(slots) if 0 <= int(s) < B]
     if rows:
         dev = logits.device
-        r = torch.tensor(rows, dtype=torch.long, device=dev)
-        sl = torch.tensor([int(slots[i]) for i in rows], dtype=torch.long, device=dev)
+        r = upload(rows, torch.long, dev)
+        sl = upload([int(slots[i]) for i in rows], torch.long, dev)
         sampling.json_state[sl] = sub.json_state[r]
         sampling.json_stack[sl] = sub.json_stack[r]
         sampling.json_depth[sl] = sub.json_depth[r]
@@ -365,8 +454,8 @@ def _admit_rows(
         meta_f32[AF_TOPP].tolist(), meta_i32[AI_SEED].tolist(), meta_i32[AI_EOS].tolist(),
         [bool(j) for j in meta_i32[AI_JSON]],
     )
-    remaining = torch.tensor(budgets, dtype=torch.int32, device=dev) + 1
-    lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+    remaining = upload(budgets, torch.int32, dev) + 1
+    lens_t = upload(lens, torch.int32, dev)
     first, sampling = sample_prefill_tokens(logits, lens_t, slots, sampling, remaining=remaining)
     dstate = admit_decode(dstate, slots, first, budgets, [n > 0 for n in lens])
     return dstate, sampling, first
@@ -390,14 +479,14 @@ def admit_group(
     A, T = tokens.shape
     slots = [int(s) for s in meta_i32[AI_SLOT]]
     lens = [int(n) for n in meta_i32[AI_LEN]]
-    tok = torch.as_tensor(tokens, dtype=torch.long, device=dev)
-    lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+    tok = upload(tokens, torch.long, dev)
+    lens_t = upload(lens, torch.int32, dev)
     positions = torch.arange(T, dtype=torch.int32, device=dev)[None].expand(A, T)
     logits, ks, vs = forward_prefill(params, cfg, tok, positions, lens_t)
     if isinstance(cache, PagedKVCache):
         if page_rows is None:
             raise ValueError("paged admission needs the slots' page rows")
-        cache = write_prompts_paged(cache, torch.as_tensor(page_rows, device=dev), ks, vs, lens)
+        cache = write_prompts_paged(cache, upload(page_rows, torch.int32, dev), ks, vs, lens)
         cache = install_lengths(cache, slots, lens)
     else:
         cache = write_prompts(cache, slots, ks, vs, lens)
@@ -536,11 +625,10 @@ def extend_prompt_paged(
     final segment admits through ``admit_group_prefix_paged``."""
     dev = cache.lengths.device
     _logits, ks, vs = _chain_tail_prefill(
-        params, cfg, cache, torch.as_tensor(prefix_pages, dtype=torch.long, device=dev),
-        int(prefix_len), torch.as_tensor(seg_tokens, dtype=torch.long, device=dev),
-        torch.tensor([int(n) for n in seg_lens], dtype=torch.int32, device=dev),
+        params, cfg, cache, upload(prefix_pages, torch.long, dev), int(prefix_len),
+        upload(seg_tokens, torch.long, dev), upload([int(n) for n in seg_lens], torch.int32, dev),
     )
-    return write_prompts_paged(cache, torch.as_tensor(page_rows, device=dev), ks, vs,
+    return write_prompts_paged(cache, upload(page_rows, torch.int32, dev), ks, vs,
                                seg_lens, pos_offset=int(prefix_len))
 
 
@@ -566,11 +654,10 @@ def admit_group_prefix_paged(
     tail_lens = [int(n) for n in meta_i32[AI_LEN]]
     prefix_len = int(meta_i32[AI_PLEN, 0])
     logits, ks, vs = _chain_tail_prefill(
-        params, cfg, cache, torch.as_tensor(prefix_pages, dtype=torch.long, device=dev),
-        prefix_len, torch.as_tensor(tail_tokens, dtype=torch.long, device=dev),
-        torch.tensor(tail_lens, dtype=torch.int32, device=dev),
+        params, cfg, cache, upload(prefix_pages, torch.long, dev), prefix_len,
+        upload(tail_tokens, torch.long, dev), upload(tail_lens, torch.int32, dev),
     )
-    cache = write_prompts_paged(cache, torch.as_tensor(page_rows, device=dev), ks, vs,
+    cache = write_prompts_paged(cache, upload(page_rows, torch.int32, dev), ks, vs,
                                 tail_lens, pos_offset=prefix_len)
     cache = install_lengths(
         cache, slots, [prefix_len + n if n > 0 else 0 for n in tail_lens]

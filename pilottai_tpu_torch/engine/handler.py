@@ -2,7 +2,7 @@
 ``pilottai_tpu/engine/handler.py`` with the same ``generate_response``
 signature). This slice keeps the request normalization, a concurrency
 semaphore and the per-call timeout; the rate limiter, retries, circuit
-breaker and flight recorder come with later slices (ROADMAP P6, P8).
+breaker and flight recorder come with later slices (ROADMAP P6b, P8).
 """
 
 from __future__ import annotations

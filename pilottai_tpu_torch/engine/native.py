@@ -36,10 +36,10 @@ from pilottai_tpu_torch.models.registry import get_model_config
 # Request fields whose feature belongs to a later slice, and its ROADMAP item.
 _REQUEST_LATER = {
     "json_schema": "serve",
-    "deadline": "batcher",
-    "slo_class": "batcher",
-    "priority": "batcher",
-    "gang_id": "batcher",
+    "deadline": "reliability",
+    "slo_class": "reliability",
+    "priority": "sched",
+    "gang_id": "sched",
     "session_id": "kvtier",
 }
 
@@ -95,6 +95,11 @@ class TorchEngine(LLMBackend):
             page_size=self.config.engine_page_size,
             num_pages=self.config.engine_kv_pages,
             prefill_chunk=self.config.engine_prefill_chunk,
+            pipeline_depth=self.config.engine_pipeline,
+            overlap_admission=self.config.engine_overlap_admission,
+            chunk_policy=self.config.engine_chunk_policy,
+            chunk_buckets=self.config.engine_chunk_buckets,
+            fused_epilogue=self.config.engine_fused_epilogue,
         )
         batcher.start()
         self.batcher = batcher

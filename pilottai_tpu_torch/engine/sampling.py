@@ -4,10 +4,17 @@ JSON grammar mask (the port's counterpart of
 wait for later slices).
 
 Randomness: each slot owns a ``torch.Generator`` (Philox on the card),
-seeded from the request's seed at admission and drawn once per sampled
-step. JAX's threefry keys give other numbers, so sampled output is held
-to same-seed determinism inside the port, not to the JAX stream; greedy
-output (temperature 0) draws nothing and matches JAX token for token.
+seeded from the request's seed at admission. Every row draws at every
+step, each from its own generator, and ``where(temperature > 0, ...)``
+picks the draw or the argmax: a captured decode chunk cannot change from
+one replay to the next which rows draw (JAX, too, splits every row's key
+at every step). JAX's threefry keys give other numbers, so sampled output
+is held to same-seed determinism inside the port, not to the JAX stream;
+greedy output (temperature 0) never reads its draw and matches JAX token
+for token.
+
+Every tensor here is updated in place (``copy_``), never rebound, so a
+CUDA graph that captured the sampler keeps reading the live state.
 """
 
 from __future__ import annotations
@@ -15,9 +22,9 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import List, Optional, Sequence, Tuple
 
-import numpy as np
 import torch
 
+from pilottai_tpu_torch.device import upload
 from pilottai_tpu_torch.engine.json_mask import S_DONE, json_advance, json_allowed_bytes
 
 NEG_INF = -2.0**30
@@ -25,9 +32,7 @@ NEG_INF = -2.0**30
 
 @dataclass
 class SamplingState:
-    """Per-slot sampling parameters living on the device. The host keeps
-    a copy of the temperatures so it knows, without a device read, which
-    rows draw random numbers."""
+    """Per-slot sampling parameters living on the device."""
 
     temperature: torch.Tensor   # [B] fp32; 0 => greedy
     top_k: torch.Tensor         # [B] int32; 0 => disabled
@@ -38,7 +43,6 @@ class SamplingState:
     json_stack: torch.Tensor    # [B] int32 (container bit per level)
     json_depth: torch.Tensor    # [B] int32
     generators: List[torch.Generator] = field(default_factory=list)
-    host_temperature: np.ndarray = field(default_factory=lambda: np.zeros(0, np.float32))
 
     @classmethod
     def create(cls, n_slots: int, device: torch.device, seed: int = 0) -> "SamplingState":
@@ -58,7 +62,6 @@ class SamplingState:
             json_stack=z(torch.int32),
             json_depth=z(torch.int32),
             generators=gens,
-            host_temperature=np.zeros((n_slots,), np.float32),
         )
 
     def rows(self, slots: Sequence[int]) -> "SamplingState":
@@ -66,14 +69,13 @@ class SamplingState:
         as JAX clamps an out-of-bounds gather)."""
         B = len(self.generators)
         idx = [min(max(int(s), 0), B - 1) for s in slots]
-        t = torch.tensor(idx, dtype=torch.long, device=self.temperature.device)
+        t = upload(idx, torch.long, self.temperature.device)
         return SamplingState(
             temperature=self.temperature[t], top_k=self.top_k[t], top_p=self.top_p[t],
             eos_id=self.eos_id[t], json_enabled=self.json_enabled[t],
             json_state=self.json_state[t], json_stack=self.json_stack[t],
             json_depth=self.json_depth[t],
             generators=[self.generators[i] for i in idx],
-            host_temperature=self.host_temperature[idx],
         )
 
 
@@ -94,10 +96,10 @@ def admit_sampling(
     if not rows:
         return state
     dev = state.temperature.device
-    sl = torch.tensor([int(slots[i]) for i in rows], dtype=torch.long, device=dev)
+    sl = upload([int(slots[i]) for i in rows], torch.long, dev)
 
     def put(dst: torch.Tensor, values, dtype):
-        dst[sl] = torch.tensor([values[i] for i in rows], dtype=dtype, device=dev)
+        dst[sl] = upload([values[i] for i in rows], dtype, dev)
 
     put(state.temperature, temperature, torch.float32)
     put(state.top_k, top_k, torch.int32)
@@ -108,9 +110,7 @@ def admit_sampling(
     state.json_stack[sl] = 0
     state.json_depth[sl] = 0
     for i in rows:
-        s = int(slots[i])
-        state.generators[s].manual_seed(int(seeds[i]))
-        state.host_temperature[s] = float(temperature[i])
+        state.generators[int(slots[i])].manual_seed(int(seeds[i]))
     return state
 
 
@@ -147,9 +147,8 @@ def _apply_json_mask(
     full[:, :n] = byte_ok[:, :n]
     done = state.json_state == S_DONE
     has_eos = state.eos_id >= 0
-    eos_onehot = torch.nn.functional.one_hot(
-        torch.clamp(state.eos_id, 0, V - 1).long(), V
-    ).bool()
+    vocab = torch.arange(V, device=logits.device)[None, :]
+    eos_onehot = vocab == torch.clamp(state.eos_id, 0, V - 1)[:, None]
     full = torch.where((done & has_eos)[:, None], eos_onehot, full)
     empty = ~full.any(dim=-1)
     full = torch.where((empty & has_eos)[:, None], eos_onehot, full)
@@ -158,12 +157,15 @@ def _apply_json_mask(
     return torch.where(state.json_enabled[:, None], masked, logits)
 
 
-def _advance_json(state: SamplingState, tokens: torch.Tensor) -> SamplingState:
+def _advance_json(state: SamplingState, tokens: torch.Tensor,
+                  gate: Optional[torch.Tensor] = None) -> SamplingState:
+    """Advance the JSON coordinates of the enabled rows in place; ``gate``
+    (a device bool) holds them all where it is False."""
     ns, stack, depth = json_advance(state.json_state, state.json_stack, state.json_depth, tokens)
-    en = state.json_enabled
-    state.json_state = torch.where(en, ns, state.json_state)
-    state.json_stack = torch.where(en, stack, state.json_stack)
-    state.json_depth = torch.where(en, depth, state.json_depth)
+    en = state.json_enabled if gate is None else state.json_enabled & gate
+    state.json_state.copy_(torch.where(en, ns, state.json_state))
+    state.json_stack.copy_(torch.where(en, stack, state.json_stack))
+    state.json_depth.copy_(torch.where(en, depth, state.json_depth))
     return state
 
 
@@ -171,18 +173,21 @@ def sample_core(
     logits: torch.Tensor,      # [B, V] fp32
     state: SamplingState,
     json_remaining: Optional[torch.Tensor] = None,  # [B] budget incl. this token
+    json_gate: Optional[torch.Tensor] = None,       # device bool: False holds the JSON state
 ) -> Tuple[torch.Tensor, SamplingState]:
     """Sample one token per slot; greedy where temperature == 0 (argmax
-    takes the first maximum, as ``jnp.argmax`` does). Advances the JSON
+    takes the first maximum, as ``jnp.argmax`` does). Every row draws its
+    Gumbel noise from its own generator, whether or not it uses it, so
+    the work does not depend on the temperatures. Advances the JSON
     coordinates of ``state`` in place and returns it."""
     logits = _apply_json_mask(logits, state, json_remaining)
-    tokens = torch.argmax(logits, dim=-1)
-    sampled_rows = np.flatnonzero(state.host_temperature > 0.0)
-    if sampled_rows.size:
-        temp = torch.clamp(state.temperature, min=1e-6)[:, None]
-        scaled = _mask_top_p(_mask_top_k(logits / temp, state.top_k), state.top_p)
-        for r in sampled_rows:
-            noise = torch.empty_like(scaled[r]).exponential_(generator=state.generators[r])
-            tokens[r] = torch.argmax(scaled[r] - torch.log(noise))  # Gumbel-max draw
-    tokens = tokens.to(torch.int32)
-    return tokens, _advance_json(state, tokens)
+    greedy = torch.argmax(logits, dim=-1)
+    temp = torch.clamp(state.temperature, min=1e-6)[:, None]
+    scaled = _mask_top_p(_mask_top_k(logits / temp, state.top_k), state.top_p)
+    noise = torch.stack([
+        torch.empty_like(scaled[r]).exponential_(generator=g)
+        for r, g in enumerate(state.generators)
+    ])
+    drawn = torch.argmax(scaled - torch.log(noise), dim=-1)       # Gumbel-max draw
+    tokens = torch.where(state.temperature > 0.0, drawn, greedy).to(torch.int32)
+    return tokens, _advance_json(state, tokens, json_gate)

@@ -141,7 +141,10 @@ def rope_tables(
     fp32."""
     half = head_dim // 2
     exponent = -torch.arange(0, half, dtype=torch.float32, device=positions.device) / half
-    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32, device=positions.device), exponent)
+    # A fill, not torch.tensor(theta, device=...): that host copy would wait
+    # for the stream, which a captured decode chunk must never do.
+    base = torch.full((), theta, dtype=torch.float32, device=positions.device)
+    freqs = torch.pow(base, exponent)
     angles = positions.float()[..., None] * freqs
     return torch.sin(angles), torch.cos(angles)
 

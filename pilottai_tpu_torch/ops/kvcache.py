@@ -85,22 +85,33 @@ def write_chunk_rows(
     accepted: torch.Tensor,           # [B] int32 rows actually generated
 ) -> KVCache:
     """Scatter one decode chunk's ring rows into the cache: row j of slot
-    b lands at start[b] + j when j < accepted[b]; the others are dropped
-    (JAX routes them out of bounds; here they are never indexed)."""
-    n = ring_ks[0].shape[2]
+    b lands at start[b] + j when j < accepted[b] and that is inside the
+    panel; the other rows are dropped (JAX routes them out of bounds).
+
+    No host sync, and no data-dependent shape, so a captured chunk can run
+    it: every row of every slot is written, at ``(start + j) mod S``. For
+    one slot those n positions are distinct (n <= S), so no two writes
+    collide, and a dropped row writes back the bytes it read there."""
+    B, K, n, H = ring_ks[0].shape
+    S = cache.max_len
+    if n > S:
+        raise ValueError(f"a chunk of {n} rows does not fit a {S}-key panel")
     j = torch.arange(n, device=start.device)[None, :]
-    b_idx, j_idx = torch.nonzero(j < accepted[:, None], as_tuple=True)
-    pos = start[b_idx].long() + j_idx
+    pos = start.long()[:, None] + j                              # [B, n]
+    keep = ((j < accepted[:, None]) & (pos < S))[:, :, None, None]
+    pos = pos % S
+    b = torch.arange(B, device=start.device)[:, None]
     for (k, v), rk, rv in zip(cache.layers, ring_ks, ring_vs):
-        k[b_idx, :, pos] = rk[b_idx, :, j_idx].to(k.dtype)
-        v[b_idx, :, pos] = rv[b_idx, :, j_idx].to(v.dtype)
+        # Advanced indices (b, pos) around the head slice: [B, n, K, H].
+        k[b, :, pos] = torch.where(keep, rk.transpose(1, 2).to(k.dtype), k[b, :, pos])
+        v[b, :, pos] = torch.where(keep, rv.transpose(1, 2).to(v.dtype), v[b, :, pos])
     cache.lengths.copy_(torch.clamp(cache.lengths + accepted, max=cache.max_len))
     return cache
 
 
 def free_slots(cache: KVCache, slots: Sequence[int]) -> KVCache:
     """Mark slots empty; the stale K/V bytes stay, masked by lengths."""
-    live = [int(s) for s in slots if 0 <= int(s) < cache.n_slots]
-    if live:
-        cache.lengths[live] = 0
+    for s in slots:
+        if 0 <= int(s) < cache.n_slots:
+            cache.lengths[int(s)] = 0   # a fill: no host copy to wait on
     return cache

@@ -35,7 +35,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from pilottai_tpu_torch.device import DeviceLike, resolve_device
+from pilottai_tpu_torch.device import DeviceLike, resolve_device, upload
 
 
 @dataclass
@@ -157,7 +157,7 @@ def write_prompts_paged(
     L, A, T, K, H = ks.shape
     dev = ks.device
     idx = torch.arange(T, device=dev)
-    lens = torch.tensor([int(n) for n in lengths], dtype=torch.long, device=dev)
+    lens = upload([int(n) for n in lengths], torch.long, dev)
     live = idx[None, :] < lens[:, None]                          # [A, T]
     pos = (idx + int(pos_offset))[None, :].expand(A, T)
     pages, offs = _scatter_targets(

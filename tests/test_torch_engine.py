@@ -125,15 +125,24 @@ def test_knobs_outside_the_slice_are_refused():
         LLMConfig(engine_speculate=4)
     with pytest.raises(ValueError, match="P5"):
         LLMConfig(engine_quant="int8")
-    with pytest.raises(ValueError, match="P6"):
-        LLMConfig(engine_chunk_policy="adaptive")
+    # The decode pipeline's knobs (slice P6a) are accepted, at the JAX
+    # package's defaults; the rest of the batcher names its own item.
+    cfg = LLMConfig()
+    assert (cfg.engine_pipeline, cfg.engine_overlap_admission, cfg.engine_chunk_policy,
+            cfg.engine_chunk_buckets, cfg.engine_fused_epilogue) == (2, True, "adaptive",
+                                                                     None, True)
+    LLMConfig(engine_chunk_policy="fixed", engine_chunk_buckets=(4, 8), engine_pipeline=1,
+              engine_overlap_admission=False, engine_fused_epilogue=False)
+    with pytest.raises(ValueError, match="P6b"):
+        LLMConfig(retries=3)
+    with pytest.raises(ValueError, match="P6c"):
+        LLMConfig(engine_sched_policy="dag")
     with pytest.raises(ValueError, match="P10"):
         LLMConfig(mesh_shape={"model": 4})
     with pytest.raises(ValueError):
         LLMConfig(engine_no_such_knob=1)
     # The values this slice already runs are accepted.
-    LLMConfig(engine_prefix_cache=0, engine_speculate=0, engine_chunk_policy="fixed",
-              engine_fused_epilogue=False)
+    LLMConfig(engine_prefix_cache=0, engine_speculate=0, retries=0, engine_sched_policy="fifo")
     # From a context of 4096 on the handler builds a paged batcher, as the
     # JAX engine does; the TPU kernel's page strip has no counterpart.
     paged = LLMHandler(LLMConfig(provider="cpu", model_name="protocol-s", engine_max_seq=4096))
