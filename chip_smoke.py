@@ -29,11 +29,14 @@ result line is printed only when every phase passed):
    256; K4/K5 also at G = 1 and 4 and all three head dims; K2's split
    walk: slots ending on a split's last key and the next one's first, a
    window crossing splits, every slot empty, a batch wide enough for one
-   split, G = 1 and 8, the golden fp32 step). K1, K2 and K3 also run twice
-   and must give the same bits;
+   split, G = 1 and 8, the golden fp32 step); K1 also at the tail
+   prefill's shapes (T tail queries at positions plen.. against plen + T
+   keys: 5d's hits, 5b's last segment, 4c's golden hits). K1, K2 and K3
+   also run twice and must give the same bits;
 4. golden — the committed protocol-s checkpoint in fp32 (TF32 off) served
    through ``LLMHandler.generate_response``, once on the dense cache and
-   once paged with chunked prefill; the greedy token ids must equal
+   once paged with chunked prefill, the prefix cache off as on the JAX
+   engine that made the golden (4a, 4b); the greedy token ids must equal
    ``assets/protocol_s_golden.json`` and ``protocol_s_paged_golden.json``
    (the JAX engine's), each at the decode pipeline's defaults (chunks as
    CUDA graphs, two in flight, overlapped admission, adaptive chunks, the
@@ -43,8 +46,14 @@ result line is printed only when every phase passed):
    dense path, K1 and K3 with K2 at zero on the paged ones, where prefill
    segments must have run; K2 (dense) or K3 (paged) once per layer per
    decode step dispatched, graph replays included. The chunk graphs
-   captured, their capture seconds and their shared pool are printed;
-5. full width — llama3-8b in bf16 from random init, (a) on the dense cache:
+   captured, their capture seconds and their shared pool are printed.
+   (c) the same golden at the port's defaults, prefix cache on, each case
+   served twice in a row, dense and paged: every serving's ids equal the
+   golden's, the lookups hit at least once a case (the second serving),
+   no export fails, and every page is back on the free list or pinned by
+   the page index;
+5. full width — llama3-8b in bf16 from random init, the prefix cache off
+   in (a) to (c), (a) on the dense cache:
    8 concurrent JSON-mode greedy requests, the counters > 0, one prompt's
    first-token logits through K1 against the plain K1 and one decode step
    of the live wave through K2 against the plain K2 (``TOL_E2E``); (b)
@@ -58,7 +67,16 @@ result line is printed only when every phase passed):
    p50, TPOT p50 and decode tokens/s per wave, with the median and the
    spread; (c) five waves of each under torch.profiler, on fresh engines:
    the device's busy share (after every plain wave: the profiler leaves
-   the process's launches slower);
+   the process's launches slower), and the fp32 GEMMs the first profiled
+   wave ran; (d) agent steps sharing a preamble: 8 concurrent requests a
+   wave whose system message is the leading 900 bytes of the protocol
+   rules and whose task differs in every request, dense (2048) and paged
+   (8192): a cold wave, then five timed waves with the prefix cache on
+   (8 hits a wave, each tail one K1 launch a layer against the cached
+   prefix: the store's derived preamble entry, or 7 shared pages) and the
+   same waves with it off; TTFT and TPOT p50 of both, the store or the
+   pinned pages, and one warm request's first-token logits through the
+   hit path against a full K1 prefill (``TOL_E2E``, the same argmax);
 7. training — (a) golden: four ``Trainer.step`` calls on protocol-s in fp32
    (TF32 off) from the shipped checkpoint, on ``protocol_batches(4, 512,
    seed=11)``; the batches' hash and each step's loss and grad norm must
@@ -73,7 +91,8 @@ result line is printed only when every phase passed):
    gradient through the kernels against the same step through the plain
    K1, K4 and K5 (``TOL_E2E_TRAIN``);
 6. last, each path's kernels timed at the shapes that path gave them (bf16
-   at phase 5's and 7b's, fp32 at phase 4's and 7a's; K2 and K3 with the
+   at phase 5's and 7b's, fp32 at phase 4's and 7a's; K1 also at 5d's hit
+   shapes and 5b's last segment; K2 and K3 with the
    L2 flushed and warm, K2 also as the profiler's device time a launch,
    in the harness and in phase 5a's profiled wave), with the yardstick's
    terms printed beside the fp32 rows (torch and CUDA versions, the TF32
@@ -442,6 +461,9 @@ def phase_kernels(torch, fa, da, pa, device, seed):
     pgen.manual_seed(seed)
     dgen = torch.Generator(device=device)
     dgen.manual_seed(seed)
+    # And K1 at the prefix cache's tail shapes.
+    hgen = torch.Generator(device=device)
+    hgen.manual_seed(seed)
     results, worst = [], {}
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype)[6:]
@@ -537,6 +559,32 @@ def phase_kernels(torch, fa, da, pa, device, seed):
         ]
         for name, kw in flash_edges:
             ok, err = check_flash(torch, fa, egen, device, name, dtype, **kw)
+            results.append(ok)
+            worst[("flash", dn)] = max(worst.get(("flash", dn), 0.0), err)
+        # K1 at the tail prefill's shapes (slice P2): T tail queries at
+        # positions plen.. against the plen prefix keys and the tail, valid
+        # plen + each row's tail — 5d's dense and paged hits, the last
+        # segment of 5b's long prompt, and 4c's golden hits (dense: a
+        # one-token tail in a bucket of 8; paged: 25 pages and a 15-token
+        # tail).
+        hit_cases = [
+            ("llama3-8b hit A8 Tq256 S1186", dict(B=8, T=256, S=930 + 256, N=32, K=8, H=128,
+                                                  valid=[930 + n for n in (148, 148, 150, 150,
+                                                                           149, 150, 148, 256)],
+                                                  offset=930)),
+            ("llama3-8b paged hit A8 Tq256 S1152", dict(B=8, T=256, S=896 + 256, N=32, K=8,
+                                                        H=128, valid=[896 + n for n in (
+                                                            182, 182, 184, 184, 183, 184,
+                                                            182, 1)], offset=896)),
+            ("llama3-8b segment Tq1024 S6144", dict(B=1, T=1024, S=5120 + 1024, N=32, K=8,
+                                                    H=128, valid=[5120 + 931], offset=5120)),
+            ("protocol-s golden hit Tq8 S422", dict(B=1, T=8, S=414 + 8, N=8, K=4, H=32,
+                                                    valid=[415], offset=414)),
+            ("protocol-s paged hit Tq16 S416", dict(B=1, T=16, S=400 + 16, N=8, K=4, H=32,
+                                                    valid=[415], offset=400)),
+        ]
+        for name, kw in hit_cases:
+            ok, err = check_flash(torch, fa, hgen, device, name, dtype, **kw)
             results.append(ok)
             worst[("flash", dn)] = max(worst.get(("flash", dn), 0.0), err)
         # K3: the split walk (256 keys a split): slots ending mid-page inside
@@ -717,11 +765,15 @@ def per_step_check(launches, batcher, steps, label):
         raise SystemExit(f"{label}: the decode kernel did not launch once per layer per step")
 
 
-def phase_golden(torch, kernels, root, asset, paged, page_size=None, knobs=None):
+def phase_golden(torch, kernels, root, asset, paged, page_size=None, knobs=None,
+                 prefix_cache=0, repeat=1):
     """Serve the golden prompts with the asset's engine settings (the page
     size replaced by ``page_size``, the pipeline knobs by ``knobs``, if
-    given) and hold the ids to it. Returns the path's launches and the
-    shapes its fp32 kernels saw."""
+    given) and hold the ids to it. The prefix cache is off, as on the
+    JAX engine that made the golden, unless ``prefix_cache`` is None (the
+    port's default, on); ``repeat`` serves each case that many times in a
+    row, every serving held to the golden. Returns the path's launches
+    and the shapes its fp32 kernels saw."""
     from pilottai_tpu_torch import LLMConfig, LLMHandler, PROTOCOL_S_NPZ
     from pilottai_tpu_torch.engine.types import ChatMessage, ToolSpec
     from pilottai_tpu_torch.models.transformer import forward_prefill
@@ -733,6 +785,8 @@ def phase_golden(torch, kernels, root, asset, paged, page_size=None, knobs=None)
     if page_size is not None:
         golden["engine"] = dict(golden["engine"], engine_page_size=page_size)
     golden["engine"] = dict(golden["engine"], **(knobs or {}))
+    if prefix_cache is not None:
+        golden["engine"]["engine_prefix_cache"] = prefix_cache
     log(f"  {asset}: engine {golden['engine']}")
 
     async def run():
@@ -749,13 +803,15 @@ def phase_golden(torch, kernels, root, asset, paged, page_size=None, knobs=None)
             reset(kernels)
             for case in golden["cases"]:
                 p = golden["prompts"][case["prompt"]]
-                seen.clear()
-                await handler.generate_response(
-                    [ChatMessage(**m) for m in p["messages"]],
-                    tools=[ToolSpec(**t) for t in p["tools"]] if p["tools"] else None,
-                    json_mode=case["json_mode"],
-                )
-                out.append((list(seen[0].prompt_ids), seen[0].future.result()))
+                for _ in range(repeat):
+                    seen.clear()
+                    await handler.generate_response(
+                        [ChatMessage(**m) for m in p["messages"]],
+                        tools=[ToolSpec(**t) for t in p["tools"]] if p["tools"] else None,
+                        json_mode=case["json_mode"],
+                    )
+                    out.append((list(seen[0].prompt_ids), seen[0].future.result()))
+            await settle(batcher)
             return out, batcher
         finally:
             await handler.stop()
@@ -763,7 +819,7 @@ def phase_golden(torch, kernels, root, asset, paged, page_size=None, knobs=None)
     t0 = time.perf_counter()
     got, batcher = asyncio.run(run())
     launches = counts(kernels)      # read once the engine's threads have stopped
-    n = len(golden["cases"])
+    n = len(golden["cases"]) * repeat
     log(f"  launches on this run ({n} requests, fp32): {launches_text(launches)}")
     per_step_check(launches, batcher, batcher.blocks_dispatched, "golden")
     if paged:
@@ -775,8 +831,22 @@ def phase_golden(torch, kernels, root, asset, paged, page_size=None, knobs=None)
                              "with K2 at zero")
     elif launches["flash"] <= 0 or launches["decode"] <= 0 or launches["paged"] != 0:
         raise SystemExit("the dense golden path did not go through K1 and K2 alone")
+    report = batcher.prefix_report()
+    if report:
+        log(f"  prefix cache: {report}")
+        pinned = report.get("pinned_pages", 0)
+        if batcher.paged:
+            log(f"  pages after the run: {batcher.alloc.free_pages} free + {pinned} pinned "
+                f"of {batcher.num_pages - 1}")
+        if (report["hits"] < len(golden["cases"]) or report["export_failures"]
+                or (batcher.paged and batcher.alloc.free_pages + pinned != batcher.num_pages - 1)):
+            raise SystemExit("the prefix cache missed a repeat, an export failed, or pages "
+                             "were neither returned nor pinned")
+    elif prefix_cache is None:
+        raise SystemExit("the prefix cache is not on at the port's defaults")
     failed = False
-    for case, (prompt_ids, ids) in zip(golden["cases"], got):
+    cases = [case for case in golden["cases"] for _ in range(repeat)]
+    for case, (prompt_ids, ids) in zip(cases, got):
         want = case["token_ids"]
         same = prompt_ids == case["prompt_ids"] and ids == want
         log(f"  prompt {case['prompt']} json_mode={case['json_mode']!s:<5} "
@@ -805,7 +875,7 @@ def phase_golden(torch, kernels, root, asset, paged, page_size=None, knobs=None)
     # padded to its bucket, the decode read over every slot's panel (or,
     # paged, the request's pages) at mid-generation, mid-chunk.
     lens = [len(prompt_ids) for prompt_ids, _ in got]
-    mean_gen = sum(len(ids) for _, ids in got) // n
+    mean_gen = sum(len(ids) for _, ids in got) // len(got)
     last = [max(lens) + mean_gen // 2] + [-1] * (batcher.n_slots - 1)
     shapes = {
         "flash": dict(B=1, T=batcher._bucket(max(lens)), lens=[max(lens)]),
@@ -1000,6 +1070,27 @@ def plain_prefill_attention(fa):
 
 
 @contextlib.contextmanager
+def recording_tail_k1(calls):
+    """Record the shapes ``(T, S)`` and rows of every K1 launch of the tail
+    prefill (``decode._tail_prefix_attn``: prefix hits and chunked-prefill
+    segments) while inside; the launches themselves are the kernel's, and
+    count as such. Shapes only: nothing is read from the card."""
+    from pilottai_tpu_torch.engine import decode
+
+    kernel = decode.flash_attention_with_lse
+
+    def recording(q, k, *a, **kw):
+        calls.append((q.shape[0], q.shape[1], k.shape[1]))
+        return kernel(q, k, *a, **kw)
+
+    decode.flash_attention_with_lse = recording
+    try:
+        yield
+    finally:
+        decode.flash_attention_with_lse = kernel
+
+
+@contextlib.contextmanager
 def plain_paged_attention(pa):
     """Route the decode step's paged attention through the plain K3 while
     inside."""
@@ -1091,7 +1182,7 @@ def phase_full_width(torch, kernels, seed):
     fa, da = kernels["flash"], kernels["decode"]
     cfg = LLMConfig(provider="cuda", model_name="llama3-8b", dtype="bfloat16",
                     engine_slots=8, engine_admit_batch=8, engine_max_seq=2048,
-                    engine_chunk=16, seed=seed)
+                    engine_chunk=16, seed=seed, engine_prefix_cache=0)
     prompts = [[FULL_PROMPT.format(i=i)] for i in range(8)]
     shapes = {}
     state = {}
@@ -1211,7 +1302,7 @@ def phase_busy(torch, seed):
             handler = LLMHandler(LLMConfig(provider="cuda", model_name="llama3-8b",
                                            dtype="bfloat16", engine_slots=8,
                                            engine_admit_batch=8, engine_max_seq=max_seq,
-                                           engine_chunk=16, seed=seed))
+                                           engine_chunk=16, seed=seed, engine_prefix_cache=0))
             await handler.start()
             try:
                 reqs = [(p, 64) for p in prompts]
@@ -1221,6 +1312,13 @@ def phase_busy(torch, seed):
                 await handler.stop()
 
         _, rows = asyncio.run(run())
+        # fp32 GEMMs on the CUDA cores: the prefill's fp32 logits head, and
+        # before the tail attention went through K1 the segments' prefix
+        # einsums (~216 ms a paged wave).
+        f32 = [(dev, key, count) for dev, key, count in rows or [] if "f32f32" in key]
+        log(f"  fp32 GEMMs (f32f32) in the first profiled wave ({label}): {len(f32)} kernels, "
+            f"{sum(c for _, _, c in f32)} launches, {sum(d for d, _, _ in f32) / 1e3:.2f} ms"
+            + "".join(f"; {key[:70]} {count} x {dev / 1e3:.2f} ms" for dev, key, count in f32))
         if "wave_k2" not in out:
             # K2's device time a launch inside the wave, beside the harness's.
             k2 = [(dev, count) for dev, key, count in rows if "decode_split" in key]
@@ -1250,7 +1348,7 @@ def phase_full_width_paged(torch, kernels, seed):
     pa = kernels["paged"]
     cfg = LLMConfig(provider="cuda", model_name="llama3-8b", dtype="bfloat16",
                     engine_slots=8, engine_admit_batch=8, engine_max_seq=8192,
-                    engine_chunk=16, seed=seed)
+                    engine_chunk=16, seed=seed, engine_prefix_cache=0)
     requests = [[long_prompt(5900)]] + [[FULL_PROMPT.format(i=i)] for i in range(7)]
     state = {"peak_pages": 0}
 
@@ -1297,15 +1395,16 @@ def phase_full_width_paged(torch, kernels, seed):
 
         # The long prompt heads the queue: the short ones are sent once its
         # segmented prefill has begun, and wait behind it (FIFO admission).
-        tasks = [send(requests[0])]
-        while (batcher._segmenting is None and batcher.prefill_segments == seg0
-               and not tasks[0].done()):
-            await asyncio.sleep(0.001)
-        tasks += [send(p) for p in requests[1:]]
-        replies = await asyncio.gather(*tasks)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        await settle(batcher)
+        with recording_tail_k1(state.setdefault("tail_calls", [])):
+            tasks = [send(requests[0])]
+            while (batcher._segmenting is None and batcher.prefill_segments == seg0
+                   and not tasks[0].done()):
+                await asyncio.sleep(0.001)
+            tasks += [send(p) for p in requests[1:]]
+            replies = await asyncio.gather(*tasks)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            await settle(batcher)
         launches = counts(kernels)
         per_step_check(launches, batcher, batcher.blocks_dispatched - steps0, "paged wave")
         batcher._decode = decode
@@ -1365,7 +1464,206 @@ def phase_full_width_paged(torch, kernels, seed):
     shapes = dict(last=state["last"], table=state["table"], num_pages=out["num_pages"],
                   P=out["P"], R=out["R"], step=out["R"] // 2, model=out["model"],
                   requests=len(requests))
+    # The segments' tail attention: every extend segment and the final one
+    # is one K1 launch a layer over the chain and the segment; the timing
+    # phase takes the widest (the final segment over the longest chain).
+    calls = state["tail_calls"]
+    long_len = max(out["prompt_lens"])
+    A, T, S = max(calls, key=lambda c: c[2])
+    shapes["segment"] = dict(A=A, T=T, plen=S - T, tails=[min(T, long_len - (S - T))],
+                             launches=len(calls), model=out["model"])
+    log(f"  the segments' tail attention: {len(calls)} K1 launches "
+        f"({len(calls) // out['model'].n_layers} tail prefills of {out['model'].n_layers} "
+        f"layers), widest q [{A},{T}] against S {S} (a {S - T}-token chain)")
     return launches, shapes
+
+
+# --------------------------------------------------------------------- #
+# Phase 5d: agent steps sharing a preamble, with the prefix cache
+# --------------------------------------------------------------------- #
+
+# The system message of every request: the leading bytes of the port's
+# protocol rules text (one byte a token).
+PREAMBLE_BYTES = 900
+# Each request's own task, about 120 tokens, differing in every request of
+# every wave from its first digit on.
+AGENT_TASK = ("Request {r}: plan the next step of the document pipeline for report {r}. "
+              "Reply with one JSON object: task_complete, action, arguments, reasoning.")
+
+
+def agent_step_prompts(root, wave, n=8):
+    """The ``n`` requests of one wave: the shared preamble as the system
+    message, then a task of their own."""
+    from pilottai_tpu_torch.engine.types import ChatMessage
+
+    preamble = (root / "pilottai_tpu_torch" / "prompts" / "rules.json").read_text()
+    return [[ChatMessage(role="system", content=preamble[:PREAMBLE_BYTES]),
+             ChatMessage(role="user", content=AGENT_TASK.format(r=wave * n + i))]
+            for i in range(n)]
+
+
+async def agent_wave(handler, prompts, max_new=64):
+    """One wave of greedy JSON requests sent at once: TTFT p50, TPOT p50,
+    decode tokens/s and the wall, and how many replies parse."""
+    from pilottai_tpu_torch.engine.types import GenerationParams
+
+    batcher = handler.backend.batcher
+    batcher.completed.clear()
+    t0 = time.perf_counter()
+    replies = await asyncio.gather(*[
+        handler.generate_response(p, params=GenerationParams(temperature=0.0,
+                                                             max_new_tokens=max_new),
+                                  json_mode=True)
+        for p in prompts])
+    wall = time.perf_counter() - t0
+    timings = list(batcher.completed)
+    return {
+        "ttft_ms": median(t["ttft_s"] for t in timings) * 1e3,
+        "tpot_ms": median((t["e2e_s"] - t["ttft_s"]) / max(t["tokens"] - 1, 1)
+                          for t in timings) * 1e3,
+        "tokens_s": sum(t["tokens"] for t in timings) / wall,
+        "wall_s": wall,
+        "parsed": sum(1 for r in replies if parses(r.content)),
+    }
+
+
+def hit_logits_check(torch, batcher, prompt_ids):
+    """One warm prompt's first-token logits through the hit path (its tail
+    prefilled against the cached prefix: the store's entry on the dense
+    cache, the page chain on the paged one; one K1 launch a layer) against
+    a full K1 prefill of the same prompt, on the engine's own weights and
+    cache while it is idle."""
+    from pilottai_tpu_torch.engine import decode
+    from pilottai_tpu_torch.models.transformer import forward_prefill
+
+    dev, cfg, params = batcher.device, batcher.cfg, batcher.params
+    torch.cuda.synchronize()
+    if batcher.paged:
+        node = batcher.page_index.match(prompt_ids)
+        plen = node.depth * batcher.page_size
+        layer = decode._chain_layer(batcher.cache,
+                                    torch.tensor(node.path_pages, device=dev, dtype=torch.long))
+    else:
+        entry = batcher.prefix_store.match(prompt_ids)
+        plen = len(entry.ids)
+
+        def layer(l):
+            return entry.ks[l], entry.vs[l]
+    tail = prompt_ids[plen:]
+    tokens = torch.zeros((1, batcher._tail_bucket(len(tail))), dtype=torch.long, device=dev)
+    tokens[0, : len(tail)] = torch.tensor(tail, device=dev)
+    hit, _, _ = decode._tail_prefill(params, cfg, layer, plen, tokens,
+                                     torch.tensor([len(tail)], device=dev, dtype=torch.int32))
+    T = len(prompt_ids)
+    ids = torch.tensor([prompt_ids], device=dev)
+    full, _, _ = forward_prefill(params, cfg, ids,
+                                 torch.arange(T, device=dev, dtype=torch.int32)[None],
+                                 torch.tensor([T], device=dev, dtype=torch.int32))
+    out = logits_agreement(hit[0, len(tail) - 1][None], full[0, T - 1][None], [0])
+    out.update(finite=bool(torch.isfinite(hit).all()), plen=plen, tail=len(tail))
+    return out
+
+
+def phase_prefix_agent_steps(torch, kernels, root, seed, paged):
+    """llama3-8b, 8 concurrent agent steps a wave sharing the preamble: a
+    cold wave (it stores entries or pins pages, and captures the graphs),
+    then ``WAVES`` timed waves of new tasks on the same engine with the
+    prefix cache on (every request a hit, its tail prefilled through one K1
+    launch a layer), and the same waves on an engine with the cache off.
+    Returns the hit path's K1 launches and shape."""
+    from pilottai_tpu_torch import LLMConfig, LLMHandler
+
+    waves = [agent_step_prompts(root, w) for w in range(1 + WAVES)]
+    knobs = dict(engine_max_seq=8192) if paged else dict(engine_max_seq=2048)
+    results = {}
+
+    async def serve(prefix_cache):
+        handler = LLMHandler(LLMConfig(
+            provider="cuda", model_name="llama3-8b", dtype="bfloat16", engine_slots=8,
+            engine_admit_batch=8, engine_chunk=16, seed=seed,
+            engine_prefix_cache=prefix_cache, **knobs))
+        await handler.start()
+        batcher = handler.backend.batcher
+        if batcher.paged != paged:
+            raise SystemExit("5d: the engine did not page as configured")
+        seen = record_requests(handler)
+        out = {"cold": await agent_wave(handler, waves[0]), "waves": [], "hits": [],
+               "calls": []}
+        await settle(batcher)
+        out["cold_report"] = batcher.prefix_report()
+        reset(kernels)
+        with recording_tail_k1(out["calls"]):
+            for w in waves[1:]:
+                h0 = batcher.prefix_hits
+                out["waves"].append(await agent_wave(handler, w))
+                out["hits"].append(batcher.prefix_hits - h0)
+            await settle(batcher)
+        out["launches"] = counts(kernels)
+        out["report"] = batcher.prefix_report()
+        out["prompt_lens"] = [len(r.prompt_ids) for r in seen]
+        out["graphs"] = graph_text(batcher)
+        out["model"] = handler.backend.model_cfg
+        out["pages"] = ((batcher.alloc.free_pages, batcher.num_pages - 1) if paged else None)
+        if prefix_cache:
+            out["e2e"] = hit_logits_check(torch, batcher, list(seen[-1].prompt_ids))
+        await handler.stop()
+        return out
+
+    for label, prefix_cache in (("cache on", 4), ("cache off", 0)):
+        log(f"  -- {label} (engine_prefix_cache={prefix_cache})")
+        r = results[label] = asyncio.run(serve(prefix_cache))
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"  cold wave: {r['cold']}; prefix cache after it: {r['cold_report'] or 'off'}")
+        for i, (wave, hits) in enumerate(zip(r["waves"], r["hits"])):
+            log(f"  wave {i + 1}: prefix hits {hits}, " + ", ".join(
+                f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}" for k, v in wave.items()))
+        for key in ("ttft_ms", "tpot_ms", "tokens_s"):
+            vals = [wv[key] for wv in r["waves"]]
+            log(f"  {label}, {WAVES} waves: {key} median {median(vals):.4f} "
+                f"(min {min(vals):.4f}, max {max(vals):.4f})")
+        log(f"  prompt tokens {sorted(set(r['prompt_lens']))}; {r['graphs']}")
+        log(f"  launches over the timed waves: {launches_text(r['launches'])}")
+        if r["report"]:
+            log(f"  prefix cache after the waves: {r['report']}")
+        if any(wv["parsed"] != 8 for wv in r["waves"] + [r["cold"]]):
+            raise SystemExit(f"5d ({label}): a JSON reply does not parse")
+    on, off = results["cache on"], results["cache off"]
+    calls, model = on["calls"], on["model"]
+    shapes = sorted({(A, T, S) for A, T, S in calls})
+    A, T, S = max(calls, key=lambda c: (c[0], c[2])) if calls else (0, 0, 0)
+    kv_mib = A * S * model.n_kv_heads * model.head_dim * 2 / 2**20
+    log(f"  hit path: {len(calls)} K1 launches over the timed waves (q [A, T] against S keys: "
+        f"{shapes}); one layer's keys, expanded over the rows with the tail behind them, "
+        f"{kv_mib:.1f} MiB, and as much for the values (A {A}, S {S}, {model.n_kv_heads} kv "
+        f"heads of {model.head_dim}, bf16), transient")
+    e2e = on["e2e"]
+    e2e_ok = e2e["finite"] and e2e["rel"] <= TOL_E2E and e2e["same_argmax"]
+    log(f"  first-token logits of a warm {len(on['prompt_lens']) and on['prompt_lens'][-1]}-token "
+        f"prompt, hit path (a {e2e['tail']}-token tail against the {e2e['plen']}-token cached "
+        f"prefix) vs a full K1 prefill (bf16): max |diff| {e2e['max_diff']:.3e} over max "
+        f"|logit| {e2e['max_logit']:.3e} = {e2e['rel']:.3e}, tol {TOL_E2E:g}; same argmax "
+        f"{e2e['same_argmax']} (top-2 margin {e2e['margin']:.3e}) {'ok' if e2e_ok else 'FAIL'}")
+    for key in ("ttft_ms", "tpot_ms"):
+        a = median([wv[key] for wv in on["waves"]])
+        b = median([wv[key] for wv in off["waves"]])
+        log(f"  {key} p50 median: cache on {a:.4f}, cache off {b:.4f} ({a / b:.3f} of off)")
+    report = on["report"]
+    if paged:
+        free, usable = on["pages"]
+        log(f"  pages after the waves: {free} free + {report['pinned_pages']} pinned of {usable}")
+        if free + report["pinned_pages"] != usable:
+            raise SystemExit("5d: pages were neither returned nor pinned")
+    else:
+        log(f"  store: {report['entries']} entries of {report['entry_tokens']} tokens, "
+            f"{report['bytes'] / 2**20:.1f} MiB")
+    if any(h != 8 for h in on["hits"]) or report["export_failures"] or any(off["hits"]):
+        raise SystemExit("5d: a warm wave did not hit 8 times, or an export failed")
+    if on["launches"]["flash"] != len(calls) or not calls or not e2e_ok:
+        raise SystemExit("5d: the hit path did not run through K1 alone, or its logits are off")
+    plen = S - T
+    return dict(A=A, T=T, plen=plen, tails=[n - plen for n in on["prompt_lens"][-A:]],
+                launches=len(calls), model=model)
 
 
 # --------------------------------------------------------------------- #
@@ -1740,6 +2038,46 @@ def time_paged(torch, pa, device, timer, gen, dtype, shape, launched, worst, suf
     return e
 
 
+def time_tail(torch, fa, device, timer, gen, shape, worst, name):
+    """Time K1 at one tail prefill's shape in bf16 (kernel, plain version,
+    SDPA with an explicit mask over the same keys): ``A`` rows of ``T``
+    tail queries at positions ``plen ..`` against the ``plen`` prefix keys
+    and the tail, each row valid up to ``plen`` + its tail. Returns its
+    entry of the kernels line; the bound counts the live rows' pairs."""
+    import torch.nn.functional as F
+
+    from pilottai_tpu_torch.ops.attention import prefill_mask
+
+    dtype = torch.bfloat16
+    esz = 2
+    cfg = shape["model"]
+    N, K, H = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    A, T, plen, tails = shape["A"], shape["T"], shape["plen"], shape["tails"]
+    S = plen + T
+    q = randn(torch, gen, (A, T, N, H), dtype, device)
+    k = randn(torch, gen, (A, S, K, H), dtype, device)
+    v = randn(torch, gen, (A, S, K, H), dtype, device)
+    kpos = torch.arange(S, device=device, dtype=torch.int32)[None].repeat(A, 1)
+    qpos = kpos[:, plen:].contiguous()
+    val = torch.tensor([plen + n for n in tails], device=device, dtype=torch.int32)
+    ms = timer.ms(lambda: fa.flash_attention_with_lse(q, k, v, qpos, kpos, val))
+    plain = timer.ms(lambda: fa.flash_attention_plain(q, k, v, qpos, kpos, val))
+    qs = q.transpose(1, 2)
+    ks, vs = (x.transpose(1, 2).repeat_interleave(N // K, dim=1) for x in (k, v))
+    mask = prefill_mask(qpos, kpos, val)[:, None]
+    lib = timer.ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask))
+    pairs = sum(plen * n + n * (n + 1) // 2 for n in tails)
+    flops = 4 * H * N * pairs
+    nbytes = esz * (2 * A * T * N * H) + 2 * esz * int(val.sum()) * K * H + 4 * A * N * T
+    e = entry(name, fa, shape["launches"], worst[("flash", "bfloat16")], ms, plain, lib, flops,
+              nbytes, "bfloat16", tol_text("bfloat16", True),
+              shape=dict(A=A, T=T, S=S, plen=plen, tails=tails))
+    log(f"  K1 {name} bf16 q [{A},{T},{N},{H}] against S {S} (prefix {plen}, tails {tails}): "
+        f"kernel {ms:.4f} ms, plain {plain:.4f} ms, SDPA {lib:.4f} ms, bound "
+        f"{e['bound_ms']:.5f} ms ({e['bound_by']}), {shape['launches']} launches on the path")
+    return e
+
+
 def time_train_kernels(torch, fa, device, timer, gen, dtype, shape, launches, worst,
                        suffix=""):
     """Time K1, K4 and K5 at one training path's attention shape in ``dtype``
@@ -1891,6 +2229,13 @@ def phase_timing(torch, kernels, device, seed, worst, paths):
     out[0]["launches_paged"] = p_launches["flash"]
     out.append(time_paged(torch, pa, device, timer, gen, torch.bfloat16, p_shape,
                           p_launches["paged"], worst))
+    # K1 on the tail prefill: 5d's dense and paged hits, 5b's last segment.
+    out.append(time_tail(torch, fa, device, timer, gen, paths["prefix_dense"], worst,
+                         "flash_fwd_prefix_hit"))
+    out.append(time_tail(torch, fa, device, timer, gen, paths["prefix_paged"], worst,
+                         "flash_fwd_prefix_hit_paged"))
+    out.append(time_tail(torch, fa, device, timer, gen, p_shape["segment"], worst,
+                         "flash_fwd_segment"))
     yard = sdpa_yardstick(torch, device, gen, paths["train_golden"][1])
     g_launches, g_shapes = paths["golden"]
     fp32 = time_kernels(
@@ -1978,6 +2323,13 @@ def main() -> int:
     paths["golden_paged_p8"] = phase_golden(torch, kernels, root,
                                             "protocol_s_paged_golden.json", paged=True,
                                             page_size=8)
+    log("== 4c. golden protocol-s token ids (fp32) with the prefix cache on (the port's "
+        "defaults), each case served twice: dense")
+    phase_golden(torch, kernels, root, "protocol_s_golden.json", paged=False, prefix_cache=None,
+                 repeat=2)
+    log("== 4c. the same, paged cache, chunked prefill")
+    phase_golden(torch, kernels, root, "protocol_s_paged_golden.json", paged=True,
+                 prefix_cache=None, repeat=2)
     log("== 5a. llama3-8b full width, bf16, dense cache, 8 concurrent JSON requests")
     paths["full"] = phase_full_width(torch, kernels, args.seed)
     gc.collect()
@@ -1987,6 +2339,13 @@ def main() -> int:
     log("== 5b. llama3-8b full width, bf16, paged cache (engine_max_seq 8192), "
         "1 long + 7 short JSON requests")
     paths["full_paged"] = phase_full_width_paged(torch, kernels, args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("== 5d. llama3-8b full width, bf16, 8 agent steps a wave sharing a preamble, prefix "
+        "cache on and off: dense (engine_max_seq 2048)")
+    paths["prefix_dense"] = phase_prefix_agent_steps(torch, kernels, root, args.seed, False)
+    log("== 5d. the same, paged (engine_max_seq 8192, pages of 128)")
+    paths["prefix_paged"] = phase_prefix_agent_steps(torch, kernels, root, args.seed, True)
     gc.collect()
     torch.cuda.empty_cache()
     log("== 5c. the device's busy share: five profiled waves of each llama3-8b workload")

@@ -4,8 +4,8 @@ same names).
 
 The JAX config has many more knobs. A knob whose feature comes with a
 later slice is refused with ``NotInSlice``, naming the ROADMAP item that
-brings it — unless it is set to the value this slice already runs (for
-example ``engine_prefix_cache=0``), which is accepted. No knob is ignored
+brings it — unless it is set to the value the port already runs (for
+example ``engine_speculate=0``), which is accepted. No knob is ignored
 silently: an unknown field is a validation error.
 """
 
@@ -24,7 +24,6 @@ class NotInSlice(ValueError):
 
 # ROADMAP.md, "Port slices", in the order they land.
 ROADMAP = {
-    "prefix": "P2 (prefix cache)",
     "spec": "P4 (speculative decoding)",
     "quant": "P5 (weight and KV quantization)",
     "reliability": "P6b (retries, rate limits, deadlines and the reliability ladder)",
@@ -42,8 +41,6 @@ ROADMAP = {
 
 # JAX knob -> (values this slice already runs, ROADMAP item that brings the rest).
 _LATER: Dict[str, Tuple[Tuple[Any, ...], str]] = {
-    "engine_prefix_cache": ((0,), "prefix"),
-    "engine_prefix_min_len": ((None,), "prefix"),
     "engine_speculate": ((0,), "spec"),
     "engine_draft_layers": ((0,), "spec"),
     "quantize": ((None, "none"), "quant"),
@@ -92,9 +89,10 @@ class SamplingConfig(BaseModel):
 
 class LLMConfig(BaseModel):
     """The port's engine configuration: one device, KV in the cache dtype
-    (dense, or paged from ``engine_max_seq`` 4096 on), no prefix cache,
-    no speculation, no quantization. The decode pipeline's five knobs
-    have the JAX package's names, defaults and meaning."""
+    (dense, or paged from ``engine_max_seq`` 4096 on), the device tier of
+    the prefix cache, no speculation, no quantization. The decode
+    pipeline's five knobs and the prefix cache's two have the JAX
+    package's names, defaults and meaning."""
 
     model_config = ConfigDict(extra="forbid", protected_namespaces=())
 
@@ -127,6 +125,14 @@ class LLMConfig(BaseModel):
     engine_kv_pages: Optional[int] = Field(default=None, ge=2)
     # Chunked prefill segment (paged only); default 1024, rounded up to pages; 0 = off.
     engine_prefill_chunk: Optional[int] = Field(default=None, ge=0)
+    # Automatic prefix caching: on the dense cache the store's entries (the
+    # prompts' K/V panels, "cost" eviction), on the paged cache any value
+    # above 0 turns the page index on (a quarter of the pool pinned at
+    # most); 0 = off.
+    engine_prefix_cache: int = Field(default=4, ge=0)
+    # The dense store's entry floor in tokens (None = the 64-token prompt
+    # bucket); shorter prompts never cache.
+    engine_prefix_min_len: Optional[int] = Field(default=None, ge=1)
     seed: int = 0                           # param init seed when no checkpoint
 
     @model_validator(mode="before")

@@ -38,6 +38,20 @@ slots keep decoding between them, then the final segment through
 ``admit_group_prefix_paged``. Selection waits while a segmentation
 runs, so admission order holds.
 
+With ``prefix_cache > 0`` (the default, 4, as in the JAX engine) a
+prompt whose head is cached admits through a tail prefill. On the dense
+cache a ``PrefixStore`` (``engine/prefix_cache.py``) holds up to
+``prefix_cache`` entries of copied panels, each cold admission exporting
+its prompt (less the last token) and the longest common prefixes it
+shares with stored entries; a hit copies the entry into the slots. On the
+paged cache a ``PagePrefixIndex`` (``engine/page_prefix.py``) pins the
+pages every admission fully covers, up to a quarter of the pool, and a
+hit maps the chain into the slots' block tables; admission pressure
+unpins cached pages before the head waits, and a long prompt segments
+only what lies past its chain. Selection keys a group by its hit: one
+cached prefix per admission dispatch. Exports are best-effort, counted
+in ``prefix_export_failures``; ``prefix_report()`` reads the counters.
+
 Retries, rate limits, deadlines and the reliability ladder (ROADMAP P6b)
 and the scheduling policies (P6c) are not here; a failed dispatch fails
 its requests (the JAX batcher re-admits them).
@@ -47,6 +61,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import logging
 import math
 import queue
 import threading
@@ -71,12 +86,17 @@ from pilottai_tpu_torch.engine.decode import (
     AI_TOPK,
     DecodeState,
     admit_group,
+    admit_group_prefix,
     admit_group_prefix_paged,
+    export_prefix,
     extend_prompt_paged,
     pack_admit_meta,
     release_decode,
 )
 from pilottai_tpu_torch.engine.graphs import ChunkRunner
+from pilottai_tpu_torch.engine.kvcache.index import KVCacheIndex
+from pilottai_tpu_torch.engine.page_prefix import PagePrefixIndex
+from pilottai_tpu_torch.engine.prefix_cache import PrefixStore
 from pilottai_tpu_torch.engine.sampling import SamplingState
 from pilottai_tpu_torch.models.common import ModelConfig
 from pilottai_tpu_torch.ops.kernels.paged_attention import check_kernel_shapes
@@ -86,13 +106,18 @@ from pilottai_tpu_torch.ops.paged import PageAllocator, PagedKVCache
 #: Smallest prompt bucket of an admission group (prompts pad up to a power
 #: of two at least this long).
 MIN_BUCKET = 64
-#: Smallest tail bucket of a prefix admission (the final segment of a
-#: chunked prefill), so a short tail is not padded to a whole prompt bucket.
+#: Smallest tail bucket of a prefix admission (a prefix hit, or the final
+#: segment of a chunked prefill), so a short tail is not padded to a whole
+#: prompt bucket.
 MIN_TAIL_BUCKET = 8
+#: Row cap of a dense prefix-store entry: ``min(max_seq, 1024)`` rows.
+PREFIX_MAX_LEN = 1024
 #: Smallest rung of the prefix bound that keys the paged chunk graphs.
 MIN_DECODE_BUCKET = 128
 #: Admission groups the prep thread may stage ahead of the device thread.
 PREP_DEPTH = 2
+
+_log = logging.getLogger("pilottai_tpu_torch.engine.batcher")
 
 
 @dataclass
@@ -111,6 +136,9 @@ class GenRequest:
     # Set by the caller (any thread) to abandon the request; the reader
     # frees its slot at the next fold.
     cancelled: bool = False
+    # The prefix lookup counted this request (a head that waits for pages
+    # is looked up again at every selection, and counted once).
+    kv_counted: bool = False
 
 
 @dataclass
@@ -126,17 +154,23 @@ class _Slot:
 @dataclass
 class _Prepared:
     """One admission group staged for the device thread: slots reserved,
-    pages allocated, numpy staging packed. ``prefix_len`` > 0 is the final
-    segment of a chunked prefill, whose first ``prefix_len`` tokens sit in
-    the ``chain`` pages."""
+    pages allocated, numpy staging packed. ``kind`` is "full" (a cold
+    prefill of ``tokens``), "prefix" (the dense store's ``entry`` holds the
+    first ``prefix_len`` tokens; ``tokens`` are the tails) or
+    "prefix_paged" (the ``chain`` pages hold them: a cached chain, or with
+    ``segmented`` the slot's own chain under the final segment of a
+    chunked prefill)."""
 
     group: List[Tuple[int, GenRequest]]
     tokens: np.ndarray
     meta_i32: np.ndarray
     meta_f32: np.ndarray
     page_rows: Optional[np.ndarray] = None
+    kind: str = "full"
     prefix_len: int = 0
     chain: Optional[np.ndarray] = None
+    entry: Any = None
+    segmented: bool = False
 
 
 @dataclass
@@ -198,6 +232,8 @@ class ContinuousBatcher:
         chunk_policy: str = "adaptive",
         chunk_buckets: Optional[Sequence[int]] = None,
         fused_epilogue: bool = True,
+        prefix_cache: int = 4,
+        prefix_min_len: Optional[int] = None,
     ) -> None:
         if device.type == "cuda" and device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
@@ -272,6 +308,34 @@ class ContinuousBatcher:
         self._seg_pending = False  # a _SegmentStart is staged, not yet taken
         #: Chunked-prefill segments run (``extend_prompt_paged`` calls).
         self.prefill_segments = 0
+        # Automatic prefix caching: a store of copied panels on the dense
+        # cache, a radix of pinned, shared pages on the paged one.
+        self.prefix_store: Optional[PrefixStore] = None
+        self.page_index: Optional[PagePrefixIndex] = None
+        self.kvcache: Optional[KVCacheIndex] = None
+        if prefix_cache > 0:
+            if paged:
+                # At most a quarter of the allocatable pool stays pinned, so
+                # caching never crowds out admissions' working set.
+                self.page_index = PagePrefixIndex(
+                    page_size, capacity_pages=max((self.num_pages - 1) // 4, 1))
+            else:
+                self.prefix_store = PrefixStore(
+                    capacity=prefix_cache,
+                    min_len=prefix_min_len if prefix_min_len is not None else MIN_BUCKET,
+                    max_len=min(max_seq_len, PREFIX_MAX_LEN),
+                    policy="cost",
+                )
+            self.kvcache = KVCacheIndex(prefix_store=self.prefix_store,
+                                        page_index=self.page_index)
+        #: Requests admitted by a tail prefill against a cached prefix (a
+        #: chunked prefill's final segment over its own chain is not one;
+        #: nor is a hit whose rest was long enough to segment), the prompt
+        #: tokens their prefixes saved, and dense exports that failed.
+        self.prefix_admitted = 0
+        self.prefix_tokens_saved = 0
+        self.prefix_export_failures = 0
+        self._warned_min_len = False
         #: Decode steps dispatched, and those in which some slot emitted
         #: (their ratio is the chunk utilization the adaptive policy raises).
         self.blocks_dispatched = 0
@@ -373,6 +437,38 @@ class ContinuousBatcher:
                 "capture_s": self.runner.capture_seconds,
                 "pool_bytes": self.runner.pool_bytes()}
 
+    @property
+    def prefix_lookups(self) -> int:
+        """Prefix-cache lookups, one per request."""
+        return self.kvcache.lookups if self.kvcache is not None else 0
+
+    @property
+    def prefix_hits(self) -> int:
+        """Lookups that found a usable cached prefix (an entry that fits, or
+        a page chain)."""
+        return self.kvcache.hits if self.kvcache is not None else 0
+
+    def prefix_report(self) -> Dict[str, Any]:
+        """The prefix cache: lookups (one per request), hits, requests
+        admitted by a tail prefill against a cached prefix, the prompt
+        tokens saved, failed exports, and the store's entries and bytes
+        (dense) or the pinned pages (paged). Empty when the cache is off."""
+        if self.kvcache is None:
+            return {}
+        with self._lock:
+            out = {"lookups": self.prefix_lookups, "hits": self.prefix_hits,
+                   "admitted": self.prefix_admitted, "tokens_saved": self.prefix_tokens_saved,
+                   "export_failures": self.prefix_export_failures}
+            if self.prefix_store is not None:
+                entries = self.prefix_store.entries()
+                out["entries"] = len(entries)
+                out["entry_tokens"] = sorted((len(e.ids) for e in entries), reverse=True)
+                out["bytes"] = sum(e.nbytes for e in entries)
+            else:
+                out["pinned_pages"] = self.page_index.pinned_pages
+                out["free_pages"] = self.alloc.free_pages
+        return out
+
     # ------------------------------------------------------------------ #
     # Buckets and chunk planning (lock held where noted)
     # ------------------------------------------------------------------ #
@@ -380,6 +476,33 @@ class ContinuousBatcher:
     def _bucket(self, n: int) -> int:
         """Power-of-two prompt bucket with a ``MIN_BUCKET`` floor."""
         return min(_pow2_at_least(n, MIN_BUCKET), self.max_seq_len)
+
+    def _tail_bucket(self, n: int) -> int:
+        """Tail bucket of a prefix admission: the power of two at least
+        ``MIN_TAIL_BUCKET`` (a one-token tail padded to the 64-token prompt
+        floor would cost a good share of a whole prefill)."""
+        return _pow2_at_least(n, MIN_TAIL_BUCKET)
+
+    def _prefix_hit(self, req: GenRequest):
+        """The cached prefix this request admits through (lock held): a
+        ``PageNode`` chain on the paged cache, a ``PrefixEntry`` on the
+        dense one, or None. A dense entry whose tail bucket would pass
+        ``max_seq`` is a miss (``fits``): its tail would land on the
+        cached prefix rows."""
+        if self.kvcache is None:
+            return None
+        count = not req.kv_counted
+        req.kv_counted = True
+        if self.page_index is not None:
+            return self.kvcache.lookup_paged(req.prompt_ids, max_seq_len=self.max_seq_len,
+                                             count=count)
+        n = len(req.prompt_ids)
+
+        def fits(plen: int, p_bucket: int) -> bool:
+            return (plen + self._tail_bucket(n - plen) <= self.max_seq_len
+                    and p_bucket <= self.max_seq_len)
+
+        return self.kvcache.lookup_dense(req.prompt_ids, fits=fits, count=count)
 
     def _decode_bucket(self, n: int) -> int:
         """Prefix-bound rung of a paged chunk: the prompt ladder with a
@@ -510,10 +633,15 @@ class ContinuousBatcher:
                 self._prep_reserved.discard(idx)
             stamps = [(idx, self._gen[idx]) for idx, _ in prep.group]
         try:
-            if prep.prefix_len:
+            if prep.kind == "prefix_paged":
                 self.cache, self.dstate, self.sampling, first = admit_group_prefix_paged(
                     self.params, self.cfg, self.cache, self.dstate, self.sampling, prep.chain,
                     prep.tokens, prep.page_rows, prep.meta_i32, prep.meta_f32,
+                )
+            elif prep.kind == "prefix":
+                self.cache, self.dstate, self.sampling, first = admit_group_prefix(
+                    self.params, self.cfg, self.cache, self.dstate, self.sampling,
+                    prep.entry.ks, prep.entry.vs, prep.tokens, prep.meta_i32, prep.meta_f32,
                 )
             else:
                 self.cache, self.dstate, self.sampling, first = admit_group(
@@ -525,7 +653,81 @@ class ContinuousBatcher:
             self._fail_group(prep.group, exc)
             return
         with self._lock:
+            if prep.kind != "full" and not prep.segmented:
+                self.prefix_admitted += len(prep.group)
+                self.prefix_tokens_saved += prep.prefix_len * len(prep.group)
+            # Pinned before the first token is published: until the reader
+            # folds it, nothing can release these slots' pages.
+            self._maybe_register(prep.group)
             self._first_reads.append((stamps, copy))
+        if prep.kind == "full":
+            self._maybe_export(prep.group)
+
+    def _maybe_register(self, group: List[Tuple[int, GenRequest]]) -> None:
+        """After a paged admission (cold, hit or a final segment), pin the
+        pages each prompt fully covers into the index (lock held). Only
+        blocks inside the prompt are immutable (decode writes start at
+        ``prompt_len``); the partial last block stays private."""
+        if self.page_index is None:
+            return
+        P = self.page_size
+        for idx, req in group:
+            nb = len(req.prompt_ids) // P
+            if nb:
+                pages = [int(p) for p in self.alloc.table[idx, :nb]]
+                self.page_index.register(req.prompt_ids[: nb * P], pages, self.alloc)
+
+    def _maybe_export(self, group: List[Tuple[int, GenRequest]]) -> None:
+        """After a cold dense admission, copy each new prompt's K/V (less
+        its last token, capped at ``max_len`` rows) out of its slot into
+        the store, with the derived longest-common-prefix entries that
+        converge on shared preambles. Best-effort: a failed export never
+        fails a request, but it is counted and logged."""
+        store = self.prefix_store
+        if store is None:
+            return
+        seen = set()
+        for idx, req in group:
+            # The prompt minus its last token: match() takes a proper
+            # prefix, whose tail token gives the first-token logits, so an
+            # exact repeat hits as a one-token tail. Longer prompts store
+            # their first max_len tokens (prefix K/V is suffix-independent).
+            ids = tuple(req.prompt_ids[:-1])[: store.max_len]
+            if len(ids) < store.min_len:
+                self._warn_min_len(len(req.prompt_ids))
+                continue
+            with self._lock:
+                known = ids in seen or store.has(ids)
+            if known:
+                continue
+            seen.add(ids)
+            try:
+                pb = self._bucket(len(ids))
+                ks, vs = export_prefix(self.cache, idx, pb)
+                with self._lock:
+                    store.store(ids, ks, vs, pb)
+                    lcps = store.lcp_candidates(ids)
+                for p in lcps:
+                    pb2 = self._bucket(p)
+                    ks2, vs2 = ks[:, :, :pb2].clone(), vs[:, :, :pb2].clone()
+                    with self._lock:
+                        store.store(ids[:p], ks2, vs2, pb2)
+            except Exception as exc:  # noqa: BLE001 — the cache is optional
+                with self._lock:
+                    self.prefix_export_failures += 1
+                _log.warning("prefix export failed: %s", exc)
+                return
+
+    def _warn_min_len(self, n: int) -> None:
+        """Once per engine: prompts at or below the store's entry floor
+        never cache (an entry is the prompt less its last token)."""
+        if self._warned_min_len:
+            return
+        self._warned_min_len = True
+        _log.warning("admitted prompt of %d token(s) is at or below the dense prefix-store "
+                     "floor (min_len=%d): prompts this short are never cached; lower "
+                     "engine_prefix_min_len if this workload should cache",
+                     n, self.prefix_store.min_len)
 
     def _decode(self) -> None:
         """Plan one decode chunk under the lock, dispatch it and hand it to
@@ -591,11 +793,11 @@ class ContinuousBatcher:
     def _stage(self) -> List[Any]:
         """Select the next group and pack it; a long prompt behind it comes
         as a ``_SegmentStart``."""
-        group, seg = self._select()
+        group, key, seg = self._select()
         items: List[Any] = []
         if group:
             try:
-                items.append(self._prepare(group))
+                items.append(self._prepare(group, key))
             except Exception as exc:  # noqa: BLE001 — host-side staging only
                 self._fail_group(group, exc)
         if seg is not None:
@@ -603,13 +805,19 @@ class ContinuousBatcher:
             items.append(_SegmentStart(seg))
         return items
 
-    def _select(self) -> Tuple[List[Tuple[int, GenRequest]], Optional[List[Any]]]:
-        """FIFO selection of the next admission group; on the paged pool
-        each member's pages are reserved here. A long prompt ends the
-        group and is returned as the segmentation to start. A slot whose
-        release the device has not applied yet is not selectable: that
-        release would stop its new occupant."""
+    def _select(self) -> Tuple[List[Tuple[int, GenRequest]], Any, Optional[List[Any]]]:
+        """FIFO selection of the next admission group and the cached prefix
+        it shares (None for a cold group): members share one prefix hit, so
+        a request whose hit differs starts the next group. On the paged
+        pool each member's pages are reserved here, a hit's chain mapped at
+        the head of its table; when the pool is short, cached pages outside
+        that chain are unpinned before the head waits. A prompt whose part
+        past its cached chain is long ends the group and is returned as the
+        segmentation to start there. A slot whose release the device has
+        not applied yet is not selectable: that release would stop its new
+        occupant."""
         group: List[Tuple[int, GenRequest]] = []
+        group_key = None
         seg = None
         with self._lock:
             free = [i for i, s in enumerate(self._slots)
@@ -619,26 +827,45 @@ class ContinuousBatcher:
                 if req.cancelled or req.future.done():
                     self._backlog.popleft()
                     continue
+                key = self._prefix_hit(req)
+                prefix_pages: Tuple[int, ...] = ()
+                if self.page_index is not None and key is not None:
+                    prefix_pages = key.path_pages
                 long_req = bool(self.prefill_chunk) and (
-                    len(req.prompt_ids) > 2 * self.prefill_chunk
+                    len(req.prompt_ids) - len(prefix_pages) * self.page_size
+                    > 2 * self.prefill_chunk
                 )
-                if group and long_req:
-                    break  # the next selection segments it
+                if group and (key is not group_key or long_req):
+                    break  # the next selection takes it
                 idx = free[len(group)]
                 if self.alloc is not None:
                     # Clamped to slot capacity: decode stops at a full
                     # context anyway, and an unclamped need could never
                     # be met and would stall the FIFO head for good.
                     need = min(len(req.prompt_ids) + req.max_new_tokens, self.max_seq_len)
-                    if not self.alloc.allocate(idx, need):
+                    if not self._reserve_pages(idx, need, prefix_pages):
                         break  # the head waits for pages; folds free them
                 self._backlog.popleft()
                 self._prep_reserved.add(idx)
                 if long_req:
-                    seg = [idx, req, 0]
+                    seg = [idx, req, len(prefix_pages) * self.page_size]
                     break
+                group_key = key
                 group.append((idx, req))
-        return group, seg
+        return group, group_key, seg
+
+    def _reserve_pages(self, idx: int, need: int, prefix_pages: Sequence[int]) -> bool:
+        """Allocate slot ``idx``'s pages (lock held), mapping ``prefix_pages``
+        at the head; when the pool is short, first unpin cached pages that
+        only the index holds, never the chain about to be mapped, so
+        caching never starves admission."""
+        if self.alloc.allocate(idx, need, prefix_pages=prefix_pages):
+            return True
+        short = self.alloc.pages_needed(need) - len(prefix_pages) - self.alloc.free_pages
+        return (self.page_index is not None and short > 0
+                and self.page_index.evict(short, self.alloc,
+                                          protect=frozenset(prefix_pages)) > 0
+                and self.alloc.allocate(idx, need, prefix_pages=prefix_pages))
 
     def _meta(self, group: List[Tuple[int, GenRequest]]):
         mi, mf = pack_admit_meta(len(group), pad_slot=self.n_slots)
@@ -654,14 +881,40 @@ class ContinuousBatcher:
             mf[AF_TOPP, row] = req.top_p
         return mi, mf
 
-    def _prepare(self, group: List[Tuple[int, GenRequest]]) -> _Prepared:
+    def _prepare(self, group: List[Tuple[int, GenRequest]], key: Any = None) -> _Prepared:
+        """Pack a group: the whole prompts for a cold group, the tails past
+        the cached prefix ``key`` (a page chain or a store entry) for a
+        hit."""
         mi, mf = self._meta(group)
-        tokens = np.zeros((len(group), self._bucket(max(len(r.prompt_ids) for _, r in group))),
-                          np.int64)
-        for row, (_, req) in enumerate(group):
-            tokens[row, : len(req.prompt_ids)] = req.prompt_ids
         rows = self._page_rows([idx for idx, _ in group]) if self.alloc is not None else None
-        return _Prepared(group=group, tokens=tokens, meta_i32=mi, meta_f32=mf, page_rows=rows)
+        if key is None:
+            tokens = np.zeros((len(group), self._bucket(max(len(r.prompt_ids) for _, r in group))),
+                              np.int64)
+            for row, (_, req) in enumerate(group):
+                tokens[row, : len(req.prompt_ids)] = req.prompt_ids
+            return _Prepared(group=group, tokens=tokens, meta_i32=mi, meta_f32=mf,
+                             page_rows=rows)
+        if self.page_index is not None:
+            plen = key.depth * self.page_size
+            hit = dict(kind="prefix_paged", chain=np.asarray(key.path_pages, np.int32))
+        else:
+            plen = len(key.ids)
+            hit = dict(kind="prefix", entry=key)
+        return _Prepared(group=group, tokens=self._tails(group, plen, mi), meta_i32=mi,
+                         meta_f32=mf, page_rows=rows, prefix_len=plen, **hit)
+
+    def _tails(self, group: List[Tuple[int, GenRequest]], plen: int, mi: np.ndarray
+               ) -> np.ndarray:
+        """The group's prompt tails past ``plen``, right-padded to their
+        tail bucket; ``AI_LEN`` becomes the tail lengths and ``AI_PLEN``
+        the prefix length."""
+        tails = [req.prompt_ids[plen:] for _, req in group]
+        tokens = np.zeros((len(group), self._tail_bucket(max(len(t) for t in tails))), np.int64)
+        for row, tail in enumerate(tails):
+            tokens[row, : len(tail)] = tail
+            mi[AI_LEN, row] = len(tail)
+        mi[AI_PLEN] = plen
+        return tokens
 
     def _page_rows(self, slots: List[int]) -> np.ndarray:
         """The slots' block-table rows, copied under the lock."""
@@ -670,12 +923,9 @@ class ContinuousBatcher:
 
     def _chain(self, idx: int, done: int) -> np.ndarray:
         """The pages holding slot ``idx``'s first ``done`` (page-aligned)
-        tokens, sentinel-padded to a power of two, copied under the lock."""
-        k = done // self.page_size
-        pages = np.full((_pow2_at_least(k, 1),), self.alloc.sentinel, np.int32)
+        tokens, copied under the lock."""
         with self._lock:
-            pages[:k] = self.alloc.table[idx, :k]
-        return pages
+            return self.alloc.table[idx, : done // self.page_size].copy()
 
     def _end_segmentation(self) -> None:
         self._segmenting = None
@@ -708,15 +958,11 @@ class ContinuousBatcher:
             self.prefill_segments += 1
             self._segmenting[2] = done + seg
             return
-        tail = req.prompt_ids[done:]
-        tokens = np.zeros((1, _pow2_at_least(len(tail), MIN_TAIL_BUCKET)), np.int64)
-        tokens[0, : len(tail)] = tail
         mi, mf = self._meta([(idx, req)])
-        mi[AI_LEN, 0] = len(tail)
-        mi[AI_PLEN] = done
+        tokens = self._tails([(idx, req)], done, mi)
         prep = _Prepared(group=[(idx, req)], tokens=tokens, meta_i32=mi, meta_f32=mf,
-                         page_rows=self._page_rows([idx]), prefix_len=done,
-                         chain=self._chain(idx, done))
+                         page_rows=self._page_rows([idx]), kind="prefix_paged",
+                         prefix_len=done, chain=self._chain(idx, done), segmented=True)
         self._end_segmentation()
         self._dispatch_prefill(prep)
 

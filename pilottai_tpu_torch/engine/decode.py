@@ -1,6 +1,6 @@
 """Chunked decode and fused admission on the dense or the paged KV cache
-(the port's counterpart of ``pilottai_tpu/engine/decode.py``; prefix
-caching and speculation wait for later slices).
+(the port's counterpart of ``pilottai_tpu/engine/decode.py``; speculation
+waits for a later slice).
 
 The chunk keeps the JAX engine's KV trick: inside a chunk the big
 per-layer cache panels are read-only. Each step's fresh K/V goes to a
@@ -23,12 +23,16 @@ a step after every slot is done changes nothing that is folded. With
 the batcher checks per dispatch) the logits projection and the argmax
 run as one vocab-tiled reduction (``fused_greedy_epilogue``).
 
-Long prompts on the paged cache admit in segments (chunked prefill):
-``extend_prompt_paged`` prefills one segment against the pages already
-written, and the final segment admits through
-``admit_group_prefix_paged``. A segment's attention is its own causal
-block through kernel K1 merged with plain-torch statistics over the
-chain of pages before it (``_tail_prefix_attn``).
+A prompt whose head is cached admits through a tail prefill: on the
+dense cache ``admit_group_prefix`` copies a prefix-store entry's panels
+into the slots (``engine/prefix_cache.py``), on the paged cache
+``admit_group_prefix_paged`` reads the shared chain that is mapped into
+the slots' block tables (``engine/page_prefix.py``). Long prompts on the
+paged cache admit in segments (chunked prefill): ``extend_prompt_paged``
+prefills one segment against the pages already written, and the final
+segment admits through ``admit_group_prefix_paged``. Every tail's
+attention, prefix and tail together, is one launch of kernel K1 per layer
+(``_tail_prefix_attn``).
 
 Out-of-range slots — admission padding rows — are dropped explicitly:
 torch raises where JAX's scatters drop and its gathers clamp.
@@ -495,97 +499,63 @@ def admit_group(
 
 
 # --------------------------------------------------------------------- #
-# Chunked prefill on the paged cache
+# Prefix-cached admission and chunked prefill
 # --------------------------------------------------------------------- #
-
-#: Prefix span of one step of the windowed prefix attention, taken when
-#: the one-shot scores would pass ``PREFIX_ONE_SHOT_BYTES``.
-PREFIX_WINDOW = 2048
-PREFIX_ONE_SHOT_BYTES = 1 << 30
 
 
 def _tail_prefix_attn(
     q: torch.Tensor,        # [A, T, N, H] tail queries
     k: torch.Tensor,        # [A, T, K, H] the tail's own keys
     v: torch.Tensor,
-    pk: torch.Tensor,       # [K, Pp, H] the chain's keys (page-gathered)
+    pk: torch.Tensor,       # [K, Pp, H] the cached prefix's keys (Pp >= prefix_len)
     pv: torch.Tensor,
-    prefix_len: int,        # true prefix length (<= Pp); the tail starts there
+    prefix_len: int,        # true prefix length (a host int); the tail starts there
     valid: torch.Tensor,    # [A] true tail lengths
     scale: float,
     softcap: float,
     window: int,
 ) -> torch.Tensor:
     """Tail-prefill attention: every tail query attends the whole prefix
-    and the tail causally. The tail's own block goes through K1 (its
-    ``(o, lse)`` are statistics with ``l = 1``); the prefix is plain
-    torch, windowed over ``PREFIX_WINDOW`` keys when the one-shot scores
-    would pass ``PREFIX_ONE_SHOT_BYTES``, as in the JAX function. Returns
-    ``[A, T, N, H]`` fp32."""
+    and the tail causally, as one launch of kernel K1 over the key set
+    ``prefix[:prefix_len] + tail``. The prefix carries no batch dim (one
+    cached prompt serves the whole group), so it is expanded over the A
+    rows; kv positions run ``0 .. prefix_len + T - 1``, the queries sit at
+    ``prefix_len ..``, ``valid`` is ``prefix_len + valid`` and ``window``
+    is K1's own. ``prefix_len`` is a host int, so no pad key enters the
+    set. Returns ``[A, T, N, H]`` in q's dtype (the JAX function's fp32
+    result, rounded once to the compute dtype by its caller)."""
     A, T, N, H = q.shape
     K = k.shape[2]
-    G = N // K
-    dev = q.device
-    qg = q.reshape(A, T, K, G, H).permute(0, 2, 3, 1, 4).float()   # [A, K, G, T, H]
-    qpos = prefix_len + torch.arange(T, device=dev)
-
-    def prefix_stats(pkw, pvw, col):
-        s = torch.einsum("akgth,kph->akgtp", qg, pkw.float()) * scale
-        if softcap > 0.0:
-            s = torch.tanh(s / softcap) * softcap
-        mask = (col < prefix_len)[None, :]
-        if window > 0:
-            mask = mask & ((qpos[:, None] - col[None, :]) < window)
-        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
-        m = s.amax(dim=-1)
-        p = torch.where(m[..., None] > NEG_INF / 2, torch.exp(s - m[..., None]),
-                        torch.zeros_like(s))
-        acc = torch.einsum("akgtp,kph->akgth", p.to(pvw.dtype).float(), pvw.float())
-        return acc, m, p.sum(dim=-1)
-
-    Pp = pk.shape[1]
-    if (Pp > PREFIX_WINDOW and Pp % PREFIX_WINDOW == 0
-            and 4 * A * K * G * T * Pp > PREFIX_ONE_SHOT_BYTES):
-        acc_p = torch.zeros((A, K, G, T, H), dtype=torch.float32, device=dev)
-        m_p = torch.full((A, K, G, T), NEG_INF, dtype=torch.float32, device=dev)
-        l_p = torch.zeros((A, K, G, T), dtype=torch.float32, device=dev)
-        for w0 in range(0, Pp, PREFIX_WINDOW):
-            cols = torch.arange(w0, w0 + PREFIX_WINDOW, device=dev)
-            acc_p, m_p, l_p = _merge_stats(
-                acc_p, m_p, l_p,
-                *prefix_stats(pk[:, w0:w0 + PREFIX_WINDOW], pv[:, w0:w0 + PREFIX_WINDOW], cols),
-            )
-    else:
-        acc_p, m_p, l_p = prefix_stats(pk, pv, torch.arange(Pp, device=dev))
-
-    positions = qpos.to(torch.int32)[None].expand(A, T).contiguous()
-    o, lse = flash_attention_with_lse(q, k, v, positions, positions, valid, window, scale,
-                                      softcap)
-    acc_b = o.float().reshape(A, T, K, G, H).permute(0, 2, 3, 1, 4)
-    m_b = lse.reshape(A, T, K, G).permute(0, 2, 3, 1)
-    l_b = (m_b > NEG_INF / 2).float()
-    acc, _, l = _merge_stats(acc_p, m_p, l_p, acc_b, m_b, l_b)
-    attn = acc / torch.clamp(l, min=1e-30)[..., None]
-    return attn.permute(0, 3, 1, 2, 4).reshape(A, T, N, H)
+    plen = int(prefix_len)
+    S = plen + T
+    pre_k = pk[:, :plen].transpose(0, 1).to(k.dtype)[None].expand(A, plen, K, H)
+    pre_v = pv[:, :plen].transpose(0, 1).to(v.dtype)[None].expand(A, plen, K, H)
+    keys = torch.cat([pre_k, k], dim=1)                           # [A, S, K, H]
+    vals = torch.cat([pre_v, v], dim=1)
+    kv_pos = torch.arange(S, dtype=torch.int32, device=q.device)[None].expand(A, S)
+    o, _ = flash_attention_with_lse(
+        q, keys, vals, kv_pos[:, plen:], kv_pos, valid.to(torch.int32) + plen, window, scale,
+        softcap,
+    )
+    return o
 
 
-def _chain_tail_prefill(
+def _tail_prefill(
     params: Dict[str, Any],
     cfg: ModelConfig,
-    cache: PagedKVCache,
-    prefix_pages: torch.Tensor,  # [kb] long — the chain's pages, sentinel-padded
-    prefix_len: int,             # page-aligned tokens the chain holds
+    prefix_layer,                # l -> (pk [K, >= prefix_len, H], pv) for layer l
+    prefix_len: int,
     tail_tokens: torch.Tensor,   # [A, Tt] right-padded tails
-    tail_lens: torch.Tensor,     # [A] int32
+    tail_lens: torch.Tensor,     # [A] int32 (0 = padding row)
 ):
-    """Tail prefill against a page chain, one layer at a time: each layer
-    gathers its own chain panels ``[K, kb·P, H]`` (sentinel pads gather
-    the scratch page, masked by ``col < prefix_len``). Returns ``(logits
+    """The one tail prefill of every prefix path (the JAX package's
+    ``_tail_prefill_core`` and ``_chain_tail_prefill``): the tails attend
+    the cached prefix and themselves causally, one layer at a time, each
+    layer's prefix fetched by ``prefix_layer`` (the dense entry's panels,
+    or the chain's pages gathered for that layer only). Returns ``(logits
     [A, Tt, V], ks [L, A, Tt, K, H], vs)``."""
     A, Tt = tail_tokens.shape
-    K, _, P, H = cache.layers[0][0].shape
-    Pb = prefix_pages.shape[0] * P
-    positions = (prefix_len + torch.arange(Tt, dtype=torch.int32, device=tail_tokens.device))
+    positions = prefix_len + torch.arange(Tt, dtype=torch.int32, device=tail_tokens.device)
     positions = positions[None].expand(A, Tt)
     x = _embed(params, tail_tokens)
     sin, cos = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
@@ -593,9 +563,7 @@ def _chain_tail_prefill(
     ks: List[torch.Tensor] = []
     vs: List[torch.Tensor] = []
     for l, lp in enumerate(params["layers"]):
-        k_pool, v_pool = cache.layers[l]
-        pk = k_pool[:, prefix_pages].reshape(K, Pb, H)
-        pv = v_pool[:, prefix_pages].reshape(K, Pb, H)
+        pk, pv = prefix_layer(l)
         h = rms_norm(x, lp["ln1"]["scale"], cfg.rms_eps)
         q, k, v = _qkv(cfg, lp["attn"], h, sin, cos)
         attn = _tail_prefix_attn(
@@ -609,11 +577,31 @@ def _chain_tail_prefill(
     return _unembed(cfg, params, x), torch.stack(ks), torch.stack(vs)
 
 
+def _chain_layer(cache: PagedKVCache, chain: torch.Tensor):
+    """``prefix_layer`` of a page chain: layer l's chain pages gathered into
+    ``[K, len(chain)·P, H]`` panels (a transient copy per layer)."""
+    K, _, P, H = cache.layers[0][0].shape
+    n = chain.shape[0] * P
+
+    def layer(l: int):
+        k_pool, v_pool = cache.layers[l]
+        return k_pool[:, chain].reshape(K, n, H), v_pool[:, chain].reshape(K, n, H)
+
+    return layer
+
+
+def _chain_pages(prefix_pages: np.ndarray, prefix_len: int, page_size: int,
+                 device: torch.device) -> torch.Tensor:
+    """The chain's true pages (any sentinel padding past ``prefix_len``, as
+    the JAX callers pass, dropped) as a device index."""
+    return upload(np.asarray(prefix_pages)[: int(prefix_len) // page_size], torch.long, device)
+
+
 def extend_prompt_paged(
     params: Dict[str, Any],
     cfg: ModelConfig,
     cache: PagedKVCache,
-    prefix_pages: np.ndarray,  # [kb] pages already written for this slot, sentinel-padded
+    prefix_pages: np.ndarray,  # pages already written for this slot (any past prefix_len ignored)
     prefix_len: int,           # page-aligned tokens written
     seg_tokens: np.ndarray,    # [1, Ts] the segment
     seg_lens: Sequence[int],   # [1] its true length
@@ -624,8 +612,9 @@ def extend_prompt_paged(
     slot's pages — nothing else. The slot stays decode-inactive until the
     final segment admits through ``admit_group_prefix_paged``."""
     dev = cache.lengths.device
-    _logits, ks, vs = _chain_tail_prefill(
-        params, cfg, cache, upload(prefix_pages, torch.long, dev), int(prefix_len),
+    chain = _chain_pages(prefix_pages, prefix_len, cache.page_size, dev)
+    _logits, ks, vs = _tail_prefill(
+        params, cfg, _chain_layer(cache, chain), int(prefix_len),
         upload(seg_tokens, torch.long, dev), upload([int(n) for n in seg_lens], torch.int32, dev),
     )
     return write_prompts_paged(cache, upload(page_rows, torch.int32, dev), ks, vs,
@@ -638,23 +627,27 @@ def admit_group_prefix_paged(
     cache: PagedKVCache,
     dstate: DecodeState,
     sampling: SamplingState,
-    prefix_pages: np.ndarray,  # [kb] the chain's pages in order, sentinel-padded
+    prefix_pages: np.ndarray,  # the shared chain's pages in order (any past AI_PLEN ignored)
     tail_tokens: np.ndarray,   # [A, Tt] right-padded prompt tails
     page_rows: np.ndarray,     # [A, max_pages] the slots' block-table rows
     meta_i32: np.ndarray,      # AI_LEN = tail lengths, AI_PLEN = page-aligned prefix length
     meta_f32: np.ndarray,
 ):
     """Admission of prompts whose first ``AI_PLEN`` tokens already sit in
-    the pages at the head of each slot's table — how the final segment of
-    a chunked prefill admits: prefill only the tails against the chain,
-    write them after it, then sample and install as ``admit_group``
-    does. Returns ``(cache, dstate, sampling, first_tokens [A])``."""
+    the chain's pages, mapped at the head of every row's block table: a
+    group of A rows sharing one cached chain (a prefix hit), or the final
+    segment of a chunked prefill over its own chain. Nothing is copied:
+    the chain is read for the tails' attention, only the tails are
+    prefilled and written after it, then the rows are sampled and
+    installed as ``admit_group`` does. Returns ``(cache, dstate,
+    sampling, first_tokens [A])``."""
     dev = dstate.tokens.device
     slots = [int(s) for s in meta_i32[AI_SLOT]]
     tail_lens = [int(n) for n in meta_i32[AI_LEN]]
     prefix_len = int(meta_i32[AI_PLEN, 0])
-    logits, ks, vs = _chain_tail_prefill(
-        params, cfg, cache, upload(prefix_pages, torch.long, dev), prefix_len,
+    chain = _chain_pages(prefix_pages, prefix_len, cache.page_size, dev)
+    logits, ks, vs = _tail_prefill(
+        params, cfg, _chain_layer(cache, chain), prefix_len,
         upload(tail_tokens, torch.long, dev), upload(tail_lens, torch.int32, dev),
     )
     cache = write_prompts_paged(cache, upload(page_rows, torch.int32, dev), ks, vs,
@@ -664,3 +657,63 @@ def admit_group_prefix_paged(
     )
     dstate, sampling, first = _admit_rows(logits, dstate, sampling, meta_i32, meta_f32)
     return cache, dstate, sampling, first
+
+
+def admit_group_prefix(
+    params: Dict[str, Any],
+    cfg: ModelConfig,
+    cache: KVCache,
+    dstate: DecodeState,
+    sampling: SamplingState,
+    prefix_ks: torch.Tensor,   # [L, K, P, H] the cached prefix's keys (P >= AI_PLEN)
+    prefix_vs: torch.Tensor,
+    tail_tokens: np.ndarray,   # [A, Tt] right-padded prompt tails
+    meta_i32: np.ndarray,      # AI_LEN = tail lengths, AI_PLEN = true prefix length
+    meta_f32: np.ndarray,
+):
+    """Admission with a cached prefix on the dense cache: copy the entry's
+    panels into each slot's ``[0, prefix_len)``, prefill only the tails
+    against them and write each tail at ``prefix_len``, then sample and
+    install as ``admit_group`` does; an exact repeat is a one-token tail.
+    Raises when ``prefix_len + Tt`` passes the panel, which would write a
+    tail over its own prefix (the batcher's ``fits`` check makes such an
+    entry a miss). Returns ``(cache, dstate, sampling, first_tokens
+    [A])``."""
+    dev = dstate.tokens.device
+    A, Tt = tail_tokens.shape
+    tail_lens = [int(n) for n in meta_i32[AI_LEN]]
+    prefix_len = int(meta_i32[AI_PLEN, 0])
+    if prefix_len + Tt > cache.max_len:
+        raise ValueError(f"a {Tt}-token tail at {prefix_len} passes the {cache.max_len}-key "
+                         "panel")
+    logits, ks, vs = _tail_prefill(
+        params, cfg, lambda l: (prefix_ks[l], prefix_vs[l]), prefix_len,
+        upload(tail_tokens, torch.long, dev), upload(tail_lens, torch.int32, dev),
+    )
+    rows = [a for a, s in enumerate(meta_i32[AI_SLOT])
+            if tail_lens[a] > 0 and 0 <= int(s) < cache.n_slots]
+    if rows:
+        sl = upload([int(meta_i32[AI_SLOT, a]) for a in rows], torch.long, dev)
+        r = upload(rows, torch.long, dev)
+        for l, (kc, vc) in enumerate(cache.layers):
+            K, H = kc.shape[1], kc.shape[3]
+            kc[sl, :, :prefix_len] = prefix_ks[l][None, :, :prefix_len].to(kc.dtype).expand(
+                len(rows), K, prefix_len, H)
+            vc[sl, :, :prefix_len] = prefix_vs[l][None, :, :prefix_len].to(vc.dtype).expand(
+                len(rows), K, prefix_len, H)
+            kc[sl, :, prefix_len:prefix_len + Tt] = ks[l][r].transpose(1, 2).to(kc.dtype)
+            vc[sl, :, prefix_len:prefix_len + Tt] = vs[l][r].transpose(1, 2).to(vc.dtype)
+        cache.lengths[sl] = upload([prefix_len + tail_lens[a] for a in rows], torch.int32, dev)
+    dstate, sampling, first = _admit_rows(logits, dstate, sampling, meta_i32, meta_f32)
+    return cache, dstate, sampling, first
+
+
+def export_prefix(cache: KVCache, slot: int, p_bucket: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One slot's first ``p_bucket`` cache rows as stacked ``[L, K,
+    p_bucket, H]`` copies (a prefix-store entry's payload), in the cache
+    dtype. Enqueued right after the admission that wrote them, on the same
+    stream, so the rows hold exactly the prompt's K/V."""
+    ks = torch.stack([k[slot, :, :p_bucket] for k, _ in cache.layers])
+    vs = torch.stack([v[slot, :, :p_bucket] for _, v in cache.layers])
+    return ks, vs

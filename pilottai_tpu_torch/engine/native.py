@@ -100,6 +100,8 @@ class TorchEngine(LLMBackend):
             chunk_policy=self.config.engine_chunk_policy,
             chunk_buckets=self.config.engine_chunk_buckets,
             fused_epilogue=self.config.engine_fused_epilogue,
+            prefix_cache=self.config.engine_prefix_cache,
+            prefix_min_len=self.config.engine_prefix_min_len,
         )
         batcher.start()
         self.batcher = batcher

@@ -75,8 +75,10 @@ class PageAllocator:
     """Host-side free list and block table, refcounted: a slot holds one
     ref on every page of its table, and shared ``prefix_pages`` (mapped
     into several slots' tables) return to the free list only when their
-    last ref drops. Same table and free-list order as the JAX allocator,
-    so a scripted sequence gives identical tables on both sides."""
+    last ref drops; the prefix index (``engine/page_prefix.py``) pins the
+    pages it caches with a ref of its own. Same table and free-list order
+    as the JAX allocator, so a scripted sequence gives identical tables on
+    both sides."""
 
     def __init__(self, num_pages: int, page_size: int, n_slots: int,
                  max_pages_per_slot: int) -> None:
@@ -120,6 +122,18 @@ class PageAllocator:
                 self.free.append(p)
         self._held[slot] = []
         self.table[slot, :] = self.sentinel
+
+    def pin(self, page: int) -> None:
+        """Add a ref that no slot holds (the prefix index's pin). The page
+        must be live: pinning a free page is a logic error."""
+        if self.refs[page] <= 0:
+            raise RuntimeError(f"pin of unreferenced page {page}")
+        self.refs[page] += 1
+
+    def unpin(self, page: int) -> None:
+        self.refs[page] -= 1
+        if self.refs[page] == 0:
+            self.free.append(page)
 
     @property
     def free_pages(self) -> int:

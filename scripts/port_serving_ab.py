@@ -8,7 +8,8 @@ Serves ``chip_smoke.py``'s two llama3-8b workloads through tree A
 8192), one ~6050-token prompt (1024-token segments) ahead of seven short
 ones. Each tree runs in a process of its own that imports only that
 tree's package, at that tree's default engine settings, in the order A,
-B, B, A, so drift on the card shows up as A disagreeing with itself. A
+B, B, A, so drift on the card shows up as A disagreeing with itself, with
+the prefix cache off (the waves repeat their prompts). A
 run starts the engine (random bf16 weights from ``--seed``), serves one
 warm-up wave (kernel builds, graph captures, the allocator), then
 ``--waves`` plain waves (``chip_smoke.timed_waves``): TTFT p50, TPOT p50
@@ -76,10 +77,12 @@ def worker(tree: Path, seed: int, waves: int) -> dict:
     for profiled in (False, True):
         for name, (knobs, prompts, long_first) in workloads.items():
             async def run():
+                # The prefix cache off (every tree takes 0): the waves repeat
+                # their prompts, which would turn them into cache hits.
                 handler = LLMHandler(LLMConfig(provider="cuda", model_name="llama3-8b",
                                                dtype="bfloat16", engine_slots=8,
                                                engine_admit_batch=8, engine_chunk=16,
-                                               seed=seed, **knobs))
+                                               seed=seed, engine_prefix_cache=0, **knobs))
                 await handler.start()
                 try:
                     reqs = [(p, 64) for p in prompts]

@@ -60,7 +60,7 @@ def instrument():
 async def main(prof: bool) -> None:
     handler = LLMHandler(LLMConfig(provider="cuda", model_name="llama3-8b", dtype="bfloat16",
                                    engine_slots=8, engine_admit_batch=8, engine_max_seq=2048,
-                                   engine_chunk=16))
+                                   engine_chunk=16, engine_prefix_cache=0))
     await handler.start()
     reqs = [([smoke.FULL_PROMPT.format(i=i)], 64) for i in range(8)]
     batcher = handler.backend.batcher

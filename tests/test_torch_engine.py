@@ -27,7 +27,9 @@ def _one_torch_thread():
 
 
 def _port_handler(**overrides):
-    knobs = dict(GOLDEN["engine"])
+    # The cold path the golden was made on (tests/test_torch_prefix.py
+    # serves it with the prefix cache on).
+    knobs = dict(GOLDEN["engine"], engine_prefix_cache=0)
     knobs.update(overrides)
     return LLMHandler(LLMConfig(
         provider="cpu", model_name="protocol-s", checkpoint_path=PROTOCOL_S_NPZ,
@@ -119,8 +121,17 @@ def test_concurrent_requests_complete_and_sampling_is_seed_deterministic():
 
 
 def test_knobs_outside_the_slice_are_refused():
-    with pytest.raises(ValueError, match="P2"):
-        LLMConfig(engine_prefix_cache=4)
+    # The prefix cache (slice P2) is accepted at the JAX package's defaults;
+    # its host tier and eviction policies wait for P7.
+    cfg = LLMConfig()
+    assert (cfg.engine_prefix_cache, cfg.engine_prefix_min_len) == (4, None)
+    LLMConfig(engine_prefix_cache=8, engine_prefix_min_len=16, engine_kvcache_policy="cost")
+    with pytest.raises(ValueError, match="P7"):
+        LLMConfig(engine_kvcache_host_mb=64)
+    with pytest.raises(ValueError, match="P7"):
+        LLMConfig(engine_kvcache_policy="lru")
+    with pytest.raises(ValueError):
+        LLMConfig(engine_prefix_cache=-1)
     with pytest.raises(ValueError, match="P4"):
         LLMConfig(engine_speculate=4)
     with pytest.raises(ValueError, match="P5"):

@@ -366,8 +366,9 @@ def test_chunked_prefill_segments_and_final_admission_match_jax():
     tail_tokens[0, : len(tail)] = tail
     mi, mf = decode.pack_admit_meta(1, slots=[slot], seeds=[5], budgets=[7], lens=[len(tail)],
                                     prefix_len=done, pad_slot=n_slots)
-    logits, _, _ = decode._chain_tail_prefill(
-        params, cfg, cache, torch.from_numpy(chain(done)).long(), done,
+    pages = torch.from_numpy(chain(done)[: done // Pg]).long()
+    logits, _, _ = decode._tail_prefill(
+        params, cfg, decode._chain_layer(cache, pages), done,
         torch.from_numpy(tail_tokens).long(), torch.tensor([len(tail)], dtype=torch.int32))
     jlogits, _, _ = jdecode._chain_tail_prefill(
         jparams, jcfg, jcache, jnp.asarray(chain(done)), jnp.int32(done),
@@ -393,9 +394,48 @@ def test_chunked_prefill_segments_and_final_admission_match_jax():
     np.testing.assert_array_equal(dstate.done.numpy(), np.asarray(jd.done))
 
 
-def test_windowed_prefix_attention_equals_one_shot(monkeypatch):
-    """The windowed merge over a long chain (taken when the one-shot
-    scores would be too large) gives the one-shot result."""
+def _windowed_tail_attn(q, k, v, pk, pv, plen, valid, scale, softcap, window, span):
+    """The JAX package's tail attention for a long chain, in plain torch:
+    the prefix's statistics over spans of ``span`` keys merged online,
+    then merged with the tail's own causal block."""
+    A, T, N, H = q.shape
+    Kh = k.shape[2]
+    qg = q.reshape(A, T, Kh, N // Kh, H).permute(0, 2, 3, 1, 4)      # [A, K, G, T, H]
+    qpos = plen + torch.arange(T)
+
+    def stats(s, mask, vals, eq):
+        if softcap > 0.0:
+            s = torch.tanh(s / softcap) * softcap
+        s = torch.where(mask, s, torch.full_like(s, decode.NEG_INF))
+        m = s.amax(-1)
+        p = torch.where(m[..., None] > decode.NEG_INF / 2, torch.exp(s - m[..., None]),
+                        torch.zeros_like(s))
+        return torch.einsum(eq, p, vals), m, p.sum(-1)
+
+    acc = torch.zeros(A, Kh, N // Kh, T, H)
+    m = torch.full((A, Kh, N // Kh, T), decode.NEG_INF)
+    l = torch.zeros_like(m)
+    for w0 in range(0, pk.shape[1], span):
+        col = torch.arange(w0, w0 + span)
+        mask = (col < plen)[None, :] & (((qpos[:, None] - col[None, :]) < window)
+                                        if window > 0 else True)
+        s = torch.einsum("akgth,kph->akgtp", qg, pk[:, w0:w0 + span]) * scale
+        acc, m, l = decode._merge_stats(
+            acc, m, l, *stats(s, mask, pv[:, w0:w0 + span], "akgtp,kph->akgth"))
+    e, t = torch.arange(T)[None, :], torch.arange(T)[:, None]
+    mask = (e <= t)[None, None, None] & (e < valid[:, None, None, None, None])
+    if window > 0:
+        mask = mask & ((t - e) < window)
+    s = torch.einsum("akgth,aekh->akgte", qg, k) * scale
+    acc, _, l = decode._merge_stats(acc, m, l, *stats(s, mask, v, "akgte,aekh->akgth"))
+    return (acc / l[..., None]).permute(0, 3, 1, 2, 4).reshape(A, T, N, H)
+
+
+def test_windowed_prefix_attention_equals_one_shot():
+    """The tail attention over a long chain in one K1 launch (here its
+    plain version) equals the windowed merge the JAX package takes when
+    the one-shot scores would be too large: prefix spans merged online,
+    then the tail's causal block."""
     rng = np.random.default_rng(4)
     A, T, N, Kh, Hd, Pp = 2, 8, 4, 2, 16, 64
 
@@ -407,8 +447,5 @@ def test_windowed_prefix_attention_equals_one_shot(monkeypatch):
     args = (q, k, v, pk, pv, 48, valid, Hd**-0.5)
     for softcap, window in ((0.0, 0), (20.0, 30)):
         one_shot = decode._tail_prefix_attn(*args, softcap, window)
-        monkeypatch.setattr(decode, "PREFIX_WINDOW", 16)
-        monkeypatch.setattr(decode, "PREFIX_ONE_SHOT_BYTES", 0)
-        windowed = decode._tail_prefix_attn(*args, softcap, window)
-        monkeypatch.undo()
-        np.testing.assert_allclose(windowed.numpy(), one_shot.numpy(), atol=1e-5, rtol=1e-5)
+        windowed = _windowed_tail_attn(*args, softcap, window, span=16)
+        np.testing.assert_allclose(one_shot.numpy(), windowed.numpy(), atol=1e-5, rtol=1e-5)

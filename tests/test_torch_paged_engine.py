@@ -62,7 +62,9 @@ async def _serve(handler, msg_type, tool_type):
 
 
 def _port_handler(**overrides):
-    knobs = dict(PAGED_GOLDEN["engine"])
+    # The cold path the golden was made on (tests/test_torch_prefix.py
+    # serves it with the prefix cache on).
+    knobs = dict(PAGED_GOLDEN["engine"], engine_prefix_cache=0)
     knobs.update(overrides)
     return LLMHandler(LLMConfig(
         provider="cpu", model_name="protocol-s", checkpoint_path=PROTOCOL_S_NPZ,
@@ -107,9 +109,10 @@ def test_chunked_paged_engine_reproduces_the_jax_paged_golden(monkeypatch):
 
 
 def _tiny_handler(**knobs):
+    # No pages pinned by the prefix cache: every page comes back.
     return LLMHandler(LLMConfig(
         provider="cpu", model_name="llama-tiny", dtype="float32", engine_paged_kv=True,
-        engine_page_size=32, engine_chunk=4, **knobs,
+        engine_page_size=32, engine_chunk=4, engine_prefix_cache=0, **knobs,
     ))
 
 
@@ -175,7 +178,7 @@ def test_failed_prefill_releases_its_pages(monkeypatch, stage):
     cfg = get_model_config("llama-tiny").replace(dtype=torch.float32)
     params = init_params(cfg, torch.Generator().manual_seed(0), device=CPU)
     b = ContinuousBatcher(cfg, params, CPU, n_slots=2, max_seq_len=256, paged=True,
-                          page_size=32, num_pages=9, prefill_chunk=32)
+                          page_size=32, num_pages=9, prefill_chunk=32, prefix_cache=0)
 
     def boom(*a, **k):
         raise RuntimeError("prefill exploded")
@@ -207,7 +210,7 @@ def test_cancel_during_a_segmented_prefill_returns_its_pages(monkeypatch):
     cfg = get_model_config("llama-tiny").replace(dtype=torch.float32)
     params = init_params(cfg, torch.Generator().manual_seed(0), device=CPU)
     b = ContinuousBatcher(cfg, params, CPU, n_slots=2, max_seq_len=256, paged=True,
-                          page_size=32, num_pages=9, prefill_chunk=32)
+                          page_size=32, num_pages=9, prefill_chunk=32, prefix_cache=0)
     req = GenRequest(prompt_ids=list(range(3, 120)), max_new_tokens=4)
     extend = bmod.extend_prompt_paged
 

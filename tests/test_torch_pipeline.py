@@ -250,7 +250,7 @@ KNOBS = {
 
 def _run_batch(cfg, params, is_paged, knobs, reqs=REQS, json_ok=True):
     b = ContinuousBatcher(cfg, params, CPU, n_slots=4, admit_batch=4, max_seq_len=192,
-                          chunk_size=8, paged=is_paged, page_size=16, **knobs)
+                          chunk_size=8, paged=is_paged, page_size=16, prefix_cache=0, **knobs)
     tok = ByteTokenizer()
     # Submitted before the threads start, so admission groups are the
     # same run to run.
@@ -331,7 +331,7 @@ def test_golden_ids_at_the_serial_settings(asset):
             provider="cpu", model_name="protocol-s", checkpoint_path=PROTOCOL_S_NPZ,
             sampling={"temperature": 0.0, "max_new_tokens": golden["max_new_tokens"]},
             engine_pipeline=1, engine_overlap_admission=False, engine_chunk_policy="fixed",
-            engine_fused_epilogue=False, **golden["engine"]))
+            engine_fused_epilogue=False, engine_prefix_cache=0, **golden["engine"]))
         out = []
         try:
             for case in golden["cases"]:
@@ -358,7 +358,8 @@ def _cuda_batcher(model, **knobs):
     cfg, params = model
     dev = torch.device("cuda", torch.cuda.current_device())
     return ContinuousBatcher(cfg, {k: _to(v, dev) for k, v in params.items()}, dev,
-                             n_slots=4, admit_batch=4, max_seq_len=192, chunk_size=8, **knobs)
+                             n_slots=4, admit_batch=4, max_seq_len=192, chunk_size=8,
+                             prefix_cache=0, **knobs)
 
 
 def _to(tree, dev):
