@@ -8,7 +8,10 @@ Run from the repository root on a machine with one NVIDIA H100::
 Phases (each prints its own lines; any failure exits nonzero, and the
 result line is printed only when every phase passed):
 
-1. environment — torch and CUDA versions, the card's name and power limit;
+1. environment — torch and CUDA versions, the card's name and power limit,
+   and whether this torch has the bf16 x bf16 -> fp32 products
+   (``torch.mm``/``torch.bmm`` with ``out_dtype``) the logits head and the
+   speculative verify run on (without them those paths raise);
 2. build — the five hand-written kernels from ``pilottai_tpu_torch/csrc``
    with ``nvcc`` for sm_90a, in parallel;
 3. kernels — K1 (flash prefill), K2 (dense decode statistics) and K3
@@ -31,7 +34,10 @@ result line is printed only when every phase passed):
    window crossing splits, every slot empty, a batch wide enough for one
    split, G = 1 and 8, the golden fp32 step); K1 also at the tail
    prefill's shapes (T tail queries at positions plen.. against plen + T
-   keys: 5d's hits, 5b's last segment, 4c's golden hits). K1, K2 and K3
+   keys: 5d's hits, 5b's last segment, 4c's golden hits); K3 at the
+   speculative verify's shapes (``q_blocks`` D and no ring: llama3-8b at D
+   4 and 8, 16 and 32 query rows a kv head, int8 pools, a window, and D 16,
+   64 rows, through the wrapper's split into two launches). K1, K2 and K3
    also run twice and must give the same bits;
 4. golden — the committed protocol-s checkpoint in fp32 (TF32 off) served
    through ``LLMHandler.generate_response``, once on the dense cache and
@@ -51,7 +57,14 @@ result line is printed only when every phase passed):
    served twice in a row, dense and paged: every serving's ids equal the
    golden's, the lookups hit at least once a case (the second serving),
    no export fails, and every page is back on the free list or pinned by
-   the page index;
+   the page index; (d) the same golden with ``engine_speculate=4``, dense
+   and paged (6/6 each), and again with ``engine_draft_layers=2`` with
+   every slot put in model-draft mode at admission (the hysteresis alone
+   never switches on these prompts), the model-draft graph replayed at
+   least once: the paged verify launches K3 once per layer per block, the
+   dense verify no decode kernel, and each model-draft block adds (D - 1)
+   x draft layers launches of K2 (dense) or K3 (paged); tokens per block
+   printed;
 5. full width — llama3-8b in bf16 from random init, the prefix cache off
    in (a) to (c), (a) on the dense cache:
    8 concurrent JSON-mode greedy requests, the counters > 0, one prompt's
@@ -67,8 +80,9 @@ result line is printed only when every phase passed):
    p50, TPOT p50 and decode tokens/s per wave, with the median and the
    spread; (c) five waves of each under torch.profiler, on fresh engines:
    the device's busy share (after every plain wave: the profiler leaves
-   the process's launches slower), and the fp32 GEMMs the first profiled
-   wave ran; (d) agent steps sharing a preamble: 8 concurrent requests a
+   the process's launches slower), and the fp32 GEMMs and the kinds of
+   GEMM the first profiled wave ran (the logits head's among them); (d)
+   agent steps sharing a preamble: 8 concurrent requests a
    wave whose system message is the leading 900 bytes of the protocol
    rules and whose task differs in every request, dense (2048) and paged
    (8192): a cold wave, then five timed waves with the prefix cache on
@@ -77,6 +91,13 @@ result line is printed only when every phase passed):
    same waves with it off; TTFT and TPOT p50 of both, the store or the
    pinned pages, and one warm request's first-token logits through the
    hit path against a full K1 prefill (``TOL_E2E``, the same argmax);
+   (e) speculative decoding at full width: 8 concurrent JSON requests,
+   dense (2048) and paged (8192), ``engine_speculate=4``, two cold waves
+   (the graphs captured) and five timed waves, and the same waves on an
+   engine with speculation off:
+   TTFT, TPOT p50 and tokens/s of both, tokens per block, the launches per
+   block, and one verify block's row-0 logits of the live wave against the
+   plain decode step's for the same token (``TOL_E2E``, the same argmax);
 7. training — (a) golden: four ``Trainer.step`` calls on protocol-s in fp32
    (TF32 off) from the shipped checkpoint, on ``protocol_batches(4, 512,
    seed=11)``; the batches' hash and each step's loss and grad norm must
@@ -97,7 +118,9 @@ result line is printed only when every phase passed):
    in the harness and in phase 5a's profiled wave), with the yardstick's
    terms printed beside the fp32 rows (torch and CUDA versions, the TF32
    flags, and the device kernels of one SDPA forward and backward, which
-   name the backend that ran); the kernels line, then the result line.
+   name the backend that ran); K3 also at 5e's paged verify shape (D rows
+   a query head), with SDPA over the gathered panels, and K2's entry for the
+   model drafts of 4d; the kernels line, then the result line.
 
 ``--kernels-only`` stops after phase 3; ``--seed`` changes the kernel
 checks' inputs and the llama3-8b and llama3-1b weights.
@@ -461,9 +484,11 @@ def phase_kernels(torch, fa, da, pa, device, seed):
     pgen.manual_seed(seed)
     dgen = torch.Generator(device=device)
     dgen.manual_seed(seed)
-    # And K1 at the prefix cache's tail shapes.
+    # And K1 at the prefix cache's tail shapes, K3 at the verify's.
     hgen = torch.Generator(device=device)
     hgen.manual_seed(seed)
+    vgen = torch.Generator(device=device)
+    vgen.manual_seed(seed)
     results, worst = [], {}
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype)[6:]
@@ -642,6 +667,31 @@ def phase_kernels(torch, fa, da, pa, device, seed):
             ok, err = check_paged(torch, pa, pgen, device, name, dtype, **kw)
             results.append(ok)
             worst[("paged", dn)] = max(worst.get(("paged", dn), 0.0), err)
+        # K3 at the speculative verify's shapes (slice P4): a block of D
+        # rows for each query head (q_blocks D, row d at the slot's
+        # position + d), no ring; llama3-8b at D 4 and 8 (16 and 32 rows a
+        # kv head), int8 pools, a window, and D 16 (64 rows), which the
+        # wrapper splits into two launches of 32 rows.
+        verify_cases = [
+            ("llama3-8b verify D4 16 rows", dict(
+                B=8, N=128, K=8, H=128, P=128, lengths=[260, 900, 0, 1, 2047, 131, 255, 700],
+                q_blocks=4)),
+            ("llama3-8b verify D8 32 rows window", dict(
+                B=8, N=256, K=8, H=128, P=128, lengths=[260, 900, 0, 1, 2047, 131, 255, 700],
+                q_blocks=8, window=300, softcap=30.0, hole=(1, 3))),
+            ("llama3-8b verify D4 int8 window", dict(
+                B=4, N=128, K=8, H=128, P=128, lengths=[3000, 260, 0, 129], q_blocks=4,
+                quantized=True, window=500)),
+            ("llama3-8b verify D16 split 2x32 rows", dict(
+                B=4, N=512, K=8, H=128, P=128, lengths=[1500, 260, 0, 33], q_blocks=16,
+                window=200)),
+            ("protocol-s H32 P16 verify D4", dict(
+                B=4, N=32, K=4, H=32, P=16, lengths=[415, 470, 0, 1], q_blocks=4)),
+        ]
+        for name, kw in verify_cases:
+            ok, err = check_paged(torch, pa, vgen, device, name, dtype, **kw)
+            results.append(ok)
+            worst[("paged", dn)] = max(worst.get(("paged", dn), 0.0), err)
         # K4 and K5: Tq and S off the 64-row tiles (and off K5's 32-row q
         # tiles at head_dim 128), query rows offset into the keys, rows with
         # no key, key positions out of order, G = 1 and G = 4, so the tile
@@ -750,8 +800,45 @@ SERIAL_KNOBS = dict(engine_pipeline=1, engine_overlap_admission=False,
 def graph_text(batcher):
     g = batcher.graph_report()
     pool = "not measured" if g["pool_bytes"] is None else f"{g['pool_bytes'] / 2**20:.1f} MiB"
+    drafts = f", model-draft replays {g['draft_replays']}" if batcher.draft_layers else ""
     return (f"chunk graphs captured {g['graphs']}, capture {g['capture_s']:.3f} s, "
-            f"shared pool {pool}")
+            f"shared pool {pool}{drafts}")
+
+
+def spec_launch_check(launches, batcher, blocks, draft_blocks, label):
+    """Under speculation the paged verify launches K3 once per layer per
+    block and the dense verify no decode kernel (its prefix is plain
+    tensor products); each block dispatched with model drafts adds (D - 1)
+    x draft layers launches of K2 (dense) or K3 (paged)."""
+    D, dl, L = batcher.speculate, batcher.draft_layers, batcher.cfg.n_layers
+    draft = (D - 1) * dl * draft_blocks
+    want = ({"paged": L * blocks + draft, "decode": 0} if batcher.paged
+            else {"paged": 0, "decode": draft})
+    rep = batcher.spec_report()
+    log(f"  {label}: {blocks} verify blocks of {D} dispatched ({draft_blocks} with model drafts "
+        f"through {dl} layers): paged_attention {launches['paged']} (expected "
+        f"{want['paged']}), decode_attention {launches['decode']} (expected "
+        f"{want['decode']}); tokens per block {rep['tokens_per_block']:.3f} ({rep['tokens']} "
+        f"tokens over {rep['blocks']} (block, slot) pairs); {graph_text(batcher)}")
+    if blocks <= 0 or any(launches[k] != v for k, v in want.items()):
+        raise SystemExit(f"{label}: the verify's kernels did not launch as expected")
+
+
+def draft_from_the_model(batcher):
+    """Put every admitted slot in model-draft mode with a low acceptance
+    EMA, so the model-draft variant runs whatever the hysteresis would do
+    (on the golden prompts the n-gram drafts accept about two tokens a
+    block, which never switches a slot over)."""
+    admit = batcher._dispatch_prefill
+
+    def admitted(prep):
+        admit(prep)
+        with batcher._lock:
+            for idx, _ in prep.group:
+                batcher._draft_on[idx] = True
+                batcher._slot_rate[idx] = 1.0
+
+    batcher._dispatch_prefill = admitted
 
 
 def per_step_check(launches, batcher, steps, label):
@@ -766,14 +853,15 @@ def per_step_check(launches, batcher, steps, label):
 
 
 def phase_golden(torch, kernels, root, asset, paged, page_size=None, knobs=None,
-                 prefix_cache=0, repeat=1):
+                 prefix_cache=0, repeat=1, force_drafts=False):
     """Serve the golden prompts with the asset's engine settings (the page
-    size replaced by ``page_size``, the pipeline knobs by ``knobs``, if
-    given) and hold the ids to it. The prefix cache is off, as on the
-    JAX engine that made the golden, unless ``prefix_cache`` is None (the
-    port's default, on); ``repeat`` serves each case that many times in a
-    row, every serving held to the golden. Returns the path's launches
-    and the shapes its fp32 kernels saw."""
+    size replaced by ``page_size``, the pipeline or speculation knobs by
+    ``knobs``, if given) and hold the ids to it. The prefix cache is off,
+    as on the JAX engine that made the golden, unless ``prefix_cache`` is
+    None (the port's default, on); ``repeat`` serves each case that many
+    times in a row, every serving held to the golden; ``force_drafts``
+    puts every slot in model-draft mode at admission. Returns the path's
+    launches and the shapes its fp32 kernels saw."""
     from pilottai_tpu_torch import LLMConfig, LLMHandler, PROTOCOL_S_NPZ
     from pilottai_tpu_torch.engine.types import ChatMessage, ToolSpec
     from pilottai_tpu_torch.models.transformer import forward_prefill
@@ -798,6 +886,8 @@ def phase_golden(torch, kernels, root, asset, paged, page_size=None, knobs=None,
         await handler.start()
         seen = record_requests(handler)
         batcher = handler.backend.batcher
+        if force_drafts:
+            draft_from_the_model(batcher)
         try:
             out = []
             reset(kernels)
@@ -821,7 +911,13 @@ def phase_golden(torch, kernels, root, asset, paged, page_size=None, knobs=None,
     launches = counts(kernels)      # read once the engine's threads have stopped
     n = len(golden["cases"]) * repeat
     log(f"  launches on this run ({n} requests, fp32): {launches_text(launches)}")
-    per_step_check(launches, batcher, batcher.blocks_dispatched, "golden")
+    if batcher.speculate:
+        spec_launch_check(launches, batcher, batcher.blocks_dispatched, batcher.draft_blocks,
+                          "golden")
+        if force_drafts and not batcher.graph_report()["draft_replays"]:
+            raise SystemExit("the model-draft variant was never replayed")
+    else:
+        per_step_check(launches, batcher, batcher.blocks_dispatched, "golden")
     if paged:
         log(f"  paged: {batcher.num_pages} pages of {batcher.page_size}, prefill segments "
             f"{batcher.prefill_segments}, free pages after {batcher.alloc.free_pages}")
@@ -829,7 +925,8 @@ def phase_golden(torch, kernels, root, asset, paged, page_size=None, knobs=None,
                 or batcher.prefill_segments <= 0):
             raise SystemExit("the paged golden path did not run K1, K3 and prefill segments "
                              "with K2 at zero")
-    elif launches["flash"] <= 0 or launches["decode"] <= 0 or launches["paged"] != 0:
+    elif (launches["flash"] <= 0 or launches["paged"] != 0
+          or (launches["decode"] <= 0 and not batcher.speculate)):
         raise SystemExit("the dense golden path did not go through K1 and K2 alone")
     report = batcher.prefix_report()
     if report:
@@ -1003,10 +1100,17 @@ async def timed_waves(handler, requests, label, long_first=False, n_waves=WAVES,
     return waves, rows0
 
 
-async def settle(batcher):
-    """Wait until every dispatched chunk has been handed to the reader and
-    folded: the launch counters and the steps dispatched then agree."""
-    while batcher._results.qsize() or any(s is not None for s in batcher._slots):
+async def settle(batcher, timeout_s=300.0):
+    """Wait until every slot is free and every dispatched chunk has been
+    folded (``blocks_folded``; a tree without it: handed to the reader),
+    so no chunk is still being dispatched: the launch counters and the
+    steps dispatched then agree."""
+    t0 = time.perf_counter()
+    folded = getattr(batcher, "blocks_folded", None)
+    while (batcher._results.qsize() or any(s is not None for s in batcher._slots)
+           or (folded is not None and batcher.blocks_folded != batcher.blocks_dispatched)):
+        if time.perf_counter() - t0 > timeout_s:
+            raise SystemExit(f"the engine did not settle in {timeout_s:.0f} s")
         await asyncio.sleep(0.01)
     await asyncio.sleep(0.05)
 
@@ -1319,6 +1423,15 @@ def phase_busy(torch, seed):
         log(f"  fp32 GEMMs (f32f32) in the first profiled wave ({label}): {len(f32)} kernels, "
             f"{sum(c for _, _, c in f32)} launches, {sum(d for d, _, _ in f32) / 1e3:.2f} ms"
             + "".join(f"; {key[:70]} {count} x {dev / 1e3:.2f} ms" for dev, key, count in f32))
+        # Every kind of GEMM the wave ran, by device time (cuBLAS's nvjet and
+        # xmma kernels, CUTLASS's): the projections', the logits head's (bf16
+        # x bf16 -> fp32 on the card) and the dense ring's fp32 products.
+        gemms = sorted(((dev, key, count) for dev, key, count in rows or []
+                        if any(n in key.lower() for n in ("gemm", "nvjet", "cutlass"))),
+                       reverse=True)
+        log(f"  GEMM kinds in the first profiled wave ({label}): {len(gemms)} kernels")
+        for dev, key, count in gemms[:8]:
+            log(f"    {dev / 1e3:9.2f} ms  {count:6d} x  {key[:110]}")
         if "wave_k2" not in out:
             # K2's device time a launch inside the wave, beside the harness's.
             k2 = [(dev, count) for dev, key, count in rows if "decode_split" in key]
@@ -1664,6 +1777,143 @@ def phase_prefix_agent_steps(torch, kernels, root, seed, paged):
     plen = S - T
     return dict(A=A, T=T, plen=plen, tails=[n - plen for n in on["prompt_lens"][-A:]],
                 launches=len(calls), model=model)
+
+
+# --------------------------------------------------------------------- #
+# Phase 5e: speculative decoding at full width
+# --------------------------------------------------------------------- #
+
+def spec_row0_check(torch, kernels, batcher):
+    """One verify block of the batcher's live state (on its device thread,
+    between two chunks: the current token and n-gram drafts from the
+    history) through ``decode.spec_block_forward``, against the plain
+    decode step for the same current token: row 0's logits of every live
+    slot. Neither writes the cache; the launches are taken back out of the
+    counts. Also returns the slots' lengths and block table (K3's verify
+    timing shape)."""
+    from pilottai_tpu_torch.engine import decode
+
+    cfg, cache, dstate, dev = batcher.cfg, batcher.cache, batcher.dstate, batcher.device
+    mods = (kernels["decode"], kernels["paged"])
+    n0 = [m.launches for m in mods]
+    B, D = batcher.n_slots, batcher.speculate
+    dtype = cache.layers[0][0].dtype
+    pos = cache.lengths.clone()
+    if batcher.paged:
+        table = torch.from_numpy(batcher.alloc.table.copy()).to(dev)
+        n_blocks = max(-(-int(pos.max()) // batcher.page_size), 1)
+        plain_kw = spec_kw = dict(table=table, n_blocks=n_blocks)
+    else:
+        plain_kw, spec_kw = {}, dict(Sb=batcher._decode_bucket(int(pos.max())))
+    want = decode.decode_step_logits(
+        batcher.params, cfg, cache, dstate.tokens, pos, pos - 1,
+        decode.new_rings(cfg, B, batcher.chunk_size, dtype, dev), 0, **plain_kw)
+    drafts = decode._ngram_drafts(batcher.history[:, :-1], pos, dstate.tokens, D - 1)
+    blk = torch.cat([dstate.tokens[:, None], drafts], dim=1)
+    pvec = pos[:, None] + torch.arange(D, device=dev, dtype=pos.dtype)[None, :]
+    h, _ = decode.spec_block_forward(batcher.params, cfg, cache, blk, pvec, pos,
+                                     torch.zeros_like(pos), decode.new_rings(cfg, B, 1, dtype, dev),
+                                     **spec_kw)
+    got = decode._unembed(cfg, batcher.params, h)[:, 0]
+    torch.cuda.synchronize()
+    for m, n in zip(mods, n0):
+        m.launches = n
+    out = logits_agreement(got, want, torch.nonzero(~dstate.done).flatten())
+    out.update(finite=bool(torch.isfinite(got).all()), lengths=pos.tolist(),
+               last=(pos - 1).tolist())
+    if batcher.paged:
+        out["table"] = batcher.alloc.table.tolist()
+    return out
+
+
+def phase_spec_waves(torch, kernels, seed, paged):
+    """llama3-8b, 8 concurrent JSON requests a wave, ``engine_speculate=4``:
+    two cold waves (the graphs captured: the acceptance EMA that sizes the
+    chunks settles in the second, whose chunk buckets the timed waves then
+    reuse; the first dispatch with all eight slots live runs
+    ``spec_row0_check``), then ``WAVES`` timed waves, and the same waves on
+    an engine with speculation off. The prefix cache is off on both: every
+    wave repeats the prompts. Returns the paged verify's K3 launches and
+    shape."""
+    from pilottai_tpu_torch import LLMConfig, LLMHandler
+
+    knobs = dict(engine_max_seq=8192) if paged else dict(engine_max_seq=2048)
+    reqs = [([FULL_PROMPT.format(i=i)], 64) for i in range(8)]
+    results = {}
+
+    async def serve(speculate, label):
+        handler = LLMHandler(LLMConfig(
+            provider="cuda", model_name="llama3-8b", dtype="bfloat16", engine_slots=8,
+            engine_admit_batch=8, engine_chunk=16, seed=seed, engine_prefix_cache=0,
+            engine_speculate=speculate, **knobs))
+        await handler.start()
+        batcher = handler.backend.batcher
+        if batcher.paged != paged:
+            raise SystemExit("5e: the engine did not page as configured")
+        state = {}
+        dispatch = batcher._decode
+
+        def watching():
+            if "e2e" not in state and all(s is not None for s in batcher._slots):
+                state["e2e"] = spec_row0_check(torch, kernels, batcher)
+            dispatch()
+
+        if speculate:
+            batcher._decode = watching
+        torch.cuda.reset_peak_memory_stats()
+        await timed_waves(handler, reqs, f"{label}, cold", n_waves=2)
+        await settle(batcher)
+        batcher._decode = dispatch
+        rep0, blocks0 = batcher.spec_report(), batcher.blocks_dispatched
+        reset(kernels)
+        waves, _ = await timed_waves(handler, reqs, label)
+        await settle(batcher)
+        out = dict(waves=waves, launches=counts(kernels),
+                   blocks=batcher.blocks_dispatched - blocks0, graphs=graph_text(batcher),
+                   peak=torch.cuda.max_memory_allocated(), model=handler.backend.model_cfg,
+                   e2e=state.get("e2e"), num_pages=getattr(batcher, "num_pages", None),
+                   P=batcher.page_size)
+        if speculate:
+            rep = batcher.spec_report()
+            out["tokens_per_block"] = ((rep["tokens"] - rep0["tokens"])
+                                       / max(rep["blocks"] - rep0["blocks"], 1))
+            spec_launch_check(out["launches"], batcher, out["blocks"], 0, f"5e {label}")
+        else:
+            per_step_check(out["launches"], batcher, out["blocks"], f"5e {label}")
+        await handler.stop()
+        return out
+
+    for label, speculate in (("speculation on", 4), ("speculation off", 0)):
+        log(f"  -- {label} (engine_speculate={speculate})")
+        r = results[label] = asyncio.run(serve(speculate, label))
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"  {r['graphs']}; peak memory {r['peak'] / 2**30:.2f} GiB")
+    on, off = results["speculation on"], results["speculation off"]
+    for key in ("ttft_ms", "tpot_ms", "tokens_s"):
+        a = median([wv[key] for wv in on["waves"]])
+        b = median([wv[key] for wv in off["waves"]])
+        log(f"  {key} median over {WAVES} waves: speculation on {a:.4f}, off {b:.4f} "
+            f"({a / b:.3f} of off)")
+    log(f"  tokens per block over the timed waves: {on['tokens_per_block']:.3f} (D 4); "
+        f"{on['blocks']} blocks dispatched against {off['blocks']} plain steps")
+    e2e = on["e2e"]
+    e2e_ok = bool(e2e) and e2e["finite"] and e2e["rel"] <= TOL_E2E and e2e["same_argmax"]
+    if e2e:
+        log(f"  one verify block of the live wave (slot lengths {e2e['lengths']}), row 0 vs the "
+            f"plain decode step for the same token (bf16): max |diff| {e2e['max_diff']:.3e} "
+            f"over max |logit| {e2e['max_logit']:.3e} = {e2e['rel']:.3e}, tol {TOL_E2E:g}; "
+            f"same argmax {e2e['same_argmax']} (smallest top-2 margin {e2e['margin']:.3e}); "
+            f"finite {e2e['finite']} {'ok' if e2e_ok else 'FAIL'}")
+    else:
+        log("  the cold wave never had all eight slots live: no row-0 check")
+    if not e2e_ok:
+        raise SystemExit("5e: a verify block's row-0 logits disagree with the plain step's")
+    if not paged:
+        return None
+    return on["launches"]["paged"], dict(
+        last=e2e["last"], table=e2e["table"], num_pages=on["num_pages"], P=on["P"], D=4,
+        model=on["model"], blocks=on["blocks"])
 
 
 # --------------------------------------------------------------------- #
@@ -2038,6 +2288,64 @@ def time_paged(torch, pa, device, timer, gen, dtype, shape, launched, worst, suf
     return e
 
 
+def time_paged_verify(torch, pa, device, timer, gen, dtype, shape, launched, worst):
+    """Time K3 at the speculative verify's shape (kernel, plain version,
+    SDPA over panels gathered beforehand): 5e's paged slots and block
+    table, q ``[B, N·D, H]`` with ``q_blocks`` D and no ring. Returns its
+    entry of the kernels line."""
+    import torch.nn.functional as F
+
+    from pilottai_tpu_torch.ops.paged import gather_pages
+
+    dn = str(dtype)[6:]
+    esz = torch.finfo(dtype).bits // 8
+    cfg, D = shape["model"], shape["D"]
+    N, K, H = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    G = N // K
+    P, num_pages, last = shape["P"], shape["num_pages"], shape["last"]
+    B = len(last)
+    sentinel = num_pages - 1
+    table = torch.tensor([[p if p >= 0 else sentinel for p in row] for row in shape["table"]],
+                         device=device, dtype=torch.int32)
+    n_blocks = max(-(-(max(last) + 1) // P), 1)
+    k_pool = randn(torch, gen, (K, num_pages, P, H), dtype, device)
+    v_pool = randn(torch, gen, (K, num_pages, P, H), dtype, device)
+    q = randn(torch, gen, (B, N * D, H), dtype, device)
+    lst = torch.tensor(last, device=device, dtype=torch.int32)
+    kw = dict(q_positions=lst + 1, n_blocks=n_blocks, scale=H**-0.5, q_blocks=D)
+    k3 = timer.ms(lambda: pa.paged_decode_attention(q, k_pool, v_pool, table, lst, **kw))
+    k3_warm = timer.ms(lambda: pa.paged_decode_attention(q, k_pool, v_pool, table, lst, **kw),
+                       flush=False)
+    k3_plain = timer.ms(lambda: pa.paged_decode_attention_plain(q, k_pool, v_pool, table, lst,
+                                                                **kw))
+
+    def gather():
+        return (gather_pages(k_pool, table, n_blocks).repeat_interleave(G, dim=1),
+                gather_pages(v_pool, table, n_blocks).repeat_interleave(G, dim=1))
+
+    gather_ms = timer.ms(gather)
+    kg, vg = gather()
+    col = torch.arange(n_blocks * P, device=device)
+    live = (table[:, :n_blocks] != sentinel).repeat_interleave(P, dim=1)
+    mask = ((col[None, :] <= lst[:, None]) & live)[:, None, None, :]
+    qv = q.reshape(B, N, D, H)             # rows (kv head, query head, d) = (head, d)
+    k3_lib = timer.ms(lambda: F.scaled_dot_product_attention(qv, kg, vg, attn_mask=mask))
+    keys = sum(n + 1 for n in last if n >= 0)
+    flops = 4 * H * N * D * keys
+    nbytes = (2 * esz * keys * K * H + esz * B * N * D * H + 4 * B * n_blocks + 2 * 4 * B
+              + 4 * B * N * D * H + 2 * 4 * B * N * D)
+    blocks = shape["blocks"]
+    e = entry("paged_attention_verify", pa, launched, worst[("paged", dn)], k3, k3_plain, k3_lib,
+              flops, nbytes, dn, tol_text(dn, False), gather_ms=gather_ms, warm_ms=k3_warm,
+              q_blocks=D, launches_per_block=launched / max(blocks, 1))
+    log(f"  K3 verify    {dn:<8} q [{B},{N}x{D},{H}] q_blocks {D} P {P} pool {num_pages} pages, "
+        f"last {last}: kernel {k3:.4f} ms (L2 warm {k3_warm:.4f} ms), plain {k3_plain:.4f} ms, "
+        f"SDPA {k3_lib:.4f} ms (+ gather {gather_ms:.4f} ms), bound {e['bound_ms']:.5f} ms "
+        f"({e['bound_by']}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP); "
+        f"{launched} launches over {blocks} blocks in 5e")
+    return e
+
+
 def time_tail(torch, fa, device, timer, gen, shape, worst, name):
     """Time K1 at one tail prefill's shape in bf16 (kernel, plain version,
     SDPA with an explicit mask over the same keys): ``A`` rows of ``T``
@@ -2236,6 +2544,9 @@ def phase_timing(torch, kernels, device, seed, worst, paths):
                          "flash_fwd_prefix_hit_paged"))
     out.append(time_tail(torch, fa, device, timer, gen, p_shape["segment"], worst,
                          "flash_fwd_segment"))
+    v_launches, v_shape = paths["spec_paged"]
+    out.append(time_paged_verify(torch, pa, device, timer, gen, torch.bfloat16, v_shape,
+                                 v_launches, worst))
     yard = sdpa_yardstick(torch, device, gen, paths["train_golden"][1])
     g_launches, g_shapes = paths["golden"]
     fp32 = time_kernels(
@@ -2250,6 +2561,14 @@ def phase_timing(torch, kernels, device, seed, worst, paths):
     fp32.append(time_paged(torch, pa, device, timer, gen, torch.float32, gp_shape,
                            gp_launches["paged"], worst, suffix="_fp32",
                            launches_p8=p8_launches["paged"]))
+    # K2 in 4d's model drafts (one row a slot over the dense panel, the shape
+    # of the golden decode step timed above): the same times, its launches.
+    draft = dict(fp32[1], name="decode_attention_draft_fp32",
+                 launches=paths["golden_drafts"][0]["decode"],
+                 shape="4d's model drafts: the golden decode step's")
+    log(f"  K2 in 4d's model drafts: {draft['launches']} launches at the golden step's shape "
+        f"({draft['ms']:.4f} ms)")
+    fp32.append(draft)
     t_launches, t_shape = paths["train_full"]
     out += time_train_kernels(torch, fa, device, timer, gen, torch.bfloat16, t_shape,
                               t_launches, worst)
@@ -2290,6 +2609,9 @@ def main() -> int:
     log(f"  python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.device_count()} device(s): {torch.cuda.get_device_name(0)}")
     log(smi)
+    log("  bf16 x bf16 -> fp32 products (the logits head, the speculative verify): "
+        f"aten::mm.dtype {'present' if hasattr(torch.ops.aten.mm, 'dtype') else 'ABSENT'}, "
+        f"aten::bmm.dtype {'present' if hasattr(torch.ops.aten.bmm, 'dtype') else 'ABSENT'}")
 
     log("== 2. build (nvcc, sm_90a, the five kernels in parallel)")
     t0 = time.perf_counter()
@@ -2330,6 +2652,16 @@ def main() -> int:
     log("== 4c. the same, paged cache, chunked prefill")
     phase_golden(torch, kernels, root, "protocol_s_paged_golden.json", paged=True,
                  prefix_cache=None, repeat=2)
+    for label, asset, paged in (("dense", "protocol_s_golden.json", False),
+                                ("paged cache, chunked prefill", "protocol_s_paged_golden.json",
+                                 True)):
+        log(f"== 4d. golden protocol-s token ids (fp32) with engine_speculate=4: {label}")
+        phase_golden(torch, kernels, root, asset, paged=paged, knobs=dict(engine_speculate=4))
+        log(f"== 4d. again with engine_draft_layers=2, every slot drafting through the model: "
+            f"{label}")
+        paths["golden_drafts_paged" if paged else "golden_drafts"] = phase_golden(
+            torch, kernels, root, asset, paged=paged,
+            knobs=dict(engine_speculate=4, engine_draft_layers=2), force_drafts=True)
     log("== 5a. llama3-8b full width, bf16, dense cache, 8 concurrent JSON requests")
     paths["full"] = phase_full_width(torch, kernels, args.seed)
     gc.collect()
@@ -2346,6 +2678,13 @@ def main() -> int:
     paths["prefix_dense"] = phase_prefix_agent_steps(torch, kernels, root, args.seed, False)
     log("== 5d. the same, paged (engine_max_seq 8192, pages of 128)")
     paths["prefix_paged"] = phase_prefix_agent_steps(torch, kernels, root, args.seed, True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("== 5e. llama3-8b full width, bf16, engine_speculate=4, 8 concurrent JSON requests, "
+        "speculation on and off: dense (engine_max_seq 2048)")
+    phase_spec_waves(torch, kernels, args.seed, paged=False)
+    log("== 5e. the same, paged (engine_max_seq 8192, pages of 128)")
+    paths["spec_paged"] = phase_spec_waves(torch, kernels, args.seed, paged=True)
     gc.collect()
     torch.cuda.empty_cache()
     log("== 5c. the device's busy share: five profiled waves of each llama3-8b workload")

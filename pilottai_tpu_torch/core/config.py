@@ -5,7 +5,7 @@ same names).
 The JAX config has many more knobs. A knob whose feature comes with a
 later slice is refused with ``NotInSlice``, naming the ROADMAP item that
 brings it — unless it is set to the value the port already runs (for
-example ``engine_speculate=0``), which is accepted. No knob is ignored
+example ``engine_kv_quantize=None``), which is accepted. No knob is ignored
 silently: an unknown field is a validation error.
 """
 
@@ -24,7 +24,6 @@ class NotInSlice(ValueError):
 
 # ROADMAP.md, "Port slices", in the order they land.
 ROADMAP = {
-    "spec": "P4 (speculative decoding)",
     "quant": "P5 (weight and KV quantization)",
     "reliability": "P6b (retries, rate limits, deadlines and the reliability ladder)",
     "sched": "P6c (scheduling policies: priority, gangs and pre-warming)",
@@ -41,8 +40,6 @@ ROADMAP = {
 
 # JAX knob -> (values this slice already runs, ROADMAP item that brings the rest).
 _LATER: Dict[str, Tuple[Tuple[Any, ...], str]] = {
-    "engine_speculate": ((0,), "spec"),
-    "engine_draft_layers": ((0,), "spec"),
     "quantize": ((None, "none"), "quant"),
     "engine_quant": ((None, "none"), "quant"),
     "engine_quant_group": ((128,), "quant"),
@@ -90,9 +87,9 @@ class SamplingConfig(BaseModel):
 class LLMConfig(BaseModel):
     """The port's engine configuration: one device, KV in the cache dtype
     (dense, or paged from ``engine_max_seq`` 4096 on), the device tier of
-    the prefix cache, no speculation, no quantization. The decode
-    pipeline's five knobs and the prefix cache's two have the JAX
-    package's names, defaults and meaning."""
+    the prefix cache, speculative decoding, no quantization. The decode
+    pipeline's five knobs, the prefix cache's two and speculation's two
+    have the JAX package's names, defaults and meaning."""
 
     model_config = ConfigDict(extra="forbid", protected_namespaces=())
 
@@ -133,6 +130,12 @@ class LLMConfig(BaseModel):
     # The dense store's entry floor in tokens (None = the 64-token prompt
     # bucket); shorter prompts never cache.
     engine_prefix_min_len: Optional[int] = Field(default=None, ge=1)
+    # Speculative decoding: verify blocks of this many tokens a weight pass,
+    # drafted from each slot's own history (0 = off; values below 2 are off).
+    engine_speculate: int = Field(default=0, ge=0)
+    # With engine_speculate: the target's first N layers (at most n_layers -
+    # 1) draft for slots whose n-gram acceptance collapses (0 = off).
+    engine_draft_layers: int = Field(default=0, ge=0)
     seed: int = 0                           # param init seed when no checkpoint
 
     @model_validator(mode="before")

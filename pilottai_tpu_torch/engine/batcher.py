@@ -52,6 +52,15 @@ only what lies past its chain. Selection keys a group by its hit: one
 cached prefix per admission dispatch. Exports are best-effort, counted
 in ``prefix_export_failures``; ``prefix_report()`` reads the counters.
 
+With ``speculate`` D >= 2 each dispatch is a speculative chunk
+(``decode.decode_chunk_spec``): verify blocks of D rows a slot, drafts
+from the slot's token history (``history``, installed at every admission
+kind) and, with ``draft_layers``, from the model's first layers for the
+slots whose own acceptance has collapsed (``_slot_rate`` and
+``_draft_on``, a per-slot EMA with hysteresis, updated at fold behind the
+generation stamp). The tokens-per-block EMA ``_spec_rate`` sizes the
+chunks and the in-flight estimates.
+
 Retries, rate limits, deadlines and the reliability ladder (ROADMAP P6b)
 and the scheduling policies (P6c) are not here; a failed dispatch fails
 its requests (the JAX batcher re-admits them).
@@ -171,6 +180,7 @@ class _Prepared:
     chain: Optional[np.ndarray] = None
     entry: Any = None
     segmented: bool = False
+    full_tokens: Optional[np.ndarray] = None  # whole prompts of a prefix kind (the history)
 
 
 @dataclass
@@ -234,6 +244,8 @@ class ContinuousBatcher:
         fused_epilogue: bool = True,
         prefix_cache: int = 4,
         prefix_min_len: Optional[int] = None,
+        speculate: int = 0,
+        draft_layers: int = 0,
     ) -> None:
         if device.type == "cuda" and device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
@@ -336,15 +348,51 @@ class ContinuousBatcher:
         self.prefix_tokens_saved = 0
         self.prefix_export_failures = 0
         self._warned_min_len = False
-        #: Decode steps dispatched, and those in which some slot emitted
-        #: (their ratio is the chunk utilization the adaptive policy raises).
+        #: Decode steps (verify blocks under speculation) dispatched, those
+        #: in which some slot emitted (their ratio is the chunk utilization
+        #: the adaptive policy raises), and those folded: a dispatch counts
+        #: when it is planned, so folded == dispatched once no chunk is in
+        #: flight or being dispatched.
         self.blocks_dispatched = 0
         self.blocks_useful = 0
+        self.blocks_folded = 0
+        # Speculative decoding: verify blocks of ``speculate`` rows (below 2
+        # is off), drafts from each slot's history and, with draft_layers,
+        # from the model's first layers for the slots whose n-gram
+        # acceptance collapsed.
+        self.speculate = speculate if speculate >= 2 else 0
+        self.draft_layers = (min(draft_layers, cfg.n_layers - 1)
+                             if draft_layers > 0 and self.speculate else 0)
+        if self.speculate:
+            R = self.chunk_size * self.speculate
+            if not paged and R + 1 > self.max_seq_len:
+                raise ValueError(f"a chunk of {self.chunk_size} blocks of {self.speculate} "
+                                 f"needs a ring of {R + 1} rows, past max_seq {self.max_seq_len}")
+            if paged and device.type == "cuda":
+                check_kernel_shapes(cfg.n_kv_heads * self.speculate, cfg.n_kv_heads,
+                                    cfg.head_dim, page_size, q_blocks=self.speculate)
+        #: Tokens-per-block EMA (1: nothing accepted; up to D), which sizes
+        #: the chunks and the in-flight estimates.
+        self._spec_rate = 1.0
+        #: Per-slot tokens-per-block EMA and the model-draft mode it drives.
+        self._slot_rate = np.full((n_slots,), float(max(self.speculate, 1)), np.float32)
+        self._draft_on = np.zeros((n_slots,), bool)
+        #: Tokens folded from speculative chunks and the (block, slot) pairs
+        #: that emitted them (their ratio: tokens per block), and the blocks
+        #: dispatched in the model-draft variant.
+        self.spec_tokens = 0
+        self.spec_blocks = 0
+        self.draft_blocks = 0
+        # The slots' token ids by position, the drafts' source; the last
+        # column is a sink for dropped writes.
+        self.history = (torch.zeros((n_slots, self.max_seq_len + 1), dtype=torch.int32,
+                                    device=device) if self.speculate else None)
         self.dstate = DecodeState.create(n_slots, device)
         self.sampling = SamplingState.create(n_slots, device)
         self.runner = ChunkRunner(
             params, cfg, self.cache, self.dstate, self.sampling, device,
             max_pages=self.alloc.table.shape[1] if self.alloc is not None else None,
+            history=self.history, speculate=self.speculate, draft_layers=self.draft_layers,
         )
         self.stream = torch.cuda.Stream(device) if device.type == "cuda" else None
         self._slots: List[Optional[_Slot]] = [None] * n_slots
@@ -431,11 +479,12 @@ class ContinuousBatcher:
 
     def graph_report(self) -> Dict[str, Any]:
         """The chunk graphs: how many were captured, the seconds capture
-        took, and the bytes their shared memory pool holds (None where it
-        is not known)."""
+        took, the bytes their shared memory pool holds (None where it is
+        not known), and the replays of model-draft variants."""
         return {"graphs": self.runner.graphs_captured,
                 "capture_s": self.runner.capture_seconds,
-                "pool_bytes": self.runner.pool_bytes()}
+                "pool_bytes": self.runner.pool_bytes(),
+                "draft_replays": self.runner.draft_replays}
 
     @property
     def prefix_lookups(self) -> int:
@@ -447,6 +496,23 @@ class ContinuousBatcher:
         """Lookups that found a usable cached prefix (an entry that fits, or
         a page chain)."""
         return self.kvcache.hits if self.kvcache is not None else 0
+
+    def spec_report(self) -> Dict[str, Any]:
+        """Speculative decoding: the block rows, tokens folded from
+        speculative chunks, the (block, slot) pairs that emitted them and
+        their ratio (tokens per block), the acceptance EMA, the slots in
+        model-draft mode and the blocks dispatched in the model-draft
+        variant.
+        Empty when speculation is off."""
+        if not self.speculate:
+            return {}
+        with self._lock:
+            return {"draft_len": self.speculate, "tokens": self.spec_tokens,
+                    "blocks": self.spec_blocks,
+                    "tokens_per_block": self.spec_tokens / max(self.spec_blocks, 1),
+                    "rate_ema": self._spec_rate, "draft_layers": self.draft_layers,
+                    "draft_on": int(self._draft_on.sum()),
+                    "draft_blocks": self.draft_blocks}
 
     def prefix_report(self) -> Dict[str, Any]:
         """The prefix cache: lookups (one per request), hits, requests
@@ -514,25 +580,32 @@ class ContinuousBatcher:
 
     def _chunk_useful(self) -> bool:
         """Some occupied slot still has budget that its folded tokens and
-        the chunks in flight do not cover (lock held)."""
+        the chunks in flight do not cover (lock held). Under speculation
+        half a block's worth of the acceptance EMA is tolerated: the EMA
+        sits just under D, and an exact check would dispatch a whole
+        wasted weight pass at a wave's end, where a miss costs one fold."""
+        tol = self._spec_rate / 2 if self.speculate else 0.0
         return any(
-            max(0, len(s.generated) - 1) + s.est_pending < s.request.max_new_tokens - 1
+            max(0, len(s.generated) - 1) + s.est_pending < s.request.max_new_tokens - 1 - tol
             for s in self._occupied()
         )
 
     def _pick_chunk_blocks(self) -> int:
-        """The next dispatch's steps (lock held). "fixed": ``chunk_size``.
-        "adaptive": each live slot's remaining need (budget less what is
-        folded and in flight), the mean of them, or the smallest while
-        requests wait for a slot (a finishing slot's release then comes at
-        the earliest chunk boundary); quantised up to the bucket ladder."""
+        """The next dispatch's steps, or verify blocks (lock held).
+        "fixed": ``chunk_size``. "adaptive": each live slot's remaining
+        need (budget less what is folded and in flight) in blocks at the
+        acceptance EMA's tokens a block, the mean of them, or the smallest
+        while requests wait for a slot (a finishing slot's release then
+        comes at the earliest chunk boundary); quantised up to the bucket
+        ladder."""
         if self.chunk_policy != "adaptive":
             return self.chunk_size
+        rate = max(self._spec_rate if self.speculate else 1.0, 0.5)
         needs = []
         for s in self._occupied():
             rem = s.request.max_new_tokens - 1 - max(0, len(s.generated) - 1) - s.est_pending
             if rem > 0:
-                needs.append(max(math.ceil(rem), 1))
+                needs.append(max(int(-(-rem // rate)), 1))
         if not needs:
             return self.chunk_buckets[0]
         target = sum(needs) / len(needs)
@@ -631,22 +704,32 @@ class ContinuousBatcher:
                 self._slots[idx] = _Slot(request=req, prompt_len=len(req.prompt_ids))
                 self._gen[idx] += 1
                 self._prep_reserved.discard(idx)
+                # A new occupant drafts from its history first; its own EMA
+                # moves it to model drafts only if its output proves novel.
+                self._slot_rate[idx] = float(max(self.speculate, 1))
+                self._draft_on[idx] = False
             stamps = [(idx, self._gen[idx]) for idx, _ in prep.group]
+        full = None
+        if self.history is not None and prep.kind != "full":
+            full = self._full_prompts(prep.group)
         try:
             if prep.kind == "prefix_paged":
                 self.cache, self.dstate, self.sampling, first = admit_group_prefix_paged(
                     self.params, self.cfg, self.cache, self.dstate, self.sampling, prep.chain,
                     prep.tokens, prep.page_rows, prep.meta_i32, prep.meta_f32,
+                    history=self.history, full_tokens=full,
                 )
             elif prep.kind == "prefix":
                 self.cache, self.dstate, self.sampling, first = admit_group_prefix(
                     self.params, self.cfg, self.cache, self.dstate, self.sampling,
                     prep.entry.ks, prep.entry.vs, prep.tokens, prep.meta_i32, prep.meta_f32,
+                    history=self.history, full_tokens=full,
                 )
             else:
                 self.cache, self.dstate, self.sampling, first = admit_group(
                     self.params, self.cfg, self.cache, self.dstate, self.sampling, prep.tokens,
                     prep.meta_i32, prep.meta_f32, page_rows=prep.page_rows,
+                    history=self.history,
                 )
             copy = _HostCopy([first])
         except Exception as exc:  # noqa: BLE001 — contain to this group
@@ -662,6 +745,15 @@ class ContinuousBatcher:
             self._first_reads.append((stamps, copy))
         if prep.kind == "full":
             self._maybe_export(prep.group)
+
+    @staticmethod
+    def _full_prompts(group: List[Tuple[int, GenRequest]]) -> np.ndarray:
+        """A prefix admission's whole prompts, right-padded (the history's
+        install reads them; the prefill reads only the tails)."""
+        out = np.zeros((len(group), max(len(r.prompt_ids) for _, r in group)), np.int64)
+        for row, (_, req) in enumerate(group):
+            out[row, : len(req.prompt_ids)] = req.prompt_ids
+        return out
 
     def _maybe_register(self, group: List[Tuple[int, GenRequest]]) -> None:
         """After a paged admission (cold, hit or a final segment), pin the
@@ -737,6 +829,7 @@ class ContinuousBatcher:
                 return
             n = self._pick_chunk_blocks()
             occupied = self._occupied()
+            D = self.speculate or 1
             # The longest cache any live slot can hold at this chunk's
             # start: folded decode tokens plus all the chunks in flight can
             # add (the first token enters the cache with the first step).
@@ -745,21 +838,29 @@ class ContinuousBatcher:
                                    s.request.max_new_tokens - 1)
                 for s in occupied
             )
+            # The in-flight ledger: the tokens this chunk is expected to
+            # add at the acceptance EMA, and the most it can add.
+            est = n * (self._spec_rate if self.speculate else 1.0)
+            hi = n * D
             for s in occupied:
-                s.est_pending += n
-                s.hi_pending += n
+                s.est_pending += est
+                s.hi_pending += hi
             fused = self.fused_epilogue and all(
                 s.request.temperature <= 0.0 and not s.request.json_mode for s in occupied
             )
             stamp = tuple(self._gen)
             table = self.alloc.table.copy() if self.alloc is not None else None
+            draft_mode = self._draft_on.copy() if self.draft_layers else None
+            self.blocks_dispatched += n
+            if draft_mode is not None and draft_mode.any():
+                self.draft_blocks += n
         n_blocks = None
         if table is not None:
             n_blocks = min(-(-self._decode_bucket(bound) // self.page_size), table.shape[1])
-        toks, valid = self.runner.run(n, fused, n_blocks, table)
-        with self._lock:
-            self.blocks_dispatched += n
-        self._put_result((_HostCopy([toks, valid]), stamp, n))
+        prefix_bound = self._decode_bucket(bound) if self.speculate else None
+        toks, valid = self.runner.run(n, fused, n_blocks, table, prefix_bound=prefix_bound,
+                                      draft_mode=draft_mode)
+        self._put_result((_HostCopy([toks, valid]), stamp, n, est, hi))
 
     # ------------------------------------------------------------------ #
     # Admission staging (the prep thread, or the device thread inline)
@@ -1008,18 +1109,36 @@ class ContinuousBatcher:
                     slot.generated.append(int(host[row]))
                     self._check_finished(idx)
 
-    def _process_chunk(self, copy: _HostCopy, stamp: Tuple[int, ...], n_blocks: int) -> None:
+    def _process_chunk(self, copy: _HostCopy, stamp: Tuple[int, ...], n_blocks: int,
+                       est: float, hi: int) -> None:
         """Fold one chunk into its slots once its copy has landed. First
-        tokens sampled before the chunk ran fold first."""
+        tokens sampled before the chunk ran fold first. Under speculation
+        the rows come block-major (``[n·D, B]``); the acceptance EMAs move
+        here, the per-slot ones under the lock and behind the generation
+        stamp, so a late chunk never changes a new occupant's mode."""
         self._fold_first_reads()
         toks_h, valid_h = copy.wait()
+        D = self.speculate or 1
+        blk_any = valid_h.reshape(n_blocks, D, -1).any(axis=1)      # [n_blocks, B]
+        slot_blocks = blk_any.sum(axis=0)
+        slot_tokens = valid_h.sum(axis=0)
         with self._lock:
             for b, slot in enumerate(self._slots):
                 if slot is None or stamp[b] != self._gen[b]:
                     continue
+                if self.draft_layers and slot_blocks[b]:
+                    # Thresholds scale with D; hysteresis keeps a slot from
+                    # flapping between the two draft sources.
+                    self._slot_rate[b] = (0.5 * self._slot_rate[b]
+                                          + 0.5 * slot_tokens[b] / slot_blocks[b])
+                    enter = 1.0 + 0.125 * D
+                    if not self._draft_on[b] and self._slot_rate[b] < enter:
+                        self._draft_on[b] = True
+                    elif self._draft_on[b] and self._slot_rate[b] > enter + 0.25 * D:
+                        self._draft_on[b] = False
                 # This chunk leaves the in-flight ledger, tokens or not.
-                slot.est_pending = max(0.0, slot.est_pending - n_blocks)
-                slot.hi_pending = max(0, slot.hi_pending - n_blocks)
+                slot.est_pending = max(0.0, slot.est_pending - est)
+                slot.hi_pending = max(0, slot.hi_pending - hi)
                 if slot.first_pending:
                     continue
                 new_tokens = [int(t) for t, ok in zip(toks_h[:, b], valid_h[:, b]) if ok]
@@ -1029,7 +1148,19 @@ class ContinuousBatcher:
                     slot.generated.append(tok)
                     if self._check_finished(b):
                         break
-            self.blocks_useful += int(valid_h.any(axis=1).sum())
+            self.blocks_useful += int(blk_any.any(axis=1).sum())
+            self.blocks_folded += n_blocks
+            if self.speculate:
+                # Tokens a block over the (block, slot) pairs that emitted:
+                # done slots and trailing empty blocks would drag the EMA
+                # towards 1 and bring back the wasted passes it avoids.
+                active_blocks = int(blk_any.sum())
+                accepted = int(valid_h.sum())
+                self.spec_tokens += accepted
+                self.spec_blocks += active_blocks
+                if active_blocks:
+                    obs = min(max(accepted / active_blocks, 0.5), float(D))
+                    self._spec_rate = 0.5 * self._spec_rate + 0.5 * obs
 
     def _check_finished(self, idx: int) -> bool:
         """Apply the completion rules to a slot (lock held); a finished

@@ -1,16 +1,17 @@
-"""Chunked decode and fused admission on the dense or the paged KV cache
-(the port's counterpart of ``pilottai_tpu/engine/decode.py``; speculation
-waits for a later slice).
+"""Chunked decode, speculative decode and fused admission on the dense or
+the paged KV cache (the port's counterpart of
+``pilottai_tpu/engine/decode.py``).
 
 The chunk keeps the JAX engine's KV trick: inside a chunk the big
 per-layer cache panels are read-only. Each step's fresh K/V goes to a
 small per-layer ring ``[B, K, n, H]``, and one scatter per layer lands
 the ring in the cache at chunk end. On the dense cache attention reads
 the prefix through kernel K2 (``ops/kernels/decode_attention.py``) as
-online-softmax statistics, attends the ring with plain tensor ops, and
-merges the two with ``_merge_stats``. On the paged cache one launch of
-kernel K3 (``ops/kernels/paged_attention.py``) per layer reads the live
-pages through the block table with the ring fused in.
+online-softmax statistics, attends the ring with plain tensor ops
+(``_ragged_stats``), and merges the two with ``_merge_stats``. On the
+paged cache one launch of kernel K3 (``ops/kernels/paged_attention.py``)
+per layer reads the live pages through the block table with the ring
+fused in.
 
 ``decode_chunk`` is capturable: once it starts it does no host work (no
 device read, no data-dependent shape), and every tensor it carries
@@ -34,12 +35,24 @@ segment admits through ``admit_group_prefix_paged``. Every tail's
 attention, prefix and tail together, is one launch of kernel K1 per layer
 (``_tail_prefix_attn``).
 
+``decode_chunk_spec`` is the speculative chunk (``engine_speculate``):
+verify blocks of D tokens a slot, drafted from the slot's token history
+(``_ngram_drafts``) or by the model's first layers (``_model_drafts``),
+checked in one weight pass (``spec_block_forward``: the prefix through
+plain products over a bounded dense panel, or one K3 launch a layer with
+``q_blocks=D`` on the paged cache, merged with the ring and the block
+itself). It is capturable as ``decode_chunk`` is; the rows a block does
+not keep are written to a spare row or column that nothing reads, where
+JAX's scatters drop them. Every admission installs the slot's history
+(``install_history``) when speculation is on.
+
 Out-of-range slots — admission padding rows — are dropped explicitly:
 torch raises where JAX's scatters drop and its gathers clamp.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
@@ -48,7 +61,7 @@ import torch
 
 from pilottai_tpu_torch.device import upload
 from pilottai_tpu_torch.engine.sampling import SamplingState, admit_sampling, sample_core
-from pilottai_tpu_torch.models.common import ModelConfig, rms_norm, rope_tables
+from pilottai_tpu_torch.models.common import ModelConfig, matmul_f32, rms_norm, rope_tables
 from pilottai_tpu_torch.models.transformer import (
     _attn_out,
     _embed,
@@ -166,33 +179,6 @@ def _layer_tail(cfg: ModelConfig, lp: Dict[str, Any], x: torch.Tensor,
     return x + _mlp(lp, h)
 
 
-def _ring_stats(
-    qg: torch.Tensor,      # [B, K, G, H]
-    ring_k: torch.Tensor,  # [B, K, n, H]
-    ring_v: torch.Tensor,
-    step: int,             # rows 0..step are valid
-    scale: float, softcap: float, window: int,
-):
-    """In-chunk attention over the ring: row j holds chunk-relative offset
-    j, so the causal mask is j <= step and the window (step - j) < window.
-    Row 0 is always valid, so no row is fully masked."""
-    B, K, G, H = qg.shape
-    n = ring_k.shape[2]
-    s = torch.einsum("bkgh,bknh->bkgn", qg.float(), ring_k.float()) * scale
-    if softcap > 0.0:
-        s = torch.tanh(s / softcap) * softcap
-    j = torch.arange(n, device=qg.device)[None, None, None, :]
-    mask = j <= step
-    if window > 0:
-        mask &= (step - j) < window
-    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
-    m = s.amax(dim=-1)
-    p = torch.exp(s - m[..., None])
-    l = p.sum(dim=-1)
-    acc = torch.einsum("bkgn,bknh->bkgh", p.to(ring_v.dtype).float(), ring_v.float())
-    return acc.reshape(B, K * G, H), m.reshape(B, K * G), l.reshape(B, K * G)
-
-
 def _merge_stats(acc_a, m_a, l_a, acc_b, m_b, l_b):
     """Unnormalized online-softmax merge over disjoint key sets."""
     m = torch.maximum(m_a, m_b)
@@ -262,17 +248,19 @@ def fused_greedy_epilogue(
     algorithm: the projection runs tile by tile over the vocab with a
     running (max, argmax) carry, so the ``[B, T, V]`` logits never exist;
     tiling splits the output axis, never the contraction, so each logit is
-    the same dot product, with ``_unembed``'s operand dtypes; the softcap
+    the same dot product, with ``_unembed``'s operand dtypes and fp32
+    result (``matmul_f32``: bf16 tiles on the tensor cores on CUDA, no fp32
+    copy of the head); the softcap
     applies per tile; the in-tile argmax takes the first maximum and the
     carry replaces only on a strictly greater one, so ties go to the
     lowest index as ``torch.argmax``'s do."""
     B, T, E = h.shape
-    x = h.reshape(B * T, E).float()
+    x = h.reshape(B * T, E)
     best = torch.full((B * T,), -float("inf"), dtype=torch.float32, device=h.device)
     idx = torch.zeros((B * T,), dtype=torch.int32, device=h.device)
     for off in range(0, cfg.vocab_size, tile):
         end = min(off + tile, cfg.vocab_size)
-        logits = x @ _head_tile(params, off, end).float()
+        logits = matmul_f32(x, _head_tile(params, off, end))
         if cfg.logit_softcap > 0.0:
             logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
         m = logits.amax(dim=-1)
@@ -307,6 +295,7 @@ def decode_step_logits(
     windows = cfg.window_sizes()
     x = _embed(params, tokens[:, None].long())
     sin, cos = rope_tables(pos[:, None], cfg.head_dim, cfg.rope_theta)
+    ring_rows = torch.full((B,), i + 1, dtype=torch.int32, device=tokens.device)
     for l, lp in enumerate(params["layers"]):
         window = int(windows[l])
         layer_k, layer_v = cache.layers[l]
@@ -329,11 +318,13 @@ def decode_step_logits(
                 scale=cfg.qscale, softcap=cfg.attn_softcap, window=window,
                 return_stats=True,
             )
-            acc_c, m_c, l_c = _ring_stats(
-                qf.reshape(B, cfg.n_kv_heads, G, cfg.head_dim), rk, rv, i,
+            # The ring: row j holds the token at pos - i + j; rows 0..i attend.
+            acc_c, m_c, l_c = _ragged_stats(
+                qf.reshape(B, cfg.n_kv_heads, G, cfg.head_dim), rk, rv, ring_rows, pos - i, pos,
                 cfg.qscale, cfg.attn_softcap, window,
             )
-            attn = _combine_stats(acc_p, m_p, l_p, acc_c, m_c, l_c)
+            attn = _combine_stats(acc_p, m_p, l_p, acc_c.reshape(acc_p.shape),
+                                  m_c.reshape(m_p.shape), l_c.reshape(l_p.shape))
         x = _layer_tail(
             cfg, lp, x, attn.to(x.dtype).reshape(B, 1, cfg.n_heads, cfg.head_dim)
         )
@@ -412,6 +403,470 @@ def decode_chunk(
     return bufs.tokens, bufs.valid, cache, dstate, sampling
 
 
+# --------------------------------------------------------------------- #
+# Speculative decoding: verify blocks of D tokens a weight pass
+# --------------------------------------------------------------------- #
+#
+# Decode is bound by the weights' bytes, so a block of D tokens a slot (the
+# current token and D - 1 drafts) costs about what one token does, and a
+# greedy slot emits its leading run of accepted drafts plus one token of
+# its own: ids identical to the plain chunk's, since acceptance compares
+# the model's own masked greedy rows with the drafts. Drafts come from the
+# slot's own history (``_ngram_drafts``) or, for slots whose n-gram
+# acceptance has collapsed, from the model's first layers
+# (``_model_drafts``). A sampled slot emits one token a block, drawing
+# once, where the plain chunk draws once a step: its stream is the same.
+
+
+def _ngram_drafts(
+    history: torch.Tensor,  # [B, S] token ids by absolute position
+    pos: torch.Tensor,      # [B] the current token's position
+    cur: torch.Tensor,      # [B] the current token
+    n_drafts: int,
+) -> torch.Tensor:
+    """``n_drafts`` continuation tokens a slot: the latest earlier
+    occurrence of the (prev2, prev, cur) 3-gram in the slot's history,
+    backing off to the (prev, cur) 2-gram, and what followed it (the 3-gram
+    tier tells apart the continuations of pairs JSON repeats, such as
+    ``", "``). Only occurrences whose whole continuation is written count
+    (``j + n_drafts <= pos``). No match gives zeros, which cost a missed
+    block, never a wrong token. ``[B, n_drafts]`` int32."""
+    B, S = history.shape
+    dev = history.device
+    idx = torch.arange(S, device=dev)[None, :]
+    prev = torch.gather(history, 1, torch.clamp(pos - 1, min=0).long()[:, None])
+    prev2 = torch.gather(history, 1, torch.clamp(pos - 2, min=0).long()[:, None])
+    pad = torch.full((B, 2), -1, dtype=history.dtype, device=dev)
+    prev_col = torch.cat([pad[:, :1], history[:, :-1]], dim=1)
+    prev2_col = torch.cat([pad, history[:, :-2]], dim=1)
+    match = (history == cur[:, None]) & (prev_col == prev)
+    match &= (idx <= pos[:, None] - n_drafts) & (idx >= 1)
+    match3 = match & (prev2_col == prev2) & (idx >= 2) & (pos[:, None] >= 2)
+    j2 = torch.argmax(torch.where(match, idx, -1), dim=1)       # the latest match
+    j3 = torch.argmax(torch.where(match3, idx, -1), dim=1)
+    j = torch.where(match3.any(dim=1), j3, j2)
+    dpos = j[:, None] + 1 + torch.arange(n_drafts, device=dev)[None, :]
+    drafts = torch.gather(history, 1, torch.clamp(dpos, max=S - 1))
+    return torch.where(match.any(dim=1)[:, None], drafts, torch.zeros_like(drafts))
+
+
+def _masked_stats(s: torch.Tensor, mask: torch.Tensor, v: torch.Tensor):
+    """Online-softmax partials ``(acc, m, l)`` of fp32 logits ``s [..., n]``
+    under ``mask`` against values ``v [..., n, H]``: a row with no key has
+    ``m = NEG_INF``, ``l = 0`` and ``acc = 0``; p is cast to v's dtype
+    before the product, whose result is fp32."""
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1)
+    p = torch.where(m[..., None] > NEG_INF / 2, torch.exp(s - m[..., None]),
+                    torch.zeros_like(s))
+    return matmul_f32(p.to(v.dtype), v), m, p.sum(dim=-1)
+
+
+def _softcapped(s: torch.Tensor, softcap: float) -> torch.Tensor:
+    return torch.tanh(s / softcap) * softcap if softcap > 0.0 else s
+
+
+def _ragged_stats(
+    qg: torch.Tensor,     # [B, K, G, H] single-position queries
+    ks: torch.Tensor,     # [B, K, N, H]: row r is valid iff r < count[b]
+    vs: torch.Tensor,
+    count: torch.Tensor,  # [B] valid rows
+    pos0: torch.Tensor,   # [B] absolute position of row 0 (the window)
+    qpos: torch.Tensor,   # [B] query positions
+    scale: float,
+    softcap: float,
+    window: int,
+):
+    """Online-softmax partials over a per-slot ragged key buffer (the
+    chunk ring, whose valid rows differ by slot under speculation, or a
+    model draft's own buffer): ``(acc [B,K,G,H] fp32, m, l [B,K,G])``."""
+    N = ks.shape[2]
+    s = _softcapped(matmul_f32(qg, ks.transpose(-1, -2)) * scale, softcap)
+    r = torch.arange(N, device=qg.device)[None, None, None, :]
+    mask = r < count[:, None, None, None]
+    if window > 0:
+        mask = mask & ((qpos[:, None, None, None] - (pos0[:, None, None, None] + r)) < window)
+    return _masked_stats(s, mask, vs)
+
+
+def _spec_block_attn(
+    qg: torch.Tensor,        # [B, K, G, D, H] the block's queries
+    layer_k: Optional[torch.Tensor],  # [B, K, Sb, H] bounded prefix panels (None with
+    layer_v: Optional[torch.Tensor],  # prefix_stats)
+    ring_k: torch.Tensor,    # [B, K, R, H] the chunk ring (row r at position start + r)
+    ring_v: torch.Tensor,
+    blk_k: torch.Tensor,     # [B, K, D, H] the block's own keys
+    blk_v: torch.Tensor,
+    last: torch.Tensor,      # [B] the last valid prefix key (-1: none)
+    start: torch.Tensor,     # [B] slot length at chunk start
+    offset: torch.Tensor,    # [B] valid ring rows
+    qpos: torch.Tensor,      # [B, D] absolute query positions
+    scale: float,
+    softcap: float,
+    window: int,
+    prefix_stats=None,       # (acc [B, K·G·D, H], m, l [B, K·G·D]): K3's, on the paged cache
+) -> torch.Tensor:
+    """Attention of a verify block over three sources merged with
+    ``_merge_stats``: the prefix (every block query sees the whole valid
+    prefix), the in-chunk ring (per-slot valid count) and the block itself
+    (causal, ``e <= d``; row d always sees itself). On the dense cache the
+    prefix is plain tensor products over a panel bounded at ``Sb`` keys, as
+    the JAX package leaves it to XLA (K2 holds at most 8 query rows a kv
+    head, a block has G·D); on the paged cache ``prefix_stats`` come from
+    one K3 launch with ``q_blocks=D``. Every product takes the operands'
+    dtype with an fp32 result (``matmul_f32``). Returns ``[B, D, K·G·H]``
+    fp32."""
+    B, K, G, D, H = qg.shape
+    dev = qg.device
+    q = qg.reshape(B, K, G * D, H)
+    qrow = qpos[:, None, None, :].expand(B, 1, G, D).reshape(B, 1, G * D, 1)
+    if prefix_stats is not None:
+        acc_p, m_p, l_p = (t.reshape(B, K, G * D, *t.shape[2:]) for t in prefix_stats)
+    else:
+        s = _softcapped(matmul_f32(q, layer_k.transpose(-1, -2)) * scale, softcap)
+        col = torch.arange(layer_k.shape[2], device=dev)[None, None, None, :]
+        mask = col <= last[:, None, None, None]
+        if window > 0:
+            mask = mask & ((qrow - col) < window)
+        acc_p, m_p, l_p = _masked_stats(s, mask, layer_v)
+    # The ring: rows below offset are live; row r sits at start + r.
+    s = _softcapped(matmul_f32(q, ring_k.transpose(-1, -2)) * scale, softcap)
+    r = torch.arange(ring_k.shape[2], device=dev)[None, None, None, :]
+    mask = r < offset[:, None, None, None]
+    if window > 0:
+        mask = mask & ((qrow - (start[:, None, None, None] + r)) < window)
+    acc_r, m_r, l_r = _masked_stats(s, mask, ring_v)
+    # The block: row (g, d) sees keys e <= d.
+    s = _softcapped(matmul_f32(q, blk_k.transpose(-1, -2)) * scale, softcap)
+    e = torch.arange(D, device=dev)[None, None, None, :]
+    d = (torch.arange(G * D, device=dev) % D)[None, None, :, None]
+    mask = e <= d
+    if window > 0:
+        mask = mask & ((d - e) < window)
+    acc_b, m_b, l_b = _masked_stats(s, mask, blk_v)
+    acc, m, l = _merge_stats(acc_p, m_p, l_p, acc_r, m_r, l_r)
+    acc, _, l = _merge_stats(acc, m, l, acc_b, m_b, l_b)
+    attn = acc / torch.clamp(l, min=1e-30)[..., None]            # [B, K, G·D, H]
+    return attn.reshape(B, K, G, D, H).permute(0, 3, 1, 2, 4).reshape(B, D, K * G * H)
+
+
+def _model_drafts(
+    params: Dict[str, Any],
+    cfg: ModelConfig,
+    draft_layers: int,
+    cur: torch.Tensor,       # [B] the current token
+    pos: torch.Tensor,       # [B] its position
+    cache: AnyCache,
+    rings: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+    start: torch.Tensor,     # [B] slot length at chunk start
+    offset: torch.Tensor,    # [B] valid ring rows
+    last: torch.Tensor,      # [B] the last valid prefix key
+    draft_bufs: Sequence[Tuple[torch.Tensor, torch.Tensor]],  # per draft layer [B, K, D-1, H]
+    table: Optional[torch.Tensor] = None,
+    n_blocks: Optional[int] = None,
+) -> torch.Tensor:
+    """Self-speculative drafts: the target's own first ``draft_layers``
+    layers, the final norm and the unembedding run ``D - 1`` single-token
+    steps (``D - 1`` is the buffers' width). A draft token attends what the
+    verify pass will: the prefix (K2 on the dense cache, K3 with
+    ``q_blocks=1`` and no ring on the paged one), the chunk ring and its own
+    buffer, into which its K/V is written before it attends (the verify's
+    ``e <= d`` includes the token itself), so the layers it runs compute
+    the K/V the target does. Returns ``[B, D-1]`` int32."""
+    B = cur.shape[0]
+    K, H = cfg.n_kv_heads, cfg.head_dim
+    G = cfg.n_heads // K
+    windows = cfg.window_sizes()
+    tok = cur
+    drafts = []
+    for j in range(draft_bufs[0][0].shape[2]):
+        qpos = pos + j
+        x = _embed(params, tok[:, None].long())
+        sin, cos = rope_tables(qpos[:, None], H, cfg.rope_theta)
+        count = torch.full((B,), j + 1, dtype=torch.int32, device=cur.device)
+        for l in range(draft_layers):
+            lp = params["layers"][l]
+            window = int(windows[l])
+            rk, rv = rings[l]
+            bk, bv = draft_bufs[l]
+            layer_k, layer_v = cache.layers[l]
+            h = rms_norm(x, lp["ln1"]["scale"], cfg.rms_eps)
+            q, k, v = _qkv(cfg, lp["attn"], h, sin, cos)
+            bk[:, :, j] = k[:, 0].to(bk.dtype)
+            bv[:, :, j] = v[:, 0].to(bv.dtype)
+            qf = q[:, 0].contiguous()                              # [B, N, H]
+            if table is not None:
+                acc_p, m_p, l_p = paged_decode_attention(
+                    qf, layer_k, layer_v, table, last, q_positions=qpos, n_blocks=n_blocks,
+                    scale=cfg.qscale, softcap=cfg.attn_softcap, window=window,
+                )
+            else:
+                acc_p, m_p, l_p = decode_attention(
+                    qf, layer_k, layer_v, last, q_positions=qpos, scale=cfg.qscale,
+                    softcap=cfg.attn_softcap, window=window, return_stats=True,
+                )
+            qg = qf.reshape(B, K, G, H)
+            acc_r, m_r, l_r = _ragged_stats(qg, rk, rv, offset, start, qpos, cfg.qscale,
+                                            cfg.attn_softcap, window)
+            acc_b, m_b, l_b = _ragged_stats(qg, bk, bv, count, pos, qpos, cfg.qscale,
+                                            cfg.attn_softcap, window)
+            acc, m, l_sum = _merge_stats(acc_p.reshape(B, K, G, H), m_p.reshape(B, K, G),
+                                         l_p.reshape(B, K, G), acc_r, m_r, l_r)
+            acc, _, l_sum = _merge_stats(acc, m, l_sum, acc_b, m_b, l_b)
+            attn = acc / torch.clamp(l_sum, min=1e-30)[..., None]
+            x = _layer_tail(cfg, lp, x, attn.to(x.dtype).reshape(B, 1, cfg.n_heads, H))
+        h = rms_norm(x, params["final_norm"]["scale"], cfg.rms_eps)
+        tok = torch.argmax(_unembed(cfg, params, h)[:, 0], dim=-1).to(torch.int32)
+        drafts.append(tok)
+    return torch.stack(drafts, dim=1)
+
+
+def spec_block_forward(
+    params: Dict[str, Any],
+    cfg: ModelConfig,
+    cache: AnyCache,
+    blk: torch.Tensor,       # [B, D] the block: the current token, then the drafts
+    pvec: torch.Tensor,      # [B, D] their positions
+    start: torch.Tensor,     # [B] slot length at chunk start (the prefix ends at start - 1)
+    offset: torch.Tensor,    # [B] valid ring rows
+    rings: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+    Sb: Optional[int] = None,              # dense: keys of the bounded prefix panel
+    table: Optional[torch.Tensor] = None,  # paged: the block table
+    n_blocks: Optional[int] = None,        # paged: pages K3 visits
+):
+    """One verify block's forward for every slot, reading the cache and
+    the ring and writing neither: the final-normed hidden states ``[B, D,
+    E]`` and each layer's ``(k, v)`` of the block ``[B, K, D, H]``. The
+    prefix goes through ``_spec_block_attn``: a bounded dense panel, or one
+    K3 launch a layer with ``q_blocks=D`` and no ring."""
+    B, D = blk.shape
+    K, H = cfg.n_kv_heads, cfg.head_dim
+    G = cfg.n_heads // K
+    windows = cfg.window_sizes()
+    prefix_last = start - 1
+    x = _embed(params, blk.long())
+    sin, cos = rope_tables(pvec, H, cfg.rope_theta)
+    new_blk = []
+    for l, lp in enumerate(params["layers"]):
+        window = int(windows[l])
+        layer_k, layer_v = cache.layers[l]
+        rk, rv = rings[l]
+        h = rms_norm(x, lp["ln1"]["scale"], cfg.rms_eps)
+        q, k, v = _qkv(cfg, lp["attn"], h, sin, cos)                # [B, D, heads, H]
+        blk_k = k.transpose(1, 2).to(rk.dtype)                      # [B, K, D, H]
+        blk_v = v.transpose(1, 2).to(rv.dtype)
+        qg = q.transpose(1, 2).reshape(B, K, G, D, H)
+        if table is not None:
+            stats = paged_decode_attention(
+                qg.reshape(B, K * G * D, H).contiguous(), layer_k, layer_v, table, prefix_last,
+                q_positions=pvec[:, 0], n_blocks=n_blocks, scale=cfg.qscale,
+                softcap=cfg.attn_softcap, window=window, q_blocks=D,
+            )
+            attn = _spec_block_attn(qg, None, None, rk, rv, blk_k, blk_v, prefix_last, start,
+                                    offset, pvec, cfg.qscale, cfg.attn_softcap, window,
+                                    prefix_stats=stats)
+        else:
+            Sb = layer_k.shape[2] if Sb is None else Sb
+            attn = _spec_block_attn(qg, layer_k[:, :, :Sb], layer_v[:, :, :Sb], rk, rv, blk_k,
+                                    blk_v, prefix_last, start, offset, pvec, cfg.qscale,
+                                    cfg.attn_softcap, window)
+        x = _layer_tail(cfg, lp, x, attn.to(x.dtype).reshape(B, D, cfg.n_heads, H))
+        new_blk.append((blk_k, blk_v))
+    return rms_norm(x, params["final_norm"]["scale"], cfg.rms_eps), new_blk
+
+
+@dataclass
+class SpecBuffers:
+    """What one speculative chunk variant writes besides the state, as
+    ``ChunkBuffers`` for the plain chunk. The rings hold ``R = n·D`` rows
+    plus one: a row no block keeps is written to row R, which nothing
+    reads (torch's scatters have no ``mode="drop"``)."""
+
+    rings: List[Tuple[torch.Tensor, torch.Tensor]]    # per layer [B, K, n·D + 1, H]
+    drafts: List[Tuple[torch.Tensor, torch.Tensor]]   # per draft layer [B, K, D - 1, H]
+    tokens: torch.Tensor  # [n·D, B] int32, block-major: row i·D + d is block i's row d
+    valid: torch.Tensor   # [n·D, B] bool — the row was emitted
+
+    @classmethod
+    def create(cls, cfg: ModelConfig, n_slots: int, n_steps: int, draft_len: int,
+               draft_layers: int, dtype: torch.dtype, device: torch.device) -> "SpecBuffers":
+        R = n_steps * draft_len
+        shape = (n_slots, cfg.n_kv_heads, draft_len - 1, cfg.head_dim)
+        return cls(
+            rings=new_rings(cfg, n_slots, R + 1, dtype, device),
+            drafts=[(torch.zeros(shape, dtype=dtype, device=device),
+                     torch.zeros(shape, dtype=dtype, device=device))
+                    for _ in range(draft_layers)],
+            tokens=torch.zeros((R, n_slots), dtype=torch.int32, device=device),
+            valid=torch.zeros((R, n_slots), dtype=torch.bool, device=device),
+        )
+
+
+def decode_chunk_spec(
+    params: Dict[str, Any],
+    cfg: ModelConfig,
+    cache: AnyCache,
+    dstate: DecodeState,
+    sampling: SamplingState,
+    history: torch.Tensor,   # [B, W + 1] token ids by position; column W is a sink
+    n_steps: int,
+    draft_len: int,          # D >= 2: the current token and D - 1 drafts a block
+    prefix_bound: Optional[int] = None,   # keys the prefix read covers (default all)
+    table: Optional[torch.Tensor] = None,  # [B, max_pages] int32 — paged cache only
+    draft_layers: int = 0,   # > 0: the model drafts for the slots of draft_mode
+    draft_mode: Optional[torch.Tensor] = None,  # [B] bool
+    fused_epilogue: bool = False,
+    bufs: Optional[SpecBuffers] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, AnyCache, DecodeState, SamplingState, torch.Tensor]:
+    """The speculative chunk: ``n_steps`` verify blocks of ``[cur,
+    drafts]`` a slot, with no host work (capturable, as ``decode_chunk``).
+
+    Row 0 of each block goes through ``sample_core``, rows 1..D-1 through
+    ``fused_verify_rows`` (or, with ``fused_epilogue``, all D rows through
+    ``fused_greedy_epilogue``). A greedy slot emits its leading run of
+    accepted drafts and one more token, a sampled slot one token; emission
+    stops after an EOS, the budget or a full context, terminal included.
+    Emitted rows advance the JSON coordinates and land in the history and
+    the ring (the terminal or bonus token's K/V comes with the next
+    block, as in the plain chunk). Every block runs: once every slot is
+    done a block emits nothing and changes no state, so the result equals
+    the JAX chunk's early-exit loop. With ``draft_layers``, the slots of
+    ``draft_mode`` take the model's drafts (the caller runs this variant
+    only when some slot is in that mode; JAX's ``lax.cond`` computes the
+    same). The prefix is read through a ``prefix_bound``-key panel on the
+    dense cache and through ``ceil(prefix_bound / P)`` pages by K3 on the
+    paged cache.
+
+    Returns ``(tokens [n·D, B], valid [n·D, B], cache, dstate, sampling,
+    history)``, block-major; the state, the history and the cache are
+    updated in place."""
+    from pilottai_tpu_torch.engine.sampling import _advance_json, fused_verify_rows
+
+    B = dstate.tokens.shape[0]
+    D = int(draft_len)
+    if D < 2:
+        raise ValueError("draft_len < 2 is the plain decode_chunk")
+    dev = dstate.tokens.device
+    paged = isinstance(cache, PagedKVCache)
+    if paged:
+        if table is None:
+            raise ValueError("paged decode needs the block table")
+        S = table.shape[1] * cache.page_size
+    else:
+        S = cache.max_len
+    Sb = S if prefix_bound is None else max(1, min(int(prefix_bound), S))
+    n_blocks = -(-Sb // cache.page_size) if paged else None
+    draft_layers = int(draft_layers) if draft_mode is not None else 0
+    if bufs is None:
+        bufs = SpecBuffers.create(cfg, B, n_steps, D, draft_layers, cache.layers[0][0].dtype, dev)
+    R = n_steps * D
+    if bufs.tokens.shape != (R, B) or len(bufs.drafts) < draft_layers:
+        raise ValueError(f"spec buffers {tuple(bufs.tokens.shape)} for {n_steps} blocks of {D}")
+    W = history.shape[1] - 1
+    hist = history[:, :W]
+    start = cache.lengths.clone()          # frozen during the chunk
+    prefix_last = start - 1
+    offset = torch.zeros((B,), dtype=torch.int32, device=dev)
+    tokens, done, budget = dstate.tokens, dstate.done, dstate.budget
+    bidx = torch.arange(B, device=dev)[:, None]
+    jj = torch.arange(D, device=dev)[None, :]
+
+    for i in range(n_steps):
+        active = ~done
+        pos = start + offset
+        drafts = _ngram_drafts(hist, pos, tokens, D - 1)
+        if draft_layers:
+            mdrafts = _model_drafts(
+                params, cfg, draft_layers, tokens, pos, cache, bufs.rings, start, offset,
+                prefix_last, bufs.drafts, table=table if paged else None, n_blocks=n_blocks,
+            )
+            drafts = torch.where(draft_mode[:, None], mdrafts, drafts)
+        blk = torch.cat([tokens[:, None], drafts], dim=1)           # [B, D]
+        pvec = pos[:, None] + jj
+        h, new_blk = spec_block_forward(params, cfg, cache, blk, pvec, start, offset, bufs.rings,
+                                        Sb=Sb, table=table if paged else None, n_blocks=n_blocks)
+        if fused_epilogue:
+            emitted = fused_greedy_epilogue(cfg, params, h)          # [B, D]
+        else:
+            logits = _unembed(cfg, params, h)                        # [B, D, V]
+            before = dataclasses.replace(
+                sampling, json_state=sampling.json_state.clone(),
+                json_stack=sampling.json_stack.clone(), json_depth=sampling.json_depth.clone(),
+            )
+            tok0, sampling = sample_core(logits[:, 0], sampling, json_remaining=budget,
+                                         json_gate=active.any())
+            verify = fused_verify_rows(logits[:, 1:], blk[:, 1:], before, budget)
+            emitted = torch.cat([tok0[:, None], verify], dim=1)
+
+        # Leading-match acceptance, greedy slots only.
+        match = (emitted[:, : D - 1] == blk[:, 1:]).to(torch.int32)
+        accepted = torch.cumprod(match, dim=1).sum(dim=1)
+        cand = torch.where(sampling.temperature <= 0.0, accepted + 1, torch.ones_like(accepted))
+        # Truncate at EOS, budget or a full context, the terminal row kept.
+        eos = sampling.eos_id[:, None]
+        term = (((eos >= 0) & (emitted == eos)) | ((pvec + 1) >= (S - 1))
+                | ((budget[:, None] - (jj + 1)) <= 0))
+        before_term = torch.cat([torch.ones_like(term[:, :1], dtype=torch.int32),
+                                 1 - term[:, :-1].to(torch.int32)], dim=1)
+        no_term_before = torch.cumprod(before_term, dim=1).bool()
+        emit = (jj < cand[:, None]) & no_term_before & active[:, None]
+        n_emit = emit.to(torch.int32).sum(dim=1, dtype=torch.int32)
+        done.logical_or_(active & (term & emit).any(dim=1))
+        budget.sub_(n_emit)
+        last_row = torch.clamp(n_emit - 1, min=0).long()[:, None]
+        tokens.copy_(torch.where(active, torch.gather(emitted, 1, last_row)[:, 0], tokens))
+        if not fused_epilogue:
+            # Row 0 advanced inside sample_core; each further emitted row here.
+            for j in range(1, D):
+                _advance_json(sampling, emitted[:, j], emit[:, j])
+        # History: emitted row j lives at pos + 1 + j; the rest go to the sink.
+        hpos = pos[:, None] + 1 + jj
+        hist_col = torch.where(emit & (hpos < W), hpos, torch.full_like(hpos, W))
+        history[bidx, hist_col.long()] = emitted
+        # Ring: block rows below n_emit (the current token and the accepted
+        # drafts) are in the sequence; the others go to row R.
+        rpos = torch.where(jj < n_emit[:, None], offset[:, None] + jj, torch.full_like(jj, R))
+        for (rk, rv), (bk, bv) in zip(bufs.rings, new_blk):
+            rk[bidx, :, rpos.long()] = bk.transpose(1, 2)
+            rv[bidx, :, rpos.long()] = bv.transpose(1, 2)
+        offset.add_(n_emit)
+        bufs.tokens[i * D:(i + 1) * D].copy_(emitted.t())
+        bufs.valid[i * D:(i + 1) * D].copy_(emit.t())
+
+    ring_ks, ring_vs = [r[0] for r in bufs.rings], [r[1] for r in bufs.rings]
+    if paged:
+        cache = write_chunk_rows_paged(cache, table, ring_ks, ring_vs, start, offset)
+    else:
+        cache = write_chunk_rows(cache, ring_ks, ring_vs, start, offset)
+    return bufs.tokens, bufs.valid, cache, dstate, sampling, history
+
+
+def install_history(
+    history: torch.Tensor,  # [B, W + 1]; column W is a sink
+    slots: Sequence[int],   # [A] (out-of-range rows dropped)
+    tokens: np.ndarray,     # [A, T] right-padded prompts
+    lens: Sequence[int],    # [A] true lengths (0: padding row)
+    first: torch.Tensor,    # [A] the prefill-sampled first tokens
+) -> torch.Tensor:
+    """Admission's history install, in place: each live row wiped, the
+    prompt ids at positions ``[0, len)`` and the first generated token at
+    ``len``."""
+    B, W = history.shape[0], history.shape[1] - 1
+    rows = [a for a, s in enumerate(slots) if int(lens[a]) > 0 and 0 <= int(s) < B]
+    if not rows:
+        return history
+    dev = history.device
+    sl = upload([int(slots[a]) for a in rows], torch.long, dev)
+    n = upload([int(lens[a]) for a in rows], torch.long, dev)
+    history[sl] = 0
+    T = tokens.shape[1]
+    col = torch.arange(T, device=dev)[None, :]
+    wcol = torch.where((col < n[:, None]) & (col < W), col, torch.full_like(col, W))
+    history[sl[:, None], wcol] = upload(np.asarray(tokens)[rows], torch.int32, dev)
+    history[sl, torch.clamp(n, max=W - 1)] = first[upload(rows, torch.long, dev)].to(torch.int32)
+    return history
+
+
 def sample_prefill_tokens(
     logits: torch.Tensor,       # [A, T, V] fp32 prefill logits
     valid: torch.Tensor,        # [A] prompt lengths (last logit at valid - 1)
@@ -475,10 +930,12 @@ def admit_group(
     meta_i32: np.ndarray,  # [ADMIT_I32_ROWS, A] packed int metadata
     meta_f32: np.ndarray,  # [ADMIT_F32_ROWS, A] packed float metadata
     page_rows: Optional[np.ndarray] = None,  # [A, max_pages] — the paged cache's rows
+    history: Optional[torch.Tensor] = None,  # [B, W + 1] — speculative decoding's history
 ):
     """The whole admission path — prefill forward (kernel K1), batched
     cache write, sampler install, first-token sample, decode-state
-    install. Returns ``(cache, dstate, sampling, first_tokens [A])``."""
+    install, and with ``history`` its install (``install_history``, in
+    place). Returns ``(cache, dstate, sampling, first_tokens [A])``."""
     dev = dstate.tokens.device
     A, T = tokens.shape
     slots = [int(s) for s in meta_i32[AI_SLOT]]
@@ -495,6 +952,8 @@ def admit_group(
     else:
         cache = write_prompts(cache, slots, ks, vs, lens)
     dstate, sampling, first = _admit_rows(logits, dstate, sampling, meta_i32, meta_f32)
+    if history is not None:
+        install_history(history, slots, tokens, lens, first)
     return cache, dstate, sampling, first
 
 
@@ -632,6 +1091,8 @@ def admit_group_prefix_paged(
     page_rows: np.ndarray,     # [A, max_pages] the slots' block-table rows
     meta_i32: np.ndarray,      # AI_LEN = tail lengths, AI_PLEN = page-aligned prefix length
     meta_f32: np.ndarray,
+    history: Optional[torch.Tensor] = None,     # [B, W + 1] — speculative decoding only
+    full_tokens: Optional[np.ndarray] = None,   # [A, Tf] the whole prompts, for the history
 ):
     """Admission of prompts whose first ``AI_PLEN`` tokens already sit in
     the chain's pages, mapped at the head of every row's block table: a
@@ -656,6 +1117,9 @@ def admit_group_prefix_paged(
         cache, slots, [prefix_len + n if n > 0 else 0 for n in tail_lens]
     )
     dstate, sampling, first = _admit_rows(logits, dstate, sampling, meta_i32, meta_f32)
+    if history is not None:
+        install_history(history, slots, full_tokens,
+                        [prefix_len + n if n > 0 else 0 for n in tail_lens], first)
     return cache, dstate, sampling, first
 
 
@@ -670,6 +1134,8 @@ def admit_group_prefix(
     tail_tokens: np.ndarray,   # [A, Tt] right-padded prompt tails
     meta_i32: np.ndarray,      # AI_LEN = tail lengths, AI_PLEN = true prefix length
     meta_f32: np.ndarray,
+    history: Optional[torch.Tensor] = None,     # [B, W + 1] — speculative decoding only
+    full_tokens: Optional[np.ndarray] = None,   # [A, Tf] the whole prompts, for the history
 ):
     """Admission with a cached prefix on the dense cache: copy the entry's
     panels into each slot's ``[0, prefix_len)``, prefill only the tails
@@ -705,6 +1171,9 @@ def admit_group_prefix(
             vc[sl, :, prefix_len:prefix_len + Tt] = vs[l][r].transpose(1, 2).to(vc.dtype)
         cache.lengths[sl] = upload([prefix_len + tail_lens[a] for a in rows], torch.int32, dev)
     dstate, sampling, first = _admit_rows(logits, dstate, sampling, meta_i32, meta_f32)
+    if history is not None:
+        install_history(history, [int(x) for x in meta_i32[AI_SLOT]], full_tokens,
+                        [prefix_len + n if n > 0 else 0 for n in tail_lens], first)
     return cache, dstate, sampling, first
 
 

@@ -102,6 +102,8 @@ class TorchEngine(LLMBackend):
             fused_epilogue=self.config.engine_fused_epilogue,
             prefix_cache=self.config.engine_prefix_cache,
             prefix_min_len=self.config.engine_prefix_min_len,
+            speculate=self.config.engine_speculate,
+            draft_layers=self.config.engine_draft_layers,
         )
         batcher.start()
         self.batcher = batcher

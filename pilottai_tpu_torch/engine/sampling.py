@@ -191,3 +191,43 @@ def sample_core(
     drawn = torch.argmax(scaled - torch.log(noise), dim=-1)       # Gumbel-max draw
     tokens = torch.where(state.temperature > 0.0, drawn, greedy).to(torch.int32)
     return tokens, _advance_json(state, tokens, json_gate)
+
+
+def fused_verify_rows(
+    logits: torch.Tensor,        # [B, D-1, V] fp32 verify rows 1..D-1 of a block
+    draft_tokens: torch.Tensor,  # [B, D-1] the draft path those rows follow
+    state: SamplingState,        # its JSON coordinates as they were BEFORE the block's row 0
+    budget: torch.Tensor,        # [B] budget left entering the block
+) -> torch.Tensor:
+    """The masked-greedy verify rows of one speculative block as one mask
+    and argmax over the flattened (slot, row) pairs (the JAX function's
+    algorithm). Row j's JSON coordinates are the draft path's: the
+    coordinates before the block advanced by draft tokens 0..j, one table
+    lookup a row; its mask takes ``remaining = budget - (j + 1)``. Nothing
+    in ``state`` changes. Returns ``[B, D-1]`` int32."""
+    B, Dm1, V = logits.shape
+    js, stack, depth = state.json_state, state.json_stack, state.json_depth
+    en = state.json_enabled
+    states, stacks, depths = [], [], []
+    for j in range(Dm1):
+        ns, nst, nd = json_advance(js, stack, depth, draft_tokens[:, j])
+        js = torch.where(en, ns, js)
+        stack = torch.where(en, nst, stack)
+        depth = torch.where(en, nd, depth)
+        states.append(js)
+        stacks.append(stack)
+        depths.append(depth)
+    def rows(t: torch.Tensor) -> torch.Tensor:
+        return t[:, None].expand(B, Dm1).reshape(-1)
+
+    flat = SamplingState(
+        temperature=rows(state.temperature), top_k=rows(state.top_k), top_p=rows(state.top_p),
+        eos_id=rows(state.eos_id), json_enabled=rows(en),
+        json_state=torch.stack(states, dim=1).reshape(-1),
+        json_stack=torch.stack(stacks, dim=1).reshape(-1),
+        json_depth=torch.stack(depths, dim=1).reshape(-1),
+    )
+    steps = torch.arange(1, Dm1 + 1, dtype=budget.dtype, device=budget.device)
+    remaining = (budget[:, None] - steps[None, :]).reshape(-1)
+    masked = _apply_json_mask(logits.reshape(B * Dm1, V), flat, remaining)
+    return torch.argmax(masked, dim=-1).to(torch.int32).reshape(B, Dm1)

@@ -127,6 +127,24 @@ def init_params(
     return params
 
 
+def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` with an fp32 result, which the JAX package asks for with
+    ``preferred_element_type=jnp.float32``. bf16 operands on CUDA stay bf16
+    and run on the tensor cores through the ``out_dtype`` overloads of
+    ``torch.mm`` and ``torch.bmm`` (a torch without them raises); anywhere
+    else the operands are cast to fp32, where every bf16 product is exact,
+    so only the order of summation differs. ``a [..., m, k]`` against a 2-D
+    ``b [k, n]``, or against ``b [..., k, n]`` with the same batch dims."""
+    if a.is_cuda and a.dtype == torch.bfloat16 and b.dtype == torch.bfloat16:
+        if b.dim() == 2:
+            out = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=torch.float32)
+            return out.reshape(*a.shape[:-1], b.shape[-1])
+        out = torch.bmm(a.reshape(-1, *a.shape[-2:]), b.reshape(-1, *b.shape[-2:]),
+                        out_dtype=torch.float32)
+        return out.reshape(*a.shape[:-1], b.shape[-1])
+    return a.float() @ b.float()
+
+
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     """RMSNorm with fp32 statistics; the result is cast back to x's dtype."""
     xf = x.float()

@@ -18,7 +18,13 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from pilottai_tpu_torch.models.common import ModelConfig, apply_rope, rms_norm, rope_tables
+from pilottai_tpu_torch.models.common import (
+    ModelConfig,
+    apply_rope,
+    matmul_f32,
+    rms_norm,
+    rope_tables,
+)
 from pilottai_tpu_torch.ops.attention import NEG_INF
 from pilottai_tpu_torch.ops.kernels.flash_attention import flash_attention
 from pilottai_tpu_torch.ops.kvcache import KVCache
@@ -50,13 +56,52 @@ def _embed(params: Dict[str, Any], tokens: torch.Tensor) -> torch.Tensor:
     return params["embed"][tokens]
 
 
+class LogitsHead(torch.autograd.Function):
+    """The logits head ``x @ head`` on bf16 operands with an fp32 result
+    (``matmul_f32``), with the backward ``jax.grad`` takes through the JAX
+    package's ``dot_general(bf16, bf16, preferred_element_type=f32)``: two
+    products of the fp32 cotangent against a bf16 operand, each converted
+    to the operand's dtype. The cotangent is rounded to bf16 first, which
+    is what XLA's default precision does to such a product on the TPU (one
+    bf16 pass), and lets both products run on the tensor cores: the one
+    rounding is the only difference from an fp32 cotangent. ``torch.mm``'s
+    ``out_dtype`` overload has no derivative of its own, hence this
+    Function."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(x, head)
+        return matmul_f32(x, head)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        x, head = ctx.saved_tensors
+        gb = g.to(head.dtype).reshape(-1, g.shape[-1])
+        x2 = x.reshape(-1, x.shape[-1])
+        dx = matmul_f32(gb, head.t()).to(x.dtype).reshape(x.shape)
+        dhead = matmul_f32(x2.t(), gb).to(head.dtype)
+        return dx, dhead
+
+
+def _tensor_core_head(x: torch.Tensor, head: torch.Tensor) -> bool:
+    """The head runs as ``LogitsHead`` on CUDA bf16 operands; elsewhere
+    (the CPU, the fp32 paths) it keeps the fp32 form."""
+    return x.is_cuda and x.dtype == torch.bfloat16 and head.dtype == torch.bfloat16
+
+
 def _unembed(cfg: ModelConfig, params: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
-    """fp32 logits. The JAX package asks its matmul for an fp32 result
-    from bf16 operands; ``x.float() @ head.float()`` computes the same
-    (every bf16 product is exact in fp32), where a bf16 ``torch.matmul``
-    would round the logits to bf16."""
+    """fp32 logits, as the JAX package's ``qmatmul(x, head,
+    preferred_element_type=jnp.float32)`` computes them: on CUDA the bf16
+    operands go to the tensor cores with an fp32 result (``LogitsHead``),
+    with no fp32 copy of the head; on the CPU and on the fp32 paths
+    ``x.float() @ head.float()``, which gives the same values (every bf16
+    product is exact in fp32) where a bf16 ``torch.matmul`` would round the
+    logits to bf16."""
     head = params["lm_head"] if "lm_head" in params else params["embed"].t()
-    logits = x.float() @ head.float()
+    if _tensor_core_head(x, head):
+        logits = LogitsHead.apply(x, head)
+    else:
+        logits = x.float() @ head.float()
     if cfg.logit_softcap > 0.0:
         logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
     return logits

@@ -9,7 +9,10 @@ as ``engine/decode.py:_merge_stats`` merges them. The CUDA source is
 (the live pages' bytes) and what the design does about it: each slot's
 page walk is cut into splits of ``split_plan`` that run as blocks of their
 own, and a second pass merges the splits' statistics in split order.
-The wrapper allocates that pass's scratch.
+The wrapper allocates that pass's scratch. A launch takes at most
+``MAX_ROWS`` query rows a kv head; a speculative verify block with more
+(G·D > 32) is cut by the wrapper into runs of whole query heads, one
+launch each (``split_rows``), each reading the pages again.
 
 For a CUDA tensor the wrapper launches the kernel (or raises); for a CPU
 tensor it runs ``paged_decode_attention_plain``: gather the pages, the
@@ -35,7 +38,7 @@ launches = 0
 
 SOURCE = "pilottai_tpu_torch/csrc/paged_attention.cu"
 REPLACES = "pilottai_tpu/ops/pallas/paged_attention.py:58"
-MAX_ROWS = 32  # query rows per kv head the kernel takes (N / K, q_blocks included)
+MAX_ROWS = 32  # query rows per kv head one launch takes (N / K, q_blocks included)
 KEYS_PER_SPLIT = 256  # keys' worth of page slots one block of the kernel walks
 MIN_PAGE = 8  # the smallest page the kernel takes, engine_page_size's floor
 _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -240,8 +243,43 @@ def paged_decode_attention(
             q, k_pool, v_pool, table, last_valid, q_positions, n_blocks, scale, softcap,
             window, q_blocks, k_scales, v_scales, ring_k, ring_v, step,
         )
+    if N // K > MAX_ROWS and ring_k is None:
+        return split_rows(
+            q, K, q_blocks,
+            lambda part: _launch(part, k_pool, v_pool, table, last_valid, q_positions, n_blocks,
+                                 scale, softcap, window, q_blocks, k_scales, v_scales, None,
+                                 None, 0),
+        )
     return _launch(q, k_pool, v_pool, table, last_valid, q_positions, n_blocks, scale,
                    softcap, window, q_blocks, k_scales, v_scales, ring_k, ring_v, step)
+
+
+def split_rows(q: torch.Tensor, n_kv_heads: int, q_blocks: int, attend):
+    """More than ``MAX_ROWS`` query rows a kv head (a verify block of D
+    rows for each of G query heads, G·D > 32): the query heads of each kv
+    head are cut into runs of at most ``MAX_ROWS // q_blocks`` heads, whole
+    heads so that row r of a run still sits at ``q_positions + r %
+    q_blocks``; ``attend`` runs on each run's ``[B, K·rows, H]`` queries
+    (one launch each, every one reading the pages again) and the partials
+    come back in row order. Raises when one head's block alone passes the
+    limit."""
+    B, N, H = q.shape
+    K = n_kv_heads
+    heads = N // K // q_blocks
+    per = MAX_ROWS // q_blocks
+    if per < 1:
+        raise ValueError(f"paged_attention: a block of q_blocks={q_blocks} rows passes the "
+                         f"kernel's {MAX_ROWS} query rows per kv head")
+    qh = q.reshape(B, K, heads, q_blocks, H)
+    accs, ms, ls = [], [], []
+    for h0 in range(0, heads, per):
+        n = min(per, heads - h0)
+        acc, m, l = attend(qh[:, :, h0:h0 + n].reshape(B, K * n * q_blocks, H).contiguous())
+        accs.append(acc.reshape(B, K, n * q_blocks, H))
+        ms.append(m.reshape(B, K, n * q_blocks))
+        ls.append(l.reshape(B, K, n * q_blocks))
+    return (torch.cat(accs, dim=2).reshape(B, N, H), torch.cat(ms, dim=2).reshape(B, N),
+            torch.cat(ls, dim=2).reshape(B, N))
 
 
 def _launch(q, k_pool, v_pool, table, last_valid, q_positions, n_blocks, scale, softcap,

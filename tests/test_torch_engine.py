@@ -132,8 +132,14 @@ def test_knobs_outside_the_slice_are_refused():
         LLMConfig(engine_kvcache_policy="lru")
     with pytest.raises(ValueError):
         LLMConfig(engine_prefix_cache=-1)
-    with pytest.raises(ValueError, match="P4"):
-        LLMConfig(engine_speculate=4)
+    # Speculative decoding (slice P4) is accepted, at the JAX package's
+    # defaults (both off).
+    cfg = LLMConfig()
+    assert (cfg.engine_speculate, cfg.engine_draft_layers) == (0, 0)
+    cfg = LLMConfig(engine_speculate=4, engine_draft_layers=2)
+    assert (cfg.engine_speculate, cfg.engine_draft_layers) == (4, 2)
+    with pytest.raises(ValueError):
+        LLMConfig(engine_speculate=-1)
     with pytest.raises(ValueError, match="P5"):
         LLMConfig(engine_quant="int8")
     # The decode pipeline's knobs (slice P6a) are accepted, at the JAX
