@@ -11,7 +11,9 @@ result line is printed only when every phase passed):
 1. environment — torch and CUDA versions, the card's name and power limit,
    and whether this torch has the bf16 x bf16 -> fp32 products
    (``torch.mm``/``torch.bmm`` with ``out_dtype``) the logits head and the
-   speculative verify run on (without them those paths raise);
+   speculative verify run on (without them those paths raise), and which
+   of ``CUDAGraph``'s conditional-node methods it has (a chunk's exit once
+   every slot is done needs them; without them every step runs);
 2. build — the five hand-written kernels from ``pilottai_tpu_torch/csrc``
    with ``nvcc`` for sm_90a, in parallel;
 3. kernels — K1 (flash prefill), K2 (dense decode statistics) and K3
@@ -51,8 +53,12 @@ result line is printed only when every phase passed):
    counters, reset just before it, must show its kernels: K1 and K2 on the
    dense path, K1 and K3 with K2 at zero on the paged ones, where prefill
    segments must have run; K2 (dense) or K3 (paged) once per layer per
-   decode step dispatched, graph replays included. The chunk graphs
-   captured, their capture seconds and their shared pool are printed.
+   decode step dispatched, graph replays included. Every engine of the
+   smoke prints its warm-up sweep (``start()`` captures every chunk graph
+   its settings reach: the wall, the graphs against the reachable keys,
+   the eager chunks' and the captures' seconds, its requests,
+   the buffers shared by shape against one set a variant, the shared
+   pool) and fails if serving captured a graph after ``start()``.
    (c) the same golden at the port's defaults, prefix cache on, each case
    served twice in a row, dense and paged: every serving's ids equal the
    golden's, the lookups hit at least once a case (the second serving),
@@ -66,8 +72,12 @@ result line is printed only when every phase passed):
    x draft layers launches of K2 (dense) or K3 (paged); tokens per block
    printed;
 5. full width — llama3-8b in bf16 from random init, the prefix cache off
-   in (a) to (c), (a) on the dense cache:
-   8 concurrent JSON-mode greedy requests, the counters > 0, one prompt's
+   in (a) to (c); the engines of (a) and (b) serve the later runs at their
+   settings too (5d with the cache off, 5e with speculation off, 5c), and
+   stop after 5c. Peak memory is each engine's own: the process's peak
+   less what the other live engines hold. (a) on the dense cache: the first wave served after
+   ``start()``, then 8 concurrent JSON-mode greedy requests, the counters
+   > 0, one prompt's
    first-token logits through K1 against the plain K1 and one decode step
    of the live wave through K2 against the plain K2 (``TOL_E2E``); (b)
    paged, switched on by ``engine_max_seq=8192`` alone: one ~6000-token
@@ -77,24 +87,29 @@ result line is printed only when every phase passed):
    (``TOL_E2E``). Both decode-step checks run on the device thread's
    stream between two dispatches, and both paths launch their decode
    kernel once per layer per step. Then five more waves of each: TTFT
-   p50, TPOT p50 and decode tokens/s per wave, with the median and the
-   spread; (c) five waves of each under torch.profiler, on fresh engines:
+   p50, TPOT p50, decode tokens/s and the decode steps dispatched against
+   the useful ones per wave, with the median and the spread; the first
+   wave's TTFT beside the timed median; the TTFT of one request sent while
+   a decode chunk is in flight; in (a) one replay of the 16-step graph with
+   every slot done; (c) five waves of each under torch.profiler, on the
+   shared engines:
    the device's busy share (after every plain wave: the profiler leaves
    the process's launches slower), and the fp32 GEMMs and the kinds of
    GEMM the first profiled wave ran (the logits head's among them); (d)
-   agent steps sharing a preamble: 8 concurrent requests a
+   agent steps sharing a preamble, 8 concurrent requests a
    wave whose system message is the leading 900 bytes of the protocol
    rules and whose task differs in every request, dense (2048) and paged
    (8192): a cold wave, then five timed waves with the prefix cache on
    (8 hits a wave, each tail one K1 launch a layer against the cached
    prefix: the store's derived preamble entry, or 7 shared pages) and the
-   same waves with it off; TTFT and TPOT p50 of both, the store or the
+   same waves on the shared engine, whose cache is off; TTFT and TPOT p50 of both, the store or the
    pinned pages, and one warm request's first-token logits through the
    hit path against a full K1 prefill (``TOL_E2E``, the same argmax);
    (e) speculative decoding at full width: 8 concurrent JSON requests,
-   dense (2048) and paged (8192), ``engine_speculate=4``, two cold waves
-   (the graphs captured) and five timed waves, and the same waves on an
-   engine with speculation off:
+   dense (2048) and paged (8192), ``engine_speculate=4``, the first wave
+   served (its TTFT beside the timed median), a wave with the row-0 check
+   and five timed waves, one request sent behind a chunk in flight, and
+   the timed waves on the shared engine (speculation off):
    TTFT, TPOT p50 and tokens/s of both, tokens per block, the launches per
    block, and one verify block's row-0 logits of the live wave against the
    plain decode step's for the same token (``TOL_E2E``, the same argmax);
@@ -761,7 +776,9 @@ def record_requests(handler):
     """Wrap the engine's submit so the smoke sees each request's token ids."""
     batcher = handler.backend.batcher
     seen = []
-    submit = batcher.submit
+    # The engine's own submit, however many times its requests are recorded.
+    submit = batcher.__dict__.get("_smoke_submit", batcher.submit)
+    batcher._smoke_submit = submit
 
     def recording(request):
         seen.append(request)
@@ -797,12 +814,44 @@ SERIAL_KNOBS = dict(engine_pipeline=1, engine_overlap_admission=False,
                     engine_chunk_policy="fixed", engine_fused_epilogue=False)
 
 
+def mib(n):
+    return "not measured" if n is None else f"{n / 2**20:.1f} MiB"
+
+
 def graph_text(batcher):
     g = batcher.graph_report()
-    pool = "not measured" if g["pool_bytes"] is None else f"{g['pool_bytes'] / 2**20:.1f} MiB"
     drafts = f", model-draft replays {g['draft_replays']}" if batcher.draft_layers else ""
-    return (f"chunk graphs captured {g['graphs']}, capture {g['capture_s']:.3f} s, "
-            f"shared pool {pool}{drafts}")
+    return (f"chunk graphs captured after start() {g['graphs']} ({g['capture_s']:.3f} s), "
+            f"buffers {mib(g['buffer_bytes'])}, shared pool {mib(g['pool_bytes'])}{drafts}")
+
+
+def sweep_text(batcher):
+    """The warm-up sweep ``start()`` ran: its wall, the graphs it captured
+    against the keys the settings reach, the eager chunks' and the
+    captures' seconds, its requests, the variants' buffers (shared by
+    shape, and one set a variant) and the graphs' pool."""
+    s = batcher.graph_report()["sweep"]
+    return (f"warm-up sweep {s['wall_s']:.2f} s: {s['graphs']} chunk graphs for "
+            f"{len(batcher.reachable_keys())} reachable keys, eager chunks {s['eager_s']:.2f} s, "
+            f"capture {s['capture_s']:.2f} s, {s['requests']} requests; buffers "
+            f"{mib(s['buffer_bytes'])} "
+            f"({mib(s['buffer_bytes_unshared'])} as one set a variant), shared pool "
+            f"{mib(s['pool_bytes'])}")
+
+
+def sweep_check(batcher, label):
+    """Log the sweep; every reachable key must have been captured."""
+    log(f"  {label}: {sweep_text(batcher)}")
+    if batcher.graph_report()["sweep"]["graphs"] != len(batcher.reachable_keys()):
+        raise SystemExit(f"{label}: the sweep did not capture every reachable chunk graph")
+
+
+def no_capture_check(batcher, label):
+    """Serving after ``start()`` captures no chunk graph."""
+    g = batcher.graph_report()
+    if g["graphs"]:
+        raise SystemExit(f"{label}: {g['graphs']} chunk graphs captured after start() "
+                         f"({g['capture_s']:.3f} s)")
 
 
 def spec_launch_check(launches, batcher, blocks, draft_blocks, label):
@@ -886,6 +935,7 @@ def phase_golden(torch, kernels, root, asset, paged, page_size=None, knobs=None,
         await handler.start()
         seen = record_requests(handler)
         batcher = handler.backend.batcher
+        sweep_check(batcher, "engine start")
         if force_drafts:
             draft_from_the_model(batcher)
         try:
@@ -907,8 +957,9 @@ def phase_golden(torch, kernels, root, asset, paged, page_size=None, knobs=None,
             await handler.stop()
 
     t0 = time.perf_counter()
-    got, batcher = asyncio.run(run())
+    got, batcher = arun(run())
     launches = counts(kernels)      # read once the engine's threads have stopped
+    no_capture_check(batcher, "golden")
     n = len(golden["cases"]) * repeat
     log(f"  launches on this run ({n} requests, fp32): {launches_text(launches)}")
     if batcher.speculate:
@@ -1015,6 +1066,160 @@ def long_prompt(n_chars: int) -> str:
 
 
 WAVES = 5
+# 5c's waves under torch.profiler. The busy share sums the profiler's raw
+# device events (``device_busy_us``): building its event tree, as
+# ``key_averages`` does, costs tens of seconds a wave (~60,000 kernel
+# events), so only the first wave's kernel table takes that path.
+PROFILED_WAVES = 5
+
+_LOOP = None
+
+
+def arun(coro):
+    """Run a coroutine on the smoke's one event loop: the shared engines
+    outlive a phase."""
+    global _LOOP
+    if _LOOP is None:
+        _LOOP = asyncio.new_event_loop()
+    return _LOOP.run_until_complete(coro)
+
+
+# The llama3-8b engines of 5a (dense, 2048) and 5b (paged, 8192), kept for
+# 5d's cache-off waves, 5e's speculation-off waves and 5c's profiled ones,
+# which would otherwise each sweep the same graphs again. Stopped after 5c.
+SHARED = {}
+# The device bytes each live llama3-8b engine holds once started (its
+# weights, cache, chunk buffers and graphs): a wave's peak less the other
+# live engines' is the engine's own (``own_peak``).
+RESIDENT = {}
+
+
+def full_width_config(seed, max_seq, **knobs):
+    from pilottai_tpu_torch import LLMConfig
+
+    kw = dict(provider="cuda", model_name="llama3-8b", dtype="bfloat16", engine_slots=8,
+              engine_admit_batch=8, engine_max_seq=max_seq, engine_chunk=16, seed=seed,
+              engine_prefix_cache=0)
+    kw.update(knobs)
+    return LLMConfig(**kw)
+
+
+async def full_width_engine(torch, seed, max_seq, label, **knobs):
+    """A started llama3-8b engine at the smoke's settings and ``knobs``;
+    without knobs, the shared one of ``max_seq`` (started at its first
+    use). Logs the start, its warm-up sweep and the bytes it holds."""
+    from pilottai_tpu_torch import LLMHandler
+
+    if not knobs and max_seq in SHARED:
+        log(f"  {label}: the shared engine of engine_max_seq {max_seq}")
+        return SHARED[max_seq]
+    gc.collect()                        # an earlier engine's garbage goes first
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    handler = LLMHandler(full_width_config(seed, max_seq, **knobs))
+    t0 = time.perf_counter()
+    await handler.start()
+    torch.cuda.synchronize()
+    RESIDENT[handler] = torch.cuda.memory_allocated() - before
+    cfg = handler.backend.model_cfg
+    log(f"  {label}: llama3-8b bf16 random init at {cfg.n_layers} layers and start() in "
+        f"{time.perf_counter() - t0:.1f} s ({cfg.param_count() / 1e9:.2f}B params, vocab "
+        f"{cfg.vocab_size}); it holds {RESIDENT[handler] / 2**30:.2f} GiB")
+    sweep_check(handler.backend.batcher, label)
+    if not knobs:
+        SHARED[max_seq] = handler
+    return handler
+
+
+def own_peak(torch, handler):
+    """The engine's own peak since the last ``reset_peak_memory_stats``:
+    the process's peak less what the other live engines hold."""
+    others = sum(b for h, b in RESIDENT.items() if h is not handler)
+    return torch.cuda.max_memory_allocated() - others
+
+
+async def release(handler):
+    """Stop an engine unless it is shared."""
+    if all(handler is not h for h in SHARED.values()):
+        RESIDENT.pop(handler, None)
+        await handler.stop()
+
+
+def stop_shared():
+    for handler in SHARED.values():
+        RESIDENT.pop(handler, None)
+        arun(handler.stop())
+    SHARED.clear()
+
+
+def first_wave_line(first, waves, label):
+    """The first wave served after ``start()`` beside the timed waves."""
+    t = median([w["ttft_ms"] for w in waves])
+    f = first[0]["ttft_ms"]
+    log(f"  {label}: the first wave served after start(): TTFT p50 {f:.4f} ms against the "
+        f"timed waves' median {t:.4f} ms ({f / t:.3f} x)")
+    return f / t
+
+
+async def ttft_behind_chunk(handler, requests, label):
+    """TTFT of one request submitted while a decode chunk is in flight:
+    all requests but the last are sent, and once each has its first token
+    and a chunk is dispatched but not folded, the last one. Logs the steps
+    in flight, its TTFT and the steps dispatched against the useful ones
+    over the wave."""
+    from pilottai_tpu_torch.engine.types import GenerationParams
+
+    batcher = handler.backend.batcher
+
+    def send(messages, n):
+        return asyncio.ensure_future(handler.generate_response(
+            messages, params=GenerationParams(temperature=0.0, max_new_tokens=n),
+            json_mode=True))
+
+    await settle(batcher)
+    seen = record_requests(handler)
+    d0, u0 = batcher.blocks_dispatched, batcher.blocks_useful
+    tasks = [send(*r) for r in requests[:-1]]
+    t0 = time.perf_counter()
+    while not (len(seen) == len(tasks) and all(r.first_token_at is not None for r in seen)
+               and batcher.blocks_dispatched > batcher.blocks_folded):
+        if time.perf_counter() - t0 > 60 or all(t.done() for t in tasks):
+            raise SystemExit(f"{label}: no decode chunk in flight to submit behind")
+        await asyncio.sleep(0.0005)
+    in_flight = batcher.blocks_dispatched - batcher.blocks_folded
+    tasks.append(send(*requests[-1]))
+    await asyncio.gather(*tasks)
+    await settle(batcher)
+    last = seen[-1]
+    ttft = (last.first_token_at - last.submitted_at) * 1e3
+    log(f"  {label}: TTFT of a request submitted with {in_flight} decode steps dispatched and not "
+        f"folded: {ttft:.4f} ms; steps dispatched over that wave "
+        f"{batcher.blocks_dispatched - d0}, useful {batcher.blocks_useful - u0}")
+    return ttft
+
+
+def replay_all_done(torch, batcher, label):
+    """One replay of the engine's widest chunk graph (the fused epilogue,
+    dense) with every slot done, on the device thread while the engine is
+    idle: the chunk has no exit (ROADMAP C.4), so it runs every step."""
+    runner = batcher.runner
+    graph = runner._variants[runner.key(batcher.chunk_size, batcher.fused_epilogue)].graph
+
+    def timed():
+        if not bool(batcher.dstate.done.all()):
+            raise SystemExit(f"{label}: a slot is live; no all-done replay")
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        graph.replay()
+        ev[0].record()
+        graph.replay()
+        ev[1].record()
+        ev[1].synchronize()
+        return ev[0].elapsed_time(ev[1])
+
+    ms = batcher.call_on_device(timed)
+    log(f"  {label}: one replay of the {batcher.chunk_size}-step graph with every slot done: "
+        f"{ms:.4f} ms ({ms / batcher.chunk_size:.4f} ms a step; every step runs, ROADMAP C.4)")
+    return ms
 
 
 def median(xs):
@@ -1052,6 +1257,7 @@ async def timed_waves(handler, requests, label, long_first=False, n_waves=WAVES,
     waves, rows0 = [], None
     for w in range(n_waves):
         batcher.completed.clear()
+        blocks0 = (getattr(batcher, "blocks_dispatched", 0), getattr(batcher, "blocks_useful", 0))
         with (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if profiled
               else contextlib.nullcontext()) as prof:
             torch.cuda.synchronize()
@@ -1069,12 +1275,16 @@ async def timed_waves(handler, requests, label, long_first=False, n_waves=WAVES,
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         if profiled:
-            rows = device_rows(prof)
+            t1 = time.perf_counter()
+            busy = device_busy_us(prof)
+            wave = {"busy": busy / (wall * 1e6) if busy else None, "wall_s": wall,
+                    "processing_s": time.perf_counter() - t1}
             if w == 0:
-                rows0 = rows
+                rows0 = device_rows(prof)
                 report_profile(prof, wall * 1e6, f"wave 1 of {n_waves} ({label})")
-            wave = {"busy": sum(r[0] for r in rows) / (wall * 1e6) if rows else None,
-                    "wall_s": wall}
+                log(f"  the raw events' device time {busy / 1e3:.3f} ms against the kernel "
+                    f"table's {sum(r[0] for r in rows0) / 1e3:.3f} ms; the table took "
+                    f"{time.perf_counter() - t1:.1f} s to build")
         else:
             timings = list(batcher.completed)
             long_t = [t["ttft_s"] for t in timings if long_first and t["prompt_tokens"] > 1000]
@@ -1087,6 +1297,10 @@ async def timed_waves(handler, requests, label, long_first=False, n_waves=WAVES,
                 "tokens_s": sum(t["tokens"] for t in timings) / wall,
                 "wall_s": wall,
             }
+            if hasattr(batcher, "blocks_useful"):
+                await settle(batcher)        # the chunks in flight at the end folded too
+                wave["steps_dispatched"] = batcher.blocks_dispatched - blocks0[0]
+                wave["steps_useful"] = batcher.blocks_useful - blocks0[1]
         waves.append(wave)
         log(f"  {'profiled ' if profiled else ''}wave {w + 1}: " + ", ".join(
             f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}" for k, v in wave.items()))
@@ -1113,6 +1327,21 @@ async def settle(batcher, timeout_s=300.0):
             raise SystemExit(f"the engine did not settle in {timeout_s:.0f} s")
         await asyncio.sleep(0.01)
     await asyncio.sleep(0.05)
+
+
+def device_busy_us(prof):
+    """The device µs of a finished ``torch.profiler`` run's kernels, summed
+    over the profiler's raw events, host events and user annotations left
+    out: what ``device_rows`` sums, without the event tree it builds."""
+    from torch.autograd import DeviceType
+
+    total = 0
+    for evt in prof.profiler.kineto_results.events():
+        if evt.device_type() == DeviceType.CPU or getattr(evt, "is_user_annotation",
+                                                           lambda: False)():
+            continue
+        total += evt.duration_ns()
+    return total / 1e3
 
 
 def device_rows(prof):
@@ -1280,32 +1509,21 @@ def decode_step_check(torch, mod, batcher):
 
 
 def phase_full_width(torch, kernels, seed):
-    from pilottai_tpu_torch import LLMConfig, LLMHandler
+    from pilottai_tpu_torch.engine.types import GenerationParams
     from pilottai_tpu_torch.models.transformer import forward_prefill
 
     fa, da = kernels["flash"], kernels["decode"]
-    cfg = LLMConfig(provider="cuda", model_name="llama3-8b", dtype="bfloat16",
-                    engine_slots=8, engine_admit_batch=8, engine_max_seq=2048,
-                    engine_chunk=16, seed=seed, engine_prefix_cache=0)
     prompts = [[FULL_PROMPT.format(i=i)] for i in range(8)]
+    reqs = [(p, 64) for p in prompts]
     shapes = {}
     state = {}
 
     async def run():
-        handler = LLMHandler(cfg)
-        t0 = time.perf_counter()
-        await handler.start()
-        torch.cuda.synchronize()
-        log(f"  llama3-8b bf16 random init on the card in {time.perf_counter() - t0:.1f} s "
-            f"({handler.backend.model_cfg.param_count() / 1e9:.2f}B params, "
-            f"vocab {handler.backend.model_cfg.vocab_size})")
-        params = {"temperature": 0.0, "max_new_tokens": 64}
-        from pilottai_tpu_torch.engine.types import GenerationParams
-
-        # Warm-up request (cuBLAS handles, allocator), not counted.
-        await handler.generate_response(prompts[0], params=GenerationParams(
-            temperature=0.0, max_new_tokens=4), json_mode=True)
+        handler = await full_width_engine(torch, seed, 2048, "5a dense engine")
         batcher = handler.backend.batcher
+        # The first wave the engine serves, as the timed waves are served.
+        first, _ = await timed_waves(handler, reqs, "dense, the first wave served", n_waves=1)
+        params = {"temperature": 0.0, "max_new_tokens": 64}
         decode = batcher._decode
 
         def watching():
@@ -1335,7 +1553,7 @@ def phase_full_width(torch, kernels, seed):
         shapes["prompt_lens"] = [len(r.prompt_ids) for r in seen]
         shapes["gen_lens"] = [len(r.future.result()) for r in seen]
         timings = list(batcher.completed)
-        peak = torch.cuda.max_memory_allocated()
+        peak = own_peak(torch, handler)
         # Finite logits of the expected shape at full width, and the
         # first-token logits through K1 against the same forward with the
         # plain K1 on the same card.
@@ -1349,13 +1567,15 @@ def phase_full_width(torch, kernels, seed):
         finite = bool(torch.isfinite(logits).all()) and tuple(logits.shape) == (1, T, 384)
         e2e = logits_agreement(logits[0, T - 1][None], ref[0, T - 1][None], [0])
         shapes["model"] = handler.backend.model_cfg
-        shapes["waves"], _ = await timed_waves(handler, [(p, 64) for p in prompts],
-                                               "dense, 8 x 64 tokens")
+        shapes["waves"], _ = await timed_waves(handler, reqs, "dense, 8 x 64 tokens")
+        shapes["first_wave"] = first_wave_line(first, shapes["waves"], "5a")
+        shapes["behind_chunk_ms"] = await ttft_behind_chunk(handler, reqs, "5a")
+        shapes["all_done_ms"] = replay_all_done(torch, batcher, "5a")
         log(f"  after the waves: {graph_text(batcher)}")
-        await handler.stop()
+        no_capture_check(batcher, "5a")
         return replies, wall, launches, timings, peak, finite, e2e
 
-    replies, wall, launches, timings, peak, finite, e2e = asyncio.run(run())
+    replies, wall, launches, timings, peak, finite, e2e = arun(run())
     parsed = sum(1 for r in replies if parses(r.content))
     tokens = sum(t["tokens"] for t in timings)
     ttft = sorted(t["ttft_s"] for t in timings)
@@ -1363,7 +1583,7 @@ def phase_full_width(torch, kernels, seed):
     log(f"  8 requests, prompt tokens {shapes['prompt_lens']}, generated {shapes['gen_lens']}")
     log(f"  TTFT p50 {ttft[len(ttft) // 2] * 1e3:.1f} ms max {ttft[-1] * 1e3:.1f} ms; "
         f"TPOT p50 {tpot[len(tpot) // 2] * 1e3:.2f} ms; {tokens / wall:.1f} tokens/s over "
-        f"{wall:.2f} s; peak memory {peak / 2**30:.2f} GiB")
+        f"{wall:.2f} s; peak memory {peak / 2**30:.2f} GiB (the engine's own)")
     log(f"  JSON replies that parse: {parsed}/8; prefill logits finite: {finite}")
     e2e_ok = e2e["rel"] <= TOL_E2E and e2e["argmax_ok"]
     log(f"  first-token logits of a {shapes['prompt_lens'][0]}-token prompt, K1 vs plain K1 "
@@ -1389,13 +1609,12 @@ def phase_full_width(torch, kernels, seed):
 
 
 def phase_busy(torch, seed):
-    """The device's busy share of five profiled waves of each llama3-8b
-    workload, each on a fresh engine after one plain warm-up wave (the
-    graphs captured). Runs after 5a and 5b, whose plain waves must not
-    follow a profiled one. Returns K2's device time and launches in the
-    first dense wave."""
-    from pilottai_tpu_torch import LLMConfig, LLMHandler
-
+    """The device's busy share of ``PROFILED_WAVES`` profiled waves of each
+    llama3-8b workload, on the shared engines (their graphs captured at
+    start).
+    Runs after every plain wave of the run: once the profiler has traced
+    the card, launches stay slower. Returns K2's device time and launches
+    in the first dense wave."""
     dense = [[FULL_PROMPT.format(i=i)] for i in range(8)]
     out = {}
     for label, max_seq, prompts, long_first in (
@@ -1403,19 +1622,14 @@ def phase_busy(torch, seed):
             ("paged, 1 long + 7 short x 64 tokens", 8192, [[long_prompt(5900)]] + dense[:7],
              True)):
         async def run():
-            handler = LLMHandler(LLMConfig(provider="cuda", model_name="llama3-8b",
-                                           dtype="bfloat16", engine_slots=8,
-                                           engine_admit_batch=8, engine_max_seq=max_seq,
-                                           engine_chunk=16, seed=seed, engine_prefix_cache=0))
-            await handler.start()
-            try:
-                reqs = [(p, 64) for p in prompts]
-                await timed_waves(handler, reqs, f"{label}, warm-up", long_first, 1)
-                return await timed_waves(handler, reqs, label, long_first, profiled=True)
-            finally:
-                await handler.stop()
+            handler = await full_width_engine(torch, seed, max_seq, f"5c {label}")
+            reqs = [(p, 64) for p in prompts]
+            out = await timed_waves(handler, reqs, label, long_first, n_waves=PROFILED_WAVES,
+                                    profiled=True)
+            no_capture_check(handler.backend.batcher, "5c")
+            return out
 
-        _, rows = asyncio.run(run())
+        _, rows = arun(run())
         # fp32 GEMMs on the CUDA cores: the prefill's fp32 logits head, and
         # before the tail attention went through K1 the segments' prefix
         # einsums (~216 ms a paged wave).
@@ -1455,30 +1669,24 @@ def phase_full_width_paged(torch, kernels, seed):
     one long prompt, admitted in 1024-token segments, and seven short ones
     behind it; the long one is at the head of the queue, so all eight decode
     together once it is in."""
-    from pilottai_tpu_torch import LLMConfig, LLMHandler
     from pilottai_tpu_torch.engine.types import GenerationParams
 
     pa = kernels["paged"]
-    cfg = LLMConfig(provider="cuda", model_name="llama3-8b", dtype="bfloat16",
-                    engine_slots=8, engine_admit_batch=8, engine_max_seq=8192,
-                    engine_chunk=16, seed=seed, engine_prefix_cache=0)
     requests = [[long_prompt(5900)]] + [[FULL_PROMPT.format(i=i)] for i in range(7)]
+    reqs = [(p, 64) for p in requests]
+    label = "paged, 1 long + 7 short x 64 tokens"
     state = {"peak_pages": 0}
 
     async def run():
-        handler = LLMHandler(cfg)
-        t0 = time.perf_counter()
-        await handler.start()
-        torch.cuda.synchronize()
+        handler = await full_width_engine(torch, seed, 8192, "5b paged engine")
         batcher = handler.backend.batcher
-        log(f"  llama3-8b bf16 random init, engine_max_seq 8192, on the card in "
-            f"{time.perf_counter() - t0:.1f} s; paged {batcher.paged}: {batcher.num_pages} "
-            f"pages of {batcher.page_size} (the last one scratch), prefill segments of "
+        log(f"  engine_max_seq 8192: paged {batcher.paged}: {batcher.num_pages} pages of "
+            f"{batcher.page_size} (the last one scratch), prefill segments of "
             f"{batcher.prefill_chunk}, slot capacity {batcher.max_seq_len}")
         if not batcher.paged:
             raise SystemExit("engine_max_seq 8192 did not page the cache")
-        await handler.generate_response(requests[1], params=GenerationParams(
-            temperature=0.0, max_new_tokens=4), json_mode=True)
+        first, _ = await timed_waves(handler, reqs, f"{label}, the first wave served",
+                                     long_first=True, n_waves=1)
         decode = batcher._decode
 
         def watching():
@@ -1523,7 +1731,7 @@ def phase_full_width_paged(torch, kernels, seed):
         batcher._decode = decode
         out = dict(
             replies=replies, wall=wall, launches=launches,
-            timings=list(batcher.completed), peak=torch.cuda.max_memory_allocated(),
+            timings=list(batcher.completed), peak=own_peak(torch, handler),
             prompt_lens=[len(r.prompt_ids) for r in seen],
             gen_lens=[len(r.future.result()) for r in seen],
             segments=batcher.prefill_segments - seg0,
@@ -1532,14 +1740,14 @@ def phase_full_width_paged(torch, kernels, seed):
             num_pages=batcher.num_pages, P=batcher.page_size, R=batcher.chunk_size,
             model=handler.backend.model_cfg,
         )
-        out["waves"], _ = await timed_waves(handler, [(p, 64) for p in requests],
-                                            "paged, 1 long + 7 short x 64 tokens",
-                                            long_first=True)
+        out["waves"], _ = await timed_waves(handler, reqs, label, long_first=True)
+        out["first_wave"] = first_wave_line(first, out["waves"], "5b")
+        out["behind_chunk_ms"] = await ttft_behind_chunk(handler, reqs[1:], "5b")
         log(f"  after the waves: {graph_text(batcher)}")
-        await handler.stop()
+        no_capture_check(batcher, "5b")
         return out
 
-    out = asyncio.run(run())
+    out = arun(run())
     timings = out["timings"]
     long_t = [t for t in timings if t["prompt_tokens"] > 1000]
     short_t = sorted((t for t in timings if t["prompt_tokens"] <= 1000),
@@ -1552,7 +1760,7 @@ def phase_full_width_paged(torch, kernels, seed):
         f"{short_t[len(short_t) // 2]['ttft_s'] * 1e3:.1f} ms max "
         f"{short_t[-1]['ttft_s'] * 1e3:.1f} ms; TPOT p50 {tpot[len(tpot) // 2] * 1e3:.2f} ms; "
         f"{tokens / out['wall']:.1f} tokens/s over {out['wall']:.2f} s; peak memory "
-        f"{out['peak'] / 2**30:.2f} GiB")
+        f"{out['peak'] / 2**30:.2f} GiB (the engine's own)")
     log(f"  prefill segments {out['segments']}; pages in use at the peak {state['peak_pages']} "
         f"of {out['usable']}; free after the wave {out['free_after']} of {out['usable']}, "
         f"block table clear {out['table_clear']}; JSON replies that parse: {parsed}/8")
@@ -1679,23 +1887,18 @@ def hit_logits_check(torch, batcher, prompt_ids):
 
 def phase_prefix_agent_steps(torch, kernels, root, seed, paged):
     """llama3-8b, 8 concurrent agent steps a wave sharing the preamble: a
-    cold wave (it stores entries or pins pages, and captures the graphs),
-    then ``WAVES`` timed waves of new tasks on the same engine with the
-    prefix cache on (every request a hit, its tail prefilled through one K1
-    launch a layer), and the same waves on an engine with the cache off.
-    Returns the hit path's K1 launches and shape."""
-    from pilottai_tpu_torch import LLMConfig, LLMHandler
-
+    cold wave (it stores entries or pins pages), then ``WAVES`` timed waves
+    of new tasks on the same engine with the prefix cache on (every request
+    a hit, its tail prefilled through one K1 launch a layer), and the same
+    waves on the shared engine, whose cache is off. Returns the hit path's
+    K1 launches and shape."""
     waves = [agent_step_prompts(root, w) for w in range(1 + WAVES)]
-    knobs = dict(engine_max_seq=8192) if paged else dict(engine_max_seq=2048)
     results = {}
 
     async def serve(prefix_cache):
-        handler = LLMHandler(LLMConfig(
-            provider="cuda", model_name="llama3-8b", dtype="bfloat16", engine_slots=8,
-            engine_admit_batch=8, engine_chunk=16, seed=seed,
-            engine_prefix_cache=prefix_cache, **knobs))
-        await handler.start()
+        handler = await full_width_engine(
+            torch, seed, 8192 if paged else 2048, f"5d engine_prefix_cache={prefix_cache}",
+            **(dict(engine_prefix_cache=prefix_cache) if prefix_cache else {}))
         batcher = handler.backend.batcher
         if batcher.paged != paged:
             raise SystemExit("5d: the engine did not page as configured")
@@ -1719,12 +1922,13 @@ def phase_prefix_agent_steps(torch, kernels, root, seed, paged):
         out["pages"] = ((batcher.alloc.free_pages, batcher.num_pages - 1) if paged else None)
         if prefix_cache:
             out["e2e"] = hit_logits_check(torch, batcher, list(seen[-1].prompt_ids))
-        await handler.stop()
+        no_capture_check(batcher, "5d")
+        await release(handler)
         return out
 
     for label, prefix_cache in (("cache on", 4), ("cache off", 0)):
         log(f"  -- {label} (engine_prefix_cache={prefix_cache})")
-        r = results[label] = asyncio.run(serve(prefix_cache))
+        r = results[label] = arun(serve(prefix_cache))
         gc.collect()
         torch.cuda.empty_cache()
         log(f"  cold wave: {r['cold']}; prefix cache after it: {r['cold_report'] or 'off'}")
@@ -1828,25 +2032,20 @@ def spec_row0_check(torch, kernels, batcher):
 
 def phase_spec_waves(torch, kernels, seed, paged):
     """llama3-8b, 8 concurrent JSON requests a wave, ``engine_speculate=4``:
-    two cold waves (the graphs captured: the acceptance EMA that sizes the
-    chunks settles in the second, whose chunk buckets the timed waves then
-    reuse; the first dispatch with all eight slots live runs
-    ``spec_row0_check``), then ``WAVES`` timed waves, and the same waves on
-    an engine with speculation off. The prefix cache is off on both: every
-    wave repeats the prompts. Returns the paged verify's K3 launches and
-    shape."""
-    from pilottai_tpu_torch import LLMConfig, LLMHandler
-
-    knobs = dict(engine_max_seq=8192) if paged else dict(engine_max_seq=2048)
+    the first wave served after ``start()``, a second in which the first
+    dispatch with all eight slots live runs ``spec_row0_check`` (and the
+    acceptance EMA that sizes the chunks settles), then ``WAVES`` timed
+    waves and one request sent behind a chunk in flight; and the timed
+    waves on the shared engine with speculation off. The prefix cache is
+    off on both: every wave repeats the prompts. Returns the paged
+    verify's K3 launches and shape."""
     reqs = [([FULL_PROMPT.format(i=i)], 64) for i in range(8)]
     results = {}
 
     async def serve(speculate, label):
-        handler = LLMHandler(LLMConfig(
-            provider="cuda", model_name="llama3-8b", dtype="bfloat16", engine_slots=8,
-            engine_admit_batch=8, engine_chunk=16, seed=seed, engine_prefix_cache=0,
-            engine_speculate=speculate, **knobs))
-        await handler.start()
+        handler = await full_width_engine(
+            torch, seed, 8192 if paged else 2048, f"5e {label}",
+            **(dict(engine_speculate=speculate) if speculate else {}))
         batcher = handler.backend.batcher
         if batcher.paged != paged:
             raise SystemExit("5e: the engine did not page as configured")
@@ -1858,19 +2057,22 @@ def phase_spec_waves(torch, kernels, seed, paged):
                 state["e2e"] = spec_row0_check(torch, kernels, batcher)
             dispatch()
 
-        if speculate:
-            batcher._decode = watching
         torch.cuda.reset_peak_memory_stats()
-        await timed_waves(handler, reqs, f"{label}, cold", n_waves=2)
-        await settle(batcher)
-        batcher._decode = dispatch
+        first = None
+        if speculate:
+            first, _ = await timed_waves(handler, reqs, f"{label}, the first wave served",
+                                         n_waves=1)
+            batcher._decode = watching
+            await timed_waves(handler, reqs, f"{label}, the row-0 check", n_waves=1)
+            await settle(batcher)
+            batcher._decode = dispatch
         rep0, blocks0 = batcher.spec_report(), batcher.blocks_dispatched
         reset(kernels)
         waves, _ = await timed_waves(handler, reqs, label)
         await settle(batcher)
         out = dict(waves=waves, launches=counts(kernels),
                    blocks=batcher.blocks_dispatched - blocks0, graphs=graph_text(batcher),
-                   peak=torch.cuda.max_memory_allocated(), model=handler.backend.model_cfg,
+                   peak=own_peak(torch, handler), model=handler.backend.model_cfg,
                    e2e=state.get("e2e"), num_pages=getattr(batcher, "num_pages", None),
                    P=batcher.page_size)
         if speculate:
@@ -1878,17 +2080,20 @@ def phase_spec_waves(torch, kernels, seed, paged):
             out["tokens_per_block"] = ((rep["tokens"] - rep0["tokens"])
                                        / max(rep["blocks"] - rep0["blocks"], 1))
             spec_launch_check(out["launches"], batcher, out["blocks"], 0, f"5e {label}")
+            out["first_wave"] = first_wave_line(first, waves, f"5e {label}")
+            out["behind_chunk_ms"] = await ttft_behind_chunk(handler, reqs, f"5e {label}")
         else:
             per_step_check(out["launches"], batcher, out["blocks"], f"5e {label}")
-        await handler.stop()
+        no_capture_check(batcher, f"5e {label}")
+        await release(handler)
         return out
 
     for label, speculate in (("speculation on", 4), ("speculation off", 0)):
         log(f"  -- {label} (engine_speculate={speculate})")
-        r = results[label] = asyncio.run(serve(speculate, label))
+        r = results[label] = arun(serve(speculate, label))
         gc.collect()
         torch.cuda.empty_cache()
-        log(f"  {r['graphs']}; peak memory {r['peak'] / 2**30:.2f} GiB")
+        log(f"  {r['graphs']}; peak memory {r['peak'] / 2**30:.2f} GiB (the engine's own)")
     on, off = results["speculation on"], results["speculation off"]
     for key in ("ttft_ms", "tpot_ms", "tokens_s"):
         a = median([wv[key] for wv in on["waves"]])
@@ -2605,7 +2810,11 @@ def main() -> int:
     device = torch.device("cuda", 0)
     smi = nvidia_smi()
     t_start = time.perf_counter()
-    log("== 1. environment")
+
+    def stage(title):
+        log(f"== {title} (at {time.perf_counter() - t_start:.1f} s)")
+
+    stage("1. environment")
     log(f"  python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.device_count()} device(s): {torch.cuda.get_device_name(0)}")
     log(smi)
@@ -2613,7 +2822,16 @@ def main() -> int:
         f"aten::mm.dtype {'present' if hasattr(torch.ops.aten.mm, 'dtype') else 'ABSENT'}, "
         f"aten::bmm.dtype {'present' if hasattr(torch.ops.aten.bmm, 'dtype') else 'ABSENT'}")
 
-    log("== 2. build (nvcc, sm_90a, the five kernels in parallel)")
+    # A decode chunk's exit once every slot is done needs a conditional node
+    # in the chunk graph (ROADMAP C.4); these capture one.
+    found = {m: hasattr(torch.cuda.CUDAGraph, m) for m in (
+        "begin_capture_to_if_node", "end_capture_to_conditional_node",
+        "get_currently_capturing_graph")}
+    log("  CUDA-graph conditional nodes (a decode chunk's exit once every slot is done): "
+        + ", ".join(f"CUDAGraph.{m} {'present' if ok else 'ABSENT'}" for m, ok in found.items())
+        + ("" if all(found.values()) else "; every step of a chunk graph runs (ROADMAP C.4)"))
+
+    stage("2. build (nvcc, sm_90a, the five kernels in parallel)")
     t0 = time.perf_counter()
     build.build_libraries(["flash_fwd", "decode_attention", "paged_attention", "flash_bwd_dq",
                            "flash_bwd_dkv"])
@@ -2625,78 +2843,82 @@ def main() -> int:
                     or "error" in line.lower()):
                 log(f"    {line.strip()}")
 
-    log("== 3. kernels vs plain versions")
+    stage("3. kernels vs plain versions")
     worst = phase_kernels(torch, fa, da, pa, device, args.seed)
     if args.kernels_only:
         return 0
     paths = {}
-    log("== 4a. golden protocol-s token ids (fp32), dense cache")
+    stage("4a. golden protocol-s token ids (fp32), dense cache")
     paths["golden"] = phase_golden(torch, kernels, root, "protocol_s_golden.json", paged=False)
-    log("== 4a. again with the decode pipeline's knobs off")
+    stage("4a. again with the decode pipeline's knobs off")
     phase_golden(torch, kernels, root, "protocol_s_golden.json", paged=False,
                  knobs=SERIAL_KNOBS)
-    log("== 4b. golden protocol-s token ids (fp32), paged cache, chunked prefill")
+    stage("4b. golden protocol-s token ids (fp32), paged cache, chunked prefill")
     paths["golden_paged"] = phase_golden(torch, kernels, root, "protocol_s_paged_golden.json",
                                          paged=True)
-    log("== 4b. again with the decode pipeline's knobs off")
+    stage("4b. again with the decode pipeline's knobs off")
     phase_golden(torch, kernels, root, "protocol_s_paged_golden.json", paged=True,
                  knobs=SERIAL_KNOBS)
-    log("== 4b. again at engine_page_size 8, the smallest page the config takes")
+    stage("4b. again at engine_page_size 8, the smallest page the config takes")
     paths["golden_paged_p8"] = phase_golden(torch, kernels, root,
                                             "protocol_s_paged_golden.json", paged=True,
                                             page_size=8)
-    log("== 4c. golden protocol-s token ids (fp32) with the prefix cache on (the port's "
-        "defaults), each case served twice: dense")
+    stage("4c. golden protocol-s token ids (fp32) with the prefix cache on (the port's "
+          "defaults), each case served twice: dense")
     phase_golden(torch, kernels, root, "protocol_s_golden.json", paged=False, prefix_cache=None,
                  repeat=2)
-    log("== 4c. the same, paged cache, chunked prefill")
+    stage("4c. the same, paged cache, chunked prefill")
     phase_golden(torch, kernels, root, "protocol_s_paged_golden.json", paged=True,
                  prefix_cache=None, repeat=2)
     for label, asset, paged in (("dense", "protocol_s_golden.json", False),
                                 ("paged cache, chunked prefill", "protocol_s_paged_golden.json",
                                  True)):
-        log(f"== 4d. golden protocol-s token ids (fp32) with engine_speculate=4: {label}")
+        stage(f"4d. golden protocol-s token ids (fp32) with engine_speculate=4: {label}")
         phase_golden(torch, kernels, root, asset, paged=paged, knobs=dict(engine_speculate=4))
-        log(f"== 4d. again with engine_draft_layers=2, every slot drafting through the model: "
-            f"{label}")
+        stage(f"4d. again with engine_draft_layers=2, every slot drafting through the model: "
+              f"{label}")
         paths["golden_drafts_paged" if paged else "golden_drafts"] = phase_golden(
             torch, kernels, root, asset, paged=paged,
             knobs=dict(engine_speculate=4, engine_draft_layers=2), force_drafts=True)
-    log("== 5a. llama3-8b full width, bf16, dense cache, 8 concurrent JSON requests")
+    stage("5a. llama3-8b full width, bf16, dense cache, 8 concurrent JSON requests")
     paths["full"] = phase_full_width(torch, kernels, args.seed)
     gc.collect()
     torch.cuda.empty_cache()
-    log(f"  after the dense engine stopped: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+    log(f"  after 5a (its engine kept for 5c): {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
         "allocated")
-    log("== 5b. llama3-8b full width, bf16, paged cache (engine_max_seq 8192), "
-        "1 long + 7 short JSON requests")
+    stage("5b. llama3-8b full width, bf16, paged cache (engine_max_seq 8192), "
+          "1 long + 7 short JSON requests")
     paths["full_paged"] = phase_full_width_paged(torch, kernels, args.seed)
     gc.collect()
     torch.cuda.empty_cache()
-    log("== 5d. llama3-8b full width, bf16, 8 agent steps a wave sharing a preamble, prefix "
-        "cache on and off: dense (engine_max_seq 2048)")
+    stage("5d. llama3-8b full width, bf16, 8 agent steps a wave sharing a preamble, prefix "
+          "cache on and off: dense (engine_max_seq 2048)")
     paths["prefix_dense"] = phase_prefix_agent_steps(torch, kernels, root, args.seed, False)
-    log("== 5d. the same, paged (engine_max_seq 8192, pages of 128)")
+    stage("5d. the same, paged (engine_max_seq 8192, pages of 128)")
     paths["prefix_paged"] = phase_prefix_agent_steps(torch, kernels, root, args.seed, True)
     gc.collect()
     torch.cuda.empty_cache()
-    log("== 5e. llama3-8b full width, bf16, engine_speculate=4, 8 concurrent JSON requests, "
-        "speculation on and off: dense (engine_max_seq 2048)")
+    stage("5e. llama3-8b full width, bf16, engine_speculate=4, 8 concurrent JSON requests, "
+          "speculation on and off: dense (engine_max_seq 2048)")
     phase_spec_waves(torch, kernels, args.seed, paged=False)
-    log("== 5e. the same, paged (engine_max_seq 8192, pages of 128)")
+    stage("5e. the same, paged (engine_max_seq 8192, pages of 128)")
     paths["spec_paged"] = phase_spec_waves(torch, kernels, args.seed, paged=True)
     gc.collect()
     torch.cuda.empty_cache()
-    log("== 5c. the device's busy share: five profiled waves of each llama3-8b workload")
+    stage(f"5c. the device's busy share: {PROFILED_WAVES} profiled waves of each llama3-8b "
+          "workload")
     paths["full"][1].update(phase_busy(torch, args.seed))
-    log("== 7a. golden training: protocol-s fp32, 4 steps against the JAX trainer")
+    stop_shared()
+    gc.collect()
+    torch.cuda.empty_cache()
+    stage("7a. golden training: protocol-s fp32, 4 steps against the JAX trainer")
     paths["train_golden"] = phase_train_golden(torch, kernels, root)
-    log("== 7b. llama3-1b full width, bf16 compute, fp32 master weights, remat, 8 steps of 4 x "
-        "2048")
+    stage("7b. llama3-1b full width, bf16 compute, fp32 master weights, remat, 8 steps of 4 x "
+          "2048")
     paths["train_full"] = phase_train_full(torch, kernels, args.seed)
     gc.collect()
     torch.cuda.empty_cache()
-    log("== 6. kernel times at each path's shapes")
+    stage("6. kernel times at each path's shapes")
     kernels_line = phase_timing(torch, kernels, device, args.seed, worst, paths)
     if not all(math.isfinite(k["ms"]) for k in kernels_line):
         raise SystemExit("non-finite timing")

@@ -61,6 +61,17 @@ slots whose own acceptance has collapsed (``_slot_rate`` and
 generation stamp). The tokens-per-block EMA ``_spec_rate`` sizes the
 chunks and the in-flight estimates.
 
+``warmup`` (which ``TorchEngine`` runs at every start, as the JAX engine
+does) makes serving pay no first-use cost: it captures every chunk graph
+the settings can reach (``reachable_keys``) on the device thread while no
+slot is occupied, then sends one two-token request per prompt bucket per
+chunk bucket, the chunk pinned through ``_force_chunk``, which runs every
+prefill bucket and, with chunked prefill, the segment ladder. While it
+runs (``_warming``) the prefix cache is neither looked up nor filled; when
+it ends every counter serving reads is reset, and ``graph_report()``
+counts the captures serving makes apart from the sweep's (none, at the
+settings the sweep saw).
+
 Retries, rate limits, deadlines and the reliability ladder (ROADMAP P6b)
 and the scheduling policies (P6c) are not here; a failed dispatch fails
 its requests (the JAX batcher re-admits them).
@@ -70,6 +81,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import gc
 import logging
 import math
 import queue
@@ -102,7 +114,7 @@ from pilottai_tpu_torch.engine.decode import (
     pack_admit_meta,
     release_decode,
 )
-from pilottai_tpu_torch.engine.graphs import ChunkRunner
+from pilottai_tpu_torch.engine.graphs import ChunkRunner, VariantKey
 from pilottai_tpu_torch.engine.kvcache.index import KVCacheIndex
 from pilottai_tpu_torch.engine.page_prefix import PagePrefixIndex
 from pilottai_tpu_torch.engine.prefix_cache import PrefixStore
@@ -412,6 +424,14 @@ class ContinuousBatcher:
         self._threads: List[threading.Thread] = []
         # Completed requests' timings (host clock), newest last.
         self.completed: Deque[Dict[str, float]] = collections.deque(maxlen=4096)
+        # The warm-up sweep: while it runs the prefix cache is neither looked
+        # up nor filled, and ``_force_chunk`` pins the chunk size.
+        self._warming = False
+        self._force_chunk: Optional[int] = None
+        #: What the last ``warmup`` took (``graph_report()["sweep"]``).
+        self.sweep: Optional[Dict[str, Any]] = None
+        # Work handed to the device thread (``call_on_device``).
+        self._device_jobs: "queue.Queue[Tuple[Any, Future]]" = queue.Queue()
 
     # ------------------------------------------------------------------ #
     # Lifecycle
@@ -438,7 +458,14 @@ class ContinuousBatcher:
         if self.device.type == "cuda":
             # Chunks dispatched just before the stop may still run.
             torch.cuda.synchronize(self.device)
+            self.runner.drop_graphs()
         err = RuntimeError("engine stopped")
+        while True:
+            try:
+                _, done = self._device_jobs.get_nowait()
+            except queue.Empty:
+                break
+            done.set_exception(err)
         self._drain_pending()
         while True:
             try:
@@ -477,14 +504,164 @@ class ContinuousBatcher:
         self._prep_wake.set()
         return request.future
 
+    def call_on_device(self, fn, timeout: float = 3600.0) -> Any:
+        """Run ``fn()`` on the device thread, on its stream, after it has
+        applied the releases folded so far and before it admits or
+        dispatches, and return what it returns (its exception is raised
+        here). Needs ``start()``."""
+        if not self._threads:
+            raise RuntimeError("call_on_device needs the device thread: call start() first")
+        done: Future = Future()
+        self._device_jobs.put((fn, done))
+        self._wake.set()
+        return done.result(timeout=timeout)
+
+    def reachable_keys(self) -> List[VariantKey]:
+        """Every chunk-graph key a dispatch can form at these settings:
+        each chunk bucket; the fused epilogue on and off (off alone without
+        it); on the paged cache each page count of the prefix-bound ladder
+        (``_decode_bucket`` from ``MIN_DECODE_BUCKET`` to ``max_seq_len``,
+        clipped to the table's width), under dense speculation each bound
+        of that ladder; the model drafts off and, with draft layers, on."""
+        rungs = sorted({self._decode_bucket(1 << k)
+                        for k in range(self.max_seq_len.bit_length() + 1)})
+        pages: List[Optional[int]] = [None]
+        bounds: List[Optional[int]] = [None]
+        if self.alloc is not None:
+            width = self.alloc.table.shape[1]
+            pages = sorted({min(-(-r // self.page_size), width) for r in rungs})
+        elif self.speculate:
+            bounds = list(rungs)
+        keys = []
+        for n in self.chunk_buckets:
+            for fused in ((False, True) if self.fused_epilogue else (False,)):
+                for drafts in ((False, True) if self.draft_layers else (False,)):
+                    for n_blocks in pages:
+                        for bound in bounds:
+                            keys.append(self.runner.key(n, fused, n_blocks, bound, drafts))
+        return keys
+
+    def warmup_prompt_lens(self) -> Tuple[int, ...]:
+        """The prompt lengths of the sweep's requests, the JAX batcher's:
+        one per prompt bucket, up to ``2 x prefill_chunk`` when prompts
+        segment, then one of ``max_seq_len - 8`` that segments."""
+        cap = self.max_seq_len
+        if self.prefill_chunk:
+            cap = min(cap, 2 * self.prefill_chunk)
+        lens = tuple(sorted({self._bucket(n) for n in range(1, cap + 1)}))
+        if self.prefill_chunk and self.max_seq_len > cap:
+            lens = lens + (self.max_seq_len - 8,)
+        return lens
+
+    def warmup(self, prompt_lens: Optional[Sequence[int]] = None) -> Dict[str, Any]:
+        """Make serving pay no first-use cost, before any request: capture
+        every chunk graph ``reachable_keys`` lists (``ChunkRunner.warm`` on
+        the device thread, while no slot is occupied), then send one
+        request of two tokens per prompt bucket per chunk bucket, each
+        pinned to its chunk bucket through ``_force_chunk``, as the JAX
+        batcher's ``warmup`` does: the prefill buckets (kernel K1's build
+        and first launches, cuBLAS's first calls), with chunked prefill
+        one long prompt through the segment ladder, and a replay of each
+        chunk bucket. The prompt ids shift per chunk bucket, as JAX's do.
+        While it runs the prefix cache is neither looked up nor filled;
+        after it every counter that serving reads is as a fresh engine has
+        it (the kernels' launch counts are the process's, and are not
+        rewound: a reader resets them before what it counts). A failed
+        capture or
+        request raises, naming its key or its prompt; nothing serves with a
+        variant missing. Returns ``self.sweep``."""
+        with self._lock:
+            if self._occupied() or self._backlog or self._pending.qsize():
+                raise RuntimeError("warmup needs an idle engine")
+        run = self.runner
+        run.graphs_captured, run.capture_seconds, run.eager_seconds = 0, 0.0, 0.0
+        t0 = time.perf_counter()
+        self._warming = True
+        try:
+            keys = self.reachable_keys()
+
+            def warm_all() -> None:
+                gc.collect()     # garbage that holds graphs goes before any capture
+                for key in keys:
+                    try:
+                        run.warm(key)
+                    except Exception as exc:
+                        raise RuntimeError(f"warm-up of chunk graph {key} failed: {exc}") from exc
+
+            self.call_on_device(warm_all)
+            lens = self.warmup_prompt_lens() if prompt_lens is None else tuple(prompt_lens)
+            requests = 0
+            for plen in lens:
+                plen = min(int(plen), self.max_seq_len - 8)
+                for ci, cb in enumerate(self.chunk_buckets):
+                    self._force_chunk = cb
+                    # JAX's ids, wrapped into the vocab (its gather clamps them).
+                    ids = [(2 + ci + j) % self.cfg.vocab_size for j in range(plen)]
+                    req = GenRequest(prompt_ids=ids, max_new_tokens=2)
+                    try:
+                        self.submit(req).result(timeout=3600)
+                    except Exception as exc:
+                        raise RuntimeError(f"warm-up request of {plen} prompt tokens, chunk "
+                                           f"{cb} failed: {exc}") from exc
+                    requests += 1
+            self._wait_idle()
+        finally:
+            self._warming = False
+            self._force_chunk = None
+        self._reset_serving_counters()
+        shared, unshared = run.buffer_bytes()
+        self.sweep = {"wall_s": time.perf_counter() - t0, "graphs": run.graphs_captured,
+                      "keys": len(keys), "eager_s": run.eager_seconds,
+                      "capture_s": run.capture_seconds, "requests": requests,
+                      "buffer_bytes": shared, "buffer_bytes_unshared": unshared,
+                      "pool_bytes": run.pool_bytes()}
+        run.graphs_captured, run.capture_seconds, run.eager_seconds = 0, 0.0, 0.0
+        return self.sweep
+
+    def _wait_idle(self, timeout_s: float = 600.0) -> None:
+        """Until no request is queued or in a slot and every dispatched
+        chunk has been folded."""
+        t0 = time.perf_counter()
+        while True:
+            with self._lock:
+                idle = (not self._occupied() and not self._backlog and not self._pending.qsize()
+                        and not self._prepped.qsize() and self._segmenting is None
+                        and not self._results.qsize() and not self._first_reads
+                        and self.blocks_folded == self.blocks_dispatched)
+            if idle:
+                return
+            if time.perf_counter() - t0 > timeout_s:
+                raise RuntimeError(f"the engine did not go idle in {timeout_s:.0f} s")
+            time.sleep(0.002)
+
+    def _reset_serving_counters(self) -> None:
+        """Every counter and estimate serving reads, as a fresh engine has
+        them."""
+        with self._lock:
+            self.blocks_dispatched = self.blocks_useful = self.blocks_folded = 0
+            self.spec_tokens = self.spec_blocks = self.draft_blocks = 0
+            self._spec_rate = 1.0
+            self._slot_rate[:] = float(max(self.speculate, 1))
+            self._draft_on[:] = False
+            self.prefix_admitted = self.prefix_tokens_saved = self.prefix_export_failures = 0
+            self.prefill_segments = 0
+            self.runner.draft_replays = 0
+            self.completed.clear()
+
     def graph_report(self) -> Dict[str, Any]:
-        """The chunk graphs: how many were captured, the seconds capture
-        took, the bytes their shared memory pool holds (None where it is
-        not known), and the replays of model-draft variants."""
+        """The chunk graphs: how many were captured since the warm-up
+        sweep (none, once it has run) and the seconds those captures took,
+        the bytes the variants' buffers and the graphs' shared memory pool
+        hold (the pool None where it is not known), the replays of
+        model-draft variants, and the sweep (``self.sweep``; None before
+        it)."""
+        shared, _ = self.runner.buffer_bytes()
         return {"graphs": self.runner.graphs_captured,
                 "capture_s": self.runner.capture_seconds,
+                "buffer_bytes": shared,
                 "pool_bytes": self.runner.pool_bytes(),
-                "draft_replays": self.runner.draft_replays}
+                "draft_replays": self.runner.draft_replays,
+                "sweep": self.sweep}
 
     @property
     def prefix_lookups(self) -> int:
@@ -555,7 +732,7 @@ class ContinuousBatcher:
         dense one, or None. A dense entry whose tail bucket would pass
         ``max_seq`` is a miss (``fits``): its tail would land on the
         cached prefix rows."""
-        if self.kvcache is None:
+        if self.kvcache is None or self._warming:
             return None
         count = not req.kv_counted
         req.kv_counted = True
@@ -598,6 +775,8 @@ class ContinuousBatcher:
         while requests wait for a slot (a finishing slot's release then
         comes at the earliest chunk boundary); quantised up to the bucket
         ladder."""
+        if self._force_chunk is not None:       # the warm-up sweep
+            return max(1, min(self._force_chunk, self.chunk_size))
         if self.chunk_policy != "adaptive":
             return self.chunk_size
         rate = max(self._spec_rate if self.speculate else 1.0, 0.5)
@@ -631,6 +810,7 @@ class ContinuousBatcher:
             while not self._stop.is_set():
                 try:
                     self._apply_releases()
+                    self._run_device_jobs()
                     issued = self._admit()
                     with self._lock:
                         useful = self._chunk_useful()
@@ -646,6 +826,17 @@ class ContinuousBatcher:
                         self._wake.clear()
                 except Exception as exc:  # noqa: BLE001 — device loop boundary
                     self._fail_all(exc)
+
+    def _run_device_jobs(self) -> None:
+        while True:
+            try:
+                fn, done = self._device_jobs.get_nowait()
+            except queue.Empty:
+                return
+            try:
+                done.set_result(fn())
+            except Exception as exc:  # noqa: BLE001 — raised in the caller
+                done.set_exception(exc)
 
     def _put_result(self, item: Any) -> None:
         """Hand a chunk (or a first-read sentinel) to the reader; blocks
@@ -760,7 +951,7 @@ class ContinuousBatcher:
         pages each prompt fully covers into the index (lock held). Only
         blocks inside the prompt are immutable (decode writes start at
         ``prompt_len``); the partial last block stays private."""
-        if self.page_index is None:
+        if self.page_index is None or self._warming:
             return
         P = self.page_size
         for idx, req in group:
@@ -776,7 +967,7 @@ class ContinuousBatcher:
         converge on shared preambles. Best-effort: a failed export never
         fails a request, but it is counted and logged."""
         store = self.prefix_store
-        if store is None:
+        if store is None or self._warming:
             return
         seen = set()
         for idx, req in group:

@@ -18,35 +18,53 @@ ops around them, every layer of every step).
   stay few. The model-draft variant runs only while some slot drafts
   through the model (host state), where JAX's chunk takes a ``lax.cond``
   on the same mode vector: the two compute the same.
-* **Capture**: lazily, at a variant's first use. That dispatch runs the
-  chunk eagerly on the capturing stream (it builds the kernel libraries,
-  sets the kernels' shared-memory attributes and allocates K2's arrival
-  counters, which are keyed on that stream) and is the chunk's real run;
-  the capture that follows records the same function into the same
-  buffers and executes nothing. Later dispatches replay.
-* **Buffers**: the rings and the per-step outputs of each variant are
-  allocated once (``decode.ChunkBuffers``); the cache, the decode and
-  sampling states and the block table are persistent tensors that
-  admission and the runner update in place. Every graph's temporaries
-  come from one shared memory pool; replays run one after another on one
-  stream, so no two graphs' temporaries are live at once.
+* **Capture**: ahead of serving. ``warm(key)`` makes a variant while no
+  slot is occupied: with every slot done a chunk changes nothing that is
+  folded, and a capture executes nothing. The batcher's ``warmup`` calls
+  it for every key its settings can form (``ContinuousBatcher.
+  reachable_keys``) before ``start()`` returns. One eager chunk runs per
+  ``(steps, fused, D, drafts)`` group, on the capturing stream: it builds
+  the kernel libraries, sets the kernels' shared-memory attributes (once
+  per instantiation, whatever the rung) and allocates K2's arrival
+  counters (keyed on that stream); the group's other rungs are captured
+  without one. Each graph is then replayed once, which uploads it to the
+  device (its first launch would otherwise pay that). A dispatch of a key
+  that was not warmed raises on CUDA, naming the key: nothing is captured
+  while serving, so a batcher is swept before its first request.
+* **Buffers**: the rings and the per-step outputs are allocated once per
+  ``(steps, D, drafts)`` and shared by the variants of that shape
+  (``decode.ChunkBuffers``, ``decode.SpecBuffers``): chunks run one after
+  another on one stream, and each chunk's host copy is queued before the
+  next chunk writes. The cache, the decode and sampling states and the
+  block table are persistent tensors that admission and the runner update
+  in place. Every graph's temporaries come from one shared memory pool;
+  replays run one after another on one stream, so no two graphs'
+  temporaries are live at once.
 * **Randomness**: the slots' generators are registered with every graph
   that samples, so a ``manual_seed`` at admission reseeds the stream the
   next replay draws, and replays draw what eager steps would.
 * **Launch counts**: the kernel wrappers count a launch when their Python
   runs, which for a graph is once, at capture. The capture's counts are
   taken back out, and each replay adds the launches the graph holds.
+* **No early exit**: every step of a replay runs, also after every slot
+  is done (the JAX chunk's ``lax.while_loop`` stops there). The exit
+  needs a CUDA-graph conditional node, which torch 2.13 exposes as
+  ``CUDAGraph.begin_capture_to_if_node`` and torch 2.11 lacks
+  (``chip_smoke.py`` phase 1 prints which the card's torch has).
 
 On CUDA a capture or a replay that fails raises; nothing falls back to
 the eager chunk. On the CPU, which the caller asks for explicitly, the
-same chunk function runs eagerly with the same buffers.
+same chunk function runs eagerly with the same buffers, made at a key's
+first dispatch where no sweep made them.
 """
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import time
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import Any, Dict, Optional, Set, Tuple, Union
 
 import numpy as np
 import torch
@@ -67,6 +85,8 @@ from pilottai_tpu_torch.ops.paged import PagedKVCache
 #: The kernel modules a decode chunk launches; a replay adds their counts.
 COUNTED = (_k2, _k3)
 
+#: ``(steps, fused epilogue, pages K3 visits, D, dense prefix bound, model
+#: drafts on)``.
 VariantKey = Tuple[int, bool, Optional[int], int, Optional[int], bool]
 
 
@@ -75,6 +95,27 @@ class _Variant:
     bufs: Union[ChunkBuffers, SpecBuffers]
     graph: Optional[Any]              # torch.cuda.CUDAGraph; None on the CPU
     launches: Dict[Any, int]          # kernel module -> launches one replay holds
+
+
+@contextlib.contextmanager
+def _no_gc():
+    """Python's cyclic collector off: a collection during a capture would
+    destroy unreachable graphs on the capturing thread, which the capture
+    does not permit."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
+
+
+def _nbytes(bufs: Union[ChunkBuffers, SpecBuffers]) -> int:
+    tensors = [bufs.tokens, bufs.valid]
+    for pairs in (bufs.rings, getattr(bufs, "drafts", [])):
+        tensors += [t for pair in pairs for t in pair]
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 class ChunkRunner:
@@ -111,24 +152,44 @@ class ChunkRunner:
                            if self.draft_layers else None)
         self.pool = torch.cuda.graph_pool_handle() if self.cuda else None
         self._variants: Dict[VariantKey, _Variant] = {}
-        #: Graphs captured and the seconds their captures took (the eager
-        #: first runs not included).
+        self._bufs: Dict[Tuple[int, int, bool], Union[ChunkBuffers, SpecBuffers]] = {}
+        # (steps, fused, D, drafts) groups whose eager chunk has run.
+        self._eager_groups: Set[Tuple[int, bool, int, bool]] = set()
+        #: Graphs captured and the seconds their captures took
+        #: (instantiation included), and the seconds of the eager chunks
+        #: ``warm`` ran (synchronized), since the batcher last read them
+        #: (its sweep takes them).
         self.graphs_captured = 0
         self.capture_seconds = 0.0
+        self.eager_seconds = 0.0
         #: Replays of model-draft variants' graphs.
         self.draft_replays = 0
+
+    @property
+    def keys(self) -> Set[VariantKey]:
+        """The variants made so far."""
+        return set(self._variants)
+
+    def key(self, n_steps: int, fused: bool, n_blocks: Optional[int] = None,
+            prefix_bound: Optional[int] = None, drafts: bool = False) -> VariantKey:
+        """The variant a dispatch with these arguments runs."""
+        bound = None
+        if self.speculate and self.table is None:
+            bound = self.cache.max_len if prefix_bound is None else int(prefix_bound)
+        return (int(n_steps), bool(fused), n_blocks if self.table is not None else None,
+                self.speculate, bound, bool(drafts))
 
     def run(self, n_steps: int, fused: bool, n_blocks: Optional[int] = None,
             table: Optional[np.ndarray] = None, prefix_bound: Optional[int] = None,
             draft_mode: Optional[np.ndarray] = None) -> Tuple[torch.Tensor, torch.Tensor]:
         """Dispatch one chunk of ``n_steps`` (verify blocks under
         speculation) and return its ``(tokens, valid)`` buffers, which the
-        next run of the same variant overwrites (copy them first; a copy
-        queued on the stream before that run reads them in time). ``table``
-        is the paged cache's host block table, copied under the allocator's
-        lock; ``prefix_bound`` the keys a dense speculative chunk's prefix
-        read covers; ``draft_mode`` the slots that draft through the model
-        (the model-draft variant runs when any does)."""
+        next run of a variant of the same shape overwrites (copy them
+        first; a copy queued on the stream before that run reads them in
+        time). ``table`` is the paged cache's host block table, copied under
+        the allocator's lock; ``prefix_bound`` the keys a dense speculative
+        chunk's prefix read covers; ``draft_mode`` the slots that draft
+        through the model (the model-draft variant runs when any does)."""
         if self.table is not None:
             if table is None or n_blocks is None:
                 raise ValueError("a paged chunk needs the block table and its page count")
@@ -136,15 +197,14 @@ class ChunkRunner:
         drafts = bool(self.draft_layers and draft_mode is not None and np.any(draft_mode))
         if drafts:
             self._upload(self.draft_mode, np.ascontiguousarray(draft_mode, dtype=np.bool_))
-        bound = None
-        if self.speculate and self.table is None:
-            bound = self.cache.max_len if prefix_bound is None else int(prefix_bound)
-        key = (int(n_steps), bool(fused), n_blocks if self.table is not None else None,
-               self.speculate, bound, drafts)
+        key = self.key(n_steps, fused, n_blocks, prefix_bound, drafts)
         variant = self._variants.get(key)
         if variant is None:
-            variant = self._first_run(key)
-        elif variant.graph is None:
+            if self.cuda:
+                raise RuntimeError(f"chunk graph {key} was not captured: ContinuousBatcher."
+                                   "warmup captures every reachable key before serving")
+            variant = self._make(key)
+        if variant.graph is None:
             self._chunk(key, variant.bufs)
         else:
             variant.graph.replay()
@@ -152,6 +212,31 @@ class ChunkRunner:
             for mod, n in variant.launches.items():
                 mod.launches += n
         return variant.bufs.tokens, variant.bufs.valid
+
+    def warm(self, key: VariantKey) -> None:
+        """Make the variant ``key`` ahead of its first dispatch; call it
+        while no slot is occupied. On CUDA: the group's eager chunk if it
+        has not run (synchronized, so ``eager_seconds`` holds its device
+        time), then the capture and one replay. On the CPU, where nothing
+        is captured, only the buffers and the key."""
+        if key in self._variants:
+            return
+        n_steps, fused, _, D, _, drafts = key
+        group = (n_steps, fused, D, drafts)
+        if self.cuda and group not in self._eager_groups:
+            if drafts:
+                self.draft_mode.fill_(True)      # the model drafts run for every slot
+            t0 = time.perf_counter()
+            self._chunk(key, self._buffers(key))
+            torch.cuda.current_stream(self.device).synchronize()
+            self.eager_seconds += time.perf_counter() - t0
+            self._eager_groups.add(group)
+        variant = self._make(key)
+        if variant.graph is not None:
+            # A graph's first launch uploads it to the device (tens of ms
+            # at llama3-8b, which the first request to use it would wait
+            # for); with every slot done a replay changes nothing folded.
+            variant.graph.replay()
 
     def _upload(self, dst: torch.Tensor, host: np.ndarray) -> None:
         src = torch.from_numpy(host)
@@ -177,17 +262,25 @@ class ChunkRunner:
             draft_mode=self.draft_mode if drafts else None, fused_epilogue=fused, bufs=bufs,
         )
 
-    def _first_run(self, key: VariantKey) -> _Variant:
-        """The variant's first dispatch: its buffers, the eager chunk (the
-        dispatch's real run) and, on CUDA, the capture."""
-        B = self.dstate.tokens.shape[0]
-        dtype = self.cache.layers[0][0].dtype
-        if key[3]:
-            bufs = SpecBuffers.create(self.cfg, B, key[0], key[3],
-                                      self.draft_layers if key[5] else 0, dtype, self.device)
-        else:
-            bufs = ChunkBuffers.create(self.cfg, B, key[0], dtype, self.device)
-        self._chunk(key, bufs)
+    def _buffers(self, key: VariantKey) -> Union[ChunkBuffers, SpecBuffers]:
+        """The buffers of ``key``'s shape, shared by every variant of it."""
+        n_steps, _, _, D, _, drafts = key
+        shape = (n_steps, D, drafts)
+        bufs = self._bufs.get(shape)
+        if bufs is None:
+            B = self.dstate.tokens.shape[0]
+            dtype = self.cache.layers[0][0].dtype
+            if D:
+                bufs = SpecBuffers.create(self.cfg, B, n_steps, D,
+                                          self.draft_layers if drafts else 0, dtype, self.device)
+            else:
+                bufs = ChunkBuffers.create(self.cfg, B, n_steps, dtype, self.device)
+            self._bufs[shape] = bufs
+        return bufs
+
+    def _make(self, key: VariantKey) -> _Variant:
+        """A new variant: its buffers and, on CUDA, the capture."""
+        bufs = self._buffers(key)
         variant = _Variant(bufs=bufs, graph=None, launches={})
         if self.cuda:
             t0 = time.perf_counter()
@@ -196,9 +289,9 @@ class ChunkRunner:
                 for gen in self.sampling.generators:
                     graph.register_generator_state(gen)
             before = {mod: mod.launches for mod in COUNTED}
-            with torch.cuda.graph(graph, pool=self.pool,
-                                  stream=torch.cuda.current_stream(self.device),
-                                  capture_error_mode="thread_local"):
+            with _no_gc(), torch.cuda.graph(graph, pool=self.pool,
+                                            stream=torch.cuda.current_stream(self.device),
+                                            capture_error_mode="thread_local"):
                 self._chunk(key, bufs)
             for mod in COUNTED:
                 variant.launches[mod] = mod.launches - before[mod]
@@ -208,6 +301,21 @@ class ChunkRunner:
             self.capture_seconds += time.perf_counter() - t0
         self._variants[key] = variant
         return variant
+
+    def drop_graphs(self) -> None:
+        """Destroy the captured graphs now (the stopped engine's device
+        work has finished), not whenever the collector finds them: a
+        destruction on a thread that is capturing fails that capture."""
+        for variant in self._variants.values():
+            if variant.graph is not None:
+                variant.graph.reset()
+                variant.graph = None
+
+    def buffer_bytes(self) -> Tuple[int, int]:
+        """Device bytes of the variants' buffers: as allocated (shared by
+        shape), and as one set per variant would take."""
+        shared = sum(_nbytes(b) for b in self._bufs.values())
+        return shared, sum(_nbytes(v.bufs) for v in self._variants.values())
 
     def pool_bytes(self) -> Optional[int]:
         """Device memory the graphs' shared pool holds (its segments in the

@@ -5,7 +5,10 @@ Weights live on one device (the CUDA device unless ``provider="cpu"``);
 generations run through the batcher's device thread and asyncio callers
 await futures bridged from it. Settings outside this slice are refused
 by ``LLMConfig``. From a context length of 4096 on the KV cache is paged
-unless ``engine_paged_kv`` says otherwise, as in the JAX engine.
+unless ``engine_paged_kv`` says otherwise, as in the JAX engine. ``start``
+returns once the batcher's warm-up sweep has captured every chunk graph
+and run every prefill bucket (``ContinuousBatcher.warmup``); a sweep that
+fails makes it raise.
 """
 
 from __future__ import annotations
@@ -106,6 +109,13 @@ class TorchEngine(LLMBackend):
             draft_layers=self.config.engine_draft_layers,
         )
         batcher.start()
+        try:
+            # Every chunk graph and prefill bucket before the first request,
+            # as the JAX engine does at every start.
+            batcher.warmup()
+        except BaseException:
+            batcher.stop()
+            raise
         self.batcher = batcher
 
     async def stop(self) -> None:

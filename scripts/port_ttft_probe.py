@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Where the TTFT of phase 5a's dense llama3-8b wave goes, on the card.
 
-Serves the 8 JSON requests of 64 tokens four times (after one wave that
-captures the chunk graphs) and prints, per wave, the TTFT p50 with its
+Serves the 8 JSON requests of 64 tokens five times right after
+``start()`` (whose warm-up sweep captured the chunk graphs; wave 0 is the
+first the engine serves) and prints, per wave, the TTFT p50 with its
 range, the prefill's host span (the device thread's `_dispatch_prefill`,
 entry to return) beside its device time (CUDA events around it), how many
 prefills ran, and when the reader's first-token fold ended. With `prof`
-as the argument the first wave runs under torch.profiler, as
+as the argument one wave runs under torch.profiler first, as
 `chip_smoke.py`'s busy-share waves do, to show what the profiler leaves
 behind in the process.
 
@@ -65,8 +66,9 @@ async def main(prof: bool) -> None:
     reqs = [([smoke.FULL_PROMPT.format(i=i)], 64) for i in range(8)]
     batcher = handler.backend.batcher
     try:
-        await smoke.timed_waves(handler, reqs, "first wave", False, 1, profiled=prof)
-        for w in range(4):
+        if prof:
+            await smoke.timed_waves(handler, reqs, "profiled wave", False, 1, profiled=True)
+        for w in range(5):
             STAMPS.clear()
             torch.cuda.synchronize()
             stamp("wave start")

@@ -120,7 +120,7 @@ def test_concurrent_requests_complete_and_sampling_is_seed_deterministic():
     assert sampled[0].content == sampled[1].content       # same seed, same tokens
 
 
-def test_knobs_outside_the_slice_are_refused():
+def test_knobs_outside_the_slice_are_refused(monkeypatch):
     # The prefix cache (slice P2) is accepted at the JAX package's defaults;
     # its host tier and eviction policies wait for P7.
     cfg = LLMConfig()
@@ -161,7 +161,12 @@ def test_knobs_outside_the_slice_are_refused():
     # The values this slice already runs are accepted.
     LLMConfig(engine_prefix_cache=0, engine_speculate=0, retries=0, engine_sched_policy="fifo")
     # From a context of 4096 on the handler builds a paged batcher, as the
-    # JAX engine does; the TPU kernel's page strip has no counterpart.
+    # JAX engine does; the TPU kernel's page strip has no counterpart. Its
+    # warm-up sweep (tests/test_torch_warmup.py) is left out here: on the
+    # CPU it prefills 2048- and 4088-token prompts four times each.
+    from pilottai_tpu_torch.engine.batcher import ContinuousBatcher
+
+    monkeypatch.setattr(ContinuousBatcher, "warmup", lambda self, prompt_lens=None: None)
     paged = LLMHandler(LLMConfig(provider="cpu", model_name="protocol-s", engine_max_seq=4096))
     asyncio.run(paged.start())
     try:

@@ -373,7 +373,7 @@ def _to(tree, dev):
 @pytest.mark.cuda
 def test_cuda_replays_sample_as_eager_steps_do(model):
     """Same seed, same tokens: a sampled request served through chunk
-    graphs (the second request replays the graphs the first captured)
+    graphs (captured by the warm-up sweep, replayed by both requests)
     equals the same request through eager chunks."""
     tok = ByteTokenizer()
 
@@ -383,6 +383,7 @@ def test_cuda_replays_sample_as_eager_steps_do(model):
                 for _ in range(2)]
         b.start()
         try:
+            b.warmup()
             out = []
             for r in reqs:
                 b.submit(r)
@@ -393,7 +394,7 @@ def test_cuda_replays_sample_as_eager_steps_do(model):
 
     graphs = _cuda_batcher(model, chunk_policy="fixed")
     replayed = sampled(graphs)
-    assert graphs.runner.graphs_captured >= 1
+    assert graphs.sweep["graphs"] >= 1 and graphs.graph_report()["graphs"] == 0
     eager = _cuda_batcher(model, chunk_policy="fixed")
     eager.runner.cuda = False                 # the same chunks, eagerly on the card
     assert replayed == sampled(eager)
@@ -402,20 +403,23 @@ def test_cuda_replays_sample_as_eager_steps_do(model):
 
 @pytest.mark.cuda
 def test_cuda_replay_adds_its_launches(model):
-    """K2 counts one launch per layer per step dispatched, replays
-    included; K3 none on the dense cache."""
+    """K2 counts one launch per layer per step dispatched by the replays
+    of the graphs the warm-up sweep captured; K3 none on the dense
+    cache."""
     from pilottai_tpu_torch.ops.kernels import decode_attention as k2
     from pilottai_tpu_torch.ops.kernels import paged_attention as k3
 
     b = _cuda_batcher(model, chunk_policy="fixed")
-    k2.launches = k3.launches = 0
     b.start()
     try:
+        b.warmup()
+        k2.launches = k3.launches = 0
         f = b.submit(GenRequest(prompt_ids=ByteTokenizer().encode(PROMPTS[0]),
                                 max_new_tokens=40, eos_id=-1))
         assert len(f.result(timeout=300)) == 40
     finally:
         b.stop()
-    assert b.runner.graphs_captured == 1 and b.blocks_dispatched >= 5 * 8
+    assert b.sweep["graphs"] == len(b.reachable_keys()) and b.graph_report()["graphs"] == 0
+    assert b.blocks_dispatched >= 5 * 8
     assert k2.launches == model[0].n_layers * b.blocks_dispatched
     assert k3.launches == 0

@@ -72,8 +72,15 @@ def _batcher(dev, **knobs):
 
 
 def _serve(b, reqs):
+    """Serve ``reqs`` one after another on ``b`` after its warm-up sweep;
+    the kernels' launch counts then start from zero."""
+    from pilottai_tpu_torch.ops.kernels import decode_attention as k2
+    from pilottai_tpu_torch.ops.kernels import paged_attention as k3
+
     b.start()
     try:
+        b.warmup()
+        k2.launches = k3.launches = 0
         out = []
         for r in reqs:
             b.submit(r)
@@ -85,10 +92,10 @@ def _serve(b, reqs):
 
 @pytest.mark.cuda
 def test_cuda_sampled_stream_is_the_same_with_speculation_on_and_off():
-    """The same seed through speculative chunk graphs (the second request
-    replays what the first captured) and through plain ones gives the same
-    sampled ids: one draw a block where the plain chunk draws once a
-    step, from the slot's registered generator."""
+    """The same seed through speculative chunk graphs (captured by the
+    warm-up sweep, replayed by both requests) and through plain ones gives
+    the same sampled ids: one draw a block where the plain chunk draws
+    once a step, from the slot's registered generator."""
     dev = _device()
     tok = ByteTokenizer()
 
@@ -99,7 +106,7 @@ def test_cuda_sampled_stream_is_the_same_with_speculation_on_and_off():
 
     spec = _batcher(dev, speculate=4)
     got = _serve(spec, reqs())
-    assert spec.runner.graphs_captured >= 1
+    assert spec.sweep["graphs"] >= 1 and spec.graph_report()["graphs"] == 0
     want = _serve(_batcher(dev), reqs())
     assert got == want and got[0] == got[1] and len(got[0]) == 24
 
@@ -121,9 +128,8 @@ def test_cuda_paged_verify_launches_k3_once_per_layer_per_block():
 
     want = _serve(_batcher(dev, paged=True, page_size=16), reqs())
     b = _batcher(dev, paged=True, page_size=16, speculate=4)
-    k2.launches = k3.launches = 0
     assert _serve(b, reqs()) == want
-    assert b.runner.graphs_captured >= 1 and b.blocks_dispatched > 0
+    assert b.sweep["graphs"] >= 1 and b.blocks_dispatched > 0
     assert k3.launches == b.cfg.n_layers * b.blocks_dispatched
     assert k2.launches == 0
     assert b.spec_report()["tokens_per_block"] >= 1.0
