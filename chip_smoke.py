@@ -14,8 +14,8 @@ result line is printed only when every phase passed):
    speculative verify run on (without them those paths raise), and which
    of ``CUDAGraph``'s conditional-node methods it has (a chunk's exit once
    every slot is done needs them; without them every step runs);
-2. build — the five hand-written kernels from ``pilottai_tpu_torch/csrc``
-   with ``nvcc`` for sm_90a, in parallel;
+2. build — the six hand-written kernel sources from
+   ``pilottai_tpu_torch/csrc`` with ``nvcc`` for sm_90a, in parallel;
 3. kernels — K1 (flash prefill), K2 (dense decode statistics) and K3
    (paged decode statistics, ring fused) held against their plain PyTorch
    versions at llama3-8b (head_dim 128), llama3-1b (64) and protocol-s (32)
@@ -40,7 +40,15 @@ result line is printed only when every phase passed):
    speculative verify's shapes (``q_blocks`` D and no ring: llama3-8b at D
    4 and 8, 16 and 32 query rows a kv head, int8 pools, a window, and D 16,
    64 rows, through the wrapper's split into two launches). K1, K2 and K3
-   also run twice and must give the same bits;
+   also run twice and must give the same bits. Then the quantized product
+   (``csrc/qmatmul.cu``, no ``pallas_call`` counterpart) against
+   ``qmatmul_plain``: llama3-8b's seven matrices at 1, 8, 32 and 64 rows
+   (the fused kernel) and 65 and 1472 (the dequant kernel, then
+   ``torch.matmul``) in bf16, int8 and int4 at groups 128 and 96, an odd
+   contraction, the untied llama3-8b head (int8, fp32 result) and
+   protocol-s's matrices in fp32, each run twice for the same bits, within
+   ``TOL_QMM``; and wk's shape at 64 and 65 rows, int8 and int4, captured in
+   a CUDA graph, whose replays must give the eager bits;
 4. golden — the committed protocol-s checkpoint in fp32 (TF32 off) served
    through ``LLMHandler.generate_response``, once on the dense cache and
    once paged with chunked prefill, the prefix cache off as on the JAX
@@ -70,7 +78,14 @@ result line is printed only when every phase passed):
    least once: the paged verify launches K3 once per layer per block, the
    dense verify no decode kernel, and each model-draft block adds (D - 1)
    x draft layers launches of K2 (dense) or K3 (paged); tokens per block
-   printed;
+   printed; (e) the quantized golden files (``protocol_s_int8_golden.json``,
+   ``protocol_s_int4_paged_golden.json``, ``protocol_s_int4_golden.json``,
+   the JAX engine's with ``engine_quant``): int8 dense, int4 at group 96
+   paged with chunked prefill, int4 at group 128 dense with
+   ``engine_speculate=4``, 6/6 each; the quantized product's fused kernel
+   launches seven times a layer per decode step or verify block dispatched
+   (prefills apart), and the prefills of more than 64 rows its dequant
+   kernel; every dense engine of the smoke launches neither;
 5. full width — llama3-8b in bf16 from random init, the prefix cache off
    in (a) to (c); the engines of (a) and (b) serve the later runs at their
    settings too (5d with the cache off, 5e with speculation off, 5c), and
@@ -110,9 +125,21 @@ result line is printed only when every phase passed):
    served (its TTFT beside the timed median), a wave with the row-0 check
    and five timed waves, one request sent behind a chunk in flight, and
    the timed waves on the shared engine (speculation off):
-   TTFT, TPOT p50 and tokens/s of both, tokens per block, the launches per
-   block, and one verify block's row-0 logits of the live wave against the
-   plain decode step's for the same token (``TOL_E2E``, the same argmax);
+   TTFT, TPOT p50 and tokens/s of both, tokens per block (more than one)
+   and tokens a reply (at least half the budget), the launches per block,
+   and one verify block's row-0 logits of the live wave against the plain
+   decode step's for the same token (``TOL_E2E``, the same argmax); the
+   speculative engines run 24 of llama3-8b's 32 layers (``SPEC_LAYERS``),
+   so their TPOT is not comparable with the shared engine's; (f) 5a's dense engine and requests with ``engine_quant`` int8
+   and int4 (group 128): a first wave, a counted wave (the fused kernel
+   seven times a layer a step, each matrix shape as often as a layer has
+   it by the wrapper's counts by shape, one live decode step's logits through the
+   kernel against the same step through ``qmatmul_plain``, ``TOL_E2E``
+   and the same argmax), five timed waves (TTFT, TPOT, tokens/s), the
+   engine's own peak and resident bytes, the weights' bytes a step, the
+   seconds quantization took at start, and (recorded, not gated) the
+   first-token logits' correlation and argmax agreement with 5a's bf16
+   weights of the same seed; the head is tied, so it stays dense;
 7. training — (a) golden: four ``Trainer.step`` calls on protocol-s in fp32
    (TF32 off) from the shipped checkpoint, on ``protocol_batches(4, 512,
    seed=11)``; the batches' hash and each step's loss and grad norm must
@@ -135,7 +162,14 @@ result line is printed only when every phase passed):
    flags, and the device kernels of one SDPA forward and backward, which
    name the backend that ran); K3 also at 5e's paged verify shape (D rows
    a query head), with SDPA over the gathered panels, and K2's entry for the
-   model drafts of 4d; the kernels line, then the result line.
+   model drafts of 4d; the quantized product at 5f's decode step (8 rows,
+   the four matrix shapes) and prefill, and at 4e's protocol-s shapes in
+   fp32, each with the launches the wrapper counted at that shape, beside
+   the library call that computes the same product
+   (``torch._weight_int4pack_mm`` or ``torch._weight_int8pack_mm``,
+   timed only here; where it raises, its error stands in the entry) and
+   ``torch.matmul`` on a dense weight of the same shape (the speed
+   quantization has to beat); the kernels line, then the result line.
 
 ``--kernels-only`` stops after phase 3; ``--seed`` changes the kernel
 checks' inputs and the llama3-8b and llama3-1b weights.
@@ -192,6 +226,19 @@ TOL = {
 # twice the reading of seed 0, 4.7e-3); the argmax must agree wherever the
 # top-2 margin exceeds twice the largest difference.
 TOL_E2E = 1e-2
+# The quantized product (csrc/qmatmul.cu) against qmatmul_plain, as the
+# part of max |difference| beyond "rel" x |ref|, over max |ref|. Both round
+# each weight to the scale's dtype alike and sum in fp32, in another order.
+# bf16 results: the two fp32 sums can round to neighbouring bf16 values, one
+# rounding, 2^-7 of a value at most (the relative term), and the rest is
+# summation order. fp32 (protocol-s, and the head's fp32 result in bf16):
+# summation order alone. "out" is about twice the largest reading over
+# seeds 0-3 on an H100 (5.80e-6 in bf16, at 1472 rows; 5.51e-6 in fp32,
+# the head's fp32 result; protocol-s's fp32 1.61e-6; PERF.md).
+TOL_QMM = {
+    "bfloat16": {"out": 1.2e-5, "rel": 2.0**-7},
+    "float32": {"out": 1.1e-5, "rel": 0.0},
+}
 # Phase 7a: the port's fp32 training steps against the JAX trainer's on the
 # CPU (assets/protocol_s_train_golden.json), relative. Only the order of
 # summation differs, but AdamW normalises each update, so an element whose
@@ -216,9 +263,13 @@ TRAIN_STEPS = 8
 # (mem_eff_attention/gemm_kernel_utils.h in PyTorch's headers).
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 495e12 / 3}
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
+# The kernels line's "replaces" of the quantized product, which has no
+# pallas_call: the JAX site whose XLA fusion it stands in for.
+QMM_REPLACES = ("pilottai_tpu/models/qmatmul.py:128 (qmatmul; no pallas_call: XLA fuses "
+                "pilottai_tpu/models/quant.py:123 dequant into the matmul)")
 # Kernel names of csrc/ that a profile lists apart, wherever they rank.
 PORT_KERNEL_NAMES = ("flash_fwd", "tile_bounds", "decode_split", "paged_split", "paged_merge",
-                     "flash_bwd")
+                     "flash_bwd", "qmm_", "dequant_kernel")
 
 
 def log(msg: str) -> None:
@@ -769,6 +820,137 @@ def phase_kernels(torch, fa, da, pa, device, seed):
 
 
 # --------------------------------------------------------------------- #
+# Phase 3, the quantized product: csrc/qmatmul.cu against qmatmul_plain
+# --------------------------------------------------------------------- #
+
+# llama3-8b's seven matrices by shape (K, N): wq and wo, wk and wv, wg and
+# wu, wd.
+LLAMA_MATRICES = ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096))
+PROTOCOL_S_MATRICES = ((256, 256), (256, 128), (256, 1024), (1024, 256))
+QUANT_MODES = ((8, 128), (4, 128), (4, 96))  # (bits, int4 group)
+
+
+def quant_name(bits, group):
+    return "int8" if bits == 8 else f"int4 g{group}"
+
+
+def check_qmatmul(torch, qk, gen, device, dtype, K, N, M, bits, group, out_f32=False,
+                  label="", weights=None):
+    """The kernel (fused up to 64 rows, dequant then matmul above) against
+    ``qmatmul_plain`` on one shape, run twice: the results must be the same
+    bits, and the launch must take the path its rows select. ``weights``
+    reuses a quantized weight of the same shape. Returns (ok, gated error,
+    the weight)."""
+    from pilottai_tpu_torch.models.quant import quantize_array
+
+    if weights is None:
+        w = torch.randn((K, N), generator=gen, device=device, dtype=torch.float32) * K**-0.5
+        weights = quantize_array(w, dtype, bits=bits, group=group)
+        del w
+    x = randn(torch, gen, (M, K), dtype, device)
+    out = torch.float32 if out_f32 else None
+    n0 = (qk.launches, qk.launches_dequant)
+    got = qk.quant_matmul(x, weights, out)
+    again = qk.quant_matmul(x, weights, out)
+    torch.cuda.synchronize()
+    fused = M <= qk.FUSED_MAX_ROWS
+    path_ok = (qk.launches - n0[0], qk.launches_dequant - n0[1]) == ((2, 0) if fused else (0, 2))
+    same = torch.equal(got, again)
+    want = qk.qmatmul_plain(x, weights, out)
+    odt = "float32" if out_f32 else str(dtype)[6:]
+    tol = TOL_QMM[odt]
+    d = (got.float() - want.float()).abs()
+    top = want.float().abs().max().item()
+    err = d.max().item() / top
+    over = (d - tol["rel"] * want.float().abs()).max().item() / top
+    finite = bool(torch.isfinite(got).all())
+    ok = over <= tol["out"] and same and path_ok and finite and got.dtype == want.dtype
+    log(f"  qmatmul {label:<22} {quant_name(bits, group):<8} {str(dtype)[6:]:<8} M {M:>4} "
+        f"[{K}x{N}]{' fp32 out' if out_f32 else ''} {'fused' if fused else 'dequant+mm'}: "
+        f"{err:.2e} of max|ref| (beyond rel {over:.2e}) repeat bit-identical {same} "
+        f"path {path_ok} tol {tol['out']:g}{' + 2^-7|ref|' if tol['rel'] else ''} "
+        f"{'ok' if ok else 'FAIL'}")
+    return ok, over, weights
+
+
+def check_qmatmul_capture(torch, qk, gen, device, K, N, M, bits, group):
+    """The product captured in a CUDA graph as a chunk graph captures it
+    (a verify block past 64 rows takes the dequant path inside one): an
+    eager call on the capturing stream first, then the capture, which
+    counts one launch of the path its rows select, and two replays, which
+    must give the eager result's bits."""
+    from pilottai_tpu_torch.models.quant import quantize_array
+
+    w = torch.randn((K, N), generator=gen, device=device, dtype=torch.float32) * K**-0.5
+    qw = quantize_array(w, torch.bfloat16, bits=bits, group=group)
+    x = randn(torch, gen, (M, K), torch.bfloat16, device)
+    stream = torch.cuda.Stream(device)
+    stream.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(stream):
+        want = qk.quant_matmul(x, qw)
+    stream.synchronize()
+    n0 = (qk.launches, qk.launches_dequant)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        got = qk.quant_matmul(x, qw)
+    moved = (qk.launches - n0[0], qk.launches_dequant - n0[1])
+    fused = M <= qk.FUSED_MAX_ROWS
+    same = []
+    for _ in range(2):
+        got.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        same.append(torch.equal(got, want))
+    graph.reset()
+    ok = all(same) and moved == ((1, 0) if fused else (0, 1))
+    log(f"  qmatmul captured            {quant_name(bits, group):<8} bfloat16 M {M:>4} "
+        f"[{K}x{N}] {'fused' if fused else 'dequant+mm'}: capture counted {moved[0]} fused and "
+        f"{moved[1]} dequant launches; two replays equal the eager bits {same} "
+        f"{'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def phase_qmatmul(torch, qk, device, seed):
+    """The quantized product at every shape the paths give it: llama3-8b's
+    seven matrices at 1, 8, 32 and 64 rows (fused) and 65 and 1472 (dequant,
+    then torch.matmul) in bf16, int8 and int4 at groups 128 and 96; an odd
+    contraction (a padded nibble); the untied llama3-8b head (int8, fp32
+    result, 8 rows); protocol-s's matrices in fp32 at 4, 16, 64, 65 and 512
+    rows; and, captured in a CUDA graph, wk's shape at 64 and 65 rows, int8
+    and int4. Returns the largest gated error per dtype of the result."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    log("  TF32 off for matmuls (the plain version's fp32 products)")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    results, worst = [], {}
+
+    def run(dtype, K, N, rows, bits, group, label, out_f32=False):
+        weights = None
+        for M in rows:
+            ok, err, weights = check_qmatmul(torch, qk, gen, device, dtype, K, N, M, bits,
+                                             group, out_f32, label, weights)
+            results.append(ok)
+            key = "float32" if out_f32 else str(dtype)[6:]
+            worst[key] = max(worst.get(key, 0.0), err)
+
+    for bits, group in QUANT_MODES:
+        for K, N in LLAMA_MATRICES:
+            run(torch.bfloat16, K, N, (1, 8, 32, 64, 65, 1472), bits, group, "llama3-8b")
+        run(torch.bfloat16, 1001, 384, (8, 65), bits, group, "odd K")
+        for K, N in PROTOCOL_S_MATRICES:
+            run(torch.float32, K, N, (4, 16, 64, 65, 512), bits, group, "protocol-s")
+        run(torch.float32, 1001, 384, (4, 65), bits, group, "odd K")
+    run(torch.bfloat16, 4096, 128256, (8,), 8, 128, "llama3-8b untied head", out_f32=True)
+    for bits, group in QUANT_MODES[:2]:
+        for M in (64, 65):
+            results.append(check_qmatmul_capture(torch, qk, gen, device, 4096, 1024, M, bits,
+                                                 group))
+    if not all(results):
+        raise SystemExit("quantized product check failed")
+    return worst
+
+
+# --------------------------------------------------------------------- #
 # Phase 4: golden token ids on protocol-s, dense and paged
 # --------------------------------------------------------------------- #
 
@@ -792,20 +974,101 @@ def reset(kernels):
     for mod in kernels.values():
         mod.launches = 0
     kernels["flash"].launches_dq = kernels["flash"].launches_dkv = 0
+    kernels["qmatmul"].launches_dequant = 0
+    kernels["qmatmul"].launches_by_shape.clear()
 
 
 def counts(kernels):
-    """Every kernel's launches: K1, K2, K3 by module, K4 and K5 beside K1."""
+    """Every kernel's launches: K1, K2, K3 and the quantized product's
+    fused launches by module, K4 and K5 beside K1, the quantized product's
+    dequant launches beside it."""
     out = {name: mod.launches for name, mod in kernels.items()}
     out["bwd_dq"] = kernels["flash"].launches_dq
     out["bwd_dkv"] = kernels["flash"].launches_dkv
+    out["qmatmul_dequant"] = kernels["qmatmul"].launches_dequant
+    out["qmatmul_shapes"] = dict(kernels["qmatmul"].launches_by_shape)
     return out
 
 
 def launches_text(launches):
     return (f"flash_fwd {launches['flash']}, decode_attention {launches['decode']}, "
             f"paged_attention {launches['paged']}, flash_bwd_dq {launches['bwd_dq']}, "
-            f"flash_bwd_dkv {launches['bwd_dkv']}")
+            f"flash_bwd_dkv {launches['bwd_dkv']}, qmatmul fused {launches['qmatmul']}, "
+            f"qmatmul dequant {launches['qmatmul_dequant']}")
+
+
+@contextlib.contextmanager
+def counting_prefill_qmm(qk, into):
+    """Count the batcher's prefills (admissions, tail prefills and
+    chunked-prefill segments, one forward each) into ``into["calls"]`` and
+    the quantized product's fused launches made inside them into
+    ``into["prefill"]`` (a prefill of 64 rows or fewer takes the fused
+    kernel too), so that the decode steps' own can be held to seven a
+    layer a step. The prefills run on the device thread one at a time,
+    between chunks."""
+    from pilottai_tpu_torch.engine import batcher as batcher_mod
+
+    names = ("admit_group", "admit_group_prefix", "admit_group_prefix_paged",
+             "extend_prompt_paged")
+    saved = {n: getattr(batcher_mod, n) for n in names}
+
+    def counted(fn):
+        def call(*a, **kw):
+            n0 = qk.launches
+            try:
+                return fn(*a, **kw)
+            finally:
+                into["prefill"] = into.get("prefill", 0) + qk.launches - n0
+                into["calls"] = into.get("calls", 0) + 1
+        return call
+
+    for n, fn in saved.items():
+        setattr(batcher_mod, n, counted(fn))
+    try:
+        yield into
+    finally:
+        for n, fn in saved.items():
+            setattr(batcher_mod, n, fn)
+
+
+def qmm_step_check(launches, counted, batcher, steps, label):
+    """With quantized weights every decode step or verify block dispatched
+    launches the fused product once for each of the seven matrices of every
+    layer (graph replays included), and every prefill (``counted``, from
+    ``counting_prefill_qmm``) seven a layer too: the fused kernel at 64 rows
+    or fewer, the dequant kernel above. A dense engine launches neither."""
+    if batcher.weight_quant == "none":
+        log(f"  {label}: dense weights: quantized product {launches['qmatmul']} fused and "
+            f"{launches['qmatmul_dequant']} dequant launches (none expected)")
+        if launches["qmatmul"] or launches["qmatmul_dequant"]:
+            raise SystemExit(f"{label}: dense weights launched the quantized product")
+        return
+    per = 7 * batcher.cfg.n_layers
+    prefill_fused, calls = counted.get("prefill", 0), counted.get("calls", 0)
+    decode_fused = launches["qmatmul"] - prefill_fused
+    log(f"  {label}: quantized product: {launches['qmatmul']} fused launches ({prefill_fused} in "
+        f"{calls} prefills, {decode_fused} in {steps} decode steps or blocks = "
+        f"{decode_fused / max(steps, 1):g} a step, expected {per}), "
+        f"{launches['qmatmul_dequant']} dequant launches (prefills past 64 rows)")
+    if (steps <= 0 or calls <= 0 or decode_fused != per * steps
+            or prefill_fused + launches["qmatmul_dequant"] != per * calls):
+        raise SystemExit(f"{label}: the quantized product did not launch seven times a layer "
+                         "a decode step and a prefill")
+
+
+def qmm_shape_check(launches, batcher, steps, label):
+    """The quantized product's launches by shape, as the wrapper counted
+    them (graph replays included): every decode step of ``n_slots`` rows
+    launches each of llama3-8b's matrix shapes as many times a layer as the
+    layer has matrices of that shape, and no prefill has that few rows."""
+    shapes, L, B = launches["qmatmul_shapes"], batcher.cfg.n_layers, batcher.n_slots
+    log(f"  {label}: the quantized product's launches by (path, rows, K, N): " + ", ".join(
+        f"{k} {n}" for k, n in sorted(shapes.items())))
+    for i, (K, N) in enumerate(LLAMA_MATRICES):
+        got, want = shapes.get(("fused", B, K, N), 0), MATRIX_COUNT[i] * L * steps
+        if got != want:
+            raise SystemExit(f"{label}: {got} fused launches at {B} rows [{K}x{N}], expected "
+                             f"{want} ({MATRIX_COUNT[i]} a layer a step)")
 
 
 # The decode pipeline's knobs all off: one chunk in flight, admission on the
@@ -925,6 +1188,7 @@ def phase_golden(torch, kernels, root, asset, paged, page_size=None, knobs=None,
     if prefix_cache is not None:
         golden["engine"]["engine_prefix_cache"] = prefix_cache
     log(f"  {asset}: engine {golden['engine']}")
+    quantize_seconds = {}
 
     async def run():
         handler = LLMHandler(LLMConfig(
@@ -933,6 +1197,7 @@ def phase_golden(torch, kernels, root, asset, paged, page_size=None, knobs=None,
             **golden["engine"],
         ))
         await handler.start()
+        quantize_seconds["s"] = handler.backend.quantize_seconds
         seen = record_requests(handler)
         batcher = handler.backend.batcher
         sweep_check(batcher, "engine start")
@@ -941,6 +1206,7 @@ def phase_golden(torch, kernels, root, asset, paged, page_size=None, knobs=None,
         try:
             out = []
             reset(kernels)
+            qmm_counter.clear()
             for case in golden["cases"]:
                 p = golden["prompts"][case["prompt"]]
                 for _ in range(repeat):
@@ -957,11 +1223,21 @@ def phase_golden(torch, kernels, root, asset, paged, page_size=None, knobs=None,
             await handler.stop()
 
     t0 = time.perf_counter()
-    got, batcher = arun(run())
+    qmm_counter = {}
+    with counting_prefill_qmm(kernels["qmatmul"], qmm_counter):
+        got, batcher = arun(run())
     launches = counts(kernels)      # read once the engine's threads have stopped
     no_capture_check(batcher, "golden")
     n = len(golden["cases"]) * repeat
     log(f"  launches on this run ({n} requests, fp32): {launches_text(launches)}")
+    qmm_step_check(launches, qmm_counter, batcher, batcher.blocks_dispatched, "golden")
+    if batcher.weight_quant != "none":
+        wq = batcher.params["layers"][0]["mlp"]["wg"]
+        log(f"  weights {batcher.weight_quant}"
+            f"{f' group {batcher.quant_group}' if batcher.weight_quant == 'int4' else ''} "
+            f"({type(wq).__name__}), {batcher.weight_bytes} bytes resident, "
+            f"{batcher.weight_bytes_per_token} read a decode step; quantized in "
+            f"{quantize_seconds.get('s', 0.0):.3f} s at start")
     if batcher.speculate:
         spec_launch_check(launches, batcher, batcher.blocks_dispatched, batcher.draft_blocks,
                           "golden")
@@ -1030,6 +1306,7 @@ def phase_golden(torch, kernels, root, asset, paged, page_size=None, knobs=None,
         "decode": dict(B=batcher.n_slots, S=batcher.max_seq_len, last=last),
         "model": batcher.cfg,
         "requests": n,
+        "blocks": batcher.blocks_dispatched,
     }
     if paged:
         P = batcher.page_size
@@ -1066,6 +1343,15 @@ def long_prompt(n_chars: int) -> str:
 
 
 WAVES = 5
+# 5e's speculative engines run llama3-8b at 24 of its 32 layers (full
+# width): their warm-up sweeps took ~290 s of the smoke at 32, and 4e and
+# 5f need the time. At 16 layers the random model ended its replies after
+# ~10 tokens and no draft was accepted, so 5e gates on the two below.
+# 5e's numbers at full depth are in PERF.md.
+SPEC_LAYERS = 24
+# 5e's timed waves must accept drafts (more than one token a verify block)
+# and run their replies to at least this share of the 64-token budget.
+SPEC_MIN_REPLY_SHARE = 0.5
 # 5c's waves under torch.profiler. The busy share sums the profiler's raw
 # device events (``device_busy_us``): building its event tree, as
 # ``key_averages`` does, costs tens of seconds a wave (~60,000 kernel
@@ -1104,19 +1390,36 @@ def full_width_config(seed, max_seq, **knobs):
     return LLMConfig(**kw)
 
 
-async def full_width_engine(torch, seed, max_seq, label, **knobs):
-    """A started llama3-8b engine at the smoke's settings and ``knobs``;
-    without knobs, the shared one of ``max_seq`` (started at its first
-    use). Logs the start, its warm-up sweep and the bytes it holds."""
+@contextlib.contextmanager
+def llama_depth(layers):
+    """llama3-8b at ``layers`` layers (full width) for the engines started
+    inside; None keeps its 32."""
+    from pilottai_tpu_torch.engine import native
+
+    get = native.get_model_config
+    if layers is not None:
+        native.get_model_config = lambda name: get(name).replace(n_layers=layers)
+    try:
+        yield
+    finally:
+        native.get_model_config = get
+
+
+async def full_width_engine(torch, seed, max_seq, label, layers=None, **knobs):
+    """A started llama3-8b engine at the smoke's settings and ``knobs``
+    (at ``layers`` layers if given); without either, the shared one of
+    ``max_seq`` (started at its first use). Logs the start, its warm-up
+    sweep and the bytes it holds."""
     from pilottai_tpu_torch import LLMHandler
 
-    if not knobs and max_seq in SHARED:
+    if not knobs and layers is None and max_seq in SHARED:
         log(f"  {label}: the shared engine of engine_max_seq {max_seq}")
         return SHARED[max_seq]
     gc.collect()                        # an earlier engine's garbage goes first
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated()
-    handler = LLMHandler(full_width_config(seed, max_seq, **knobs))
+    with llama_depth(layers):
+        handler = LLMHandler(full_width_config(seed, max_seq, **knobs))
     t0 = time.perf_counter()
     await handler.start()
     torch.cuda.synchronize()
@@ -1126,7 +1429,7 @@ async def full_width_engine(torch, seed, max_seq, label, **knobs):
         f"{time.perf_counter() - t0:.1f} s ({cfg.param_count() / 1e9:.2f}B params, vocab "
         f"{cfg.vocab_size}); it holds {RESIDENT[handler] / 2**30:.2f} GiB")
     sweep_check(handler.backend.batcher, label)
-    if not knobs:
+    if not knobs and layers is None:
         SHARED[max_seq] = handler
     return handler
 
@@ -1296,6 +1599,7 @@ async def timed_waves(handler, requests, label, long_first=False, n_waves=WAVES,
                                   for t in timings) * 1e3,
                 "tokens_s": sum(t["tokens"] for t in timings) / wall,
                 "wall_s": wall,
+                "tokens_a_reply": sum(t["tokens"] for t in timings) / max(len(timings), 1),
             }
             if hasattr(batcher, "blocks_useful"):
                 await settle(batcher)        # the chunks in flight at the end folded too
@@ -1473,17 +1777,22 @@ def plain_decode_attention(da):
         decode.decode_attention = kernel
 
 
-def decode_step_check(torch, mod, batcher):
+def decode_step_check(torch, mod, batcher, plain=None, others=()):
     """One decode step of the batcher's live state (on its device thread,
     between two chunks) through its decode kernel, K2 on the dense cache or
-    K3 on the paged one, and through that kernel's plain version: the
-    logits of every live slot. The step writes only fresh rings, never the
-    cache, and its launches are taken back out of the count."""
+    K3 on the paged one, and through that kernel's plain version (or
+    through the route ``plain`` sets up): the logits of every live slot.
+    The step writes only fresh rings, never the cache, and its launches
+    (of ``mod`` and of the modules in ``others``) are taken back out of the
+    counts."""
     from pilottai_tpu_torch.engine import decode
 
     cfg, cache, dstate = batcher.cfg, batcher.cache, batcher.dstate
     dev = batcher.device
-    n0 = mod.launches
+    counters = [(m, a) for m in (mod, *others)
+                for a in ("launches", "launches_dequant", "launches_by_shape") if hasattr(m, a)]
+    n0 = [dict(getattr(m, a)) if a == "launches_by_shape" else getattr(m, a)
+          for m, a in counters]
     pos = cache.lengths.clone()
     kw = {}
     if batcher.paged:
@@ -1497,10 +1806,17 @@ def decode_step_check(torch, mod, batcher):
                                          pos - 1, rings, 0, **kw)
 
     got = step()
-    with plain_paged_attention(mod) if batcher.paged else plain_decode_attention(mod):
+    if plain is None:
+        plain = plain_paged_attention(mod) if batcher.paged else plain_decode_attention(mod)
+    with plain:
         want = step()
     torch.cuda.synchronize()
-    mod.launches = n0
+    for (m, a), n in zip(counters, n0):
+        if isinstance(n, dict):
+            getattr(m, a).clear()
+            getattr(m, a).update(n)
+        else:
+            setattr(m, a, n)
     live = torch.nonzero(~dstate.done).flatten()
     out = logits_agreement(got, want, live)
     out["finite"] = bool(torch.isfinite(got).all())
@@ -1800,6 +2116,133 @@ def phase_full_width_paged(torch, kernels, seed):
 
 
 # --------------------------------------------------------------------- #
+# Phase 5f: llama3-8b at full width with int8 and int4 weights
+# --------------------------------------------------------------------- #
+
+@contextlib.contextmanager
+def plain_qmatmul(qk):
+    """Route every quantized product through ``qmatmul_plain`` while
+    inside."""
+    from pilottai_tpu_torch.models import qmatmul as qmm
+
+    kernel = qmm.quant_matmul
+    qmm.quant_matmul = qk.qmatmul_plain
+    try:
+        yield
+    finally:
+        qmm.quant_matmul = kernel
+
+
+def phase_quant_full_width(torch, kernels, seed, mode):
+    """5a's dense engine and requests with ``engine_quant=mode`` (int4 at
+    group 128): the first wave served, a counted wave whose first step with
+    all eight slots live runs ``decode_step_check`` with every quantized
+    product through ``qmatmul_plain``, five timed waves; the first-token
+    logits of one prompt against 5a's bf16 weights of the same seed
+    (recorded: random weights say nothing of quality)."""
+    from pilottai_tpu_torch.engine.types import GenerationParams
+    from pilottai_tpu_torch.models.transformer import forward_prefill
+
+    qk, da = kernels["qmatmul"], kernels["decode"]
+    prompts = [[FULL_PROMPT.format(i=i)] for i in range(8)]
+    reqs = [(p, 64) for p in prompts]
+    knobs = dict(engine_quant=mode)
+    if mode == "int4":
+        knobs["engine_quant_group"] = 128
+    out = {"mode": mode}
+
+    async def run():
+        handler = await full_width_engine(torch, seed, 2048, f"5f {mode} engine", **knobs)
+        backend, batcher = handler.backend, handler.backend.batcher
+        out["quantize_s"] = backend.quantize_seconds
+        out["resident"] = RESIDENT[handler]
+        out["weight_bytes"] = batcher.weight_bytes
+        out["weight_bytes_per_token"] = batcher.weight_bytes_per_token
+        log(f"  5f {mode}: quantized at start in {backend.quantize_seconds:.3f} s; weights "
+            f"{batcher.weight_bytes / 2**30:.3f} GiB resident, {batcher.weight_bytes_per_token} "
+            f"bytes read a decode step; the engine holds {RESIDENT[handler] / 2**30:.2f} GiB")
+        first, _ = await timed_waves(handler, reqs, f"{mode}, the first wave served", n_waves=1)
+        state = {}
+        decode = batcher._decode
+
+        def watching():
+            if "e2e" not in state and all(s is not None for s in batcher._slots):
+                state["e2e"] = decode_step_check(torch, qk, batcher, plain=plain_qmatmul(qk),
+                                                 others=(da,))
+            decode()
+
+        batcher._decode = watching
+        counter = {}
+        torch.cuda.reset_peak_memory_stats()
+        with counting_prefill_qmm(qk, counter):
+            reset(kernels)
+            counter.clear()
+            steps0 = batcher.blocks_dispatched
+            replies = await asyncio.gather(*[
+                handler.generate_response(p, params=GenerationParams(temperature=0.0,
+                                                                     max_new_tokens=64),
+                                          json_mode=True) for p in prompts])
+            await settle(batcher)
+        batcher._decode = decode
+        launches = counts(kernels)
+        steps = batcher.blocks_dispatched - steps0
+        out["peak"] = own_peak(torch, handler)
+        per_step_check(launches, batcher, steps, f"5f {mode} wave")
+        qmm_step_check(launches, counter, batcher, steps, f"5f {mode} wave")
+        if launches["qmatmul_dequant"] <= 0:
+            raise SystemExit(f"5f {mode}: the admission's prefill did not take the dequant kernel")
+        qmm_shape_check(launches, batcher, steps, f"5f {mode} wave")
+        out["launches"], out["steps"], out["model"] = launches, steps, batcher.cfg
+        out["model_slots"] = batcher.n_slots
+        out["parsed"] = sum(1 for r in replies if parses(r.content))
+        # First-token logits against 5a's bf16 engine, the same seed.
+        ids = torch.tensor([backend.tokenizer.encode(FULL_PROMPT.format(i=0))],
+                           device=batcher.device)
+        T = ids.shape[1]
+        pos = torch.arange(T, device=batcher.device, dtype=torch.int32)[None]
+        val = torch.tensor([T], device=batcher.device, dtype=torch.int32)
+        out["T"] = T
+        got, _, _ = forward_prefill(batcher.params, batcher.cfg, ids, pos, val)
+        dense = SHARED[2048].backend.batcher
+        want, _, _ = forward_prefill(dense.params, dense.cfg, ids, pos, val)
+        got, want = got[0].float(), want[0].float()
+        out["finite"] = bool(torch.isfinite(got).all())
+        out["corr"] = float(torch.corrcoef(torch.stack([got.flatten(), want.flatten()]))[0, 1])
+        out["argmax_agree"] = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+        out["waves"], _ = await timed_waves(handler, reqs, f"{mode}, 8 x 64 tokens")
+        out["first_wave"] = first_wave_line(first, out["waves"], f"5f {mode}")
+        log(f"  after the waves: {graph_text(batcher)}")
+        no_capture_check(batcher, f"5f {mode}")
+        out["e2e"] = state.get("e2e")
+        await release(handler)
+
+    arun(run())
+    gc.collect()
+    torch.cuda.empty_cache()
+    w = out["waves"]
+    log(f"  5f {mode}: TTFT p50 {median([x['ttft_ms'] for x in w]):.4f} ms, TPOT p50 "
+        f"{median([x['tpot_ms'] for x in w]):.4f} ms, {median([x['tokens_s'] for x in w]):.4f} "
+        f"tokens/s (medians of {WAVES} waves); peak memory {out['peak'] / 2**30:.2f} GiB (the "
+        f"engine's own); JSON replies that parse {out['parsed']}/8")
+    log(f"  5f {mode}: first-token logits of all {out['T']} positions against 5a's bf16 weights of the "
+        f"same seed (recorded, not gated): correlation {out['corr']:.6f}, argmax agreement "
+        f"{out['argmax_agree']:.4f}")
+    step = out["e2e"]
+    step_ok = bool(step) and step["finite"] and step["rel"] <= TOL_E2E and step["same_argmax"]
+    if step:
+        log(f"  one decode step of the live wave (slot lengths {step['lengths']}), the quantized "
+            f"product vs qmatmul_plain ({mode}, bf16): max |diff| {step['max_diff']:.3e} over max "
+            f"|logit| {step['max_logit']:.3e} = {step['rel']:.3e}, tol {TOL_E2E:g}; same argmax "
+            f"{step['same_argmax']} (smallest top-2 margin {step['margin']:.3e}); finite "
+            f"{step['finite']} {'ok' if step_ok else 'FAIL'}")
+    else:
+        log("  the wave never had all eight slots live: no decode-step check")
+    if not step_ok or not out["finite"]:
+        raise SystemExit(f"5f {mode}: the quantized decode step disagrees with the plain one")
+    return out
+
+
+# --------------------------------------------------------------------- #
 # Phase 5d: agent steps sharing a preamble, with the prefix cache
 # --------------------------------------------------------------------- #
 
@@ -2045,7 +2488,7 @@ def phase_spec_waves(torch, kernels, seed, paged):
     async def serve(speculate, label):
         handler = await full_width_engine(
             torch, seed, 8192 if paged else 2048, f"5e {label}",
-            **(dict(engine_speculate=speculate) if speculate else {}))
+            **(dict(engine_speculate=speculate, layers=SPEC_LAYERS) if speculate else {}))
         batcher = handler.backend.batcher
         if batcher.paged != paged:
             raise SystemExit("5e: the engine did not page as configured")
@@ -2095,13 +2538,22 @@ def phase_spec_waves(torch, kernels, seed, paged):
         torch.cuda.empty_cache()
         log(f"  {r['graphs']}; peak memory {r['peak'] / 2**30:.2f} GiB (the engine's own)")
     on, off = results["speculation on"], results["speculation off"]
+    depth = (f" (on at {on['model'].n_layers} layers, off at {off['model'].n_layers}: not a "
+             "like-for-like ratio)" if on["model"].n_layers != off["model"].n_layers else "")
     for key in ("ttft_ms", "tpot_ms", "tokens_s"):
         a = median([wv[key] for wv in on["waves"]])
         b = median([wv[key] for wv in off["waves"]])
         log(f"  {key} median over {WAVES} waves: speculation on {a:.4f}, off {b:.4f} "
-            f"({a / b:.3f} of off)")
-    log(f"  tokens per block over the timed waves: {on['tokens_per_block']:.3f} (D 4); "
-        f"{on['blocks']} blocks dispatched against {off['blocks']} plain steps")
+            f"({a / b:.3f} of off){depth}")
+    reply = median([wv["tokens_a_reply"] for wv in on["waves"]])
+    spec_ok = on["tokens_per_block"] > 1.0 and reply >= SPEC_MIN_REPLY_SHARE * 64
+    log(f"  tokens per block over the timed waves: {on['tokens_per_block']:.3f} (D 4; more than "
+        f"1 required); {on['blocks']} blocks dispatched against {off['blocks']} plain steps; "
+        f"tokens a reply, median over the waves {reply:.2f} of 64 (at least "
+        f"{SPEC_MIN_REPLY_SHARE * 64:g} required) {'ok' if spec_ok else 'FAIL'}")
+    if not spec_ok:
+        raise SystemExit("5e: the workload does not exercise speculation (no draft accepted, "
+                         "or replies far short of their budget)")
     e2e = on["e2e"]
     e2e_ok = bool(e2e) and e2e["finite"] and e2e["rel"] <= TOL_E2E and e2e["same_argmax"]
     if e2e:
@@ -2141,7 +2593,7 @@ def expect_train_launches(launches, layers, steps, label):
     """Remat runs each layer's forward twice per step (K1), the backward
     once (K4, K5); serving kernels stay at zero."""
     want = {"flash": 2 * layers * steps, "bwd_dq": layers * steps, "bwd_dkv": layers * steps,
-            "decode": 0, "paged": 0}
+            "decode": 0, "paged": 0, "qmatmul": 0, "qmatmul_dequant": 0, "qmatmul_shapes": {}}
     log(f"  launches on this run ({steps} steps x {layers} layers): {launches_text(launches)}; "
         f"expected flash_fwd {want['flash']}, flash_bwd_dq {want['bwd_dq']}, flash_bwd_dkv "
         f"{want['bwd_dkv']}, the serving kernels 0")
@@ -2493,6 +2945,140 @@ def time_paged(torch, pa, device, timer, gen, dtype, shape, launched, worst, suf
     return e
 
 
+# Each matrix shape's matrices a layer: wq and wo, wk and wv, wg and wu, wd.
+MATRIX_NAMES = {0: "wq, wo", 1: "wk, wv", 2: "wg, wu", 3: "wd"}
+MATRIX_COUNT = {0: 2, 1: 2, 2: 2, 3: 1}
+
+
+def library_qmatmul(torch, x, qw, bits, group):
+    """The one PyTorch call that computes ``x @ dequant(w)``, where there is
+    one, on operands prepared once from the same weight:
+    ``torch._weight_int4pack_mm`` (tinygemm: unsigned nibbles, a scale and
+    a zero a group along K, each weight ``(u - 8) * scale + zero``, so a
+    zero of 0 with ``u = q + 8`` gives the port's ``q * s``) and
+    ``torch._weight_int8pack_mm`` (int8 ``[N, K]``, one scale a column,
+    applied after the sum). Timed here only: the port calls neither.
+    Returns ``(call, None)``, or ``(None, the error)`` where the call is
+    missing or refuses the operands."""
+    from pilottai_tpu_torch.models.quant import unpack_int4
+
+    try:
+        if bits == 4:
+            u = unpack_int4(qw.q, qw.in_dim).t().to(torch.int32) + 8       # [N, K] in [0, 15]
+            packed = (u[:, ::2] << 4 | u[:, 1::2]).to(torch.uint8).contiguous()
+            w4 = torch._convert_weight_to_int4pack(packed, 8)
+            sz = torch.stack([qw.s, torch.zeros_like(qw.s)], dim=-1).contiguous()
+
+            def call():
+                return torch._weight_int4pack_mm(x, w4, group, sz)
+        else:
+            w8, s8 = qw.q.t().contiguous(), qw.s.reshape(-1).contiguous()
+
+            def call():
+                return torch._weight_int8pack_mm(x, w8, s8)
+        call()
+        torch.cuda.synchronize()
+        return call, None
+    except (AttributeError, NotImplementedError, RuntimeError, TypeError) as exc:
+        return None, f"{type(exc).__name__}: {str(exc).strip().splitlines()[0][:240]}"
+
+
+# The library call computes the same function if it agrees with the plain
+# version to this share of max |ref|: it rounds differently (the int8 call
+# scales after the sum), but a wrong layout of its operands is off by O(1).
+LIBRARY_SAME = 2.0**-5
+
+
+def time_qmatmul_shape(torch, qk, device, timer, gen, dtype, K, N, M, bits, group, launched,
+                       err, name, shape_text):
+    """One kernels-line entry of the quantized product at one shape: the
+    kernel (fused, or dequant then matmul past 64 rows), its plain version,
+    the library call that computes the same product where PyTorch has one
+    (``library_qmatmul``: its time, or the error it raised), and
+    ``torch.matmul`` on a dense weight of the same shape in ``dtype``, the
+    speed quantization has to beat."""
+    from pilottai_tpu_torch.models.quant import dequant, quantize_array
+
+    dn = str(dtype)[6:]
+    esz = torch.finfo(dtype).bits // 8
+    w = torch.randn((K, N), generator=gen, device=device, dtype=torch.float32) * K**-0.5
+    qw = quantize_array(w, dtype, bits=bits, group=group)
+    dense = dequant(qw).contiguous()
+    del w
+    x = randn(torch, gen, (M, K), dtype, device)
+    ms = timer.ms(lambda: qk.quant_matmul(x, qw))
+    plain = timer.ms(lambda: qk.qmatmul_plain(x, qw))
+    dense_ms = timer.ms(lambda: torch.matmul(x, dense))
+    lib_name = "torch._weight_int4pack_mm" if bits == 4 else "torch._weight_int8pack_mm"
+    call, why = library_qmatmul(torch, x, qw, bits, group)
+    lib_ms = lib_err = None
+    if call is not None:
+        want = qk.qmatmul_plain(x, qw).float()
+        lib_err = ((call().float() - want).abs().max() / want.abs().max()).item()
+        if lib_err <= LIBRARY_SAME:
+            lib_ms = timer.ms(call)
+            library = f"{lib_name}, {lib_err:.2e} of max|ref| from the plain version"
+        else:
+            library = (f"none: {lib_name} disagrees with the plain version by {lib_err:.2e} "
+                       f"of max|ref| (limit {LIBRARY_SAME:g})")
+    else:
+        library = f"none: {lib_name} raised {why}"
+    q_bytes = qw.q.numel() + qw.s.numel() * esz
+    nbytes = q_bytes + M * K * esz + M * N * esz
+    fused = M <= qk.FUSED_MAX_ROWS
+    e = entry(name, qk, launched, err, ms, plain, lib_ms, 2 * M * K * N, nbytes, dn,
+              f"{TOL_QMM[dn]['out']:g} of max|ref|"
+              + (" beyond 2^-7|ref|" if TOL_QMM[dn]["rel"] else ""),
+              replaces=QMM_REPLACES, library=library, library_err=lib_err,
+              dense_matmul_ms=dense_ms, weight_bytes=q_bytes, dense_weight_bytes=K * N * esz,
+              shape=shape_text, rows=M, quant=quant_name(bits, group),
+              path="fused" if fused else "dequant + torch.matmul",
+              splits=(qk.fused_splits(M, K, N, bits, device)[0]
+                      if fused and dtype == torch.bfloat16 else 1))
+    lib_text = f"{lib_name} {lib_ms:.4f} ms" if lib_ms is not None else library
+    log(f"  qmatmul {quant_name(bits, group):<8} {dn:<8} {shape_text:<34} M {M:>4} "
+        f"({e['path']}, {e['splits']} splits): kernel {ms:.4f} ms, bound {e['bound_ms']:.5f} ms "
+        f"({e['bound_by']}, {q_bytes / 1e6:.2f} MB of weights), plain {plain:.4f} ms; "
+        f"library: {lib_text}; torch.matmul on the {dn} weight {dense_ms:.4f} ms; launches "
+        f"{launched} (counted at this shape)")
+    return e
+
+
+def time_qmatmul(torch, qk, device, timer, gen, worst, paths):
+    """The quantized product at the shapes its paths gave it, each with
+    the launches the wrapper counted at that shape on the path: 5f's
+    decode step (8 rows) at llama3-8b's four matrix shapes and its
+    admission's prefill (the rows it launched most at wg's shape), int8
+    and int4; 4e's protocol-s shapes in fp32 (4 rows a decode step, 16 a
+    verify block of 4)."""
+    out = []
+    for mode, (bits, group) in (("int8", (8, 128)), ("int4", (4, 128))):
+        f = paths[f"quant_{mode}"]
+        shapes, B = f["launches"]["qmatmul_shapes"], f["model_slots"]
+        for i, (K, N) in enumerate(LLAMA_MATRICES):
+            out.append(time_qmatmul_shape(
+                torch, qk, device, timer, gen, torch.bfloat16, K, N, B, bits, group,
+                shapes.get(("fused", B, K, N), 0), worst["bfloat16"], f"qmatmul_{mode}_{i}",
+                f"5f decode, {MATRIX_NAMES[i]} [{K}x{N}]"))
+        rows, n = max(((k[1], n) for k, n in shapes.items()
+                       if k[0] == "dequant" and k[2:] == (4096, 14336)), key=lambda r: r[1])
+        out.append(time_qmatmul_shape(
+            torch, qk, device, timer, gen, torch.bfloat16, 4096, 14336, rows, bits, group,
+            n, worst["bfloat16"], f"qmatmul_{mode}_prefill",
+            f"5f prefill, wg, wu [4096x14336]"))
+    for key, (bits, group), M in (("quant_golden_int8", (8, 128), 4),
+                                  ("quant_golden_int4_paged", (4, 96), 4),
+                                  ("quant_golden_int4_spec", (4, 128), 16)):
+        launches, _ = paths[key]
+        for i, (K, N) in enumerate(PROTOCOL_S_MATRICES):
+            out.append(time_qmatmul_shape(
+                torch, qk, device, timer, gen, torch.float32, K, N, M, bits, group,
+                launches["qmatmul_shapes"].get(("fused", M, K, N), 0), worst["float32"],
+                f"qmatmul_{key[13:]}_{i}_fp32",
+                f"4e {key[13:]}, {MATRIX_NAMES[i]} [{K}x{N}]"))
+    return out
+
+
 def time_paged_verify(torch, pa, device, timer, gen, dtype, shape, launched, worst):
     """Time K3 at the speculative verify's shape (kernel, plain version,
     SDPA over panels gathered beforehand): 5e's paged slots and block
@@ -2783,7 +3369,9 @@ def phase_timing(torch, kernels, device, seed, worst, paths):
     for e in fp32:
         if e["name"].startswith("flash_"):
             e["library_kernels"] = yard["backward" if "bwd" in e["name"] else "forward"]
-    return out + fp32
+    log("  -- the quantized product (csrc/qmatmul.cu), no pallas_call counterpart")
+    qmm = time_qmatmul(torch, kernels["qmatmul"], device, timer, gen, worst["qmatmul"], paths)
+    return out + fp32 + qmm
 
 
 def main() -> int:
@@ -2805,8 +3393,9 @@ def main() -> int:
     from pilottai_tpu_torch.ops.kernels import decode_attention as da
     from pilottai_tpu_torch.ops.kernels import flash_attention as fa
     from pilottai_tpu_torch.ops.kernels import paged_attention as pa
+    from pilottai_tpu_torch.ops.kernels import qmatmul as qk
 
-    kernels = {"flash": fa, "decode": da, "paged": pa}
+    kernels = {"flash": fa, "decode": da, "paged": pa, "qmatmul": qk}
     device = torch.device("cuda", 0)
     smi = nvidia_smi()
     t_start = time.perf_counter()
@@ -2831,10 +3420,10 @@ def main() -> int:
         + ", ".join(f"CUDAGraph.{m} {'present' if ok else 'ABSENT'}" for m, ok in found.items())
         + ("" if all(found.values()) else "; every step of a chunk graph runs (ROADMAP C.4)"))
 
-    stage("2. build (nvcc, sm_90a, the five kernels in parallel)")
+    stage("2. build (nvcc, sm_90a, the six kernel sources in parallel)")
     t0 = time.perf_counter()
     build.build_libraries(["flash_fwd", "decode_attention", "paged_attention", "flash_bwd_dq",
-                           "flash_bwd_dkv"])
+                           "flash_bwd_dkv", "qmatmul"])
     log(f"  built in {time.perf_counter() - t0:.1f} s")
     for name, (secs, text) in build.build_log.items():
         log(f"  {name}: nvcc {secs:.1f} s")
@@ -2845,6 +3434,8 @@ def main() -> int:
 
     stage("3. kernels vs plain versions")
     worst = phase_kernels(torch, fa, da, pa, device, args.seed)
+    stage("3. the quantized product (int8, int4) vs its plain version")
+    worst["qmatmul"] = phase_qmatmul(torch, qk, device, args.seed)
     if args.kernels_only:
         return 0
     paths = {}
@@ -2880,6 +3471,14 @@ def main() -> int:
         paths["golden_drafts_paged" if paged else "golden_drafts"] = phase_golden(
             torch, kernels, root, asset, paged=paged,
             knobs=dict(engine_speculate=4, engine_draft_layers=2), force_drafts=True)
+    for key, asset, knobs, label in (
+            ("quant_golden_int8", "protocol_s_int8_golden.json", None, "int8, dense cache"),
+            ("quant_golden_int4_paged", "protocol_s_int4_paged_golden.json", None,
+             "int4 group 96, paged cache, chunked prefill"),
+            ("quant_golden_int4_spec", "protocol_s_int4_golden.json",
+             dict(engine_speculate=4), "int4 group 128, dense cache, engine_speculate=4")):
+        stage(f"4e. golden protocol-s token ids (fp32) with quantized weights: {label}")
+        paths[key] = phase_golden(torch, kernels, root, asset, paged="paged" in key, knobs=knobs)
     stage("5a. llama3-8b full width, bf16, dense cache, 8 concurrent JSON requests")
     paths["full"] = phase_full_width(torch, kernels, args.seed)
     gc.collect()
@@ -2905,6 +3504,10 @@ def main() -> int:
     paths["spec_paged"] = phase_spec_waves(torch, kernels, args.seed, paged=True)
     gc.collect()
     torch.cuda.empty_cache()
+    for mode in ("int8", "int4"):
+        stage(f"5f. llama3-8b full width, bf16 activations, {mode} weights, dense cache, 8 "
+              "concurrent JSON requests")
+        paths[f"quant_{mode}"] = phase_quant_full_width(torch, kernels, args.seed, mode)
     stage(f"5c. the device's busy share: {PROFILED_WAVES} profiled waves of each llama3-8b "
           "workload")
     paths["full"][1].update(phase_busy(torch, args.seed))

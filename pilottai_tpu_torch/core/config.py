@@ -13,7 +13,7 @@ from __future__ import annotations
 
 from typing import Any, Dict, Literal, Optional, Tuple
 
-from pydantic import BaseModel, ConfigDict, Field, model_validator
+from pydantic import BaseModel, ConfigDict, Field, field_validator, model_validator
 
 Provider = Literal["cuda", "cpu"]
 
@@ -24,7 +24,7 @@ class NotInSlice(ValueError):
 
 # ROADMAP.md, "Port slices", in the order they land.
 ROADMAP = {
-    "quant": "P5 (weight and KV quantization)",
+    "kv_quant": "P5b (int8 KV cache)",
     "reliability": "P6b (retries, rate limits, deadlines and the reliability ladder)",
     "sched": "P6c (scheduling policies: priority, gangs and pre-warming)",
     "kvtier": "P7 (KV cache tier)",
@@ -40,10 +40,7 @@ ROADMAP = {
 
 # JAX knob -> (values this slice already runs, ROADMAP item that brings the rest).
 _LATER: Dict[str, Tuple[Tuple[Any, ...], str]] = {
-    "quantize": ((None, "none"), "quant"),
-    "engine_quant": ((None, "none"), "quant"),
-    "engine_quant_group": ((128,), "quant"),
-    "engine_kv_quantize": ((None,), "quant"),
+    "engine_kv_quantize": ((None,), "kv_quant"),
     "engine_sched_policy": (("fifo",), "sched"),
     "engine_gang_wait_ms": ((50.0,), "sched"),
     "engine_priority_aging_s": ((2.0,), "sched"),
@@ -87,9 +84,11 @@ class SamplingConfig(BaseModel):
 class LLMConfig(BaseModel):
     """The port's engine configuration: one device, KV in the cache dtype
     (dense, or paged from ``engine_max_seq`` 4096 on), the device tier of
-    the prefix cache, speculative decoding, no quantization. The decode
-    pipeline's five knobs, the prefix cache's two and speculation's two
-    have the JAX package's names, defaults and meaning."""
+    the prefix cache, speculative decoding, weight-only quantization (int8
+    or packed int4; the KV cache stays in the compute dtype). The decode
+    pipeline's five knobs, the prefix cache's two, speculation's two and
+    quantization's three have the JAX package's names, defaults and
+    meaning."""
 
     model_config = ConfigDict(extra="forbid", protected_namespaces=())
 
@@ -136,7 +135,28 @@ class LLMConfig(BaseModel):
     # With engine_speculate: the target's first N layers (at most n_layers -
     # 1) draft for slots whose n-gram acceptance collapses (0 = off).
     engine_draft_layers: int = Field(default=0, ge=0)
+    # Weight-only quantization ("none" | "int8" | "int4"; None follows the
+    # legacy ``quantize`` alias): int8 per output channel, int4 packed two
+    # to a byte with a scale per engine_quant_group contraction rows; an
+    # untied lm_head stays int8 under int4 (models/quant.py).
+    quantize: Optional[str] = None
+    engine_quant: Optional[str] = None
+    engine_quant_group: int = Field(default=128, ge=1)
     seed: int = 0                           # param init seed when no checkpoint
+
+    @field_validator("quantize")
+    @classmethod
+    def _valid_quantize(cls, v: Optional[str]) -> Optional[str]:
+        if v not in (None, "none", "int8", "int4"):
+            raise ValueError(f"unknown quantize mode {v!r}; supported: 'none', 'int8', 'int4'")
+        return v
+
+    @field_validator("engine_quant")
+    @classmethod
+    def _valid_engine_quant(cls, v: Optional[str]) -> Optional[str]:
+        if v not in (None, "none", "int8", "int4"):
+            raise ValueError("engine_quant must be 'none', 'int8' or 'int4'")
+        return v
 
     @model_validator(mode="before")
     @classmethod

@@ -72,6 +72,13 @@ it ends every counter serving reads is reset, and ``graph_report()``
 counts the captures serving makes apart from the sweep's (none, at the
 settings the sweep saw).
 
+``weight_quant`` and ``quant_group`` say how the weights are quantized,
+read from the weights themselves (``models/quant.py:quant_mode``; the
+engine quantizes before it builds the batcher), and ``weight_bytes`` and
+``weight_bytes_per_token`` their bytes
+(``weight_stream_bytes``): plain attributes, as the metrics gauges come
+with ROADMAP P6b. Quantization adds no chunk-graph variant.
+
 Retries, rate limits, deadlines and the reliability ladder (ROADMAP P6b)
 and the scheduling policies (P6c) are not here; a failed dispatch fails
 its requests (the JAX batcher re-admits them).
@@ -120,6 +127,7 @@ from pilottai_tpu_torch.engine.page_prefix import PagePrefixIndex
 from pilottai_tpu_torch.engine.prefix_cache import PrefixStore
 from pilottai_tpu_torch.engine.sampling import SamplingState
 from pilottai_tpu_torch.models.common import ModelConfig
+from pilottai_tpu_torch.models.quant import quant_mode, weight_stream_bytes
 from pilottai_tpu_torch.ops.kernels.paged_attention import check_kernel_shapes
 from pilottai_tpu_torch.ops.kvcache import KVCache, free_slots
 from pilottai_tpu_torch.ops.paged import PageAllocator, PagedKVCache
@@ -264,6 +272,12 @@ class ContinuousBatcher:
         self.cfg = cfg
         self.params = params
         self.device = device
+        # The weights' quantization mode and int4 group width (None but
+        # for int4), and the bytes they hold and one decode step reads.
+        self.weight_quant, self.quant_group = quant_mode(params)
+        wb = weight_stream_bytes(params)
+        self.weight_bytes = wb["total"]
+        self.weight_bytes_per_token = wb["per_token"]
         self.n_slots = n_slots
         self.admit_batch = admit_batch
         self.max_seq_len = max_seq_len

@@ -62,6 +62,8 @@ import torch
 from pilottai_tpu_torch.device import upload
 from pilottai_tpu_torch.engine.sampling import SamplingState, admit_sampling, sample_core
 from pilottai_tpu_torch.models.common import ModelConfig, matmul_f32, rms_norm, rope_tables
+from pilottai_tpu_torch.models.qmatmul import qmatmul
+from pilottai_tpu_torch.models.quant import Q4Tensor, QTensor
 from pilottai_tpu_torch.models.transformer import (
     _attn_out,
     _embed,
@@ -230,11 +232,19 @@ class ChunkBuffers:
 EPILOGUE_VOCAB_TILE = 8192
 
 
-def _head_tile(params: Dict[str, Any], off: int, end: int) -> torch.Tensor:
+def _head_tile(params: Dict[str, Any], off: int, end: int) -> Any:
     """Columns ``[off, end)`` of the unembedding head ``[E, V]``: the
-    untied ``lm_head``, or the transposed tied embedding."""
+    untied ``lm_head``, or the transposed tied embedding. A quantized head
+    stays quantized (views of its ``q`` and ``s`` columns), so the tile's
+    read stays int8- or int4-sized."""
     if "lm_head" in params:
-        return params["lm_head"][:, off:end]
+        head = params["lm_head"]
+        if isinstance(head, QTensor):
+            return QTensor(q=head.q[:, off:end], s=head.s[:, off:end])
+        if isinstance(head, Q4Tensor):
+            return Q4Tensor(q=head.q[:, off:end], s=head.s[:, off:end], in_dim=head.in_dim,
+                            group=head.group)
+        return head[:, off:end]
     return params["embed"][off:end].t()
 
 
@@ -249,8 +259,9 @@ def fused_greedy_epilogue(
     running (max, argmax) carry, so the ``[B, T, V]`` logits never exist;
     tiling splits the output axis, never the contraction, so each logit is
     the same dot product, with ``_unembed``'s operand dtypes and fp32
-    result (``matmul_f32``: bf16 tiles on the tensor cores on CUDA, no fp32
-    copy of the head); the softcap
+    result (``qmatmul``: a dense bf16 tile on the tensor cores on CUDA, no
+    fp32 copy of the head; a quantized tile through the quantized
+    product's kernel); the softcap
     applies per tile; the in-tile argmax takes the first maximum and the
     carry replaces only on a strictly greater one, so ties go to the
     lowest index as ``torch.argmax``'s do."""
@@ -260,7 +271,7 @@ def fused_greedy_epilogue(
     idx = torch.zeros((B * T,), dtype=torch.int32, device=h.device)
     for off in range(0, cfg.vocab_size, tile):
         end = min(off + tile, cfg.vocab_size)
-        logits = matmul_f32(x, _head_tile(params, off, end))
+        logits = qmatmul(x, _head_tile(params, off, end), preferred_element_type=torch.float32)
         if cfg.logit_softcap > 0.0:
             logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
         m = logits.amax(dim=-1)

@@ -17,7 +17,10 @@ ops around them, every layer of every step).
   the bound to a power-of-two rung of the longest prefix, so the graphs
   stay few. The model-draft variant runs only while some slot drafts
   through the model (host state), where JAX's chunk takes a ``lax.cond``
-  on the same mode vector: the two compute the same.
+  on the same mode vector: the two compute the same. Weight quantization
+  adds no variant and no key field: a batcher's weights are quantized (or
+  not) once, before its first capture, and every graph reads them as they
+  are.
 * **Capture**: ahead of serving. ``warm(key)`` makes a variant while no
   slot is occupied: with every slot done a chunk changes nothing that is
   folded, and a capture executes nothing. The batcher's ``warmup`` calls
@@ -45,7 +48,9 @@ ops around them, every layer of every step).
   next replay draws, and replays draw what eager steps would.
 * **Launch counts**: the kernel wrappers count a launch when their Python
   runs, which for a graph is once, at capture. The capture's counts are
-  taken back out, and each replay adds the launches the graph holds.
+  taken back out, and each replay adds the launches the graph holds (K2,
+  K3 and the quantized product's fused and dequant launches, in total and
+  by shape).
 * **No early exit**: every step of a replay runs, also after every slot
   is done (the JAX chunk's ``lax.while_loop`` stops there). The exit
   needs a CUDA-graph conditional node, which torch 2.13 exposes as
@@ -80,10 +85,39 @@ from pilottai_tpu_torch.engine.sampling import SamplingState
 from pilottai_tpu_torch.models.common import ModelConfig
 from pilottai_tpu_torch.ops.kernels import decode_attention as _k2
 from pilottai_tpu_torch.ops.kernels import paged_attention as _k3
+from pilottai_tpu_torch.ops.kernels import qmatmul as _qm
 from pilottai_tpu_torch.ops.paged import PagedKVCache
 
-#: The kernel modules a decode chunk launches; a replay adds their counts.
-COUNTED = (_k2, _k3)
+#: The launch counters a decode chunk moves, as (kernel module, counter):
+#: an int, or a dict of ints by key; a replay adds what its graph holds.
+COUNTED = ((_k2, "launches"), (_k3, "launches"), (_qm, "launches"),
+           (_qm, "launches_dequant"), (_qm, "launches_by_shape"))
+
+
+def _read(mod, name):
+    value = getattr(mod, name)
+    return dict(value) if isinstance(value, dict) else value
+
+
+def _take_back(mod, name, before):
+    """What the counter moved since it read ``before``; puts it back."""
+    value = getattr(mod, name)
+    if not isinstance(value, dict):
+        setattr(mod, name, before)
+        return value - before
+    moved = {k: n - before.get(k, 0) for k, n in value.items() if n != before.get(k, 0)}
+    value.clear()
+    value.update(before)
+    return moved
+
+
+def _add(mod, name, moved) -> None:
+    value = getattr(mod, name)
+    if not isinstance(value, dict):
+        setattr(mod, name, value + moved)
+        return
+    for k, n in moved.items():
+        value[k] = value.get(k, 0) + n
 
 #: ``(steps, fused epilogue, pages K3 visits, D, dense prefix bound, model
 #: drafts on)``.
@@ -94,7 +128,7 @@ VariantKey = Tuple[int, bool, Optional[int], int, Optional[int], bool]
 class _Variant:
     bufs: Union[ChunkBuffers, SpecBuffers]
     graph: Optional[Any]              # torch.cuda.CUDAGraph; None on the CPU
-    launches: Dict[Any, int]          # kernel module -> launches one replay holds
+    launches: Dict[Any, Any]          # (module, counter) -> launches one replay holds
 
 
 @contextlib.contextmanager
@@ -209,8 +243,8 @@ class ChunkRunner:
         else:
             variant.graph.replay()
             self.draft_replays += int(drafts)
-            for mod, n in variant.launches.items():
-                mod.launches += n
+            for (mod, name), n in variant.launches.items():
+                _add(mod, name, n)
         return variant.bufs.tokens, variant.bufs.valid
 
     def warm(self, key: VariantKey) -> None:
@@ -288,14 +322,13 @@ class ChunkRunner:
             if not key[1]:
                 for gen in self.sampling.generators:
                     graph.register_generator_state(gen)
-            before = {mod: mod.launches for mod in COUNTED}
+            before = {c: _read(*c) for c in COUNTED}
             with _no_gc(), torch.cuda.graph(graph, pool=self.pool,
                                             stream=torch.cuda.current_stream(self.device),
                                             capture_error_mode="thread_local"):
                 self._chunk(key, bufs)
-            for mod in COUNTED:
-                variant.launches[mod] = mod.launches - before[mod]
-                mod.launches = before[mod]
+            for mod, name in COUNTED:
+                variant.launches[mod, name] = _take_back(mod, name, before[mod, name])
             variant.graph = graph
             self.graphs_captured += 1
             self.capture_seconds += time.perf_counter() - t0

@@ -5,7 +5,11 @@ Weights live on one device (the CUDA device unless ``provider="cpu"``);
 generations run through the batcher's device thread and asyncio callers
 await futures bridged from it. Settings outside this slice are refused
 by ``LLMConfig``. From a context length of 4096 on the KV cache is paged
-unless ``engine_paged_kv`` says otherwise, as in the JAX engine. ``start``
+unless ``engine_paged_kv`` says otherwise, as in the JAX engine. With
+``engine_quant`` (or its alias ``quantize``) ``"int8"`` or ``"int4"`` the
+matmul weights are quantized once, after they are loaded or made and
+before the batcher is built (``models/quant.py:quantize_params``, in
+place, leaf by leaf). ``start``
 returns once the batcher's warm-up sweep has captured every chunk graph
 and run every prefill bucket (``ContinuousBatcher.warmup``); a sweep that
 fails makes it raise.
@@ -14,6 +18,7 @@ fails makes it raise.
 from __future__ import annotations
 
 import asyncio
+import logging
 import time
 from pathlib import Path
 from typing import Optional, Sequence
@@ -34,6 +39,7 @@ from pilottai_tpu_torch.engine.types import (
 )
 from pilottai_tpu_torch.models.common import init_params
 from pilottai_tpu_torch.models.loader import load_npz
+from pilottai_tpu_torch.models.quant import quantize_params
 from pilottai_tpu_torch.models.registry import get_model_config
 
 # Request fields whose feature belongs to a later slice, and its ROADMAP item.
@@ -45,6 +51,8 @@ _REQUEST_LATER = {
     "gang_id": "sched",
     "session_id": "kvtier",
 }
+
+_log = logging.getLogger(__name__)
 
 
 class TorchEngine(LLMBackend):
@@ -64,6 +72,10 @@ class TorchEngine(LLMBackend):
         dtype = torch.bfloat16 if config.dtype == "bfloat16" else torch.float32
         self.model_cfg = cfg.replace(dtype=dtype)
         self.max_seq = config.engine_max_seq or min(self.model_cfg.max_seq_len, 2048)
+        # engine_quant wins; the legacy ``quantize`` field is its alias.
+        self.quant_mode = config.engine_quant or config.quantize or "none"
+        #: Seconds the start spent quantizing the weights (0 when dense).
+        self.quantize_seconds = 0.0
         # As in the JAX engine, long contexts page the cache.
         self.paged = (
             config.engine_paged_kv if config.engine_paged_kv is not None else self.max_seq >= 4096
@@ -88,6 +100,17 @@ class TorchEngine(LLMBackend):
             gen = torch.Generator(device=self.device)
             gen.manual_seed(self.config.seed)
             params = init_params(cfg, gen, device=self.device)
+        if self.quant_mode in ("int8", "int4"):
+            t0 = time.perf_counter()
+            params = quantize_params(params, dtype=cfg.dtype,
+                                     bits=4 if self.quant_mode == "int4" else 8,
+                                     group=self.config.engine_quant_group)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self.quantize_seconds = time.perf_counter() - t0
+            _log.info("quantized matmul weights to %s (weight-only%s) in %.2f s", self.quant_mode,
+                      f", group {self.config.engine_quant_group}"
+                      if self.quant_mode == "int4" else "", self.quantize_seconds)
         batcher = ContinuousBatcher(
             cfg, params, self.device,
             n_slots=self.config.engine_slots,

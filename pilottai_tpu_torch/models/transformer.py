@@ -5,9 +5,11 @@ training forward (the port's counterpart of
 Full-sequence attention goes through kernel K1 (``ops/kernels/
 flash_attention.py``) for every prompt and every training row — no size
 gate, no fallback: on a CPU tensor the wrapper runs K1's plain version, on
-a CUDA tensor the kernel; in training its backward runs K4 and K5. The
-projections and the MLP stay ``torch.matmul``, as the JAX package leaves
-them to XLA.
+a CUDA tensor the kernel; in training its backward runs K4 and K5. Every
+weight matmul goes through ``models/qmatmul.py:qmatmul``: a plain weight
+stays ``torch.matmul``, as the JAX package leaves it to XLA, and an int8
+or int4 weight (``models/quant.py``, serving only) takes the quantized
+product's kernel.
 """
 
 from __future__ import annotations
@@ -25,6 +27,8 @@ from pilottai_tpu_torch.models.common import (
     rms_norm,
     rope_tables,
 )
+from pilottai_tpu_torch.models.qmatmul import qmatmul
+from pilottai_tpu_torch.models.quant import has_quantized, is_quantized
 from pilottai_tpu_torch.ops.attention import NEG_INF
 from pilottai_tpu_torch.ops.kernels.flash_attention import flash_attention
 from pilottai_tpu_torch.ops.kvcache import KVCache
@@ -33,7 +37,7 @@ from pilottai_tpu_torch.ops.kvcache import KVCache
 def _mlp(lp: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
     """Dense SwiGLU."""
     p = lp["mlp"]
-    return (F.silu(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]
+    return qmatmul(F.silu(qmatmul(x, p["wg"])) * qmatmul(x, p["wu"]), p["wd"])
 
 
 def _qkv(
@@ -41,15 +45,15 @@ def _qkv(
     sin: torch.Tensor, cos: torch.Tensor,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     B, T, _ = x.shape
-    q = (x @ p["wq"]).reshape(B, T, cfg.n_heads, cfg.head_dim)
-    k = (x @ p["wk"]).reshape(B, T, cfg.n_kv_heads, cfg.head_dim)
-    v = (x @ p["wv"]).reshape(B, T, cfg.n_kv_heads, cfg.head_dim)
+    q = qmatmul(x, p["wq"]).reshape(B, T, cfg.n_heads, cfg.head_dim)
+    k = qmatmul(x, p["wk"]).reshape(B, T, cfg.n_kv_heads, cfg.head_dim)
+    v = qmatmul(x, p["wv"]).reshape(B, T, cfg.n_kv_heads, cfg.head_dim)
     return apply_rope(q, sin, cos), apply_rope(k, sin, cos), v
 
 
 def _attn_out(cfg: ModelConfig, p: Dict[str, Any], attn: torch.Tensor) -> torch.Tensor:
     B, T = attn.shape[:2]
-    return attn.reshape(B, T, cfg.q_dim) @ p["wo"]
+    return qmatmul(attn.reshape(B, T, cfg.q_dim), p["wo"])
 
 
 def _embed(params: Dict[str, Any], tokens: torch.Tensor) -> torch.Tensor:
@@ -96,9 +100,12 @@ def _unembed(cfg: ModelConfig, params: Dict[str, Any], x: torch.Tensor) -> torch
     with no fp32 copy of the head; on the CPU and on the fp32 paths
     ``x.float() @ head.float()``, which gives the same values (every bf16
     product is exact in fp32) where a bf16 ``torch.matmul`` would round the
-    logits to bf16."""
+    logits to bf16. A quantized ``lm_head`` goes through ``qmatmul`` with an
+    fp32 result, as in the JAX package."""
     head = params["lm_head"] if "lm_head" in params else params["embed"].t()
-    if _tensor_core_head(x, head):
+    if is_quantized(head):
+        logits = qmatmul(x, head, preferred_element_type=torch.float32)
+    elif _tensor_core_head(x, head):
         logits = LogitsHead.apply(x, head)
     else:
         logits = x.float() @ head.float()
@@ -212,7 +219,13 @@ def forward_train(
     the backward recomputes the whole block, K1 included, instead of
     keeping T x L activations. The JAX package's policy
     (``dots_with_no_batch_dims_saveable``) also keeps the matmul outputs,
-    so the numbers are the same and the memory and the time differ."""
+    so the numbers are the same and the memory and the time differ.
+
+    Quantized weights are refused: quantization is for serving, and the
+    JAX trainer never sees them."""
+    if has_quantized(params):
+        raise ValueError("forward_train: the parameters hold quantized (int8 or int4) weights; "
+                         "quantization is for serving only, train on the dense weights")
     x = _embed(params, tokens)
     sin, cos = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
     windows = cfg.window_sizes()

@@ -140,8 +140,11 @@ def test_knobs_outside_the_slice_are_refused(monkeypatch):
     assert (cfg.engine_speculate, cfg.engine_draft_layers) == (4, 2)
     with pytest.raises(ValueError):
         LLMConfig(engine_speculate=-1)
-    with pytest.raises(ValueError, match="P5"):
-        LLMConfig(engine_quant="int8")
+    # Weight quantization (slice P5a) is accepted; the int8 KV cache waits
+    # for P5b.
+    LLMConfig(engine_quant="int8", engine_quant_group=64)
+    with pytest.raises(ValueError, match="P5b"):
+        LLMConfig(engine_kv_quantize="int8")
     # The decode pipeline's knobs (slice P6a) are accepted, at the JAX
     # package's defaults; the rest of the batcher names its own item.
     cfg = LLMConfig()

@@ -1,0 +1,201 @@
+"""On the card (``cuda``-marked; they skip without one): the quantized
+product's kernel (``ops/kernels/qmatmul.py``) against its plain version on
+both sides of ``FUSED_MAX_ROWS``, bit-identical repeats, the native arm
+refused, the product captured in a CUDA graph on both sides of
+``FUSED_MAX_ROWS``, and decode chunks with int8 weights captured as CUDA
+graphs giving their eager runs' ids: plain steps with the fused kernel
+launched seven times a layer a step, and verify blocks of 72 rows, which
+take the dequant path inside the graph. This file imports no JAX, so it runs on a machine without
+it: ``python -m pytest --noconftest -p no:cacheprovider -m cuda
+tests/test_torch_quant_cuda.py``."""
+
+import collections
+
+import pytest
+import torch
+
+from pilottai_tpu_torch import PROTOCOL_S_NPZ
+from pilottai_tpu_torch.engine.batcher import ContinuousBatcher, GenRequest
+from pilottai_tpu_torch.engine.tokenizer import ByteTokenizer
+from pilottai_tpu_torch.models import registry
+from pilottai_tpu_torch.models.loader import load_npz
+from pilottai_tpu_torch.models.qmatmul import qmatmul
+from pilottai_tpu_torch.models.quant import quantize_array, quantize_params
+from pilottai_tpu_torch.ops.kernels import qmatmul as qk
+
+# bf16: the kernel and the plain version round each weight and the result
+# alike; the order of the fp32 sums differs, which can move the bf16
+# result by one rounding (2^-8 of its value) plus a summation-order term.
+# fp32: the order of summation alone.
+TOL = {torch.bfloat16: (2.0**-7, 1e-3), torch.float32: (0.0, 1e-5)}
+
+
+def _device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the quantized product's kernels are the card's")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def _check(got, want, dtype):
+    rel, absolute = TOL[dtype]
+    bound = rel * want.float().abs() + absolute * want.float().abs().max()
+    assert bool(((got.float() - want.float()).abs() <= bound).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("bits,group", [(8, 128), (4, 128), (4, 96)])
+@pytest.mark.parametrize("M", [1, 8, 33, 64, 65, 200])
+def test_cuda_kernel_matches_plain_on_both_sides_of_the_fused_rows(M, bits, group, dtype):
+    dev = _device()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(M * 10 + bits)
+    K, N = 1001, 384  # an odd K: a padded nibble, a short last tile and group
+    w = torch.randn((K, N), generator=gen, device=dev) * K**-0.5
+    qw = quantize_array(w, dtype, bits=bits, group=group)
+    x = torch.randn((M, K), generator=gen, device=dev).to(dtype)
+    fused, dq = qk.launches, qk.launches_dequant
+    got = qk.quant_matmul(x, qw)
+    again = qk.quant_matmul(x, qw)
+    assert (qk.launches - fused, qk.launches_dequant - dq) == (
+        (2, 0) if M <= qk.FUSED_MAX_ROWS else (0, 2))
+    assert got.dtype == dtype and got.shape == (M, N)
+    assert torch.equal(got, again)
+    _check(got, qk.qmatmul_plain(x, qw), dtype)
+
+
+@pytest.mark.cuda
+def test_cuda_head_tile_slice_with_an_fp32_result():
+    """A column slice of an int8 head (rows ``V`` apart), fp32 result."""
+    dev = _device()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    E, V = 512, 4096 + 256
+    head = quantize_array(torch.randn((E, V), generator=gen, device=dev) * E**-0.5,
+                          torch.bfloat16)
+    x = torch.randn((8, E), generator=gen, device=dev).to(torch.bfloat16)
+    from pilottai_tpu_torch.engine.decode import _head_tile
+
+    tile = _head_tile({"lm_head": head}, 2048, V)
+    got = qmatmul(x, tile, preferred_element_type=torch.float32)
+    assert got.dtype == torch.float32
+    _check(got, qk.qmatmul_plain(x, tile, torch.float32), torch.float32)
+
+
+@pytest.mark.cuda
+def test_cuda_native_arm_is_refused(monkeypatch):
+    """``PILOTTAI_QMATMUL=native`` on a CUDA tensor raises, naming P5c."""
+    dev = _device()
+    qw = quantize_array(torch.randn((64, 64), device=dev), torch.float32)
+    monkeypatch.setenv("PILOTTAI_QMATMUL", "native")
+    with pytest.raises(NotImplementedError, match="P5c"):
+        qmatmul(torch.randn((2, 64), device=dev), qw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [64, 65])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_cuda_captured_product_replays_the_eager_bits(bits, M):
+    """Captured in a CUDA graph after an eager call on the capturing stream
+    (as a chunk graph captures it), the product counts one launch of the
+    path its rows select, by shape, and its replays give the eager bits."""
+    dev = _device()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(bits * 100 + M)
+    K, N = 1024, 384
+    qw = quantize_array(torch.randn((K, N), generator=gen, device=dev) * K**-0.5,
+                        torch.bfloat16, bits=bits, group=128)
+    x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+    stream = torch.cuda.Stream(dev)
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(stream):
+        want = qk.quant_matmul(x, qw)
+    stream.synchronize()
+    n0, shapes0 = (qk.launches, qk.launches_dequant), dict(qk.launches_by_shape)
+    path = "fused" if M <= qk.FUSED_MAX_ROWS else "dequant"
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        got = qk.quant_matmul(x, qw)
+    assert (qk.launches - n0[0], qk.launches_dequant - n0[1]) == (
+        (1, 0) if path == "fused" else (0, 1))
+    key = (path, M, K, N)
+    assert qk.launches_by_shape[key] == shapes0.get(key, 0) + 1
+    for _ in range(2):
+        got.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    graph.reset()
+
+
+def _batcher(dev, n_slots=4, **knobs):
+    cfg = registry.get_model_config("protocol-s").replace(dtype=torch.float32)
+    params = quantize_params(load_npz(PROTOCOL_S_NPZ, cfg, device=dev), torch.float32, bits=8)
+    return ContinuousBatcher(cfg, params, dev, n_slots=n_slots, admit_batch=4, max_seq_len=256,
+                             chunk_size=8, prefix_cache=0, chunk_policy="fixed", **knobs)
+
+
+def _serve(b, warm):
+    tok = ByteTokenizer()
+    b.start()
+    try:
+        if warm:
+            b.warmup()
+        qk.launches = qk.launches_dequant = 0
+        qk.launches_by_shape.clear()
+        # Prompts past the 64-token bucket: every prefill has more than 64 rows.
+        reqs = [GenRequest(prompt_ids=tok.encode(f"<|user|>\nReport {i}: list the risks, the "
+                                                 "owners and the due dates of the quarter as "
+                                                 "JSON.\n<|assistant|>\n"),
+                           max_new_tokens=24 + 5 * i, eos_id=-1) for i in range(3)]
+        for r in reqs:
+            b.submit(r)
+        out = [r.future.result(timeout=300) for r in reqs]
+        b._wait_idle()
+    finally:
+        b.stop()
+    return out
+
+
+@pytest.mark.cuda
+def test_cuda_int8_chunk_graph_gives_its_eager_ids():
+    """int8 protocol-s chunks replayed from the sweep's graphs give the
+    ids of the same chunks run eagerly on the card, and the replays launch
+    the fused kernel seven times a layer a step (prefills of more than 64
+    rows take the dequant kernel)."""
+    dev = _device()
+    warmed = _batcher(dev)
+    replayed = _serve(warmed, warm=True)
+    assert warmed.graph_report()["graphs"] == 0 and warmed.blocks_dispatched > 0
+    assert qk.launches == 7 * warmed.cfg.n_layers * warmed.blocks_dispatched
+    per = 7 * warmed.cfg.n_layers
+    assert qk.launches_dequant > 0 and qk.launches_dequant % per == 0  # whole prefills
+    eager = _batcher(dev)
+    eager.runner.cuda = False                 # the same chunks, eagerly on the card
+    assert replayed == _serve(eager, warm=False)
+    assert [len(ids) for ids in replayed] == [24, 29, 34]
+
+
+@pytest.mark.cuda
+def test_cuda_wide_verify_block_takes_the_dequant_path_inside_its_graph():
+    """Verify blocks of 8 slots x 9 rows (72, past ``FUSED_MAX_ROWS``) with
+    int8 weights: the sweep's graphs hold the dequant path, their replays
+    give the ids of the same chunks run eagerly on the card, and the
+    wrapper's counts by shape show every matrix of every layer dequantized
+    once a block dispatched."""
+    dev = _device()
+    warmed = _batcher(dev, n_slots=8, speculate=9)
+    replayed = _serve(warmed, warm=True)
+    blocks = warmed.blocks_dispatched
+    assert warmed.graph_report()["graphs"] == 0 and blocks > 0
+    layer = warmed.params["layers"][0]
+    per_layer = collections.Counter(
+        (w.q.shape[0], w.q.shape[1]) for w in [*layer["attn"].values(), *layer["mlp"].values()])
+    L = warmed.cfg.n_layers
+    for (K, N), n in per_layer.items():
+        assert qk.launches_by_shape.get(("dequant", 72, K, N), 0) == n * L * blocks
+    assert not any(k[0] == "fused" for k in qk.launches_by_shape)
+    eager = _batcher(dev, n_slots=8, speculate=9)
+    eager.runner.cuda = False                 # the same chunks, eagerly on the card
+    assert replayed == _serve(eager, warm=False)
+    assert [len(ids) for ids in replayed] == [24, 29, 34]
