@@ -164,7 +164,9 @@ result line is printed only when every phase passed):
    a query head), with SDPA over the gathered panels, and K2's entry for the
    model drafts of 4d; the quantized product at 5f's decode step (8 rows,
    the four matrix shapes) and prefill, and at 4e's protocol-s shapes in
-   fp32, each with the launches the wrapper counted at that shape, beside
+   fp32, each with the launches the wrapper counted at that shape and its
+   body's launch plan (splits and their tiles), registers and blocks an
+   SM, beside
    the library call that computes the same product
    (``torch._weight_int4pack_mm`` or ``torch._weight_int8pack_mm``,
    timed only here; where it raises, its error stands in the entry) and
@@ -3026,18 +3028,21 @@ def time_qmatmul_shape(torch, qk, device, timer, gen, dtype, K, N, M, bits, grou
     q_bytes = qw.q.numel() + qw.s.numel() * esz
     nbytes = q_bytes + M * K * esz + M * N * esz
     fused = M <= qk.FUSED_MAX_ROWS
+    plan = qk.plan_for(M, K, N, bits, group, dtype, device) if fused else None
+    regs, per_sm = qk.kernel_info(dtype, bits, M, K, group, device) if fused else (None, None)
     e = entry(name, qk, launched, err, ms, plain, lib_ms, 2 * M * K * N, nbytes, dn,
               f"{TOL_QMM[dn]['out']:g} of max|ref|"
               + (" beyond 2^-7|ref|" if TOL_QMM[dn]["rel"] else ""),
               replaces=QMM_REPLACES, library=library, library_err=lib_err,
               dense_matmul_ms=dense_ms, weight_bytes=q_bytes, dense_weight_bytes=K * N * esz,
               shape=shape_text, rows=M, quant=quant_name(bits, group),
-              path="fused" if fused else "dequant + torch.matmul",
-              splits=(qk.fused_splits(M, K, N, bits, device)[0]
-                      if fused and dtype == torch.bfloat16 else 1))
+              path=f"fused, {plan.body} body" if fused else "dequant + torch.matmul",
+              splits=plan.splits if fused else 1, registers=regs, blocks_per_sm=per_sm)
     lib_text = f"{lib_name} {lib_ms:.4f} ms" if lib_ms is not None else library
+    body = (f"{e['splits']} splits of {plan.per}, {regs} registers, {per_sm} blocks an SM"
+            if fused else "1 split")
     log(f"  qmatmul {quant_name(bits, group):<8} {dn:<8} {shape_text:<34} M {M:>4} "
-        f"({e['path']}, {e['splits']} splits): kernel {ms:.4f} ms, bound {e['bound_ms']:.5f} ms "
+        f"({e['path']}, {body}): kernel {ms:.4f} ms, bound {e['bound_ms']:.5f} ms "
         f"({e['bound_by']}, {q_bytes / 1e6:.2f} MB of weights), plain {plain:.4f} ms; "
         f"library: {lib_text}; torch.matmul on the {dn} weight {dense_ms:.4f} ms; launches "
         f"{launched} (counted at this shape)")

@@ -3,8 +3,10 @@
 // copies into shared memory, the warpgroup product (wgmma) on operands
 // stored as 64-column panels with the 128-byte swizzle, and the pass that
 // reduces positions to per-tile bounds with the tile rule that reads them;
-// and, for the fp32 bodies of K1 and K5, fp32-accurate products on the
-// tensor cores (3xTF32, below).
+// for the fp32 bodies of K1 and K5, fp32-accurate products on the tensor
+// cores (3xTF32, below); and, for a producer warp that feeds consumer warps
+// (qmatmul.cu's bf16 body), mbarriers and tensor-map (TMA) copies that
+// complete on them.
 //
 // Operand layout. A tile of `rows` rows and a multiple of 64 bf16 columns
 // is stored as 64-column panels, panel after panel, each row of a panel 128
@@ -26,6 +28,7 @@
 #include <climits>
 #include <cstdint>
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -185,6 +188,63 @@ __device__ __forceinline__ void wgmma_fence_operands(uint32_t (&a)[KK][4]) {
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
+// mbarriers in shared memory and the tensor-memory accelerator. A ring
+// stage's "full" barrier expects the producer's arrivals plus the bytes of
+// its copies (arrive_expect_tx before the copies, so the phase cannot
+// complete before the bytes are counted); its "empty" barrier one arrival
+// from each consumer warp. try_wait.parity(P) succeeds once the phase of
+// parity P has completed: a barrier's use u (from 0) completes phase u,
+// parity u & 1.
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+// The initialised barriers are visible to the tensor-memory accelerator.
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// One box of a 2-D tensor map (box column c0, row c1 of its global
+// tensor; elements outside the tensor arrive as zeros) into shared `dst`
+// (1024-byte aligned for the 128-byte swizzle), completing on `bar`'s
+// transaction count with the box's full bytes. `map` lies in the kernel's
+// parameter space (a __grid_constant__ argument).
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
+      : "memory");
+}
+// A barrier over `threads` threads (a multiple of 32) of the block, by id
+// (0 is __syncthreads'): the consumer warps' own, with the producer gone.
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 // Byte offset of element (r, c), c a multiple of 8, in a K-major tile of
 // `rows` rows stored as 64-column panels with the 128-byte swizzle: the
 // 16-byte chunk (c mod 64) / 8 of row r sits at chunk ((c mod 64) / 8) xor

@@ -11,9 +11,12 @@ does about it:
 
 * up to ``FUSED_MAX_ROWS`` rows (a decode step, a verify block, a draft
   step): one fused launch that reads the int8 or int4 bytes once and never
-  writes a dense weight; its split-K partials are summed in split order by
-  the last block of each column strip, with int32 arrival counters that
-  this wrapper keeps zeroed per device and stream, as K2's does;
+  writes a dense weight, its contraction split over the card by
+  ``launch_plan`` (bf16: a producer warp and four consumer warps a block;
+  fp32: 8 column chunks by 32 contraction lanes a block); the splits'
+  partials are summed in a fixed order by the last block of each column
+  strip, with int32 arrival counters that this wrapper keeps zeroed per
+  device and stream, as K2's does;
 * more rows (a prefill): one launch that dequantizes the weight into a
   dense workspace (``torch.empty``, so the caching allocator hands the
   same block back each call), then ``torch.matmul``.
@@ -26,7 +29,8 @@ kernels or raises; for a CPU tensor it runs ``qmatmul_plain``.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple, Union
+import math
+from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -46,14 +50,20 @@ REPLACES = None
 #: Rows the fused kernel takes; more go through the dequant kernel.
 FUSED_MAX_ROWS = 64
 COLS = 128   # output columns a block of the fused kernel owns
-K_TILE = 64  # contraction rows a tile
+K_TILE = 64  # contraction rows a tile of the bf16 body
+#: A bf16 split's tiles at least: the int4 ring's depth (int8's is six).
+MIN_SPLIT_TILES = 4
+FP32_ROWS = 4    # rows a block of the fp32 body accumulates
+FP32_LANES = 32  # its contraction lanes: q rows a block walks at once
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# Per (device index, stream): the int32 arrival counters of the column
-# strips, zero between launches (the last block of a strip resets its own);
-# per (device index, bits, row tiles): the fused kernel's blocks the card
-# holds at once.
+# Per (device index, stream): the int32 arrival counters, one a block of a
+# split, zero between launches (the last block resets its own); per
+# (device index, dtype, bits, row tiles, scale rows, whole groups): the
+# fused kernel's registers a thread and blocks an SM; per device index and
+# shapes: the launch plan.
 _arrivals: Dict[Tuple[int, int], torch.Tensor] = {}
-_slots: Dict[Tuple[int, int, int], int] = {}
+_info: Dict[Tuple[int, int, int, int, int, bool], Tuple[int, int]] = {}
+_plans: Dict[tuple, "Plan"] = {}
 
 Quantized = Union[QTensor, Q4Tensor]
 
@@ -66,38 +76,105 @@ def qmatmul_plain(x: torch.Tensor, w: Quantized,
     return out.to(out_dtype or x.dtype)
 
 
-def split_count(N: int, K: int, slots: int) -> Tuple[int, int]:
-    """``(splits, tiles a split)`` of the contraction: as many blocks as the
-    card holds at once (``slots``: blocks an SM holds times the SMs), so
-    that none waits for a second wave, each split at least two 64-row
-    tiles long, and no split empty."""
+class Plan(NamedTuple):
+    """One fused launch: ``grid`` blocks, the contraction in ``splits``
+    runs of ``per`` (bf16: 64-row tiles; fp32: q rows, a packed int4 row
+    holding two), the ring's ``scale_rows`` a stage (bf16 int4),
+    ``partials`` fp32 scratch values and ``counters`` arrival counters
+    (both 0 with one split)."""
+
+    body: str
+    grid: Tuple[int, int, int]
+    splits: int
+    per: int
+    scale_rows: int
+    partials: int
+    counters: int
+
+
+def scale_rows(K: int, group: int) -> int:
+    """int4 scale rows a 64-row tile can span: tiles start at multiples of
+    64, so a tile's first row sits at most ``group - gcd(64, group)`` into
+    its group (``csrc/qmatmul.cu:tile_scale_rows``)."""
+    return min(-(-K // group), 1 + (group - math.gcd(K_TILE, group) + K_TILE - 1) // group)
+
+
+def split_count(N: int, K: int, slots: int, min_tiles: int = MIN_SPLIT_TILES,
+                max_splits: int = 1 << 30) -> Tuple[int, int]:
+    """``(splits, tiles a split)`` of a bf16 contraction: as many blocks as
+    the card holds at once (``slots``: blocks an SM holds times the SMs),
+    so that none waits for a second wave, each split at least
+    ``min_tiles`` 64-row tiles long, at most ``max_splits``, and no split
+    empty."""
     strips = -(-N // COLS)
     k_tiles = -(-K // K_TILE)
-    want = max(1, min(slots // strips, k_tiles // 2))
+    want = max(1, min(slots // strips, k_tiles // min_tiles, max_splits))
     per = -(-k_tiles // want)
     return -(-k_tiles // per), per
 
 
-def _card_slots(lib, dev: torch.device, bits: int, M: int) -> int:
-    """Blocks of the fused bf16 kernel the card holds at once for M rows."""
-    key = (dev.index, bits, -(-M // 16))
-    if key not in _slots:
-        blocks = ctypes.c_int(0)
-        status = lib.pt_qmatmul_blocks_per_sm(bits, M, ctypes.byref(blocks))
+def fp32_split(M: int, K: int, N: int, bits: int, n_sm: int) -> Tuple[int, int, int]:
+    """``(row groups, splits, q rows a split)`` of an fp32 launch: about
+    one block an SM, each split at least two of the block's steps
+    (``FP32_LANES`` q rows each) long, and no split empty."""
+    strips, groups = -(-N // COLS), -(-M // FP32_ROWS)
+    steps = -(-(K if bits == 8 else -(-K // 2)) // FP32_LANES)
+    want = max(1, min(steps // 2, n_sm // (strips * groups)))
+    per = -(-steps // want)
+    return groups, -(-steps // per), per * FP32_LANES
+
+
+def launch_plan(M: int, K: int, N: int, bits: int, group: int, fp32: bool, blocks_per_sm: int,
+                n_sm: int) -> Plan:
+    """The fused launch for these shapes, from the kernel's occupancy
+    (``blocks_per_sm``, bf16) and the card's SMs alone."""
+    strips = -(-N // COLS)
+    if fp32:
+        groups, Z, per = fp32_split(M, K, N, bits, n_sm)
+        blocks = strips * groups
+        return Plan("fp32", (strips, groups, Z), Z, per, 0,
+                    Z * blocks * FP32_ROWS * COLS if Z > 1 else 0, blocks if Z > 1 else 0)
+    # The splits' fp32 partials (4 Z M N bytes, written and read back) stay
+    # under a quarter of the weight's bytes (K N, or K N / 2 for int4).
+    Z, per = split_count(N, K, max(1, blocks_per_sm) * n_sm, MIN_SPLIT_TILES,
+                         K // (16 * M * (2 if bits == 4 else 1)))
+    return Plan("bf16", (strips, Z, 1), Z, per, scale_rows(K, group) if bits == 4 else 0,
+                Z * strips * M * COLS if Z > 1 else 0, strips if Z > 1 else 0)
+
+
+def kernel_info(dtype: torch.dtype, bits: int, M: int, K: int, group: int,
+                device: torch.device) -> Tuple[int, int]:
+    """``(registers a thread, blocks an SM)`` of the fused kernel that
+    ``M`` rows of ``dtype`` launch (bf16: with the ring this ``K`` and
+    ``group`` give)."""
+    from pilottai_tpu_torch.ops.kernels.build import load_library
+
+    dev = torch.device(device)
+    sr = scale_rows(K, group) if bits == 4 and dtype == torch.bfloat16 else 0
+    key = (dev.index, _DTYPES[dtype], bits, -(-M // 16), sr, group % K_TILE == 0)
+    if key not in _info:
+        lib = _bind(load_library("qmatmul"))
+        regs, blocks = ctypes.c_int(0), ctypes.c_int(0)
+        status = lib.pt_qmatmul_info(_DTYPES[dtype], bits, M, K, group, ctypes.byref(regs),
+                                     ctypes.byref(blocks))
         if status != 0:
             raise RuntimeError(f"qmatmul occupancy query failed: "
                                f"{lib.pt_error_string(status).decode()}")
+        _info[key] = (regs.value, blocks.value)
+    return _info[key]
+
+
+def plan_for(M: int, K: int, N: int, bits: int, group: int, dtype: torch.dtype,
+             device: torch.device) -> Plan:
+    """The plan of a fused launch of these shapes on this card."""
+    dev = torch.device(device)
+    key = (dev.index, M, K, N, bits, group, dtype)
+    if key not in _plans:
         n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-        _slots[key] = max(1, blocks.value) * n_sm
-    return _slots[key]
-
-
-def fused_splits(M: int, K: int, N: int, bits: int, device: torch.device) -> Tuple[int, int]:
-    """``(splits, tiles a split)`` of a bf16 fused launch of these shapes."""
-    from pilottai_tpu_torch.ops.kernels.build import load_library
-
-    lib = _bind(load_library("qmatmul"))
-    return split_count(N, K, _card_slots(lib, torch.device(device), bits, M))
+        fp32 = dtype == torch.float32
+        blocks = 0 if fp32 else kernel_info(dtype, bits, M, K, group, dev)[1]
+        _plans[key] = launch_plan(M, K, N, bits, group, fp32, blocks, n_sm)
+    return _plans[key]
 
 
 def _layout(w: Quantized) -> Tuple[int, int, int, int]:
@@ -169,22 +246,19 @@ def _launch(x, w, out_dtype):
     out = torch.empty((M, N), device=dev, dtype=out_dtype)
     if M == 0:
         return out.reshape(*x.shape[:-1], N)
-    k_tiles = -(-K // K_TILE)
-    Z, per = 1, k_tiles
+    plan = plan_for(M, K, N, bits, group, x.dtype, dev)
     part = arrivals = None
-    if x.dtype == torch.bfloat16:
-        Z, per = fused_splits(M, K, N, bits, dev)
-    if Z > 1:
-        part = torch.empty(Z * M * N, device=dev, dtype=torch.float32)
-        strips = -(-N // COLS)
+    if plan.splits > 1:
+        part = torch.empty(plan.partials, device=dev, dtype=torch.float32)
         arrivals = _arrivals.get((dev.index, stream))
-        if arrivals is None or arrivals.numel() < strips:
-            arrivals = torch.zeros(max(strips, 1024), device=dev, dtype=torch.int32)
+        if arrivals is None or arrivals.numel() < plan.counters:
+            arrivals = torch.zeros(max(plan.counters, 1024), device=dev, dtype=torch.int32)
             _arrivals[(dev.index, stream)] = arrivals
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     status = lib.pt_qmatmul(
         _DTYPES[x.dtype], bits, int(out_dtype == torch.float32), x2.data_ptr(), *args,
-        out.data_ptr(), ptr(part), ptr(arrivals), M, K, N, *strides, per, Z, stream,
+        out.data_ptr(), ptr(part), ptr(arrivals), M, K, N, *strides, plan.per, plan.splits,
+        stream,
     )
     if status != 0:
         raise RuntimeError(f"qmatmul launch failed: {lib.pt_error_string(status).decode()}")
@@ -206,8 +280,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         fn.restype = I
         lib.pt_qdequant.argtypes = [I, I, P, P, P] + [I] * 6 + [P]
         lib.pt_qdequant.restype = I
-        lib.pt_qmatmul_blocks_per_sm.argtypes = [I, I, ctypes.POINTER(I)]
-        lib.pt_qmatmul_blocks_per_sm.restype = I
+        lib.pt_qmatmul_info.argtypes = [I] * 5 + [ctypes.POINTER(I)] * 2
+        lib.pt_qmatmul_info.restype = I
         lib.pt_error_string.argtypes = [I]
         lib.pt_error_string.restype = ctypes.c_char_p
     return lib

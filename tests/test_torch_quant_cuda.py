@@ -1,18 +1,24 @@
 """On the card (``cuda``-marked; they skip without one): the quantized
 product's kernel (``ops/kernels/qmatmul.py``) against its plain version on
-both sides of ``FUSED_MAX_ROWS``, bit-identical repeats, the native arm
-refused, the product captured in a CUDA graph on both sides of
-``FUSED_MAX_ROWS``, and decode chunks with int8 weights captured as CUDA
-graphs giving their eager runs' ids: plain steps with the fused kernel
-launched seven times a layer a step, and verify blocks of 72 rows, which
-take the dequant path inside the graph. This file imports no JAX, so it runs on a machine without
-it: ``python -m pytest --noconftest -p no:cacheprovider -m cuda
+both sides of ``FUSED_MAX_ROWS``, bit-identical repeats, both fused
+bodies (bf16 and fp32) within ``chip_smoke.TOL_QMM`` from 1 to 64 rows on
+layouts that take the bf16 body's tensor maps and its plain-load producer,
+the native arm refused, the product captured in a CUDA graph on both
+sides of ``FUSED_MAX_ROWS`` and in both bodies, the split sum's arrival
+counters zero after a thousand launches, and decode chunks with int8
+weights captured as CUDA graphs giving their eager runs' ids: plain steps
+with the fused kernel launched seven times a layer a step, and verify
+blocks of 72 rows, which take the dequant path inside the graph. This
+file imports no JAX, so it runs on a machine without it: ``python -m
+pytest --noconftest -p no:cacheprovider -m cuda
 tests/test_torch_quant_cuda.py``."""
 
 import collections
 
 import pytest
 import torch
+
+from chip_smoke import TOL_QMM
 
 from pilottai_tpu_torch import PROTOCOL_S_NPZ
 from pilottai_tpu_torch.engine.batcher import ContinuousBatcher, GenRequest
@@ -64,6 +70,73 @@ def test_cuda_kernel_matches_plain_on_both_sides_of_the_fused_rows(M, bits, grou
     _check(got, qk.qmatmul_plain(x, qw), dtype)
 
 
+def _quantized_layout(layout, K, bits, group, dtype, gen, dev):
+    """A weight of N = 1000 columns: contiguous (rows 1000 bytes apart: the
+    bf16 body's plain-load producer), or columns of a [K, 1280] weight from
+    128 (the tensor maps, a ragged last strip) or from 136 (a base off the
+    16-byte rule: the plain-load producer)."""
+    cols = 1000 if layout == "contiguous" else 1280
+    w = torch.randn((K, cols), generator=gen, device=dev) * K**-0.5
+    qw = quantize_array(w, dtype, bits=bits, group=group)
+    if layout == "contiguous":
+        return qw
+    off = 128 if layout == "slice at 128" else 136
+    fields = {**vars(qw), "q": qw.q[:, off:off + 1000], "s": qw.s[:, off:off + 1000]}
+    return type(qw)(**fields)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,out", [(torch.bfloat16, None), (torch.bfloat16, torch.float32),
+                                       (torch.float32, None)], ids=["bf16", "bf16-fp32", "fp32"])
+@pytest.mark.parametrize("layout", ["contiguous", "slice at 128", "slice at 136"])
+@pytest.mark.parametrize("bits,group", [(8, 128), (4, 96), (4, 128)])
+@pytest.mark.parametrize("M", [1, 4, 8, 16, 32, 64])
+def test_cuda_fused_bodies_match_plain_within_tol_qmm(M, bits, group, layout, dtype, out):
+    """Both fused bodies against ``qmatmul_plain`` within ``TOL_QMM`` (the
+    part of max |diff| beyond rel x |ref|, over max |ref|), each run twice
+    for the same bits, one fused launch a call."""
+    dev = _device()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1000 * M + 10 * bits + group)
+    K = 1024
+    qw = _quantized_layout(layout, K, bits, group, dtype, gen, dev)
+    x = torch.randn((M, K), generator=gen, device=dev).to(dtype)
+    n0 = qk.launches
+    got = qk.quant_matmul(x, qw, out)
+    again = qk.quant_matmul(x, qw, out)
+    assert qk.launches - n0 == 2
+    assert torch.equal(got, again)
+    want = qk.qmatmul_plain(x, qw, out)
+    assert got.dtype == want.dtype and got.shape == (M, 1000)
+    tol = TOL_QMM["float32" if want.dtype == torch.float32 else "bfloat16"]
+    d = (got.float() - want.float()).abs() - tol["rel"] * want.float().abs()
+    assert float(d.max() / want.float().abs().max()) <= tol["out"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+def test_cuda_arrival_counters_are_zero_after_a_thousand_launches(dtype):
+    """A thousand split launches back to back (llama3-8b's wk in bf16,
+    protocol-s's 1024 x 256 in fp32): every last block resets its counter,
+    so the wrapper's counters read zero, and the last result has the first
+    one's bits."""
+    dev = _device()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    M, K, N = (8, 4096, 1024) if dtype == torch.bfloat16 else (4, 1024, 256)
+    qw = quantize_array(torch.randn((K, N), generator=gen, device=dev) * K**-0.5, dtype,
+                        bits=4, group=128)
+    x = torch.randn((M, K), generator=gen, device=dev).to(dtype)
+    assert qk.plan_for(M, K, N, 4, 128, dtype, dev).splits > 1
+    first = qk.quant_matmul(x, qw)
+    for _ in range(1000):
+        last = qk.quant_matmul(x, qw)
+    torch.cuda.synchronize()
+    counters = qk._arrivals[(dev.index, torch.cuda.current_stream(dev).cuda_stream)]
+    assert int(counters.abs().sum()) == 0
+    assert torch.equal(first, last)
+
+
 @pytest.mark.cuda
 def test_cuda_head_tile_slice_with_an_fp32_result():
     """A column slice of an int8 head (rows ``V`` apart), fp32 result."""
@@ -93,19 +166,21 @@ def test_cuda_native_arm_is_refused(monkeypatch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("M", [64, 65])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("M", [8, 64, 65])
 @pytest.mark.parametrize("bits", [8, 4])
-def test_cuda_captured_product_replays_the_eager_bits(bits, M):
+def test_cuda_captured_product_replays_the_eager_bits(bits, M, dtype):
     """Captured in a CUDA graph after an eager call on the capturing stream
     (as a chunk graph captures it), the product counts one launch of the
-    path its rows select, by shape, and its replays give the eager bits."""
+    path its rows select (either fused body, split, or the dequant path),
+    by shape, and its replays give the eager bits."""
     dev = _device()
     gen = torch.Generator(device=dev)
     gen.manual_seed(bits * 100 + M)
     K, N = 1024, 384
     qw = quantize_array(torch.randn((K, N), generator=gen, device=dev) * K**-0.5,
-                        torch.bfloat16, bits=bits, group=128)
-    x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+                        dtype, bits=bits, group=128)
+    x = torch.randn((M, K), generator=gen, device=dev).to(dtype)
     stream = torch.cuda.Stream(dev)
     stream.wait_stream(torch.cuda.current_stream(dev))
     with torch.cuda.stream(stream):
