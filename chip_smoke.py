@@ -40,7 +40,12 @@ result line is printed only when every phase passed):
    speculative verify's shapes (``q_blocks`` D and no ring: llama3-8b at D
    4 and 8, 16 and 32 query rows a kv head, int8 pools, a window, and D 16,
    64 rows, through the wrapper's split into two launches). K1, K2 and K3
-   also run twice and must give the same bits. Then the quantized product
+   also run twice and must give the same bits. K2's int8 body (an int8
+   panel with fp32 scales, q in bf16 and in fp32) at head_dim 32, 64 and
+   128, G = 1, 4 and 8, with a window, a soft-cap, empty rows and panels
+   of S keys that are no multiple of 4 (a split's first scale off a
+   16-byte boundary), held to the limits of q's dtype, each run twice for
+   the same bits. Then the quantized product
    (``csrc/qmatmul.cu``, no ``pallas_call`` counterpart) against
    ``qmatmul_plain``: llama3-8b's seven matrices at 1, 8, 32 and 64 rows
    (the fused kernel) and 65 and 1472 (the dequant kernel, then
@@ -85,7 +90,12 @@ result line is printed only when every phase passed):
    ``engine_speculate=4``, 6/6 each; the quantized product's fused kernel
    launches seven times a layer per decode step or verify block dispatched
    (prefills apart), and the prefills of more than 64 rows its dequant
-   kernel; every dense engine of the smoke launches neither;
+   kernel; every dense engine of the smoke launches neither; (f) the
+   int8-KV golden files (``protocol_s_kv8_golden.json``,
+   ``protocol_s_kv8_paged_golden.json``, the JAX engine's with
+   ``engine_kv_quantize="int8"``), dense and paged, 6/6 each, then each
+   again with ``engine_speculate=4`` and the prefix cache on, every case
+   served twice (12/12 each); the cache must be int8;
 5. full width — llama3-8b in bf16 from random init, the prefix cache off
    in (a) to (c); the engines of (a) and (b) serve the later runs at their
    settings too (5d with the cache off, 5e with speculation off, 5c), and
@@ -130,7 +140,8 @@ result line is printed only when every phase passed):
    and one verify block's row-0 logits of the live wave against the plain
    decode step's for the same token (``TOL_E2E``, the same argmax); the
    speculative engines run 24 of llama3-8b's 32 layers (``SPEC_LAYERS``),
-   so their TPOT is not comparable with the shared engine's; (f) 5a's dense engine and requests with ``engine_quant`` int8
+   and fixed chunks (``SPEC_KNOBS``), so their TPOT is not comparable with
+   the shared engine's; (f) 5a's dense engine and requests with ``engine_quant`` int8
    and int4 (group 128): a first wave, a counted wave (the fused kernel
    seven times a layer a step, each matrix shape as often as a layer has
    it by the wrapper's counts by shape, one live decode step's logits through the
@@ -139,7 +150,16 @@ result line is printed only when every phase passed):
    engine's own peak and resident bytes, the weights' bytes a step, the
    seconds quantization took at start, and (recorded, not gated) the
    first-token logits' correlation and argmax agreement with 5a's bf16
-   weights of the same seed; the head is tied, so it stays dense;
+   weights of the same seed; the head is tied, so it stays dense; (g) 5a's
+   dense engine and requests and 5b's paged engine and requests (the
+   6050-token prompt in 1024-token segments) with
+   ``engine_kv_quantize="int8"`` at all 32 layers: the first wave, a
+   counted wave (K2's int8 body or K3 on the int8 pools once per layer a
+   step, and one live step's logits through it against its plain version,
+   ``TOL_E2E`` and the same argmax), five timed waves, the engine's own
+   peak, the cache's bytes (int8 panels or pools and fp32 scales) against
+   the bf16 engine's, and (recorded, not gated) how many leading tokens of
+   one greedy reply equal the bf16 cache's;
 7. training — (a) golden: four ``Trainer.step`` calls on protocol-s in fp32
    (TF32 off) from the shipped checkpoint, on ``protocol_batches(4, 512,
    seed=11)``; the batches' hash and each step's loss and grad norm must
@@ -162,7 +182,10 @@ result line is printed only when every phase passed):
    flags, and the device kernels of one SDPA forward and backward, which
    name the backend that ran); K3 also at 5e's paged verify shape (D rows
    a query head), with SDPA over the gathered panels, and K2's entry for the
-   model drafts of 4d; the quantized product at 5f's decode step (8 rows,
+   model drafts of 4d; K2's int8 body at 5g's dense decode step, beside
+   K2's bf16 body at the same shape and SDPA over the panel dequantized
+   beforehand (not counted), and K3 on int8 pools at 5g's paged step; the
+   quantized product at 5f's decode step (8 rows,
    the four matrix shapes) and prefill, and at 4e's protocol-s shapes in
    fp32, each with the launches the wrapper counted at that shape and its
    body's launch plan (splits and their tiles), registers and blocks an
@@ -428,6 +451,29 @@ def check_decode(torch, da, gen, device, name, dtype, B, N, K, S, H, last,
     return ok and same, err
 
 
+def check_decode_int8(torch, da, gen, device, name, dtype, B, N, K, S, H, last,
+                      window=0, softcap=0.0, shift=1):
+    """K2's int8 body (an int8 panel with its fp32 scales, q in ``dtype``)
+    against its plain version, held to the limits of q's dtype. Run twice:
+    the statistics must be the same bits."""
+    from pilottai_tpu_torch.ops.kvcache import quantize_kv
+
+    q = randn(torch, gen, (B, N, H), dtype, device)
+    kc, ks = quantize_kv(randn(torch, gen, (B, K, S, H), torch.float32, device))
+    vc, vs = quantize_kv(randn(torch, gen, (B, K, S, H), torch.float32, device))
+    lst = torch.tensor(last, device=device, dtype=torch.int32)
+    qpos = torch.clamp(lst, min=0) + shift
+    kw = dict(scale=H**-0.5, softcap=softcap, window=window, k_scales=ks, v_scales=vs)
+    got = da.decode_attention(q, kc, vc, lst, qpos, return_stats=True, **kw)
+    again = da.decode_attention(q, kc, vc, lst, qpos, return_stats=True, **kw)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    want = da.decode_attention_plain(q, kc, vc, lst, qpos, **kw)
+    ok, err, text = compare_stats(got, want, str(dtype)[6:])
+    log(f"  K2 int8 {name:<29} q {str(dtype)[6:]:<8} {text} repeat bit-identical {same}")
+    return ok and same, err
+
+
 def paged_inputs(torch, gen, device, dtype, B, N, K, H, P, lengths, step=0, ring=0,
                  hole=None, quantized=False, spare=8):
     """A random page pool whose pages are handed to the slots in a shuffled
@@ -557,6 +603,9 @@ def phase_kernels(torch, fa, da, pa, device, seed):
     hgen.manual_seed(seed)
     vgen = torch.Generator(device=device)
     vgen.manual_seed(seed)
+    # And K2's int8 body.
+    kgen = torch.Generator(device=device)
+    kgen.manual_seed(seed)
     results, worst = [], {}
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype)[6:]
@@ -816,6 +865,24 @@ def phase_kernels(torch, fa, da, pa, device, seed):
             ok, err = check_decode(torch, da, dgen, device, name, dtype, **kw)
             results.append(ok)
             worst[("decode", dn)] = max(worst.get(("decode", dn), 0.0), err)
+        # K2's int8 body (the int8 KV cache): the three head dims, a window,
+        # a soft-cap, empty rows, and panels of S keys that are no multiple
+        # of 4, so that a split's first scale sits off a 16-byte boundary.
+        int8_cases = [
+            ("llama3-8b S2048 ragged", dict(B=8, N=32, K=8, S=2048, H=128,
+                                            last=[2047, 1000, 230, 0, -1, 1500, 64, 2046])),
+            ("llama3-8b S301 window softcap", dict(B=4, N=32, K=8, S=301, H=128,
+                                                   last=[300, 150, -1, 37], window=77,
+                                                   softcap=30.0, shift=5)),
+            ("H64 G8 S1001", dict(B=4, N=32, K=4, S=1001, H=64, last=[1000, 512, 3, -1])),
+            ("protocol-s H32 S515 window", dict(B=4, N=8, K=4, S=515, H=32,
+                                                last=[414, 514, -1, 0], window=45)),
+            ("H128 G1 every slot empty", dict(B=4, N=8, K=8, S=259, H=128, last=[-1] * 4)),
+        ]
+        for name, kw in int8_cases:
+            ok, err = check_decode_int8(torch, da, kgen, device, name, dtype, **kw)
+            results.append(ok)
+            worst[("decode_int8", dn)] = max(worst.get(("decode_int8", dn), 0.0), err)
     if not all(results):
         raise SystemExit("kernel check failed")
     return worst
@@ -1230,6 +1297,13 @@ def phase_golden(torch, kernels, root, asset, paged, page_size=None, knobs=None,
         got, batcher = arun(run())
     launches = counts(kernels)      # read once the engine's threads have stopped
     no_capture_check(batcher, "golden")
+    if golden["engine"].get("engine_kv_quantize"):
+        panels, scales = cache_bytes(batcher.cache)
+        log(f"  int8 KV cache: {panels} bytes of int8 {'pools' if paged else 'panels'} and "
+            f"{scales} bytes of fp32 scales")
+        cache = batcher.cache
+        if cache.scales is None or cache.layers[0][0].dtype != torch.int8:
+            raise SystemExit("engine_kv_quantize='int8' did not make an int8 cache")
     n = len(golden["cases"]) * repeat
     log(f"  launches on this run ({n} requests, fp32): {launches_text(launches)}")
     qmm_step_check(launches, qmm_counter, batcher, batcher.blocks_dispatched, "golden")
@@ -1351,6 +1425,12 @@ WAVES = 5
 # ~10 tokens and no draft was accepted, so 5e gates on the two below.
 # 5e's numbers at full depth are in PERF.md.
 SPEC_LAYERS = 24
+# ... and they run fixed chunks of ``engine_chunk`` verify blocks, so their
+# sweeps capture a quarter of the graphs (one chunk bucket, not four): at
+# 24 layers and adaptive chunks they took 80-135 s each, and at 20 or 16
+# layers the random model's replies end after 2 to 7 tokens with no draft
+# accepted, so their depth cannot give the time back (PERF.md §4).
+SPEC_KNOBS = dict(engine_speculate=4, engine_chunk_policy="fixed")
 # 5e's timed waves must accept drafts (more than one token a verify block)
 # and run their replies to at least this share of the 64-token budget.
 SPEC_MIN_REPLY_SHARE = 0.5
@@ -1769,8 +1849,10 @@ def plain_decode_attention(da):
 
     kernel = decode.decode_attention
 
-    def plain(q, k, v, last, q_positions, scale, softcap, window, return_stats):
-        return da.decode_attention_plain(q, k, v, last, q_positions, scale, softcap, window)
+    def plain(q, k, v, last, q_positions, scale, softcap, window, return_stats,
+              k_scales=None, v_scales=None):
+        return da.decode_attention_plain(q, k, v, last, q_positions, scale, softcap, window,
+                                         k_scales, v_scales)
 
     decode.decode_attention = plain
     try:
@@ -1803,7 +1885,7 @@ def decode_step_check(torch, mod, batcher, plain=None, others=()):
 
     def step():
         rings = decode.new_rings(cfg, batcher.n_slots, batcher.chunk_size,
-                                 cache.layers[0][0].dtype, dev)
+                                 decode.ring_dtype(cfg, cache), dev)
         return decode.decode_step_logits(batcher.params, cfg, cache, dstate.tokens, pos,
                                          pos - 1, rings, 0, **kw)
 
@@ -2245,6 +2327,159 @@ def phase_quant_full_width(torch, kernels, seed, mode):
 
 
 # --------------------------------------------------------------------- #
+# Phase 5g: llama3-8b at full width with the int8 KV cache
+# --------------------------------------------------------------------- #
+
+def cache_bytes(cache):
+    """Device bytes of a KV cache: its panels or pools, and its scales."""
+    panels = sum(t.numel() * t.element_size() for pair in cache.layers for t in pair)
+    scales = sum(t.numel() * t.element_size() for pair in (cache.scales or []) for t in pair)
+    return panels, scales
+
+
+async def greedy_ids(handler, messages, n):
+    from pilottai_tpu_torch.engine.types import GenerationParams
+
+    seen = record_requests(handler)
+    await handler.generate_response(
+        messages, params=GenerationParams(temperature=0.0, max_new_tokens=n), json_mode=True)
+    return list(seen[-1].future.result())
+
+
+def phase_kv8_full_width(torch, kernels, seed, paged):
+    """5a's dense engine and requests (``paged=False``) or 5b's paged engine
+    and requests (the 6050-token prompt in 1024-token segments) with
+    ``engine_kv_quantize="int8"``, at all 32 layers: the first wave served,
+    a counted wave whose first step with all eight slots live runs
+    ``decode_step_check`` through K2's int8 body (dense) or K3 on the int8
+    pools (paged) against the plain version, five timed waves; the cache's
+    bytes against the shared bf16 engine's; and (recorded: random weights)
+    how many leading tokens of one greedy reply equal the bf16 engine's."""
+    da, pa = kernels["decode"], kernels["paged"]
+    max_seq = 8192 if paged else 2048
+    if paged:
+        prompts = [[long_prompt(5900)]] + [[FULL_PROMPT.format(i=i)] for i in range(7)]
+    else:
+        prompts = [[FULL_PROMPT.format(i=i)] for i in range(8)]
+    reqs = [(p, 64) for p in prompts]
+    tag = f"5g {'paged' if paged else 'dense'} int8 KV"
+    out, state = {"paged": paged}, {}
+
+    async def run():
+        handler = await full_width_engine(torch, seed, max_seq, f"{tag} engine",
+                                          engine_kv_quantize="int8")
+        batcher = handler.backend.batcher
+        if batcher.cache.scales is None or batcher.paged != paged:
+            raise SystemExit(f"{tag}: the engine's cache is not int8 or not "
+                             f"{'paged' if paged else 'dense'}")
+        bf16 = SHARED[max_seq].backend.batcher
+        out["bytes"], out["bytes_bf16"] = cache_bytes(batcher.cache), cache_bytes(bf16.cache)
+        out["resident"] = RESIDENT[handler]
+        first, _ = await timed_waves(handler, reqs, f"{tag}, the first wave served",
+                                     long_first=paged, n_waves=1)
+        decode = batcher._decode
+
+        def watching():
+            if all(s is not None for s in batcher._slots):
+                if "e2e" not in state:
+                    state["e2e"] = decode_step_check(torch, pa if paged else da, batcher)
+                state["last"] = [int(n) - 1 for n in batcher.cache.lengths.tolist()]
+                state["table"] = batcher.alloc.table.tolist() if paged else None
+            decode()
+
+        batcher._decode = watching
+        seen = record_requests(handler)
+        seg0 = batcher.prefill_segments
+        torch.cuda.reset_peak_memory_stats()
+        reset(kernels)
+        steps0 = batcher.blocks_dispatched
+        from pilottai_tpu_torch.engine.types import GenerationParams
+
+        def send(p):
+            return asyncio.ensure_future(handler.generate_response(
+                p, params=GenerationParams(temperature=0.0, max_new_tokens=64),
+                json_mode=True))
+
+        tasks = [send(prompts[0])]
+        if paged:
+            while (batcher._segmenting is None and batcher.prefill_segments == seg0
+                   and not tasks[0].done()):
+                await asyncio.sleep(0.001)
+        tasks += [send(p) for p in prompts[1:]]
+        replies = await asyncio.gather(*tasks)
+        await settle(batcher)
+        batcher._decode = decode
+        launches = counts(kernels)
+        steps = batcher.blocks_dispatched - steps0
+        out["peak"] = own_peak(torch, handler)
+        per_step_check(launches, batcher, steps, f"{tag} wave")
+        out.update(launches=launches, steps=steps, model=batcher.cfg,
+                   segments=batcher.prefill_segments - seg0,
+                   prompt_lens=[len(r.prompt_ids) for r in seen],
+                   parsed=sum(1 for r in replies if parses(r.content)))
+        if paged and (out["segments"] <= 0
+                      or batcher.alloc.free_pages != batcher.num_pages - 1):
+            raise SystemExit(f"{tag}: chunked prefill did not run, or pages were not returned")
+        if paged:
+            out.update(num_pages=batcher.num_pages, P=batcher.page_size, R=batcher.chunk_size)
+        # Leading greedy tokens of one reply against the bf16 engine's.
+        msgs = prompts[1] if paged else prompts[0]
+        mine = await greedy_ids(handler, msgs, 64)
+        theirs = await greedy_ids(SHARED[max_seq], msgs, 64)
+        out["agree"] = next((i for i, (a, b) in enumerate(zip(mine, theirs)) if a != b),
+                            min(len(mine), len(theirs)))
+        out["reply_lens"] = (len(mine), len(theirs))
+        out["waves"], _ = await timed_waves(handler, reqs, f"{tag}, 8 x 64 tokens",
+                                            long_first=paged)
+        out["first_wave"] = first_wave_line(first, out["waves"], tag)
+        log(f"  after the waves: {graph_text(batcher)}")
+        no_capture_check(batcher, tag)
+        await release(handler)
+
+    arun(run())
+    gc.collect()
+    torch.cuda.empty_cache()
+    w = out["waves"]
+    (panels, scales), (panels16, _) = out["bytes"], out["bytes_bf16"]
+    log(f"  {tag}: TTFT p50 {median([x['ttft_ms'] for x in w]):.4f} ms"
+        + (f" (long prompt {median([x['ttft_long_ms'] for x in w]):.4f} ms)" if paged else "")
+        + f", TPOT p50 {median([x['tpot_ms'] for x in w]):.4f} ms, "
+        f"{median([x['tokens_s'] for x in w]):.4f} tokens/s (medians of {WAVES} waves); peak "
+        f"memory {out['peak'] / 2**30:.2f} GiB (the engine's own); the engine holds "
+        f"{out['resident'] / 2**30:.2f} GiB; JSON replies that parse {out['parsed']}/8")
+    log(f"  {tag}: the cache holds {panels / 2**30:.4f} GiB of int8 panels + "
+        f"{scales / 2**30:.4f} GiB of fp32 scales = {(panels + scales) / 2**30:.4f} GiB, "
+        f"against {panels16 / 2**30:.4f} GiB in bf16 (5{'b' if paged else 'a'}'s engine): "
+        f"{(panels + scales) / panels16:.4f} x")
+    log(f"  {tag}: one greedy reply's leading tokens equal to the bf16 cache's (recorded, not "
+        f"gated; random weights): {out['agree']} of {out['reply_lens'][0]} "
+        f"(bf16 reply {out['reply_lens'][1]} tokens)")
+    log(f"  launches on this run: {launches_text(out['launches'])}")
+    step = state.get("e2e")
+    step_ok = bool(step) and step["finite"] and step["rel"] <= TOL_E2E and step["same_argmax"]
+    kernel = "K3 on the int8 pools vs plain K3" if paged else "K2's int8 body vs plain K2"
+    if step:
+        log(f"  one decode step of the live wave (slot lengths {step['lengths']}), {kernel} "
+            f"(bf16): max |diff| {step['max_diff']:.3e} over max |logit| "
+            f"{step['max_logit']:.3e} = {step['rel']:.3e}, tol {TOL_E2E:g}; same argmax "
+            f"{step['same_argmax']} (smallest top-2 margin {step['margin']:.3e}); finite "
+            f"{step['finite']} {'ok' if step_ok else 'FAIL'}")
+    else:
+        log("  the wave never had all eight slots live: no decode-step check")
+    launches = out["launches"]
+    mine, other = ("paged", "decode") if paged else ("decode", "paged")
+    if launches["flash"] <= 0 or launches[mine] <= 0 or launches[other] != 0:
+        raise SystemExit(f"{tag}: the path did not go through K1 and "
+                         f"{'K3' if paged else 'K2'} alone")
+    if out["parsed"] != 8 or not step_ok:
+        raise SystemExit(f"{tag}: the int8 decode step disagrees with the plain one, or a "
+                         "reply does not parse")
+    out["last"], out["table"] = state["last"], state["table"]
+    out["requests"] = len(prompts)
+    return out
+
+
+# --------------------------------------------------------------------- #
 # Phase 5d: agent steps sharing a preamble, with the prefix cache
 # --------------------------------------------------------------------- #
 
@@ -2308,7 +2543,8 @@ def hit_logits_check(torch, batcher, prompt_ids):
         node = batcher.page_index.match(prompt_ids)
         plen = node.depth * batcher.page_size
         layer = decode._chain_layer(batcher.cache,
-                                    torch.tensor(node.path_pages, device=dev, dtype=torch.long))
+                                    torch.tensor(node.path_pages, device=dev, dtype=torch.long),
+                                    cfg.dtype)
     else:
         entry = batcher.prefix_store.match(prompt_ids)
         plen = len(entry.ids)
@@ -2490,7 +2726,8 @@ def phase_spec_waves(torch, kernels, seed, paged):
     async def serve(speculate, label):
         handler = await full_width_engine(
             torch, seed, 8192 if paged else 2048, f"5e {label}",
-            **(dict(engine_speculate=speculate, layers=SPEC_LAYERS) if speculate else {}))
+            **(dict(SPEC_KNOBS, engine_speculate=speculate, layers=SPEC_LAYERS)
+               if speculate else {}))
         batcher = handler.backend.batcher
         if batcher.paged != paged:
             raise SystemExit("5e: the engine did not page as configured")
@@ -2880,18 +3117,71 @@ def time_kernels(torch, fa, da, device, timer, gen, dtype, cfg, flash, decode, l
     return kernels
 
 
-def time_paged(torch, pa, device, timer, gen, dtype, shape, launched, worst, suffix="",
-               **extra):
-    """Time K3 (kernel, plain version, SDPA over panels gathered beforehand)
-    at one paged path's decode step: its slots' lengths and block table, a
-    pool of its size, the ring ``step`` rows into a chunk. Returns its entry
-    of the kernels line."""
+def time_decode_int8(torch, da, device, timer, gen, shape, worst):
+    """Time K2's int8 body (bf16 q, an int8 panel and its fp32 scales) at
+    5g's dense decode step, beside K2's bf16 body at the same shape and
+    SDPA over the panel dequantized to bf16 beforehand (the dequantization
+    not counted). Returns its entry of the kernels line."""
     import torch.nn.functional as F
 
+    from pilottai_tpu_torch.ops.kvcache import dequantize_kv, quantize_kv
+
+    cfg, last = shape["model"], shape["last"]
+    N, K, H = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    G, B, S = N // K, len(last), shape["S"]
+    q = randn(torch, gen, (B, N, H), torch.bfloat16, device)
+    kf = randn(torch, gen, (B, K, S, H), torch.bfloat16, device)
+    vf = randn(torch, gen, (B, K, S, H), torch.bfloat16, device)
+    (kc, ks), (vc, vs) = quantize_kv(kf), quantize_kv(vf)
+    lst = torch.tensor(last, device=device, dtype=torch.int32)
+    kw = dict(return_stats=True, k_scales=ks, v_scales=vs)
+    ms = timer.ms(lambda: da.decode_attention(q, kc, vc, lst, lst, **kw))
+    warm = timer.ms(lambda: da.decode_attention(q, kc, vc, lst, lst, **kw), flush=False)
+    profiled = profiled_launch_ms(torch, lambda: da.decode_attention(q, kc, vc, lst, lst, **kw),
+                                  "decode_split")
+    plain = timer.ms(lambda: da.decode_attention_plain(q, kc, vc, lst, lst, H**-0.5,
+                                                       k_scales=ks, v_scales=vs))
+    bf16 = timer.ms(lambda: da.decode_attention(q, kf, vf, lst, lst, return_stats=True))
+    kd, vd = dequantize_kv(kc, ks, torch.bfloat16), dequantize_kv(vc, vs, torch.bfloat16)
+    kde, vde = kd.repeat_interleave(G, dim=1), vd.repeat_interleave(G, dim=1)
+    dmask = (torch.arange(S, device=device)[None, :] <= lst[:, None])[:, None, None, :]
+    lib = timer.ms(lambda: F.scaled_dot_product_attention(q[:, :, None], kde, vde,
+                                                          attn_mask=dmask))
+    keys = sum(n + 1 for n in last if n >= 0)
+    flops = 4 * H * N * keys
+    # The int8 keys and values, their fp32 scales, q, acc, m and l.
+    nbytes = 2 * keys * K * H + 2 * 4 * keys * K + 2 * B * N * H + 4 * B * N * H + 2 * 4 * B * N
+    e = entry("decode_attention_int8", da, shape["launches"], worst[("decode_int8", "bfloat16")],
+              ms, plain, lib, flops, nbytes, "bfloat16", tol_text("bfloat16", False),
+              warm_ms=warm, profiled_ms=profiled, bf16_cache_ms=bf16,
+              library_note="SDPA over the panel dequantized to bf16 beforehand (not counted)",
+              splits=da.split_count(B, K, S, torch.cuda.get_device_properties(device)
+                                    .multi_processor_count))
+    log(f"  K2 decode    int8 cache, bf16 q [{B},{N},{H}] S {S} last {last}, {e['splits']} "
+        f"splits: kernel {ms:.4f} ms (L2 warm {warm:.4f} ms, profiled "
+        f"{'not measured' if profiled is None else f'{profiled:.4f} ms'} a launch), K2 bf16 "
+        f"at the same shape {bf16:.4f} ms, plain {plain:.4f} ms, SDPA on the dequantized panel "
+        f"{lib:.4f} ms (dequantization not counted), bound {e['bound_ms']:.5f} ms "
+        f"({e['bound_by']}: {nbytes / 1e6:.2f} MB)")
+    return e
+
+
+def time_paged(torch, pa, device, timer, gen, dtype, shape, launched, worst, suffix="",
+               quantized=False, **extra):
+    """Time K3 (kernel, plain version, SDPA over panels gathered beforehand)
+    at one paged path's decode step: its slots' lengths and block table, a
+    pool of its size, the ring ``step`` rows into a chunk. ``quantized``:
+    int8 pools with their fp32 scale pools (SDPA then reads pools
+    dequantized to ``dtype`` beforehand, the dequantization not counted).
+    Returns its entry of the kernels line."""
+    import torch.nn.functional as F
+
+    from pilottai_tpu_torch.ops.kvcache import dequantize_kv, quantize_kv
     from pilottai_tpu_torch.ops.paged import gather_pages
 
     dn = str(dtype)[6:]
     esz = torch.finfo(dtype).bits // 8
+    kv_esz = 1 if quantized else esz
     cfg = shape["model"]
     N, K, H = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     G = N // K
@@ -2911,6 +3201,11 @@ def time_paged(torch, pa, device, timer, gen, dtype, shape, launched, worst, suf
     qpos = lst + 1 + step
     kw = dict(q_positions=qpos, n_blocks=n_blocks, scale=H**-0.5, ring_k=rk, ring_v=rv,
               ring_step=step)
+    k_lib, v_lib = k_pool, v_pool
+    if quantized:
+        (k_pool, ks), (v_pool, vs) = quantize_kv(k_pool), quantize_kv(v_pool)
+        kw.update(k_scales=ks, v_scales=vs)
+        k_lib, v_lib = dequantize_kv(k_pool, ks, dtype), dequantize_kv(v_pool, vs, dtype)
     k3 = timer.ms(lambda: pa.paged_decode_attention(q, k_pool, v_pool, table, lst, **kw))
     k3_warm = timer.ms(lambda: pa.paged_decode_attention(q, k_pool, v_pool, table, lst, **kw),
                        flush=False)
@@ -2918,8 +3213,8 @@ def time_paged(torch, pa, device, timer, gen, dtype, shape, launched, worst, suf
                                                                 **kw))
 
     def gather():
-        kg = torch.cat([gather_pages(k_pool, table, n_blocks), rk], dim=2)
-        vg = torch.cat([gather_pages(v_pool, table, n_blocks), rv], dim=2)
+        kg = torch.cat([gather_pages(k_lib, table, n_blocks), rk], dim=2)
+        vg = torch.cat([gather_pages(v_lib, table, n_blocks), rv], dim=2)
         return kg.repeat_interleave(G, dim=1), vg.repeat_interleave(G, dim=1)
 
     gather_ms = timer.ms(gather)
@@ -2934,12 +3229,19 @@ def time_paged(torch, pa, device, timer, gen, dtype, shape, launched, worst, suf
     keys = sum(n + 1 for n in last if n >= 0)
     ring_rows = B * (step + 1)
     flops = 4 * H * N * (keys + ring_rows)
-    nbytes = (2 * esz * (keys + ring_rows) * K * H + esz * B * N * H + 4 * B * n_blocks
-              + 2 * 4 * B + 4 * B * N * H + 2 * 4 * B * N)
-    e = entry("paged_attention" + suffix, pa, launched, worst[("paged", dn)], k3, k3_plain,
-              k3_lib, flops, nbytes, dn, tol_text(dn, False), gather_ms=gather_ms,
+    nbytes = (2 * kv_esz * keys * K * H + 2 * esz * ring_rows * K * H + esz * B * N * H
+              + 4 * B * n_blocks + 2 * 4 * B + 4 * B * N * H + 2 * 4 * B * N
+              + (2 * 4 * keys * K if quantized else 0))
+    worst_err = worst[("paged", "float32" if quantized else dn)]
+    tol = tol_text("float32" if quantized else dn, False)
+    e = entry("paged_attention" + suffix, pa, launched, worst_err, k3, k3_plain,
+              k3_lib, flops, nbytes, dn, tol, gather_ms=gather_ms,
               warm_ms=k3_warm, launches_per_request=launched / shape["requests"], **extra)
-    log(f"  K3 paged     {dn:<8} q [{B},{N},{H}] P {P} pool {num_pages} pages, last {last}, "
+    if quantized:
+        e["library_note"] = ("SDPA over pools dequantized to bf16 beforehand (not counted), "
+                             "plus the gather")
+    log(f"  K3 paged     {dn:<8}{' int8 pools' if quantized else ''} q [{B},{N},{H}] P {P} "
+        f"pool {num_pages} pages, last {last}, "
         f"ring {R} at step {step}: kernel {k3:.4f} ms (L2 warm {k3_warm:.4f} ms), plain "
         f"{k3_plain:.4f} ms, SDPA "
         f"{k3_lib:.4f} ms (+ gather {gather_ms:.4f} ms), bound {e['bound_ms']:.5f} ms "
@@ -3343,6 +3645,15 @@ def phase_timing(torch, kernels, device, seed, worst, paths):
     v_launches, v_shape = paths["spec_paged"]
     out.append(time_paged_verify(torch, pa, device, timer, gen, torch.bfloat16, v_shape,
                                  v_launches, worst))
+    # The int8 KV cache at 5g's shapes: K2's int8 body, K3 on int8 pools.
+    kv8 = paths["kv8"]
+    out.append(time_decode_int8(torch, da, device, timer, gen,
+                                dict(model=kv8["model"], last=kv8["last"], S=2048,
+                                     launches=kv8["launches"]["decode"]), worst))
+    kv8p = paths["kv8_paged"]
+    out.append(time_paged(torch, pa, device, timer, gen, torch.bfloat16,
+                          dict(kv8p, step=kv8p["R"] // 2), kv8p["launches"]["paged"], worst,
+                          suffix="_int8", quantized=True))
     yard = sdpa_yardstick(torch, device, gen, paths["train_golden"][1])
     g_launches, g_shapes = paths["golden"]
     fp32 = time_kernels(
@@ -3484,6 +3795,15 @@ def main() -> int:
              dict(engine_speculate=4), "int4 group 128, dense cache, engine_speculate=4")):
         stage(f"4e. golden protocol-s token ids (fp32) with quantized weights: {label}")
         paths[key] = phase_golden(torch, kernels, root, asset, paged="paged" in key, knobs=knobs)
+    for label, asset, paged in (("dense", "protocol_s_kv8_golden.json", False),
+                                ("paged cache, chunked prefill",
+                                 "protocol_s_kv8_paged_golden.json", True)):
+        stage(f"4f. golden protocol-s token ids (fp32) with the int8 KV cache: {label}")
+        phase_golden(torch, kernels, root, asset, paged=paged)
+        stage(f"4f. the same with engine_speculate=4 and the prefix cache on, each case served "
+              f"twice: {label}")
+        phase_golden(torch, kernels, root, asset, paged=paged, knobs=dict(engine_speculate=4),
+                     prefix_cache=None, repeat=2)
     stage("5a. llama3-8b full width, bf16, dense cache, 8 concurrent JSON requests")
     paths["full"] = phase_full_width(torch, kernels, args.seed)
     gc.collect()
@@ -3513,6 +3833,12 @@ def main() -> int:
         stage(f"5f. llama3-8b full width, bf16 activations, {mode} weights, dense cache, 8 "
               "concurrent JSON requests")
         paths[f"quant_{mode}"] = phase_quant_full_width(torch, kernels, args.seed, mode)
+    stage("5g. llama3-8b full width, bf16, engine_kv_quantize='int8', dense cache (5a's "
+          "requests)")
+    paths["kv8"] = phase_kv8_full_width(torch, kernels, args.seed, paged=False)
+    stage("5g. the same, paged (engine_max_seq 8192; 5b's requests, the long prompt in "
+          "1024-token segments)")
+    paths["kv8_paged"] = phase_kv8_full_width(torch, kernels, args.seed, paged=True)
     stage(f"5c. the device's busy share: {PROFILED_WAVES} profiled waves of each llama3-8b "
           "workload")
     paths["full"][1].update(phase_busy(torch, args.seed))

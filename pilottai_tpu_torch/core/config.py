@@ -5,7 +5,7 @@ same names).
 The JAX config has many more knobs. A knob whose feature comes with a
 later slice is refused with ``NotInSlice``, naming the ROADMAP item that
 brings it — unless it is set to the value the port already runs (for
-example ``engine_kv_quantize=None``), which is accepted. No knob is ignored
+example ``engine_sched_policy="fifo"``), which is accepted. No knob is ignored
 silently: an unknown field is a validation error.
 """
 
@@ -24,7 +24,6 @@ class NotInSlice(ValueError):
 
 # ROADMAP.md, "Port slices", in the order they land.
 ROADMAP = {
-    "kv_quant": "P5b (int8 KV cache)",
     "reliability": "P6b (retries, rate limits, deadlines and the reliability ladder)",
     "sched": "P6c (scheduling policies: priority, gangs and pre-warming)",
     "kvtier": "P7 (KV cache tier)",
@@ -40,7 +39,6 @@ ROADMAP = {
 
 # JAX knob -> (values this slice already runs, ROADMAP item that brings the rest).
 _LATER: Dict[str, Tuple[Tuple[Any, ...], str]] = {
-    "engine_kv_quantize": ((None,), "kv_quant"),
     "engine_sched_policy": (("fifo",), "sched"),
     "engine_gang_wait_ms": ((50.0,), "sched"),
     "engine_priority_aging_s": ((2.0,), "sched"),
@@ -82,13 +80,12 @@ class SamplingConfig(BaseModel):
 
 
 class LLMConfig(BaseModel):
-    """The port's engine configuration: one device, KV in the cache dtype
-    (dense, or paged from ``engine_max_seq`` 4096 on), the device tier of
-    the prefix cache, speculative decoding, weight-only quantization (int8
-    or packed int4; the KV cache stays in the compute dtype). The decode
-    pipeline's five knobs, the prefix cache's two, speculation's two and
-    quantization's three have the JAX package's names, defaults and
-    meaning."""
+    """The port's engine configuration: one device, KV in the compute dtype
+    or int8 (dense, or paged from ``engine_max_seq`` 4096 on), the device
+    tier of the prefix cache, speculative decoding, weight-only
+    quantization (int8 or packed int4). The decode pipeline's five knobs,
+    the prefix cache's two, speculation's two and quantization's four
+    have the JAX package's names, defaults and meaning."""
 
     model_config = ConfigDict(extra="forbid", protected_namespaces=())
 
@@ -142,6 +139,11 @@ class LLMConfig(BaseModel):
     quantize: Optional[str] = None
     engine_quant: Optional[str] = None
     engine_quant_group: int = Field(default=128, ge=1)
+    # int8 KV cache ("int8" or None): panels and page pools stored int8
+    # with a symmetric fp32 scale per token and kv head
+    # (ops/kvcache.py:quantize_kv); the in-chunk ring stays in the compute
+    # dtype and is quantized at the chunk-end write.
+    engine_kv_quantize: Optional[str] = None
     seed: int = 0                           # param init seed when no checkpoint
 
     @field_validator("quantize")
@@ -156,6 +158,13 @@ class LLMConfig(BaseModel):
     def _valid_engine_quant(cls, v: Optional[str]) -> Optional[str]:
         if v not in (None, "none", "int8", "int4"):
             raise ValueError("engine_quant must be 'none', 'int8' or 'int4'")
+        return v
+
+    @field_validator("engine_kv_quantize")
+    @classmethod
+    def _valid_kv_quantize(cls, v: Optional[str]) -> Optional[str]:
+        if v not in (None, "int8"):
+            raise ValueError(f"unknown engine_kv_quantize mode {v!r}; supported: 'int8'")
         return v
 
     @model_validator(mode="before")

@@ -12,6 +12,18 @@
 //   p = exp(logits - m), 0 on rows whose m is NEG_INF
 //   l = sum p;  acc = sum p(cast to the cache dtype) * v   (fp32)
 //
+// With an int8 cache (engine_kv_quantize="int8") the panels are int8 with
+// fp32 scales k_scale, v_scale [B,K,S] (one per token and kv head), and
+// the function is the JAX package's _prefix_stats_dense with kv_scales:
+//
+//   logits = ((q . k) * scale) * k_scale[s], then the soft-cap and the mask
+//   m, p and l as above (l taken before the v scale)
+//   acc = sum round_q(p * v_scale[s]) * v   (round_q: to q's dtype, fp32)
+//
+// the int8 values widened to fp32, which is exact, and q in bf16 or fp32.
+// The scales enter after the dot products, so the panels stream as int8
+// and nothing makes a dequantized copy of them.
+//
 // What bounds it on an H100: HBM bytes. Every attended key costs 2*H cache
 // elements read for 4*H*G multiply-adds (G = N/K query heads per kv head),
 // far below the card's ~295 operations per byte, so the least time is the
@@ -68,8 +80,19 @@
 // away before the softmax; the merge likewise selects a split on its
 // weight. Offsets into a panel are 64-bit.
 //
-// Modes: bf16 and fp32 caches (q in the cache's dtype), window, softcap;
-// head_dim 32, 64, 128; at most 8 query heads per kv head.
+// The int8 body is the same walk over int8 tiles: a staged row is H bytes
+// (plus the 16 of padding), a lane scores a key from 16 int8 values a
+// 16-byte load, and each tile's 32 k and v scales ride in the same ring
+// stage, copied with 4-byte cp.async (a split's first key, and so its
+// scales, need not sit on a 16-byte boundary). The key's k scale and the
+// scale are applied to its dot product before the soft-cap and the max
+// (so for int8 the max is kept in logits, not folded into ex2's
+// exponent), and the lane that owns key j rounds p_j * v_scale[j] to q's
+// dtype before the PV broadcast.
+//
+// Modes: bf16 and fp32 caches (q in the cache's dtype), and int8 caches
+// with q in bf16 or fp32; window, softcap; head_dim 32, 64, 128; at most 8
+// query heads per kv head.
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -89,8 +112,12 @@ template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
 template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+template <> __device__ __forceinline__ float to_f<int8_t>(int8_t x) {
+  return static_cast<float>(x);
+}
 
-// p as the PV product sees it: rounded to the cache dtype.
+// p as the PV product sees it: rounded to q's dtype (for a float cache,
+// q's dtype is the cache's).
 template <typename T> __device__ __forceinline__ float round_p(float x) { return x; }
 template <> __device__ __forceinline__ float round_p<__nv_bfloat16>(float x) {
   return __bfloat162float(__float2bfloat16(x));
@@ -100,12 +127,15 @@ template <> __device__ __forceinline__ float round_p<__nv_bfloat16>(float x) {
 template <typename T, int N>
 __device__ __forceinline__ void load_row(const unsigned char* src, float* out) {
   constexpr int BYTES = N * static_cast<int>(sizeof(T));
-  static_assert(BYTES == 2 || BYTES == 4 || BYTES == 8 || BYTES == 16, "one vector load");
+  static_assert(BYTES == 1 || BYTES == 2 || BYTES == 4 || BYTES == 8 || BYTES == 16,
+                "one vector load");
   using V = typename std::conditional<
       BYTES == 16, uint4,
       typename std::conditional<
           BYTES == 8, uint2,
-          typename std::conditional<BYTES == 4, uint32_t, uint16_t>::type>::type>::type;
+          typename std::conditional<
+              BYTES == 4, uint32_t,
+              typename std::conditional<BYTES == 2, uint16_t, uint8_t>::type>::type>::type>::type;
   const V raw = *reinterpret_cast<const V*>(src);
   const T* e = reinterpret_cast<const T*>(&raw);
 #pragma unroll
@@ -146,6 +176,11 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
 }
+// 4 bytes (through L1: cp.async.cg takes only 16).
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -157,6 +192,8 @@ struct Params {
   const void* q;
   const void* k;
   const void* v;
+  const float* k_scale;  // [B, Kh, S], int8 caches only
+  const float* v_scale;
   const int32_t* last;
   const int32_t* qpos;
   float* acc;       // [B, N, H]
@@ -193,16 +230,21 @@ __device__ __forceinline__ void split_range(int last, int qp, int window, int S,
 template <typename T, int H> __host__ __device__ constexpr int row_bytes() {
   return H * static_cast<int>(sizeof(T)) + 16;
 }
+// K rows, then V rows; an int8 stage then holds the tile's 32 k scales and
+// its 32 v scales.
 template <typename T, int H> __host__ __device__ constexpr int stage_bytes() {
-  return 2 * TS * row_bytes<T, H>();  // K rows, then V rows
+  return 2 * TS * row_bytes<T, H>() +
+         (std::is_same<T, int8_t>::value ? 2 * TS * static_cast<int>(sizeof(float)) : 0);
 }
 template <typename T, int H> constexpr size_t smem_bytes(int G) {
   return static_cast<size_t>(G) * H * sizeof(float) +
          static_cast<size_t>(STAGES) * stage_bytes<T, H>();
 }
 
-template <typename T, int H, int NW>
+// TQ: q's type; T: the cache's (TQ itself, or int8_t with scales).
+template <typename TQ, typename T, int H, int NW>
 __global__ void __launch_bounds__(32 * NW) decode_split_kernel(const Params p) {
+  constexpr bool Q8 = std::is_same<T, int8_t>::value;
   constexpr int NT = 32 * NW;
   constexpr int RB = row_bytes<T, H>();
   constexpr int CPR = H * static_cast<int>(sizeof(T)) / 16;  // 16-byte chunks per row
@@ -214,12 +256,13 @@ __global__ void __launch_bounds__(32 * NW) decode_split_kernel(const Params p) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int Z = p.Z;
   const bool capped = p.softcap > 0.f;
-  // A row's running max is kept in u, the raw dot product (or the capped
-  // logit): the logit is u * m_unit and p = 2^((u - u_max) * f), so the
-  // scale folds into the exponent and m leaves as u_max * m_unit, as the
-  // plain version rounds it.
-  const float f = capped ? kLog2e : p.scale * kLog2e;
-  const float m_unit = capped ? 1.f : p.scale;
+  // A row's running max is kept in u, the raw dot product (or the logit,
+  // when capped or int8): the logit is u * m_unit and p = 2^((u - u_max) *
+  // f), so the scale folds into the exponent and m leaves as u_max *
+  // m_unit, as the plain version rounds it.
+  const bool fold = !capped && !Q8;
+  const float f = fold ? p.scale * kLog2e : kLog2e;
+  const float m_unit = fold ? p.scale : 1.f;
   const size_t row0 = static_cast<size_t>(b) * p.N + kh * G;  // the first of the G rows
   const size_t part = (static_cast<size_t>(b) * p.Kh + kh) * Z + z;
 
@@ -249,6 +292,13 @@ __global__ void __launch_bounds__(32 * NW) decode_split_kernel(const Params p) {
         cp_async16(sk + r * RB + c, kbase + src);
         cp_async16(sv + r * RB + c, vbase + src);
       }
+      if constexpr (Q8) {
+        float* ss = reinterpret_cast<float*>(sv + TS * RB);  // k scales, then v scales
+        if (tid < rows) {
+          cp_async4(ss + tid, p.k_scale + panel + t0 + tid);
+          cp_async4(ss + TS + tid, p.v_scale + panel + t0 + tid);
+        }
+      }
     };
 #pragma unroll
     for (int i = 0; i < STAGES - 1; ++i) {
@@ -257,7 +307,7 @@ __global__ void __launch_bounds__(32 * NW) decode_split_kernel(const Params p) {
     }
     // q is read while the first tiles are in flight; it is visible after
     // the ring's first barrier.
-    const T* q = static_cast<const T*>(p.q) + row0 * H;
+    const TQ* q = static_cast<const TQ*>(p.q) + row0 * H;
     for (int idx = tid; idx < G * H; idx += NT) sq[idx] = to_f(q[idx]);
     for (int i = 0; i < n_tiles; ++i) {
       if (i + STAGES - 1 < n_tiles) issue(i + STAGES - 1);
@@ -287,7 +337,16 @@ __global__ void __launch_bounds__(32 * NW) decode_split_kernel(const Params p) {
           }
         }
         const float dot = (d4[0] + d4[1]) + (d4[2] + d4[3]);
-        float u = capped ? tanhf(dot * p.scale / p.softcap) * p.softcap : dot;
+        // The tile's scales (int8); a lane past `rows` reads a stale one, and
+        // its u is selected away.
+        [[maybe_unused]] const float* ss = reinterpret_cast<const float*>(sv + TS * RB);
+        float u;
+        if constexpr (Q8) {
+          const float s = dot * p.scale * ss[lane];
+          u = capped ? tanhf(s / p.softcap) * p.softcap : s;
+        } else {
+          u = capped ? tanhf(dot * p.scale / p.softcap) * p.softcap : dot;
+        }
         u = lane < rows ? u : kNegInf;
         const float u_new = fmaxf(u_max, warp_max(u));  // a real key: u_new is live
         const float pj = lane < rows ? ex2((u - u_new) * f) : 0.f;
@@ -296,7 +355,13 @@ __global__ void __launch_bounds__(32 * NW) decode_split_kernel(const Params p) {
         u_max = u_new;
 #pragma unroll
         for (int d = 0; d < DPL; ++d) acc[d] *= corr;
-        const float pv = round_p<T>(pj);
+        // Only lanes below `rows` are broadcast, so a stale v scale is never read.
+        float pv;
+        if constexpr (Q8) {
+          pv = round_p<TQ>(pj * ss[TS + lane]);
+        } else {
+          pv = round_p<TQ>(pj);
+        }
         // PV: p_j broadcast from lane j; each lane owns columns lane*DPL on.
         // Every visited row is staged, so its load needs no branch; a key
         // whose p is 0 is selected out, not multiplied by zero.
@@ -409,14 +474,14 @@ __global__ void __launch_bounds__(32 * NW) decode_split_kernel(const Params p) {
   }
 }
 
-template <typename T, int H, int NW>
+template <typename TQ, typename T, int H, int NW>
 cudaError_t launch_nw(const Params& p, int B, cudaStream_t stream) {
   // The merge keeps its weights in the ring's memory.
   if (static_cast<size_t>(p.Z) * (p.N / p.Kh) * sizeof(float) >
       static_cast<size_t>(STAGES) * stage_bytes<T, H>()) {
     return cudaErrorInvalidValue;
   }
-  auto kern = decode_split_kernel<T, H, NW>;
+  auto kern = decode_split_kernel<TQ, T, H, NW>;
   // Set once per instantiation, for the most rows it takes.
   static const cudaError_t attr = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem_bytes<T, H>(NW)));
@@ -425,21 +490,22 @@ cudaError_t launch_nw(const Params& p, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename T, int H>
+template <typename TQ, typename T, int H>
 cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
   // One warp per query row: four warps up to G = 4 (the spare ones copy).
-  return p.N / p.Kh <= 4 ? launch_nw<T, H, 4>(p, B, stream) : launch_nw<T, H, kMaxG>(p, B, stream);
+  return p.N / p.Kh <= 4 ? launch_nw<TQ, T, H, 4>(p, B, stream)
+                         : launch_nw<TQ, T, H, kMaxG>(p, B, stream);
 }
 
-template <typename T>
+template <typename TQ, typename T>
 cudaError_t dispatch_h(int H, const Params& p, int B, cudaStream_t stream) {
   switch (H) {
     case 32:
-      return launch<T, 32>(p, B, stream);
+      return launch<TQ, T, 32>(p, B, stream);
     case 64:
-      return launch<T, 64>(p, B, stream);
+      return launch<TQ, T, 64>(p, B, stream);
     case 128:
-      return launch<T, 128>(p, B, stream);
+      return launch<TQ, T, 128>(p, B, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -447,17 +513,20 @@ cudaError_t dispatch_h(int H, const Params& p, int B, cudaStream_t stream) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Z splits a (kv head, slot); with Z > 1,
-// part is fp32 scratch of B*Kh*Z*G*(H + 2) (each split's acc, then its m,
-// then its l) and arrivals int32 [B*Kh], all 0 on entry and left so. All
-// tensors contiguous; returns cudaGetLastError().
+// dtype: 0 = float32, 1 = bfloat16 (q and the cache); 2 = an int8 cache
+// with float32 q, 3 = an int8 cache with bfloat16 q, both with fp32
+// k_scale and v_scale [B, Kh, S] (null otherwise). Z splits a (kv head,
+// slot); with Z > 1, part is fp32 scratch of B*Kh*Z*G*(H + 2) (each
+// split's acc, then its m, then its l) and arrivals int32 [B*Kh], all 0 on
+// entry and left so. All tensors contiguous; returns cudaGetLastError().
 extern "C" int pt_decode_attention(int dtype, const void* q, const void* k, const void* v,
-                                   const void* last, const void* qpos, void* acc, void* m,
-                                   void* l, void* part, void* arrivals, int B, int N, int Kh,
-                                   int S, int H, int Z, int window, float scale, float softcap,
-                                   void* stream) {
+                                   const void* k_scale, const void* v_scale, const void* last,
+                                   const void* qpos, void* acc, void* m, void* l, void* part,
+                                   void* arrivals, int B, int N, int Kh, int S, int H, int Z,
+                                   int window, float scale, float softcap, void* stream) {
   if (B <= 0 || S <= 0 || Kh <= 0 || N % Kh != 0 || N / Kh > kMaxG || Z < 1 || Z > 65535 ||
-      (Z > 1 && (part == nullptr || arrivals == nullptr))) {
+      (Z > 1 && (part == nullptr || arrivals == nullptr)) ||
+      ((dtype >= 2) != (k_scale != nullptr && v_scale != nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int G = N / Kh;
@@ -466,6 +535,8 @@ extern "C" int pt_decode_attention(int dtype, const void* q, const void* k, cons
   p.q = q;
   p.k = k;
   p.v = v;
+  p.k_scale = static_cast<const float*>(k_scale);
+  p.v_scale = static_cast<const float*>(v_scale);
   p.last = static_cast<const int32_t*>(last);
   p.qpos = static_cast<const int32_t*>(qpos);
   p.acc = static_cast<float*>(acc);
@@ -485,9 +556,13 @@ extern "C" int pt_decode_attention(int dtype, const void* q, const void* k, cons
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0) {
-    err = dispatch_h<float>(H, p, B, st);
+    err = dispatch_h<float, float>(H, p, B, st);
   } else if (dtype == 1) {
-    err = dispatch_h<__nv_bfloat16>(H, p, B, st);
+    err = dispatch_h<__nv_bfloat16, __nv_bfloat16>(H, p, B, st);
+  } else if (dtype == 2) {
+    err = dispatch_h<float, int8_t>(H, p, B, st);
+  } else if (dtype == 3) {
+    err = dispatch_h<__nv_bfloat16, int8_t>(H, p, B, st);
   } else {
     err = cudaErrorInvalidValue;
   }

@@ -66,9 +66,12 @@
 // window, softcap; head_dim 32, 64, 128; any page size P >= 8 (the JAX
 // engine's floor: a page is walked in tiles of 32 keys, the last one of a
 // page cut to what the page holds, and a page longer than a split is a
-// split of its own); at most 32 query rows per kv head. The engine refuses speculation and KV
-// quantization (later slices), so int8 pools and q_blocks > 1 run only in
-// the kernel checks of chip_smoke.py and the CPU tests of the plain version.
+// split of its own); at most 32 query rows per kv head. The engine runs
+// q_blocks > 1 on the speculative verify (engine_speculate) and int8 pools
+// with the int8 KV cache (engine_kv_quantize="int8"): the decode step with
+// the ring, the verify block and the paged model drafts. The dequantize-first
+// algebra above is the TPU kernel's; the JAX engine's CPU path applies the
+// scales after the dots instead, which differs from it only in rounding.
 
 #include <cstdint>
 #include <cuda_bf16.h>

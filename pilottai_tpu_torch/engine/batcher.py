@@ -72,6 +72,13 @@ it ends every counter serving reads is reset, and ``graph_report()``
 counts the captures serving makes apart from the sweep's (none, at the
 settings the sweep saw).
 
+With ``kv_quantize`` the cache's panels or pools are int8 with a scale per
+token and kv head (``engine_kv_quantize="int8"``): every write quantizes,
+every read applies the scales (``engine/decode.py``), the rings stay in
+the compute dtype, and a dense prefix-store entry is exported in fp32.
+It adds no chunk-graph variant: the graphs read the scales as the cache's
+other tensors.
+
 ``weight_quant`` and ``quant_group`` say how the weights are quantized,
 read from the weights themselves (``models/quant.py:quant_mode``; the
 engine quantizes before it builds the batcher), and ``weight_bytes`` and
@@ -266,6 +273,7 @@ class ContinuousBatcher:
         prefix_min_len: Optional[int] = None,
         speculate: int = 0,
         draft_layers: int = 0,
+        kv_quantize: bool = False,
     ) -> None:
         if device.type == "cuda" and device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
@@ -278,6 +286,8 @@ class ContinuousBatcher:
         wb = weight_stream_bytes(params)
         self.weight_bytes = wb["total"]
         self.weight_bytes_per_token = wb["per_token"]
+        #: int8 KV panels or pools with per-token scales.
+        self.kv_quantize = bool(kv_quantize)
         self.n_slots = n_slots
         self.admit_batch = admit_batch
         self.max_seq_len = max_seq_len
@@ -328,12 +338,12 @@ class ContinuousBatcher:
             self.alloc = PageAllocator(self.num_pages, page_size, n_slots, max_pages)
             self.cache = PagedKVCache.create(
                 cfg.n_layers, n_slots, self.num_pages, page_size, cfg.n_kv_heads,
-                cfg.head_dim, dtype=cfg.dtype, device=device,
+                cfg.head_dim, dtype=cfg.dtype, device=device, quantized=self.kv_quantize,
             )
         else:
             self.cache = KVCache.create(
                 cfg.n_layers, n_slots, max_seq_len, cfg.n_kv_heads, cfg.head_dim,
-                dtype=cfg.dtype, device=device,
+                dtype=cfg.dtype, device=device, quantized=self.kv_quantize,
             )
         # Chunked prefill: on by default for the paged pool, in whole pages.
         if prefill_chunk is None:
@@ -1000,6 +1010,7 @@ class ContinuousBatcher:
             seen.add(ids)
             try:
                 pb = self._bucket(len(ids))
+                # fp32 when the cache is int8: install quantizes it again.
                 ks, vs = export_prefix(self.cache, idx, pb)
                 with self._lock:
                     store.store(ids, ks, vs, pb)

@@ -46,6 +46,19 @@ not keep are written to a spare row or column that nothing reads, where
 JAX's scatters drop them. Every admission installs the slot's history
 (``install_history``) when speculation is on.
 
+An int8 cache (``engine_kv_quantize="int8"``) keeps a fp32 scale per
+token and kv head beside its panels or pools (``cache.scales``). Its
+writes quantize (``ops/kvcache.py``, ``ops/paged.py``) and its reads apply
+the scales: the dense decode step and the dense model drafts through K2's
+int8 body, the paged ones and the paged verify through K3 with the scale
+pools, the dense verify's prefix as plain products over the int8 panel
+with the scales applied after them (``_spec_block_attn``), and a page
+chain dequantized to the compute dtype as it leaves the pools for a tail
+prefill (``_chain_layer``). The rings stay in the compute dtype until the
+chunk-end write quantizes them (``ring_dtype``). A dense prefix-store
+entry is exported dequantized in fp32 (``export_prefix``) and quantized
+again on install, which gives back the same bytes.
+
 Out-of-range slots — admission padding rows — are dropped explicitly:
 torch raises where JAX's scatters drop and its gathers clamp.
 """
@@ -75,7 +88,13 @@ from pilottai_tpu_torch.models.transformer import (
 from pilottai_tpu_torch.ops.kernels.decode_attention import decode_attention
 from pilottai_tpu_torch.ops.kernels.flash_attention import flash_attention_with_lse
 from pilottai_tpu_torch.ops.kernels.paged_attention import paged_decode_attention
-from pilottai_tpu_torch.ops.kvcache import KVCache, write_chunk_rows, write_prompts
+from pilottai_tpu_torch.ops.kvcache import (
+    KVCache,
+    dequantize_kv,
+    quantize_kv,
+    write_chunk_rows,
+    write_prompts,
+)
 from pilottai_tpu_torch.ops.paged import (
     PagedKVCache,
     install_lengths,
@@ -195,6 +214,17 @@ def _combine_stats(acc_a, m_a, l_a, acc_b, m_b, l_b):
     return acc / torch.clamp(l, min=1e-30)[..., None]
 
 
+def ring_dtype(cfg: ModelConfig, cache: AnyCache) -> torch.dtype:
+    """The rings' dtype: the cache's, or the compute dtype when the cache
+    is int8 (the chunk-end write quantizes the ring)."""
+    return cfg.dtype if cache.scales is not None else cache.layers[0][0].dtype
+
+
+def _layer_scales(cache: AnyCache, l: int):
+    """Layer ``l``'s ``(k_scale, v_scale)``, or ``(None, None)``."""
+    return cache.scales[l] if cache.scales is not None else (None, None)
+
+
 def new_rings(cfg: ModelConfig, n_slots: int, n_steps: int, dtype: torch.dtype,
               device: torch.device) -> List[Tuple[torch.Tensor, torch.Tensor]]:
     """Per-layer ``(k, v)`` rings ``[B, K, n_steps, H]`` for one chunk."""
@@ -310,6 +340,7 @@ def decode_step_logits(
     for l, lp in enumerate(params["layers"]):
         window = int(windows[l])
         layer_k, layer_v = cache.layers[l]
+        k_sc, v_sc = _layer_scales(cache, l)
         rk, rv = rings[l]
         h = rms_norm(x, lp["ln1"]["scale"], cfg.rms_eps)
         q, k, v = _qkv(cfg, lp["attn"], h, sin, cos)
@@ -320,14 +351,15 @@ def decode_step_logits(
             acc, _, l_sum = paged_decode_attention(
                 qf, layer_k, layer_v, table, prefix_last, q_positions=pos,
                 n_blocks=n_blocks, scale=cfg.qscale, softcap=cfg.attn_softcap,
-                window=window, ring_k=rk, ring_v=rv, ring_step=i,
+                window=window, k_scales=k_sc, v_scales=v_sc, ring_k=rk, ring_v=rv,
+                ring_step=i,
             )
             attn = acc / torch.clamp(l_sum, min=1e-30)[..., None]
         else:
             acc_p, m_p, l_p = decode_attention(
                 qf, layer_k, layer_v, prefix_last, q_positions=pos,
                 scale=cfg.qscale, softcap=cfg.attn_softcap, window=window,
-                return_stats=True,
+                return_stats=True, k_scales=k_sc, v_scales=v_sc,
             )
             # The ring: row j holds the token at pos - i + j; rows 0..i attend.
             acc_c, m_c, l_c = _ragged_stats(
@@ -374,7 +406,7 @@ def decode_chunk(
     if paged and table is None:
         raise ValueError("paged decode needs the block table")
     if bufs is None:
-        bufs = ChunkBuffers.create(cfg, B, n_steps, cache.layers[0][0].dtype, dev)
+        bufs = ChunkBuffers.create(cfg, B, n_steps, ring_dtype(cfg, cache), dev)
     if bufs.tokens.shape != (n_steps, B):
         raise ValueError(f"chunk buffers {tuple(bufs.tokens.shape)} for {n_steps} steps")
     S = table.shape[1] * cache.page_size if paged else cache.max_len
@@ -461,16 +493,21 @@ def _ngram_drafts(
     return torch.where(match.any(dim=1)[:, None], drafts, torch.zeros_like(drafts))
 
 
-def _masked_stats(s: torch.Tensor, mask: torch.Tensor, v: torch.Tensor):
+def _masked_stats(s: torch.Tensor, mask: torch.Tensor, v: torch.Tensor,
+                  v_scale: Optional[torch.Tensor] = None):
     """Online-softmax partials ``(acc, m, l)`` of fp32 logits ``s [..., n]``
     under ``mask`` against values ``v [..., n, H]``: a row with no key has
-    ``m = NEG_INF``, ``l = 0`` and ``acc = 0``; p is cast to v's dtype
-    before the product, whose result is fp32."""
+    ``m = NEG_INF``, ``l = 0`` and ``acc = 0``; p (times ``v_scale [...,
+    n]`` when given, after l is taken) is cast to v's dtype before the
+    product, whose result is fp32."""
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     m = s.amax(dim=-1)
     p = torch.where(m[..., None] > NEG_INF / 2, torch.exp(s - m[..., None]),
                     torch.zeros_like(s))
-    return matmul_f32(p.to(v.dtype), v), m, p.sum(dim=-1)
+    l = p.sum(dim=-1)
+    if v_scale is not None:
+        p = p * v_scale
+    return matmul_f32(p.to(v.dtype), v), m, l
 
 
 def _softcapped(s: torch.Tensor, softcap: float) -> torch.Tensor:
@@ -516,6 +553,7 @@ def _spec_block_attn(
     softcap: float,
     window: int,
     prefix_stats=None,       # (acc [B, K·G·D, H], m, l [B, K·G·D]): K3's, on the paged cache
+    kv_scales=None,          # (k_scale, v_scale [B, K, Sb]): an int8 panel's
 ) -> torch.Tensor:
     """Attention of a verify block over three sources merged with
     ``_merge_stats``: the prefix (every block query sees the whole valid
@@ -525,8 +563,10 @@ def _spec_block_attn(
     the JAX package leaves it to XLA (K2 holds at most 8 query rows a kv
     head, a block has G·D); on the paged cache ``prefix_stats`` come from
     one K3 launch with ``q_blocks=D``. Every product takes the operands'
-    dtype with an fp32 result (``matmul_f32``). Returns ``[B, D, K·G·H]``
-    fp32."""
+    dtype with an fp32 result (``matmul_f32``); an int8 panel is widened to
+    q's dtype, its k scale multiplies the scaled logits before the cap and
+    its v scale p before the PV product, as the JAX function applies them.
+    Returns ``[B, D, K·G·H]`` fp32."""
     B, K, G, D, H = qg.shape
     dev = qg.device
     q = qg.reshape(B, K, G * D, H)
@@ -534,12 +574,18 @@ def _spec_block_attn(
     if prefix_stats is not None:
         acc_p, m_p, l_p = (t.reshape(B, K, G * D, *t.shape[2:]) for t in prefix_stats)
     else:
-        s = _softcapped(matmul_f32(q, layer_k.transpose(-1, -2)) * scale, softcap)
+        if kv_scales is not None:
+            layer_k, layer_v = layer_k.to(q.dtype), layer_v.to(q.dtype)
+        s = matmul_f32(q, layer_k.transpose(-1, -2)) * scale
+        if kv_scales is not None:
+            s = s * kv_scales[0][:, :, None, :]
+        s = _softcapped(s, softcap)
         col = torch.arange(layer_k.shape[2], device=dev)[None, None, None, :]
         mask = col <= last[:, None, None, None]
         if window > 0:
             mask = mask & ((qrow - col) < window)
-        acc_p, m_p, l_p = _masked_stats(s, mask, layer_v)
+        acc_p, m_p, l_p = _masked_stats(
+            s, mask, layer_v, None if kv_scales is None else kv_scales[1][:, :, None, :])
     # The ring: rows below offset are live; row r sits at start + r.
     s = _softcapped(matmul_f32(q, ring_k.transpose(-1, -2)) * scale, softcap)
     r = torch.arange(ring_k.shape[2], device=dev)[None, None, None, :]
@@ -601,6 +647,7 @@ def _model_drafts(
             rk, rv = rings[l]
             bk, bv = draft_bufs[l]
             layer_k, layer_v = cache.layers[l]
+            k_sc, v_sc = _layer_scales(cache, l)
             h = rms_norm(x, lp["ln1"]["scale"], cfg.rms_eps)
             q, k, v = _qkv(cfg, lp["attn"], h, sin, cos)
             bk[:, :, j] = k[:, 0].to(bk.dtype)
@@ -610,11 +657,13 @@ def _model_drafts(
                 acc_p, m_p, l_p = paged_decode_attention(
                     qf, layer_k, layer_v, table, last, q_positions=qpos, n_blocks=n_blocks,
                     scale=cfg.qscale, softcap=cfg.attn_softcap, window=window,
+                    k_scales=k_sc, v_scales=v_sc,
                 )
             else:
                 acc_p, m_p, l_p = decode_attention(
                     qf, layer_k, layer_v, last, q_positions=qpos, scale=cfg.qscale,
                     softcap=cfg.attn_softcap, window=window, return_stats=True,
+                    k_scales=k_sc, v_scales=v_sc,
                 )
             qg = qf.reshape(B, K, G, H)
             acc_r, m_r, l_r = _ragged_stats(qg, rk, rv, offset, start, qpos, cfg.qscale,
@@ -661,6 +710,7 @@ def spec_block_forward(
     for l, lp in enumerate(params["layers"]):
         window = int(windows[l])
         layer_k, layer_v = cache.layers[l]
+        k_sc, v_sc = _layer_scales(cache, l)
         rk, rv = rings[l]
         h = rms_norm(x, lp["ln1"]["scale"], cfg.rms_eps)
         q, k, v = _qkv(cfg, lp["attn"], h, sin, cos)                # [B, D, heads, H]
@@ -671,7 +721,8 @@ def spec_block_forward(
             stats = paged_decode_attention(
                 qg.reshape(B, K * G * D, H).contiguous(), layer_k, layer_v, table, prefix_last,
                 q_positions=pvec[:, 0], n_blocks=n_blocks, scale=cfg.qscale,
-                softcap=cfg.attn_softcap, window=window, q_blocks=D,
+                softcap=cfg.attn_softcap, window=window, q_blocks=D, k_scales=k_sc,
+                v_scales=v_sc,
             )
             attn = _spec_block_attn(qg, None, None, rk, rv, blk_k, blk_v, prefix_last, start,
                                     offset, pvec, cfg.qscale, cfg.attn_softcap, window,
@@ -680,7 +731,9 @@ def spec_block_forward(
             Sb = layer_k.shape[2] if Sb is None else Sb
             attn = _spec_block_attn(qg, layer_k[:, :, :Sb], layer_v[:, :, :Sb], rk, rv, blk_k,
                                     blk_v, prefix_last, start, offset, pvec, cfg.qscale,
-                                    cfg.attn_softcap, window)
+                                    cfg.attn_softcap, window,
+                                    kv_scales=None if k_sc is None else (k_sc[:, :, :Sb],
+                                                                         v_sc[:, :, :Sb]))
         x = _layer_tail(cfg, lp, x, attn.to(x.dtype).reshape(B, D, cfg.n_heads, H))
         new_blk.append((blk_k, blk_v))
     return rms_norm(x, params["final_norm"]["scale"], cfg.rms_eps), new_blk
@@ -769,7 +822,7 @@ def decode_chunk_spec(
     n_blocks = -(-Sb // cache.page_size) if paged else None
     draft_layers = int(draft_layers) if draft_mode is not None else 0
     if bufs is None:
-        bufs = SpecBuffers.create(cfg, B, n_steps, D, draft_layers, cache.layers[0][0].dtype, dev)
+        bufs = SpecBuffers.create(cfg, B, n_steps, D, draft_layers, ring_dtype(cfg, cache), dev)
     R = n_steps * D
     if bufs.tokens.shape != (R, B) or len(bufs.drafts) < draft_layers:
         raise ValueError(f"spec buffers {tuple(bufs.tokens.shape)} for {n_steps} blocks of {D}")
@@ -1047,15 +1100,25 @@ def _tail_prefill(
     return _unembed(cfg, params, x), torch.stack(ks), torch.stack(vs)
 
 
-def _chain_layer(cache: PagedKVCache, chain: torch.Tensor):
+def _chain_layer(cache: PagedKVCache, chain: torch.Tensor,
+                 dtype: Optional[torch.dtype] = None):
     """``prefix_layer`` of a page chain: layer l's chain pages gathered into
-    ``[K, len(chain)·P, H]`` panels (a transient copy per layer)."""
+    ``[K, len(chain)·P, H]`` panels (a transient copy per layer); int8
+    pages are dequantized to ``dtype`` (the compute dtype) on the way out,
+    and the pages themselves stay as they are."""
+    if cache.scales is not None and dtype is None:
+        raise ValueError("an int8 chain needs the compute dtype to dequantize to")
     K, _, P, H = cache.layers[0][0].shape
     n = chain.shape[0] * P
 
     def layer(l: int):
         k_pool, v_pool = cache.layers[l]
-        return k_pool[:, chain].reshape(K, n, H), v_pool[:, chain].reshape(K, n, H)
+        pk, pv = k_pool[:, chain].reshape(K, n, H), v_pool[:, chain].reshape(K, n, H)
+        if cache.scales is not None:
+            k_sc, v_sc = cache.scales[l]
+            pk = dequantize_kv(pk, k_sc[:, chain].reshape(K, n), dtype)
+            pv = dequantize_kv(pv, v_sc[:, chain].reshape(K, n), dtype)
+        return pk, pv
 
     return layer
 
@@ -1084,7 +1147,7 @@ def extend_prompt_paged(
     dev = cache.lengths.device
     chain = _chain_pages(prefix_pages, prefix_len, cache.page_size, dev)
     _logits, ks, vs = _tail_prefill(
-        params, cfg, _chain_layer(cache, chain), int(prefix_len),
+        params, cfg, _chain_layer(cache, chain, cfg.dtype), int(prefix_len),
         upload(seg_tokens, torch.long, dev), upload([int(n) for n in seg_lens], torch.int32, dev),
     )
     return write_prompts_paged(cache, upload(page_rows, torch.int32, dev), ks, vs,
@@ -1119,7 +1182,7 @@ def admit_group_prefix_paged(
     prefix_len = int(meta_i32[AI_PLEN, 0])
     chain = _chain_pages(prefix_pages, prefix_len, cache.page_size, dev)
     logits, ks, vs = _tail_prefill(
-        params, cfg, _chain_layer(cache, chain), prefix_len,
+        params, cfg, _chain_layer(cache, chain, cfg.dtype), prefix_len,
         upload(tail_tokens, torch.long, dev), upload(tail_lens, torch.int32, dev),
     )
     cache = write_prompts_paged(cache, upload(page_rows, torch.int32, dev), ks, vs,
@@ -1152,6 +1215,9 @@ def admit_group_prefix(
     panels into each slot's ``[0, prefix_len)``, prefill only the tails
     against them and write each tail at ``prefix_len``, then sample and
     install as ``admit_group`` does; an exact repeat is a one-token tail.
+    The tails read the entry in the compute dtype. An int8 cache's entry is
+    fp32 (``export_prefix``) and is quantized from those fp32 values on
+    install, never from a cast, which gives back the exported bytes.
     Raises when ``prefix_len + Tt`` passes the panel, which would write a
     tail over its own prefix (the batcher's ``fits`` check makes such an
     entry a miss). Returns ``(cache, dstate, sampling, first_tokens
@@ -1172,14 +1238,22 @@ def admit_group_prefix(
     if rows:
         sl = upload([int(meta_i32[AI_SLOT, a]) for a in rows], torch.long, dev)
         r = upload(rows, torch.long, dev)
+        n = len(rows)
         for l, (kc, vc) in enumerate(cache.layers):
-            K, H = kc.shape[1], kc.shape[3]
-            kc[sl, :, :prefix_len] = prefix_ks[l][None, :, :prefix_len].to(kc.dtype).expand(
-                len(rows), K, prefix_len, H)
-            vc[sl, :, :prefix_len] = prefix_vs[l][None, :, :prefix_len].to(vc.dtype).expand(
-                len(rows), K, prefix_len, H)
-            kc[sl, :, prefix_len:prefix_len + Tt] = ks[l][r].transpose(1, 2).to(kc.dtype)
-            vc[sl, :, prefix_len:prefix_len + Tt] = vs[l][r].transpose(1, 2).to(vc.dtype)
+            pk, pv = prefix_ks[l][:, :prefix_len], prefix_vs[l][:, :prefix_len]
+            tk, tv = ks[l][r].transpose(1, 2), vs[l][r].transpose(1, 2)  # [n, K, Tt, H]
+            if cache.scales is not None:
+                (pk, pk_s), (pv, pv_s) = quantize_kv(pk), quantize_kv(pv)
+                (tk, tk_s), (tv, tv_s) = quantize_kv(tk), quantize_kv(tv)
+                ksc, vsc = cache.scales[l]
+                ksc[sl, :, :prefix_len] = pk_s[None].expand(n, *pk_s.shape)
+                vsc[sl, :, :prefix_len] = pv_s[None].expand(n, *pv_s.shape)
+                ksc[sl, :, prefix_len:prefix_len + Tt] = tk_s
+                vsc[sl, :, prefix_len:prefix_len + Tt] = tv_s
+            kc[sl, :, :prefix_len] = pk[None].to(kc.dtype).expand(n, *pk.shape)
+            vc[sl, :, :prefix_len] = pv[None].to(vc.dtype).expand(n, *pv.shape)
+            kc[sl, :, prefix_len:prefix_len + Tt] = tk.to(kc.dtype)
+            vc[sl, :, prefix_len:prefix_len + Tt] = tv.to(vc.dtype)
         cache.lengths[sl] = upload([prefix_len + tail_lens[a] for a in rows], torch.int32, dev)
     dstate, sampling, first = _admit_rows(logits, dstate, sampling, meta_i32, meta_f32)
     if history is not None:
@@ -1191,9 +1265,18 @@ def admit_group_prefix(
 def export_prefix(cache: KVCache, slot: int, p_bucket: int
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One slot's first ``p_bucket`` cache rows as stacked ``[L, K,
-    p_bucket, H]`` copies (a prefix-store entry's payload), in the cache
-    dtype. Enqueued right after the admission that wrote them, on the same
-    stream, so the rows hold exactly the prompt's K/V."""
-    ks = torch.stack([k[slot, :, :p_bucket] for k, _ in cache.layers])
-    vs = torch.stack([v[slot, :, :p_bucket] for _, v in cache.layers])
-    return ks, vs
+    p_bucket, H]`` copies (a prefix-store entry's payload): in the cache
+    dtype, or dequantized in fp32 when the cache is int8 (a bf16 entry
+    would quantize again to slightly different bytes). Enqueued right after
+    the admission that wrote them, on the same stream, so the rows hold
+    exactly the prompt's K/V."""
+    def rows(i: int) -> torch.Tensor:   # i = 0: keys, 1: values
+        out = []
+        for l, pair in enumerate(cache.layers):
+            t = pair[i][slot, :, :p_bucket]
+            if cache.scales is not None:
+                t = dequantize_kv(t, cache.scales[l][i][slot, :, :p_bucket], torch.float32)
+            out.append(t)
+        return torch.stack(out)
+
+    return rows(0), rows(1)

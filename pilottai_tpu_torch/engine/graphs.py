@@ -20,7 +20,8 @@ ops around them, every layer of every step).
   on the same mode vector: the two compute the same. Weight quantization
   adds no variant and no key field: a batcher's weights are quantized (or
   not) once, before its first capture, and every graph reads them as they
-  are.
+  are; an int8 KV cache neither (its scales are cache tensors like its
+  panels, and its rings stay in the compute dtype).
 * **Capture**: ahead of serving. ``warm(key)`` makes a variant while no
   slot is occupied: with every slot done a chunk changes nothing that is
   folded, and a capture executes nothing. The batcher's ``warmup`` calls
@@ -80,6 +81,7 @@ from pilottai_tpu_torch.engine.decode import (
     SpecBuffers,
     decode_chunk,
     decode_chunk_spec,
+    ring_dtype,
 )
 from pilottai_tpu_torch.engine.sampling import SamplingState
 from pilottai_tpu_torch.models.common import ModelConfig
@@ -303,7 +305,7 @@ class ChunkRunner:
         bufs = self._bufs.get(shape)
         if bufs is None:
             B = self.dstate.tokens.shape[0]
-            dtype = self.cache.layers[0][0].dtype
+            dtype = ring_dtype(self.cfg, self.cache)
             if D:
                 bufs = SpecBuffers.create(self.cfg, B, n_steps, D,
                                           self.draft_layers if drafts else 0, dtype, self.device)

@@ -9,7 +9,9 @@ unless ``engine_paged_kv`` says otherwise, as in the JAX engine. With
 ``engine_quant`` (or its alias ``quantize``) ``"int8"`` or ``"int4"`` the
 matmul weights are quantized once, after they are loaded or made and
 before the batcher is built (``models/quant.py:quantize_params``, in
-place, leaf by leaf). ``start``
+place, leaf by leaf). With ``engine_kv_quantize="int8"`` the batcher's
+KV cache is int8 with per-token scales; the two quantizations compose.
+``start``
 returns once the batcher's warm-up sweep has captured every chunk graph
 and run every prefill bucket (``ContinuousBatcher.warmup``); a sweep that
 fails makes it raise.
@@ -130,6 +132,7 @@ class TorchEngine(LLMBackend):
             prefix_min_len=self.config.engine_prefix_min_len,
             speculate=self.config.engine_speculate,
             draft_layers=self.config.engine_draft_layers,
+            kv_quantize=self.config.engine_kv_quantize == "int8",
         )
         batcher.start()
         try:

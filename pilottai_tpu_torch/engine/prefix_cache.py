@@ -13,7 +13,10 @@ share a prefix of at least ``min_len`` tokens, that prefix becomes its
 own entry, so a fixed preamble with varying tasks hits without the same
 full prompt ever coming twice.
 
-Entries are plain device tensors that nothing writes in place. The
+Entries are plain device tensors that nothing writes in place: in the
+cache dtype, or dequantized in fp32 when the cache is int8 (``nbytes``
+counts them as held), so that installing an entry quantizes it back to
+the bytes it was exported from. The
 bookkeeping rides the radix index (``engine/kvcache/radix.py``): ``match``
 and ``has`` are one O(len) walk, and eviction removes one scored victim
 per overflow, under the ``"cost"`` policy (recency weighted by the
@@ -33,7 +36,7 @@ class PrefixEntry:
 
     def __init__(self, ids: Tuple[int, ...], ks: Any, vs: Any, p_bucket: int):
         self.ids = ids          # true tokens (len <= p_bucket)
-        self.ks = ks            # [L, K, p_bucket, H] device tensor
+        self.ks = ks            # [L, K, p_bucket, H] device tensor (fp32 for an int8 cache)
         self.vs = vs
         self.p_bucket = p_bucket
         self.stamp = 0

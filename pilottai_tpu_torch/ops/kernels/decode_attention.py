@@ -14,6 +14,12 @@ own, and the last split to finish merges them in split order, all in one
 launch. The wrapper allocates the splits' scratch and keeps their arrival
 counters.
 
+An int8 cache (``engine_kv_quantize="int8"``) comes with its fp32
+``k_scales`` and ``v_scales [B, K, S]``, and the kernel's int8 body computes
+exactly ``_prefix_stats_dense`` with ``kv_scales``: each key's scale
+multiplies its dot product before the soft-cap, and ``p · v_scale`` is
+rounded to q's dtype before the PV product; q may be bf16 or fp32.
+
 For a CUDA tensor the wrapper launches the kernel (or raises); for a CPU
 tensor it runs ``decode_attention_plain``. The normalized form
 (``return_stats=False``) divides the kernel's statistics in the wrapper.
@@ -38,6 +44,7 @@ REPLACES = "pilottai_tpu/ops/pallas/decode_attention.py:51"
 MAX_GROUP = 8  # query heads per kv head the kernel takes
 TILE = 32  # keys a tile of the kernel's walk: splits are runs of whole tiles
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_INT8_DTYPES = {torch.float32: 2, torch.bfloat16: 3}  # by q's dtype
 _HEAD_DIMS = (32, 64, 128)
 # Per (device index, stream): the int32 arrival counters of the splits,
 # zero between launches (the last split of each (kv head, slot) resets its
@@ -74,19 +81,41 @@ def split_bounds(last_valid, q_positions, window: int, S: int, n_split: int, z: 
     return torch.where(empty, 0, lo), torch.where(empty, -1, hi)
 
 
+def _logits(q, k_cache, scale, softcap, k_scales):
+    """Scaled (and soft-capped) logits ``[B, K, G, S]`` fp32: for an int8
+    cache the key's scale multiplies the scaled dot product before the
+    cap, as ``_prefix_stats_dense`` applies it."""
+    B, N, H = q.shape
+    K = k_cache.shape[1]
+    qg = q.reshape(B, K, N // K, H).float()
+    s = torch.einsum("bkgh,bksh->bkgs", qg, k_cache.float()) * scale
+    if k_scales is not None:
+        s = s * k_scales[:, :, None, :]
+    if softcap > 0.0:
+        s = torch.tanh(s / softcap) * softcap
+    return s
+
+
+def _pv(p, q_dtype, v_cache, v_scales):
+    """``acc = Σ p·v`` fp32, p rounded to the cache dtype first; for an
+    int8 cache ``p · v_scale`` rounded to q's dtype."""
+    if v_scales is not None:
+        p = (p * v_scales[:, :, None, :]).to(q_dtype)
+    else:
+        p = p.to(v_cache.dtype)
+    return torch.einsum("bkgs,bksh->bkgh", p.float(), v_cache.float())
+
+
 def decode_attention_plain(
     q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     last_valid: torch.Tensor, q_positions: torch.Tensor,
     scale: float, softcap: float = 0.0, window: int = 0,
+    k_scales: Optional[torch.Tensor] = None, v_scales: Optional[torch.Tensor] = None,
 ):
     """Plain PyTorch K2: ``(acc [B,N,H] fp32, m [B,N], l [B,N])``."""
     B, N, H = q.shape
     _, K, S, _ = k_cache.shape
-    G = N // K
-    qg = q.reshape(B, K, G, H).float()
-    s = torch.einsum("bkgh,bksh->bkgs", qg, k_cache.float()) * scale
-    if softcap > 0.0:
-        s = torch.tanh(s / softcap) * softcap
+    s = _logits(q, k_cache, scale, softcap, k_scales)
     col = torch.arange(S, device=q.device)[None, None, None, :]
     mask = col <= last_valid.to(q.device)[:, None, None, None]
     if window > 0:
@@ -95,7 +124,7 @@ def decode_attention_plain(
     m = s.amax(dim=-1)
     p = torch.where(m[..., None] > NEG_INF / 2, torch.exp(s - m[..., None]), torch.zeros_like(s))
     l = p.sum(dim=-1)
-    acc = torch.einsum("bkgs,bksh->bkgh", p.to(v_cache.dtype).float(), v_cache.float())
+    acc = _pv(p, q.dtype, v_cache, v_scales)
     return acc.reshape(B, N, H), m.reshape(B, N), l.reshape(B, N)
 
 
@@ -103,6 +132,7 @@ def decode_attention_split_plain(
     q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     last_valid: torch.Tensor, q_positions: torch.Tensor,
     scale: float, softcap: float = 0.0, window: int = 0, n_split: int = 1,
+    k_scales: Optional[torch.Tensor] = None, v_scales: Optional[torch.Tensor] = None,
 ):
     """Plain K2 with the kernel's algebra: split ``z`` of ``n_split`` gets
     its own ``(acc, m, l)`` over the keys ``split_bounds`` gives it, and the
@@ -111,11 +141,7 @@ def decode_attention_split_plain(
     ``decode_attention_plain`` returns."""
     B, N, H = q.shape
     _, K, S, _ = k_cache.shape
-    G = N // K
-    qg = q.reshape(B, K, G, H).float()
-    s = torch.einsum("bkgh,bksh->bkgs", qg, k_cache.float()) * scale
-    if softcap > 0.0:
-        s = torch.tanh(s / softcap) * softcap
+    s = _logits(q, k_cache, scale, softcap, k_scales)
     col = torch.arange(S, device=q.device)[None, :]
     parts = []
     for z in range(n_split):
@@ -126,7 +152,7 @@ def decode_attention_split_plain(
         m_z = s_z.amax(dim=-1)
         p = torch.where(m_z[..., None] > NEG_INF / 2, torch.exp(s_z - m_z[..., None]),
                         torch.zeros_like(s_z))
-        acc_z = torch.einsum("bkgs,bksh->bkgh", p.to(v_cache.dtype).float(), v_cache.float())
+        acc_z = _pv(p, q.dtype, v_cache, v_scales)
         parts.append((acc_z, m_z, p.sum(dim=-1)))
     m = torch.stack([m_z for _, m_z, _ in parts]).amax(dim=0)
     acc = torch.zeros_like(parts[0][0])
@@ -148,6 +174,8 @@ def decode_attention(
     softcap: float = 0.0,
     window: int = 0,
     return_stats: bool = False,
+    k_scales: Optional[torch.Tensor] = None,  # [B, K, S] fp32 — int8 caches only
+    v_scales: Optional[torch.Tensor] = None,
 ):
     """Attend iff s <= last_valid[b] and (window == 0 or q_positions[b] -
     s < window). Returns [B, N, H] in q's dtype, or with
@@ -157,25 +185,45 @@ def decode_attention(
     scale = scale if scale is not None else H**-0.5
     if q_positions is None:
         q_positions = last_valid
+    int8 = k_cache.dtype == torch.int8
+    if (k_scales is None) != (v_scales is None) or (k_scales is None) == int8:
+        raise ValueError("decode_attention: an int8 cache needs k_scales and v_scales, and only it")
     if q.device.type == "cpu":
         acc, m, l = decode_attention_plain(
-            q, k_cache, v_cache, last_valid, q_positions, scale, softcap, window
+            q, k_cache, v_cache, last_valid, q_positions, scale, softcap, window,
+            k_scales, v_scales,
         )
     else:
-        acc, m, l = _launch(q, k_cache, v_cache, last_valid, q_positions, scale, softcap, window)
+        acc, m, l = _launch(q, k_cache, v_cache, last_valid, q_positions, scale, softcap, window,
+                            k_scales, v_scales)
     if return_stats:
         return acc, m, l
     return (acc / l.clamp_min(1e-30)[..., None]).to(q.dtype)
 
 
-def _launch(q, k_cache, v_cache, last_valid, q_positions, scale, softcap, window):
+def _launch(q, k_cache, v_cache, last_valid, q_positions, scale, softcap, window,
+            k_scales=None, v_scales=None):
     B, N, H = q.shape
     _, K, S, _ = k_cache.shape
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: unsupported device {q.device}")
-    if k_cache.dtype not in _DTYPES or q.dtype != k_cache.dtype or v_cache.dtype != k_cache.dtype:
+    if k_scales is not None:
+        if (q.dtype not in _INT8_DTYPES or k_cache.dtype != torch.int8
+                or v_cache.dtype != torch.int8):
+            raise TypeError(f"decode_attention: an int8 cache takes float32 or bfloat16 q, got "
+                            f"{q.dtype}/{k_cache.dtype}/{v_cache.dtype}")
+        if (k_scales.shape != (B, K, S) or v_scales.shape != k_scales.shape
+                or k_scales.dtype != torch.float32 or v_scales.dtype != torch.float32
+                or not (k_scales.is_contiguous() and v_scales.is_contiguous())
+                or k_scales.device != q.device or v_scales.device != q.device):
+            raise ValueError("decode_attention: scales must be contiguous fp32 [B, K, S] on q's "
+                             "device")
+        code = _INT8_DTYPES[q.dtype]
+    elif k_cache.dtype not in _DTYPES or q.dtype != k_cache.dtype or v_cache.dtype != k_cache.dtype:
         raise TypeError(f"decode_attention: q and the cache must share float32 or bfloat16, "
                         f"got {q.dtype}/{k_cache.dtype}/{v_cache.dtype}")
+    else:
+        code = _DTYPES[q.dtype]
     if (H not in _HEAD_DIMS or k_cache.shape != (B, K, S, H) or v_cache.shape != k_cache.shape
             or N % K or N // K > MAX_GROUP):
         raise ValueError(f"decode_attention: unsupported shapes q {tuple(q.shape)} "
@@ -210,8 +258,8 @@ def _launch(q, k_cache, v_cache, last_valid, q_positions, scale, softcap, window
     lib = _bind(load_library("decode_attention"))
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     status = lib.pt_decode_attention(
-        _DTYPES[q.dtype], q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        last.data_ptr(), qpos.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(),
+        code, q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), ptr(k_scales),
+        ptr(v_scales), last.data_ptr(), qpos.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(),
         ptr(part), ptr(arrivals), B, N, K, S, H, Z, int(window), float(scale), float(softcap),
         stream,
     )
@@ -228,7 +276,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn = lib.pt_decode_attention
     if fn.argtypes is None:
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [I] + [P] * 10 + [I] * 7 + [F, F, P]
+        fn.argtypes = [I] + [P] * 12 + [I] * 7 + [F, F, P]
         fn.restype = I
         lib.pt_error_string.argtypes = [I]
         lib.pt_error_string.restype = ctypes.c_char_p

@@ -1,6 +1,5 @@
 """Paged KV cache: block-table indirection over a shared page pool (the
-port's counterpart of ``pilottai_tpu/ops/paged.py``; the int8 scale
-pools wait for the quantization slice).
+port's counterpart of ``pilottai_tpu/ops/paged.py``).
 
 Each layer owns one page pool ``[K, num_pages, P, H]`` (K-major, so a
 page is one contiguous ``[P, H]`` panel per kv head) and slots map
@@ -17,6 +16,12 @@ out, and it only ever receives finite values.
   ring scatter at chunk end, and ``gather_pages``, which only the plain
   version of kernel K3 and the tests use; the decode path reads the
   pools through K3 (``ops/kernels/paged_attention.py``).
+
+With ``quantized=True`` the pools are int8 and ``scales`` holds a
+``(k_scale, v_scale)`` pair of ``[K, num_pages, P]`` fp32 pools per layer
+(``ops/kvcache.py:quantize_kv``, per token and kv head): the scatters
+quantize before they write, kernel K3 reads the int8 pages with their
+scales, and the scratch page's scales stay finite.
 
 The pools are made with ``torch.zeros``, never ``torch.empty``: a masked
 key still sits beside live ones in a staged page, and ``0 · NaN`` is NaN.
@@ -36,12 +41,16 @@ import numpy as np
 import torch
 
 from pilottai_tpu_torch.device import DeviceLike, resolve_device, upload
+from pilottai_tpu_torch.ops.kvcache import quantize_kv
 
 
 @dataclass
 class PagedKVCache:
     layers: List[Tuple[torch.Tensor, torch.Tensor]]  # per layer (k, v) [K, num_pages, P, H]
     lengths: torch.Tensor                            # [B] int32 — valid tokens per slot
+    # Per layer (k_scale, v_scale) [K, num_pages, P] fp32 when the pools are
+    # int8; None for pools in the compute dtype.
+    scales: Optional[List[Tuple[torch.Tensor, torch.Tensor]]] = None
 
     @property
     def num_pages(self) -> int:
@@ -59,16 +68,23 @@ class PagedKVCache:
     def create(
         cls, n_layers: int, n_slots: int, num_pages: int, page_size: int,
         n_kv_heads: int, head_dim: int, dtype: torch.dtype = torch.bfloat16,
-        device: DeviceLike = None,
+        device: DeviceLike = None, quantized: bool = False,
     ) -> "PagedKVCache":
         device = resolve_device(device)
         shape = (n_kv_heads, num_pages, page_size, head_dim)
+        store = torch.int8 if quantized else dtype
         layers = [
-            (torch.zeros(shape, dtype=dtype, device=device),
-             torch.zeros(shape, dtype=dtype, device=device))
+            (torch.zeros(shape, dtype=store, device=device),
+             torch.zeros(shape, dtype=store, device=device))
             for _ in range(n_layers)
         ]
-        return cls(layers=layers, lengths=torch.zeros((n_slots,), dtype=torch.int32, device=device))
+        scales = [
+            (torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+             torch.zeros(shape[:-1], dtype=torch.float32, device=device))
+            for _ in range(n_layers)
+        ] if quantized else None
+        return cls(layers=layers, lengths=torch.zeros((n_slots,), dtype=torch.int32, device=device),
+                   scales=scales)
 
 
 class PageAllocator:
@@ -177,10 +193,25 @@ def write_prompts_paged(
     pages, offs = _scatter_targets(
         table.to(dev), pos, live, cache.page_size, cache.num_pages - 1
     )
-    for layer, (kp, vp) in enumerate(cache.layers):
-        kp[:, pages, offs] = ks[layer].permute(2, 0, 1, 3).reshape(K, A * T, H).to(kp.dtype)
-        vp[:, pages, offs] = vs[layer].permute(2, 0, 1, 3).reshape(K, A * T, H).to(vp.dtype)
+    for layer in range(L):
+        _scatter(cache, layer, pages, offs, ks[layer].permute(2, 0, 1, 3).reshape(K, A * T, H),
+                 vs[layer].permute(2, 0, 1, 3).reshape(K, A * T, H))
     return cache
+
+
+def _scatter(cache: PagedKVCache, layer: int, pages: torch.Tensor, offs: torch.Tensor,
+             k_new: torch.Tensor, v_new: torch.Tensor) -> None:
+    """Write ``k_new``, ``v_new [K, R, H]`` at the flat ``(pages, offs)``
+    of layer ``layer``, quantized first when the pools are int8."""
+    kp, vp = cache.layers[layer]
+    if cache.scales is not None:
+        k_new, k_sc = quantize_kv(k_new)                             # [K, R]
+        v_new, v_sc = quantize_kv(v_new)
+        ks_p, vs_p = cache.scales[layer]
+        ks_p[:, pages, offs] = k_sc
+        vs_p[:, pages, offs] = v_sc
+    kp[:, pages, offs] = k_new.to(kp.dtype)
+    vp[:, pages, offs] = v_new.to(vp.dtype)
 
 
 def install_lengths(
@@ -212,9 +243,9 @@ def write_chunk_rows_paged(
     pages, offs = _scatter_targets(
         table, pos, j < accepted[:, None], cache.page_size, cache.num_pages - 1
     )
-    for (kp, vp), rk, rv in zip(cache.layers, ring_ks, ring_vs):
-        kp[:, pages, offs] = rk.permute(1, 0, 2, 3).reshape(K, B * n, H).to(kp.dtype)
-        vp[:, pages, offs] = rv.permute(1, 0, 2, 3).reshape(K, B * n, H).to(vp.dtype)
+    for layer, (rk, rv) in enumerate(zip(ring_ks, ring_vs)):
+        _scatter(cache, layer, pages, offs, rk.permute(1, 0, 2, 3).reshape(K, B * n, H),
+                 rv.permute(1, 0, 2, 3).reshape(K, B * n, H))
     capacity = table.shape[1] * cache.page_size
     cache.lengths.copy_(torch.clamp(cache.lengths + torch.clamp(accepted, max=n), max=capacity))
     return cache

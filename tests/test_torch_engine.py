@@ -140,11 +140,13 @@ def test_knobs_outside_the_slice_are_refused(monkeypatch):
     assert (cfg.engine_speculate, cfg.engine_draft_layers) == (4, 2)
     with pytest.raises(ValueError):
         LLMConfig(engine_speculate=-1)
-    # Weight quantization (slice P5a) is accepted; the int8 KV cache waits
-    # for P5b.
+    # Weight quantization (slice P5a) and the int8 KV cache (P5b) are
+    # accepted; an unknown KV mode is refused, as the JAX engine refuses it.
     LLMConfig(engine_quant="int8", engine_quant_group=64)
-    with pytest.raises(ValueError, match="P5b"):
-        LLMConfig(engine_kv_quantize="int8")
+    assert LLMConfig(engine_kv_quantize="int8").engine_kv_quantize == "int8"
+    assert LLMConfig().engine_kv_quantize is None
+    with pytest.raises(ValueError, match="engine_kv_quantize"):
+        LLMConfig(engine_kv_quantize="int4")
     # The decode pipeline's knobs (slice P6a) are accepted, at the JAX
     # package's defaults; the rest of the batcher names its own item.
     cfg = LLMConfig()

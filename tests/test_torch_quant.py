@@ -288,14 +288,15 @@ def test_forward_train_refuses_quantized_weights():
 
 def test_quantization_knobs():
     """``engine_quant`` and its alias ``quantize`` are accepted with JAX's
-    validators; the int8 KV cache is refused, naming P5b."""
+    validators; so is the int8 KV cache, and an unknown KV mode raises."""
     assert LLMConfig(engine_quant="int4", engine_quant_group=96).engine_quant_group == 96
     assert LLMConfig(quantize="int8").quantize == "int8"
     for bad in (dict(engine_quant="int3"), dict(quantize="fp8"), dict(engine_quant_group=0)):
         with pytest.raises(ValueError):
             LLMConfig(**bad)
-    with pytest.raises(ValueError, match="P5b"):
-        LLMConfig(engine_kv_quantize="int8")
+    assert LLMConfig(engine_kv_quantize="int8", engine_quant="int4").engine_kv_quantize == "int8"
+    with pytest.raises(ValueError, match="engine_kv_quantize"):
+        LLMConfig(engine_kv_quantize="int4")
     LLMConfig(engine_kv_quantize=None)
 
 
