@@ -14,7 +14,7 @@ result line is printed only when every phase passed):
    speculative verify run on (without them those paths raise), and which
    of ``CUDAGraph``'s conditional-node methods it has (a chunk's exit once
    every slot is done needs them; without them every step runs);
-2. build — the six hand-written kernel sources from
+2. build — the seven hand-written kernel sources from
    ``pilottai_tpu_torch/csrc`` with ``nvcc`` for sm_90a, in parallel;
 3. kernels — K1 (flash prefill), K2 (dense decode statistics) and K3
    (paged decode statistics, ring fused) held against their plain PyTorch
@@ -53,7 +53,15 @@ result line is printed only when every phase passed):
    contraction, the untied llama3-8b head (int8, fp32 result) and
    protocol-s's matrices in fp32, each run twice for the same bits, within
    ``TOL_QMM``; and wk's shape at 64 and 65 rows, int8 and int4, captured in
-   a CUDA graph, whose replays must give the eager bits;
+   a CUDA graph, whose replays must give the eager bits. Then the integer
+   arm (``PILOTTAI_QMATMUL=native``, ``csrc/int8_matmul.cu``): the row
+   quantizer's bytes and scales equal ``quantize_rows_plain``'s and the s8
+   product's result equal ``native_matmul_plain``'s bit for bit (bf16
+   results after their one rounding), each call twice for the same bits,
+   int8 and int4 at groups 128 and 96 at K 4100 (off both groups) and 1,
+   8, 17, 32, 256 and 2048 rows in fp32 and bf16, llama3-8b's wq and wd
+   at 8 and 2048 rows, protocol-s's matrices in fp32, and the pair captured
+   in a CUDA graph;
 4. golden — the committed protocol-s checkpoint in fp32 (TF32 off) served
    through ``LLMHandler.generate_response``, once on the dense cache and
    once paged with chunked prefill, the prefix cache off as on the JAX
@@ -95,7 +103,14 @@ result line is printed only when every phase passed):
    ``protocol_s_kv8_paged_golden.json``, the JAX engine's with
    ``engine_kv_quantize="int8"``), dense and paged, 6/6 each, then each
    again with ``engine_speculate=4`` and the prefix cache on, every case
-   served twice (12/12 each); the cache must be int8;
+   served twice (12/12 each); the cache must be int8; (g) the integer
+   arm's golden files (``protocol_s_int{8,4}_native*_golden.json``, the
+   JAX engine's with ``PILOTTAI_QMATMUL=native``), each engine started with
+   the variable set and holding that arm after it is unset: int8 dense,
+   int4 at group 128 dense, int4 at group 96 paged, 6/6 each, and int4 at
+   group 128 with ``engine_speculate=4`` and the prefix cache on, each case
+   twice, 12/12; the integer product and its quantizer seven times a layer
+   a step, block and prefill, the dequant arm's kernels never;
 5. full width — llama3-8b in bf16 from random init, the prefix cache off
    in (a) to (c); the engines of (a) and (b) serve the later runs at their
    settings too (5d with the cache off, 5e with speculation off, 5c), and
@@ -159,7 +174,12 @@ result line is printed only when every phase passed):
    ``TOL_E2E`` and the same argmax), five timed waves, the engine's own
    peak, the cache's bytes (int8 panels or pools and fp32 scales) against
    the bf16 engine's, and (recorded, not gated) how many leading tokens of
-   one greedy reply equal the bf16 cache's;
+   one greedy reply equal the bf16 cache's; (h) 5f's runs on the integer
+   arm (each engine started with ``PILOTTAI_QMATMUL=native``, fixed
+   chunks), int8 and int4: the integer product seven times a layer a step
+   by shape, the admission's prefill through it, one live step's logits
+   against ``native_matmul_plain`` (``TOL_E2E``, the same argmax), and the
+   TTFT and TPOT p50 of three timed waves beside 5f's and 5a's;
 7. training — (a) golden: four ``Trainer.step`` calls on protocol-s in fp32
    (TF32 off) from the shipped checkpoint, on ``protocol_batches(4, 512,
    seed=11)``; the batches' hash and each step's loss and grad norm must
@@ -194,7 +214,12 @@ result line is printed only when every phase passed):
    (``torch._weight_int4pack_mm`` or ``torch._weight_int8pack_mm``,
    timed only here; where it raises, its error stands in the entry) and
    ``torch.matmul`` on a dense weight of the same shape (the speed
-   quantization has to beat); the kernels line, then the result line.
+   quantization has to beat); the integer arm's product at 5h's shapes
+   (wq, wk, wg, wd at 8, 32 and 2048 rows, int8 and int4, the product
+   launch alone) beside ``native_matmul_plain``, ``torch._int_mm`` on the
+   same int8 operands (more than 16 rows; timed only) and the dequant
+   arm's kernel, and its row quantizer; the kernels line, then the result
+   line.
 
 ``--kernels-only`` stops after phase 3; ``--seed`` changes the kernel
 checks' inputs and the llama3-8b and llama3-1b weights.
@@ -211,6 +236,7 @@ import contextlib
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -286,7 +312,7 @@ TRAIN_STEPS = 8
 # yardstick does the same: SDPA's fp32 path runs PyTorch's memory-efficient
 # attention, whose sm80+ fp32 GEMMs are CUTLASS's OpMultiplyAddFastF32
 # (mem_eff_attention/gemm_kernel_utils.h in PyTorch's headers).
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 495e12 / 3}
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 495e12 / 3, "int8": 1979e12}
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 # The kernels line's "replaces" of the quantized product, which has no
 # pallas_call: the JAX site whose XLA fusion it stands in for.
@@ -1019,6 +1045,140 @@ def phase_qmatmul(torch, qk, device, seed):
     return worst
 
 
+def bits_of(torch, t):
+    """A float tensor's bits as integers (fp32: int32, bf16: int16), so
+    that an equality also tells -0 from 0."""
+    return t.view(torch.int32 if t.dtype == torch.float32 else torch.int16)
+
+
+def check_native(torch, i8, gen, device, dtype, K, N, M, bits, group, out_dtype=None,
+                 label="", weights=None):
+    """The integer arm's two kernels against their plain versions on one
+    shape: the row quantizer's bytes and scales (and the workspace's zero
+    padding) equal, the product's result equal bit for bit (fp32; bf16 the
+    one rounding of it), two calls the same bits, one quantizer and one
+    product launch a call. Returns (ok, max |diff| of the product, the
+    weight)."""
+    from pilottai_tpu_torch.models.quant import quantize_array
+
+    if weights is None:
+        w = torch.randn((K, N), generator=gen, device=device, dtype=torch.float32) * K**-0.5
+        weights = quantize_array(w, dtype, bits=bits, group=group)
+        del w
+    x = randn(torch, gen, (M, K), dtype, device)
+    n0 = (i8.launches, i8.launches_quant)
+    got = i8.int8_matmul(x, weights, out_dtype)
+    again = i8.int8_matmul(x, weights, out_dtype)
+    moved = (i8.launches - n0[0], i8.launches_quant - n0[1])
+    plan = i8.launch_plan(M, K, N, bits, group)
+    xq, sx = i8.quantize_rows(x, plan)
+    want_q, want_s = i8.quantize_rows_plain(x)
+    want = i8.native_matmul_plain(x, weights, out_dtype)
+    torch.cuda.synchronize()
+    quant_ok = (torch.equal(xq[:M, :K], want_q)
+                and torch.equal(bits_of(torch, sx[:M]), bits_of(torch, want_s[:, 0].contiguous()))
+                and not bool(xq[M:].any()) and not bool(xq[:, K:].any()))
+    same = torch.equal(bits_of(torch, got), bits_of(torch, again))
+    equal = got.dtype == want.dtype and torch.equal(bits_of(torch, got), bits_of(torch, want))
+    err = float((got.float() - want.float()).abs().max())
+    ok = quant_ok and same and equal and moved == (2, 2) and bool(torch.isfinite(got).all())
+    odt = str(got.dtype)[6:]
+    log(f"  int8_matmul {label:<20} {quant_name(bits, group):<8} {str(dtype)[6:]:<8} -> "
+        f"{odt:<8} M {M:>4} [{K}x{N}] (m16 tiles a warp {plan.mt}, {plan.n_groups} groups, "
+        f"sum mode {plan.mode}): quantizer bytes and scales equal {quant_ok}; product equal "
+        f"bit for bit {equal} (max |diff| {err:.3e}); repeat bit-identical {same}; launches "
+        f"{moved[0]} product, {moved[1]} quantizer {'ok' if ok else 'FAIL'}")
+    return ok, err, weights
+
+
+def check_native_capture(torch, i8, gen, device, K, N, M, bits, group):
+    """The pair captured in a CUDA graph after an eager call on the
+    capturing stream: one launch of each counted, replays give the eager
+    bits."""
+    from pilottai_tpu_torch.models.quant import quantize_array
+
+    w = torch.randn((K, N), generator=gen, device=device, dtype=torch.float32) * K**-0.5
+    qw = quantize_array(w, torch.bfloat16, bits=bits, group=group)
+    x = randn(torch, gen, (M, K), torch.bfloat16, device)
+    stream = torch.cuda.Stream(device)
+    stream.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(stream):
+        want = i8.int8_matmul(x, qw)
+    stream.synchronize()
+    n0 = (i8.launches, i8.launches_quant)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        got = i8.int8_matmul(x, qw)
+    moved = (i8.launches - n0[0], i8.launches_quant - n0[1])
+    same = []
+    for _ in range(2):
+        got.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        same.append(torch.equal(bits_of(torch, got), bits_of(torch, want)))
+    graph.reset()
+    ok = all(same) and moved == (1, 1)
+    log(f"  int8_matmul captured         {quant_name(bits, group):<8} bfloat16 M {M:>4} "
+        f"[{K}x{N}]: capture counted {moved[0]} product and {moved[1]} quantizer launches; two "
+        f"replays equal the eager bits {same} {'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def phase_native(torch, i8, device, seed):
+    """The integer arm (``PILOTTAI_QMATMUL=native``): int8 and int4 at
+    groups 128 and 96 at K = 4100 (no multiple of either group: a short
+    last group; 33 and 43 groups, XLA's windows) and 1, 8, 17, 32, 256 and
+    2048 rows, fp32 and bf16 input, fp32 output; llama3-8b's wq and wd
+    (K 14336: 112 groups) at 8 and 2048 rows with bf16 and fp32 output;
+    protocol-s's four matrices in fp32 at 4 and 16 rows; and the pair
+    captured in a CUDA graph. Returns the largest max |diff| (0 when every
+    product equals its plain version bit for bit)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed + 7)
+    results, worst = [], 0.0
+
+    def run(dtype, K, N, rows, bits, group, out_dtype, label):
+        nonlocal worst
+        weights = None
+        for M in rows:
+            ok, err, weights = check_native(torch, i8, gen, device, dtype, K, N, M, bits, group,
+                                            out_dtype, label, weights)
+            results.append(ok)
+            worst = max(worst, err)
+
+    for bits, group in QUANT_MODES:
+        for dtype in (torch.float32, torch.bfloat16):
+            run(dtype, 4100, 1024, (1, 8, 17, 32, 256, 2048), bits, group, torch.float32,
+                "K off the group")
+        if bits == 8 or group == 128:
+            for K, N in (LLAMA_MATRICES[0], LLAMA_MATRICES[3]):
+                for out_dtype in (torch.float32, None):
+                    run(torch.bfloat16, K, N, (8, 2048), bits, group, out_dtype, "llama3-8b")
+        for K, N in PROTOCOL_S_MATRICES:
+            run(torch.float32, K, N, (4, 16), bits, group, None, "protocol-s")
+    for bits, group in QUANT_MODES[:2]:
+        results.append(check_native_capture(torch, i8, gen, device, 4096, 1024, 8, bits, group))
+    if not all(results):
+        raise SystemExit("integer arm check failed")
+    return worst
+
+
+@contextlib.contextmanager
+def qmatmul_env(arm):
+    """``PILOTTAI_QMATMUL`` set to ``arm`` (None: unset) while inside: an
+    engine reads it once, when it starts, and holds that arm."""
+    old = os.environ.pop("PILOTTAI_QMATMUL", None)
+    if arm is not None:
+        os.environ["PILOTTAI_QMATMUL"] = arm
+    try:
+        yield
+    finally:
+        os.environ.pop("PILOTTAI_QMATMUL", None)
+        if old is not None:
+            os.environ["PILOTTAI_QMATMUL"] = old
+
+
 # --------------------------------------------------------------------- #
 # Phase 4: golden token ids on protocol-s, dense and paged
 # --------------------------------------------------------------------- #
@@ -1045,17 +1205,22 @@ def reset(kernels):
     kernels["flash"].launches_dq = kernels["flash"].launches_dkv = 0
     kernels["qmatmul"].launches_dequant = 0
     kernels["qmatmul"].launches_by_shape.clear()
+    kernels["int8_matmul"].launches_quant = 0
+    kernels["int8_matmul"].launches_by_shape.clear()
 
 
 def counts(kernels):
-    """Every kernel's launches: K1, K2, K3 and the quantized product's
-    fused launches by module, K4 and K5 beside K1, the quantized product's
-    dequant launches beside it."""
+    """Every kernel's launches: K1, K2, K3, the quantized product's fused
+    launches and the integer arm's product by module, K4 and K5 beside K1,
+    the quantized product's dequant launches and the integer arm's
+    quantizer beside theirs, both products' by shape."""
     out = {name: mod.launches for name, mod in kernels.items()}
     out["bwd_dq"] = kernels["flash"].launches_dq
     out["bwd_dkv"] = kernels["flash"].launches_dkv
     out["qmatmul_dequant"] = kernels["qmatmul"].launches_dequant
     out["qmatmul_shapes"] = dict(kernels["qmatmul"].launches_by_shape)
+    out["int8_quant"] = kernels["int8_matmul"].launches_quant
+    out["int8_shapes"] = dict(kernels["int8_matmul"].launches_by_shape)
     return out
 
 
@@ -1063,19 +1228,22 @@ def launches_text(launches):
     return (f"flash_fwd {launches['flash']}, decode_attention {launches['decode']}, "
             f"paged_attention {launches['paged']}, flash_bwd_dq {launches['bwd_dq']}, "
             f"flash_bwd_dkv {launches['bwd_dkv']}, qmatmul fused {launches['qmatmul']}, "
-            f"qmatmul dequant {launches['qmatmul_dequant']}")
+            f"qmatmul dequant {launches['qmatmul_dequant']}, int8_matmul "
+            f"{launches['int8_matmul']}, int8 row quantizer {launches['int8_quant']}")
 
 
 @contextlib.contextmanager
 def counting_prefill_qmm(qk, into):
     """Count the batcher's prefills (admissions, tail prefills and
-    chunked-prefill segments, one forward each) into ``into["calls"]`` and
+    chunked-prefill segments, one forward each) into ``into["calls"]``,
     the quantized product's fused launches made inside them into
     ``into["prefill"]`` (a prefill of 64 rows or fewer takes the fused
-    kernel too), so that the decode steps' own can be held to seven a
-    layer a step. The prefills run on the device thread one at a time,
-    between chunks."""
+    kernel too) and the integer arm's product launches into
+    ``into["prefill_native"]``, so that the decode steps' own can be held
+    to seven a layer a step. The prefills run on the device thread one at
+    a time, between chunks."""
     from pilottai_tpu_torch.engine import batcher as batcher_mod
+    from pilottai_tpu_torch.ops.kernels import int8_matmul as i8
 
     names = ("admit_group", "admit_group_prefix", "admit_group_prefix_paged",
              "extend_prompt_paged")
@@ -1083,11 +1251,12 @@ def counting_prefill_qmm(qk, into):
 
     def counted(fn):
         def call(*a, **kw):
-            n0 = qk.launches
+            n0, i0 = qk.launches, i8.launches
             try:
                 return fn(*a, **kw)
             finally:
                 into["prefill"] = into.get("prefill", 0) + qk.launches - n0
+                into["prefill_native"] = into.get("prefill_native", 0) + i8.launches - i0
                 into["calls"] = into.get("calls", 0) + 1
         return call
 
@@ -1108,10 +1277,16 @@ def qmm_step_check(launches, counted, batcher, steps, label):
     or fewer, the dequant kernel above. A dense engine launches neither."""
     if batcher.weight_quant == "none":
         log(f"  {label}: dense weights: quantized product {launches['qmatmul']} fused and "
-            f"{launches['qmatmul_dequant']} dequant launches (none expected)")
-        if launches["qmatmul"] or launches["qmatmul_dequant"]:
+            f"{launches['qmatmul_dequant']} dequant launches, integer arm "
+            f"{launches['int8_matmul']} (none expected)")
+        if launches["qmatmul"] or launches["qmatmul_dequant"] or launches["int8_matmul"]:
             raise SystemExit(f"{label}: dense weights launched the quantized product")
         return
+    if batcher.qmatmul_arm == "native":
+        native_step_check(launches, counted, batcher, steps, label)
+        return
+    if launches["int8_matmul"] or launches["int8_quant"]:
+        raise SystemExit(f"{label}: the dequant arm launched the integer arm's kernels")
     per = 7 * batcher.cfg.n_layers
     prefill_fused, calls = counted.get("prefill", 0), counted.get("calls", 0)
     decode_fused = launches["qmatmul"] - prefill_fused
@@ -1125,16 +1300,41 @@ def qmm_step_check(launches, counted, batcher, steps, label):
                          "a decode step and a prefill")
 
 
+def native_step_check(launches, counted, batcher, steps, label):
+    """The integer arm (``PILOTTAI_QMATMUL=native`` held at ``start()``):
+    every decode step or verify block launches the integer product seven
+    times a layer and every prefill seven a layer too, each with one row
+    quantizer launch, and the dequant arm's kernels never run."""
+    per = 7 * batcher.cfg.n_layers
+    prefill, calls = counted.get("prefill_native", 0), counted.get("calls", 0)
+    decode = launches["int8_matmul"] - prefill
+    log(f"  {label}: integer arm (held at start: {batcher.graph_report()['qmatmul_arm']}): "
+        f"{launches['int8_matmul']} product launches ({prefill} in {calls} prefills, {decode} in "
+        f"{steps} decode steps or blocks = {decode / max(steps, 1):g} a step, expected {per}), "
+        f"{launches['int8_quant']} row-quantizer launches; the dequant arm's fused "
+        f"{launches['qmatmul']} and dequant {launches['qmatmul_dequant']} (0 expected)")
+    if (steps <= 0 or calls <= 0 or decode != per * steps or prefill != per * calls
+            or launches["int8_quant"] != launches["int8_matmul"]
+            or launches["qmatmul"] or launches["qmatmul_dequant"]
+            or batcher.graph_report()["qmatmul_arm"] != "native"):
+        raise SystemExit(f"{label}: the integer arm did not launch its two kernels seven times "
+                         "a layer a decode step and a prefill, alone")
+
+
 def qmm_shape_check(launches, batcher, steps, label):
     """The quantized product's launches by shape, as the wrapper counted
     them (graph replays included): every decode step of ``n_slots`` rows
     launches each of llama3-8b's matrix shapes as many times a layer as the
     layer has matrices of that shape, and no prefill has that few rows."""
-    shapes, L, B = launches["qmatmul_shapes"], batcher.cfg.n_layers, batcher.n_slots
-    log(f"  {label}: the quantized product's launches by (path, rows, K, N): " + ", ".join(
-        f"{k} {n}" for k, n in sorted(shapes.items())))
+    native = batcher.qmatmul_arm == "native"
+    shapes = launches["int8_shapes" if native else "qmatmul_shapes"]
+    L, B = batcher.cfg.n_layers, batcher.n_slots
+    log(f"  {label}: the quantized product's launches by "
+        f"{'(rows, K, N), integer arm' if native else '(path, rows, K, N)'}: " + ", ".join(
+            f"{k} {n}" for k, n in sorted(shapes.items())))
     for i, (K, N) in enumerate(LLAMA_MATRICES):
-        got, want = shapes.get(("fused", B, K, N), 0), MATRIX_COUNT[i] * L * steps
+        got = shapes.get((B, K, N) if native else ("fused", B, K, N), 0)
+        want = MATRIX_COUNT[i] * L * steps
         if got != want:
             raise SystemExit(f"{label}: {got} fused launches at {B} rows [{K}x{N}], expected "
                              f"{want} ({MATRIX_COUNT[i]} a layer a step)")
@@ -1234,14 +1434,16 @@ def per_step_check(launches, batcher, steps, label):
 
 
 def phase_golden(torch, kernels, root, asset, paged, page_size=None, knobs=None,
-                 prefix_cache=0, repeat=1, force_drafts=False):
+                 prefix_cache=0, repeat=1, force_drafts=False, native=False):
     """Serve the golden prompts with the asset's engine settings (the page
     size replaced by ``page_size``, the pipeline or speculation knobs by
     ``knobs``, if given) and hold the ids to it. The prefix cache is off,
     as on the JAX engine that made the golden, unless ``prefix_cache`` is
     None (the port's default, on); ``repeat`` serves each case that many
     times in a row, every serving held to the golden; ``force_drafts``
-    puts every slot in model-draft mode at admission. Returns the path's
+    puts every slot in model-draft mode at admission; ``native`` starts the
+    engine with ``PILOTTAI_QMATMUL=native`` (the variable unset again once
+    it has started: the engine holds the arm it read). Returns the path's
     launches and the shapes its fp32 kernels saw."""
     from pilottai_tpu_torch import LLMConfig, LLMHandler, PROTOCOL_S_NPZ
     from pilottai_tpu_torch.engine.types import ChatMessage, ToolSpec
@@ -1265,11 +1467,14 @@ def phase_golden(torch, kernels, root, asset, paged, page_size=None, knobs=None,
             sampling={"temperature": 0.0, "max_new_tokens": golden["max_new_tokens"]},
             **golden["engine"],
         ))
-        await handler.start()
+        with qmatmul_env("native" if native else None):
+            await handler.start()
         quantize_seconds["s"] = handler.backend.quantize_seconds
         seen = record_requests(handler)
         batcher = handler.backend.batcher
         sweep_check(batcher, "engine start")
+        if native and batcher.graph_report()["qmatmul_arm"] != "native":
+            raise SystemExit("the engine did not hold the native arm it started under")
         if force_drafts:
             draft_from_the_model(batcher)
         try:
@@ -1419,6 +1624,8 @@ def long_prompt(n_chars: int) -> str:
 
 
 WAVES = 5
+# 5h's timed waves, fewer than 5f's ``WAVES`` for the smoke's time limit.
+NATIVE_WAVES = 3
 # 5e's speculative engines run llama3-8b at 24 of its 32 layers (full
 # width): their warm-up sweeps took ~290 s of the smoke at 32, and 4e and
 # 5f need the time. At 16 layers the random model ended its replies after
@@ -1665,8 +1872,8 @@ async def timed_waves(handler, requests, label, long_first=False, n_waves=WAVES,
             wave = {"busy": busy / (wall * 1e6) if busy else None, "wall_s": wall,
                     "processing_s": time.perf_counter() - t1}
             if w == 0:
-                rows0 = device_rows(prof)
-                report_profile(prof, wall * 1e6, f"wave 1 of {n_waves} ({label})")
+                rows0 = raw_device_rows(prof)
+                report_profile(prof, wall * 1e6, f"wave 1 of {n_waves} ({label})", rows=rows0)
                 log(f"  the raw events' device time {busy / 1e3:.3f} ms against the kernel "
                     f"table's {sum(r[0] for r in rows0) / 1e3:.3f} ms; the table took "
                     f"{time.perf_counter() - t1:.1f} s to build")
@@ -1749,14 +1956,33 @@ def device_rows(prof):
     return rows
 
 
-def report_profile(prof, wall_us, label, top=8):
+def raw_device_rows(prof):
+    """``device_rows`` from the profiler's raw events grouped by name (the
+    events ``device_busy_us`` sums), without the event tree that
+    ``key_averages`` builds first: that tree took 17-26 s for each
+    llama3-8b wave of 5c. The large waves' tables use it;
+    ``profiled_launch_ms`` holds it against ``device_rows`` row by row."""
+    from torch.autograd import DeviceType
+
+    by_name = {}
+    for evt in prof.profiler.kineto_results.events():
+        if evt.device_type() == DeviceType.CPU or getattr(evt, "is_user_annotation",
+                                                           lambda: False)():
+            continue
+        dev, count = by_name.get(evt.name(), (0.0, 0))
+        by_name[evt.name()] = (dev + evt.duration_ns() / 1e3, count + 1)
+    return [(dev, name, count) for name, (dev, count) in by_name.items() if dev > 0]
+
+
+def report_profile(prof, wall_us, label, top=8, rows=None):
     """Log the device's busy share of ``wall_us`` and the kernels that fill
     it, from a finished ``torch.profiler`` run; returns the share. Only the
     device's own kernel rows count: an operator row (``aten::mm``, an
     autograd Function) carries the time of the kernels it launched, and a
     user annotation (``Optimizer.step#AdamW.step``) spans them on the
-    device, so either would count them twice."""
-    rows = device_rows(prof)
+    device, so either would count them twice. ``rows``: the run's
+    ``device_rows`` where the caller has them."""
+    rows = device_rows(prof) if rows is None else rows
     busy = sum(r[0] for r in rows)
     if not rows:
         log(f"  profiled {label}: the profiler saw no device time (busy share not measured)")
@@ -1874,7 +2100,8 @@ def decode_step_check(torch, mod, batcher, plain=None, others=()):
     cfg, cache, dstate = batcher.cfg, batcher.cache, batcher.dstate
     dev = batcher.device
     counters = [(m, a) for m in (mod, *others)
-                for a in ("launches", "launches_dequant", "launches_by_shape") if hasattr(m, a)]
+                for a in ("launches", "launches_dequant", "launches_quant", "launches_by_shape")
+                if hasattr(m, a)]
     n0 = [dict(getattr(m, a)) if a == "launches_by_shape" else getattr(m, a)
           for m, a in counters]
     pos = cache.lengths.clone()
@@ -2217,32 +2444,67 @@ def plain_qmatmul(qk):
         qmm.quant_matmul = kernel
 
 
-def phase_quant_full_width(torch, kernels, seed, mode):
+def native_against_dequant(paths, mode):
+    """5h's TTFT and TPOT p50 beside 5f's (the dequant arm) and 5a's (bf16
+    weights), all from this run."""
+    def p50(waves, key):
+        return median([w[key] for w in waves])
+
+    rows = [("5h native", paths[f"native_{mode}"]["waves"]),
+            ("5f dequant", paths[f"quant_{mode}"]["waves"]),
+            ("5a bf16", paths["full"][1]["waves"])]
+    log(f"  {mode}: " + "; ".join(f"{label} TTFT p50 {p50(w, 'ttft_ms'):.4f} ms, TPOT p50 "
+                                  f"{p50(w, 'tpot_ms'):.4f} ms" for label, w in rows))
+
+
+@contextlib.contextmanager
+def plain_native(i8):
+    """Route every product of the integer arm through
+    ``native_matmul_plain`` while inside."""
+    from pilottai_tpu_torch.models import qmatmul as qmm
+
+    kernel = qmm.int8_matmul
+    qmm.int8_matmul = i8.native_matmul_plain
+    try:
+        yield
+    finally:
+        qmm.int8_matmul = kernel
+
+
+def phase_quant_full_width(torch, kernels, seed, mode, native=False):
     """5a's dense engine and requests with ``engine_quant=mode`` (int4 at
     group 128): the first wave served, a counted wave whose first step with
     all eight slots live runs ``decode_step_check`` with every quantized
-    product through ``qmatmul_plain``, five timed waves; the first-token
+    product through its plain version, five timed waves; the first-token
     logits of one prompt against 5a's bf16 weights of the same seed
-    (recorded: random weights say nothing of quality)."""
+    (recorded: random weights say nothing of quality). ``native`` (5h):
+    the engine started with ``PILOTTAI_QMATMUL=native`` and fixed chunks,
+    the plain version ``native_matmul_plain``, ``NATIVE_WAVES`` timed
+    waves."""
     from pilottai_tpu_torch.engine.types import GenerationParams
     from pilottai_tpu_torch.models.transformer import forward_prefill
 
     qk, da = kernels["qmatmul"], kernels["decode"]
+    i8 = kernels["int8_matmul"]
     prompts = [[FULL_PROMPT.format(i=i)] for i in range(8)]
     reqs = [(p, 64) for p in prompts]
     knobs = dict(engine_quant=mode)
     if mode == "int4":
         knobs["engine_quant_group"] = 128
-    out = {"mode": mode}
+    if native:
+        knobs["engine_chunk_policy"] = "fixed"
+    tag = f"5h {mode} native" if native else f"5f {mode}"
+    out = {"mode": mode, "native": native}
 
     async def run():
-        handler = await full_width_engine(torch, seed, 2048, f"5f {mode} engine", **knobs)
+        with qmatmul_env("native" if native else None):
+            handler = await full_width_engine(torch, seed, 2048, f"{tag} engine", **knobs)
         backend, batcher = handler.backend, handler.backend.batcher
         out["quantize_s"] = backend.quantize_seconds
         out["resident"] = RESIDENT[handler]
         out["weight_bytes"] = batcher.weight_bytes
         out["weight_bytes_per_token"] = batcher.weight_bytes_per_token
-        log(f"  5f {mode}: quantized at start in {backend.quantize_seconds:.3f} s; weights "
+        log(f"  {tag}: quantized at start in {backend.quantize_seconds:.3f} s; weights "
             f"{batcher.weight_bytes / 2**30:.3f} GiB resident, {batcher.weight_bytes_per_token} "
             f"bytes read a decode step; the engine holds {RESIDENT[handler] / 2**30:.2f} GiB")
         first, _ = await timed_waves(handler, reqs, f"{mode}, the first wave served", n_waves=1)
@@ -2251,8 +2513,9 @@ def phase_quant_full_width(torch, kernels, seed, mode):
 
         def watching():
             if "e2e" not in state and all(s is not None for s in batcher._slots):
-                state["e2e"] = decode_step_check(torch, qk, batcher, plain=plain_qmatmul(qk),
-                                                 others=(da,))
+                state["e2e"] = decode_step_check(
+                    torch, i8 if native else qk, batcher,
+                    plain=plain_native(i8) if native else plain_qmatmul(qk), others=(da, qk, i8))
             decode()
 
         batcher._decode = watching
@@ -2271,11 +2534,13 @@ def phase_quant_full_width(torch, kernels, seed, mode):
         launches = counts(kernels)
         steps = batcher.blocks_dispatched - steps0
         out["peak"] = own_peak(torch, handler)
-        per_step_check(launches, batcher, steps, f"5f {mode} wave")
-        qmm_step_check(launches, counter, batcher, steps, f"5f {mode} wave")
-        if launches["qmatmul_dequant"] <= 0:
-            raise SystemExit(f"5f {mode}: the admission's prefill did not take the dequant kernel")
-        qmm_shape_check(launches, batcher, steps, f"5f {mode} wave")
+        per_step_check(launches, batcher, steps, f"{tag} wave")
+        qmm_step_check(launches, counter, batcher, steps, f"{tag} wave")
+        if native and not any(k[0] > 64 for k in launches["int8_shapes"]):
+            raise SystemExit(f"{tag}: the admission's prefill did not take the integer kernels")
+        if not native and launches["qmatmul_dequant"] <= 0:
+            raise SystemExit(f"{tag}: the admission's prefill did not take the dequant kernel")
+        qmm_shape_check(launches, batcher, steps, f"{tag} wave")
         out["launches"], out["steps"], out["model"] = launches, steps, batcher.cfg
         out["model_slots"] = batcher.n_slots
         out["parsed"] = sum(1 for r in replies if parses(r.content))
@@ -2293,10 +2558,13 @@ def phase_quant_full_width(torch, kernels, seed, mode):
         out["finite"] = bool(torch.isfinite(got).all())
         out["corr"] = float(torch.corrcoef(torch.stack([got.flatten(), want.flatten()]))[0, 1])
         out["argmax_agree"] = float((got.argmax(-1) == want.argmax(-1)).float().mean())
-        out["waves"], _ = await timed_waves(handler, reqs, f"{mode}, 8 x 64 tokens")
-        out["first_wave"] = first_wave_line(first, out["waves"], f"5f {mode}")
+        out["waves"], _ = await timed_waves(handler, reqs, f"{mode}, 8 x 64 tokens",
+                                            n_waves=NATIVE_WAVES if native else WAVES)
+        out["first_wave"] = first_wave_line(first, out["waves"], tag)
         log(f"  after the waves: {graph_text(batcher)}")
-        no_capture_check(batcher, f"5f {mode}")
+        no_capture_check(batcher, tag)
+        if batcher.graph_report()["qmatmul_arm"] != ("native" if native else "dequant"):
+            raise SystemExit(f"{tag}: the engine does not hold the arm it started under")
         out["e2e"] = state.get("e2e")
         await release(handler)
 
@@ -2304,25 +2572,26 @@ def phase_quant_full_width(torch, kernels, seed, mode):
     gc.collect()
     torch.cuda.empty_cache()
     w = out["waves"]
-    log(f"  5f {mode}: TTFT p50 {median([x['ttft_ms'] for x in w]):.4f} ms, TPOT p50 "
+    log(f"  {tag}: TTFT p50 {median([x['ttft_ms'] for x in w]):.4f} ms, TPOT p50 "
         f"{median([x['tpot_ms'] for x in w]):.4f} ms, {median([x['tokens_s'] for x in w]):.4f} "
-        f"tokens/s (medians of {WAVES} waves); peak memory {out['peak'] / 2**30:.2f} GiB (the "
+        f"tokens/s (medians of {len(w)} waves); peak memory {out['peak'] / 2**30:.2f} GiB (the "
         f"engine's own); JSON replies that parse {out['parsed']}/8")
-    log(f"  5f {mode}: first-token logits of all {out['T']} positions against 5a's bf16 weights of the "
+    log(f"  {tag}: first-token logits of all {out['T']} positions against 5a's bf16 weights of the "
         f"same seed (recorded, not gated): correlation {out['corr']:.6f}, argmax agreement "
         f"{out['argmax_agree']:.4f}")
     step = out["e2e"]
     step_ok = bool(step) and step["finite"] and step["rel"] <= TOL_E2E and step["same_argmax"]
     if step:
         log(f"  one decode step of the live wave (slot lengths {step['lengths']}), the quantized "
-            f"product vs qmatmul_plain ({mode}, bf16): max |diff| {step['max_diff']:.3e} over max "
+            f"product vs {'native_matmul_plain' if native else 'qmatmul_plain'} ({mode}, bf16): "
+            f"max |diff| {step['max_diff']:.3e} over max "
             f"|logit| {step['max_logit']:.3e} = {step['rel']:.3e}, tol {TOL_E2E:g}; same argmax "
             f"{step['same_argmax']} (smallest top-2 margin {step['margin']:.3e}); finite "
             f"{step['finite']} {'ok' if step_ok else 'FAIL'}")
     else:
         log("  the wave never had all eight slots live: no decode-step check")
     if not step_ok or not out["finite"]:
-        raise SystemExit(f"5f {mode}: the quantized decode step disagrees with the plain one")
+        raise SystemExit(f"{tag}: the quantized decode step disagrees with the plain one")
     return out
 
 
@@ -2832,7 +3101,8 @@ def expect_train_launches(launches, layers, steps, label):
     """Remat runs each layer's forward twice per step (K1), the backward
     once (K4, K5); serving kernels stay at zero."""
     want = {"flash": 2 * layers * steps, "bwd_dq": layers * steps, "bwd_dkv": layers * steps,
-            "decode": 0, "paged": 0, "qmatmul": 0, "qmatmul_dequant": 0, "qmatmul_shapes": {}}
+            "decode": 0, "paged": 0, "qmatmul": 0, "qmatmul_dequant": 0, "qmatmul_shapes": {},
+            "int8_matmul": 0, "int8_quant": 0, "int8_shapes": {}}
     log(f"  launches on this run ({steps} steps x {layers} layers): {launches_text(launches)}; "
         f"expected flash_fwd {want['flash']}, flash_bwd_dq {want['bwd_dq']}, flash_bwd_dkv "
         f"{want['bwd_dkv']}, the serving kernels 0")
@@ -3036,8 +3306,19 @@ def profiled_launch_ms(torch, fn, name, iters=20):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    rows = [(dev, count) for dev, key, count in device_rows(prof) if name in key]
-    return sum(d for d, _ in rows) / sum(c for _, c in rows) / 1e3 if rows else None
+    avg = device_rows(prof)
+    rows = [(dev, count) for dev, key, count in avg if name in key]
+    ms = sum(d for d, _ in rows) / sum(c for _, c in rows) / 1e3 if rows else None
+    # The raw events' rows (5c's tables) against these, row by row.
+    raw = {key: (dev, count) for dev, key, count in raw_device_rows(prof)}
+    avg = {key: (dev, count) for dev, key, count in avg}
+    same = raw.keys() == avg.keys() and all(
+        raw[k][1] == avg[k][1] and math.isclose(raw[k][0], avg[k][0], rel_tol=1e-9) for k in raw)
+    rows = [v for key, v in raw.items() if name in key]
+    ms_raw = sum(d for d, _ in rows) / sum(c for _, c in rows) / 1e3 if rows else None
+    log(f"  {name}: profiled ms a launch {ms} (key_averages), {ms_raw} (the raw events' rows); "
+        f"all {len(avg)} device rows equal in both: {same}")
+    return ms
 
 
 def time_kernels(torch, fa, da, device, timer, gen, dtype, cfg, flash, decode, launches,
@@ -3386,6 +3667,102 @@ def time_qmatmul(torch, qk, device, timer, gen, worst, paths):
     return out
 
 
+NATIVE_REPLACES = ("pilottai_tpu/models/qmatmul.py:87 (_native_int8_matmul; no pallas_call: "
+                   "XLA's int8 dot_general into int32, a grouped one for int4)")
+QUANT_ROWS_REPLACES = ("pilottai_tpu/models/qmatmul.py:77 (_quantize_activation; no "
+                       "pallas_call: XLA fuses the per-row amax, divide, round and clip)")
+NATIVE_ROWS = (8, 32, 2048)
+
+
+def time_native_shape(torch, i8, qk, device, timer, gen, K, N, M, bits, group, launched, err,
+                      name, shape_text):
+    """One kernels-line entry of the integer arm's product at one shape
+    (bf16 activations, llama3-8b's weights): the product launch alone on a
+    quantized workspace, ``native_matmul_plain``, ``torch._int_mm`` on the
+    same int8 operands (the int4 weight unpacked to int8; the int32 sums
+    only, timed here and never called by the port; it takes more than 16
+    rows), and the dequant arm's kernel on the same weight and input."""
+    from pilottai_tpu_torch.models.quant import quantize_array, unpack_int4
+
+    w = torch.randn((K, N), generator=gen, device=device, dtype=torch.float32) * K**-0.5
+    qw = quantize_array(w, torch.bfloat16, bits=bits, group=group)
+    del w
+    x = randn(torch, gen, (M, K), torch.bfloat16, device)
+    plan = i8.launch_plan(M, K, N, bits, group)
+    xq, sx = i8.quantize_rows(x, plan)
+    out = torch.empty((M, N), device=device, dtype=torch.bfloat16)
+    ms = timer.ms(lambda: i8.product(xq, sx, qw, plan, out))
+    plain = timer.ms(lambda: i8.native_matmul_plain(x, qw), iters=3, warmup=1)
+    dequant_arm = timer.ms(lambda: qk.quant_matmul(x, qw))
+    lib_ms, library = None, "none: torch._int_mm takes more than 16 rows"
+    if M > 16:
+        a = xq[:M, :K].contiguous()
+        b = (qw.q if bits == 8 else unpack_int4(qw.q, K)).contiguous()
+        try:
+            want = (a.double() @ b.double()).to(torch.int32)
+            if torch.equal(torch._int_mm(a, b), want):
+                lib_ms = timer.ms(lambda: torch._int_mm(a, b))
+                library = "torch._int_mm (int32 sums only, no scales)"
+            else:
+                library = "none: torch._int_mm disagrees with the exact int32 sums"
+        except (AttributeError, NotImplementedError, RuntimeError) as exc:
+            library = f"none: torch._int_mm raised {type(exc).__name__}: {str(exc)[:160]}"
+    # What the timed launch moves: the weight and its scales, the quantized
+    # workspace (int8 rows padded to the plan's, their fp32 scales) and
+    # the result.
+    q_bytes = qw.q.numel() + qw.s.numel() * qw.s.element_size()
+    nbytes = q_bytes + plan.rows * plan.kx + 4 * plan.rows + M * N * out.element_size()
+    e = entry(name, i8, launched, err, ms, plain, lib_ms, 2 * M * K * N, nbytes, "int8",
+              "bit for bit (fp32); the one rounding to bf16", replaces=NATIVE_REPLACES,
+              library=library, dequant_arm_ms=dequant_arm,
+              dequant_arm_path="fused" if M <= qk.FUSED_MAX_ROWS else "dequant + torch.matmul",
+              weight_bytes=q_bytes, shape=shape_text, rows=M, quant=quant_name(bits, group),
+              m16_tiles_a_warp=plan.mt, warps_a_block=plan.warps, grid=list(plan.grid),
+              groups=plan.n_groups,
+              sum_mode=plan.mode)
+    log(f"  int8_matmul {quant_name(bits, group):<8} {shape_text:<30} M {M:>4} (grid "
+        f"{plan.grid}, {plan.mt} m16 tiles a warp): kernel {ms:.4f} ms, bound "
+        f"{e['bound_ms']:.5f} ms ({e['bound_by']}), plain {plain:.4f} ms; library: "
+        f"{f'torch._int_mm {lib_ms:.4f} ms' if lib_ms is not None else library}; the dequant "
+        f"arm ({e['dequant_arm_path']}) {dequant_arm:.4f} ms; launches {launched}")
+    return e
+
+
+def time_native(torch, i8, qk, device, timer, gen, worst, paths):
+    """The integer arm at 5h's shapes: the product at llama3-8b's wq, wk,
+    wg and wd, 8, 32 and 2048 rows, int8 and int4 at group 128, each with
+    the launches counted at that shape in 5h's wave (0 where the wave
+    launched none: 32 rows are a verify block's); the row quantizer at K
+    4096 and 14336 and the same rows, with the launches of the products
+    that read it."""
+    out = []
+    for mode, (bits, group) in (("int8", (8, 128)), ("int4", (4, 128))):
+        shapes = paths[f"native_{mode}"]["launches"]["int8_shapes"]
+        for i, (K, N) in enumerate(LLAMA_MATRICES):
+            for M in NATIVE_ROWS:
+                out.append(time_native_shape(
+                    torch, i8, qk, device, timer, gen, K, N, M, bits, group,
+                    shapes.get((M, K, N), 0), worst, f"int8_matmul_{mode}_{i}_m{M}",
+                    f"5h, {MATRIX_NAMES[i]} [{K}x{N}]"))
+    shapes = paths["native_int8"]["launches"]["int8_shapes"]
+    for K in (4096, 14336):
+        for M in NATIVE_ROWS:
+            x = randn(torch, gen, (M, K), torch.bfloat16, device)
+            plan = i8.launch_plan(M, K, 4096, 8, 128)
+            ms = timer.ms(lambda: i8.quantize_rows(x, plan))
+            plain = timer.ms(lambda: i8.quantize_rows_plain(x))
+            launched = sum(n for (m, k, _), n in shapes.items() if (m, k) == (M, K))
+            e = entry(f"int8_row_quantizer_k{K}_m{M}", i8, launched, 0.0, ms, plain, None,
+                      0, M * K * 2 + M * K + 4 * M, "int8", "byte for byte",
+                      replaces=QUANT_ROWS_REPLACES, library="none: no one PyTorch call",
+                      shape=f"5h, x [{M}x{K}] bf16", rows=M)
+            log(f"  int8 row quantizer x [{M}x{K}] bf16: kernel {ms:.4f} ms, bound "
+                f"{e['bound_ms']:.5f} ms (bytes), plain {plain:.4f} ms; launches {launched} "
+                "(5h's int8 wave, the products reading it)")
+            out.append(e)
+    return out
+
+
 def time_paged_verify(torch, pa, device, timer, gen, dtype, shape, launched, worst):
     """Time K3 at the speculative verify's shape (kernel, plain version,
     SDPA over panels gathered beforehand): 5e's paged slots and block
@@ -3687,7 +4064,10 @@ def phase_timing(torch, kernels, device, seed, worst, paths):
             e["library_kernels"] = yard["backward" if "bwd" in e["name"] else "forward"]
     log("  -- the quantized product (csrc/qmatmul.cu), no pallas_call counterpart")
     qmm = time_qmatmul(torch, kernels["qmatmul"], device, timer, gen, worst["qmatmul"], paths)
-    return out + fp32 + qmm
+    log("  -- the integer arm (csrc/int8_matmul.cu), no pallas_call counterpart")
+    native = time_native(torch, kernels["int8_matmul"], kernels["qmatmul"], device, timer, gen,
+                         worst["int8_matmul"], paths)
+    return out + fp32 + qmm + native
 
 
 def main() -> int:
@@ -3708,10 +4088,11 @@ def main() -> int:
     from pilottai_tpu_torch.ops.kernels import build
     from pilottai_tpu_torch.ops.kernels import decode_attention as da
     from pilottai_tpu_torch.ops.kernels import flash_attention as fa
+    from pilottai_tpu_torch.ops.kernels import int8_matmul as i8
     from pilottai_tpu_torch.ops.kernels import paged_attention as pa
     from pilottai_tpu_torch.ops.kernels import qmatmul as qk
 
-    kernels = {"flash": fa, "decode": da, "paged": pa, "qmatmul": qk}
+    kernels = {"flash": fa, "decode": da, "paged": pa, "qmatmul": qk, "int8_matmul": i8}
     device = torch.device("cuda", 0)
     smi = nvidia_smi()
     t_start = time.perf_counter()
@@ -3736,10 +4117,10 @@ def main() -> int:
         + ", ".join(f"CUDAGraph.{m} {'present' if ok else 'ABSENT'}" for m, ok in found.items())
         + ("" if all(found.values()) else "; every step of a chunk graph runs (ROADMAP C.4)"))
 
-    stage("2. build (nvcc, sm_90a, the six kernel sources in parallel)")
+    stage("2. build (nvcc, sm_90a, the seven kernel sources in parallel)")
     t0 = time.perf_counter()
     build.build_libraries(["flash_fwd", "decode_attention", "paged_attention", "flash_bwd_dq",
-                           "flash_bwd_dkv", "qmatmul"])
+                           "flash_bwd_dkv", "qmatmul", "int8_matmul"])
     log(f"  built in {time.perf_counter() - t0:.1f} s")
     for name, (secs, text) in build.build_log.items():
         log(f"  {name}: nvcc {secs:.1f} s")
@@ -3752,6 +4133,9 @@ def main() -> int:
     worst = phase_kernels(torch, fa, da, pa, device, args.seed)
     stage("3. the quantized product (int8, int4) vs its plain version")
     worst["qmatmul"] = phase_qmatmul(torch, qk, device, args.seed)
+    stage("3. the integer arm (PILOTTAI_QMATMUL=native): row quantizer and s8 product vs their "
+          "plain versions")
+    worst["int8_matmul"] = phase_native(torch, i8, device, args.seed)
     if args.kernels_only:
         return 0
     paths = {}
@@ -3804,6 +4188,21 @@ def main() -> int:
               f"twice: {label}")
         phase_golden(torch, kernels, root, asset, paged=paged, knobs=dict(engine_speculate=4),
                      prefix_cache=None, repeat=2)
+    for key, asset, knobs, label, repeat in (
+            ("native_golden_int8", "protocol_s_int8_native_golden.json", None,
+             "int8, dense cache", 1),
+            ("native_golden_int4", "protocol_s_int4_native_golden.json", None,
+             "int4 group 128, dense cache", 1),
+            ("native_golden_int4_paged", "protocol_s_int4_native_paged_golden.json", None,
+             "int4 group 96, paged cache, chunked prefill", 1),
+            ("native_golden_int4_spec", "protocol_s_int4_native_spec_golden.json", None,
+             "int4 group 128, dense cache, engine_speculate=4, prefix cache on, each case "
+             "served twice", 2)):
+        stage(f"4g. golden protocol-s token ids (fp32) on the integer arm "
+              f"(PILOTTAI_QMATMUL=native at start): {label}")
+        paths[key] = phase_golden(torch, kernels, root, asset, paged="paged" in key, knobs=knobs,
+                                  prefix_cache=None if repeat > 1 else 0, repeat=repeat,
+                                  native=True)
     stage("5a. llama3-8b full width, bf16, dense cache, 8 concurrent JSON requests")
     paths["full"] = phase_full_width(torch, kernels, args.seed)
     gc.collect()
@@ -3833,6 +4232,12 @@ def main() -> int:
         stage(f"5f. llama3-8b full width, bf16 activations, {mode} weights, dense cache, 8 "
               "concurrent JSON requests")
         paths[f"quant_{mode}"] = phase_quant_full_width(torch, kernels, args.seed, mode)
+    for mode in ("int8", "int4"):
+        stage(f"5h. llama3-8b full width, bf16 activations, {mode} weights on the integer arm "
+              "(PILOTTAI_QMATMUL=native at start), fixed chunks, dense cache, 5f's requests")
+        paths[f"native_{mode}"] = phase_quant_full_width(torch, kernels, args.seed, mode,
+                                                         native=True)
+        native_against_dequant(paths, mode)
     stage("5g. llama3-8b full width, bf16, engine_kv_quantize='int8', dense cache (5a's "
           "requests)")
     paths["kv8"] = phase_kv8_full_width(torch, kernels, args.seed, paged=False)

@@ -85,6 +85,11 @@ engine quantizes before it builds the batcher), and ``weight_bytes`` and
 ``weight_bytes_per_token`` their bytes
 (``weight_stream_bytes``): plain attributes, as the metrics gauges come
 with ROADMAP P6b. Quantization adds no chunk-graph variant.
+``qmatmul_arm`` is the quantized product's arm, read from
+``PILOTTAI_QMATMUL`` once when the batcher is built and stamped on the
+weights of its own copy of the parameter tree
+(``models/qmatmul.py:hold_arm``): the warm-up sweep captures
+every graph under it and ``graph_report()`` records it.
 
 Retries, rate limits, deadlines and the reliability ladder (ROADMAP P6b)
 and the scheduling policies (P6c) are not here; a failed dispatch fails
@@ -134,6 +139,7 @@ from pilottai_tpu_torch.engine.page_prefix import PagePrefixIndex
 from pilottai_tpu_torch.engine.prefix_cache import PrefixStore
 from pilottai_tpu_torch.engine.sampling import SamplingState
 from pilottai_tpu_torch.models.common import ModelConfig
+from pilottai_tpu_torch.models.qmatmul import hold_arm
 from pilottai_tpu_torch.models.quant import quant_mode, weight_stream_bytes
 from pilottai_tpu_torch.ops.kernels.paged_attention import check_kernel_shapes
 from pilottai_tpu_torch.ops.kvcache import KVCache, free_slots
@@ -278,6 +284,9 @@ class ContinuousBatcher:
         if device.type == "cuda" and device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
         self.cfg = cfg
+        #: The quantized product's arm, held for the batcher's life on its
+        #: own copy of the tree (the caller's weights are not stamped).
+        params, self.qmatmul_arm = hold_arm(params)
         self.params = params
         self.device = device
         # The weights' quantization mode and int4 group width (None but
@@ -677,10 +686,11 @@ class ContinuousBatcher:
         sweep (none, once it has run) and the seconds those captures took,
         the bytes the variants' buffers and the graphs' shared memory pool
         hold (the pool None where it is not known), the replays of
-        model-draft variants, and the sweep (``self.sweep``; None before
-        it)."""
+        model-draft variants, the sweep (``self.sweep``; None before it)
+        and the quantized product's arm the graphs were captured under."""
         shared, _ = self.runner.buffer_bytes()
-        return {"graphs": self.runner.graphs_captured,
+        return {"qmatmul_arm": self.qmatmul_arm,
+                "graphs": self.runner.graphs_captured,
                 "capture_s": self.runner.capture_seconds,
                 "buffer_bytes": shared,
                 "pool_bytes": self.runner.pool_bytes(),

@@ -269,11 +269,8 @@ def _head_tile(params: Dict[str, Any], off: int, end: int) -> Any:
     read stays int8- or int4-sized."""
     if "lm_head" in params:
         head = params["lm_head"]
-        if isinstance(head, QTensor):
-            return QTensor(q=head.q[:, off:end], s=head.s[:, off:end])
-        if isinstance(head, Q4Tensor):
-            return Q4Tensor(q=head.q[:, off:end], s=head.s[:, off:end], in_dim=head.in_dim,
-                            group=head.group)
+        if isinstance(head, (QTensor, Q4Tensor)):
+            return dataclasses.replace(head, q=head.q[:, off:end], s=head.s[:, off:end])
         return head[:, off:end]
     return params["embed"][off:end].t()
 

@@ -50,8 +50,8 @@ ops around them, every layer of every step).
 * **Launch counts**: the kernel wrappers count a launch when their Python
   runs, which for a graph is once, at capture. The capture's counts are
   taken back out, and each replay adds the launches the graph holds (K2,
-  K3 and the quantized product's fused and dequant launches, in total and
-  by shape).
+  K3, the quantized product's fused and dequant launches and the integer
+  arm's quantizer and product launches, in total and by shape).
 * **No early exit**: every step of a replay runs, also after every slot
   is done (the JAX chunk's ``lax.while_loop`` stops there). The exit
   needs a CUDA-graph conditional node, which torch 2.13 exposes as
@@ -86,6 +86,7 @@ from pilottai_tpu_torch.engine.decode import (
 from pilottai_tpu_torch.engine.sampling import SamplingState
 from pilottai_tpu_torch.models.common import ModelConfig
 from pilottai_tpu_torch.ops.kernels import decode_attention as _k2
+from pilottai_tpu_torch.ops.kernels import int8_matmul as _i8
 from pilottai_tpu_torch.ops.kernels import paged_attention as _k3
 from pilottai_tpu_torch.ops.kernels import qmatmul as _qm
 from pilottai_tpu_torch.ops.paged import PagedKVCache
@@ -93,7 +94,8 @@ from pilottai_tpu_torch.ops.paged import PagedKVCache
 #: The launch counters a decode chunk moves, as (kernel module, counter):
 #: an int, or a dict of ints by key; a replay adds what its graph holds.
 COUNTED = ((_k2, "launches"), (_k3, "launches"), (_qm, "launches"),
-           (_qm, "launches_dequant"), (_qm, "launches_by_shape"))
+           (_qm, "launches_dequant"), (_qm, "launches_by_shape"), (_i8, "launches"),
+           (_i8, "launches_quant"), (_i8, "launches_by_shape"))
 
 
 def _read(mod, name):

@@ -25,6 +25,7 @@ forward_train``), and the engine quantizes once at start
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Any, Dict, Iterator, Optional, Tuple
 
@@ -38,10 +39,13 @@ _RECIP_7 = float(torch.tensor(1.0 / 7.0, dtype=torch.float32))
 @dataclass
 class QTensor:
     """int8 weight ``q`` of the weight's shape and its scale ``s [..., 1,
-    out]`` in the compute dtype."""
+    out]`` in the compute dtype; ``arm`` the product's arm an engine holds
+    for it ("native" or "dequant", ``models/qmatmul.py:hold_arm``), None
+    where ``PILOTTAI_QMATMUL`` decides at each call."""
 
     q: torch.Tensor
     s: torch.Tensor
+    arm: Optional[str] = None
 
 
 @dataclass
@@ -49,12 +53,14 @@ class Q4Tensor:
     """Packed int4 weight: ``q`` int8 ``[..., ceil(in/2), out]``, byte ``b``
     holding row ``2b`` in its low nibble and row ``2b + 1`` in its high one
     (an odd last row pads with a zero nibble); ``s [..., ceil(in/group),
-    out]`` in the compute dtype; ``in_dim`` the true contraction length."""
+    out]`` in the compute dtype; ``in_dim`` the true contraction length;
+    ``arm`` as ``QTensor``'s."""
 
     q: torch.Tensor
     s: torch.Tensor
     in_dim: int
     group: int
+    arm: Optional[str] = None
 
 
 def is_quantized(x: Any) -> bool:
@@ -194,6 +200,22 @@ def _all_leaves(tree: Any) -> Iterator[Any]:
         yield tree
 
 
+def iter_quantized(params: Any) -> Iterator[Any]:
+    """Every quantized weight of a parameter tree."""
+    return (w for w in _all_leaves(params) if is_quantized(w))
+
+
+def with_arm(tree: Any, arm: str) -> Any:
+    """A copy of a parameter tree (dicts and lists of layers) whose
+    quantized weights carry ``arm``; the tensors are shared, the tree's
+    containers and the quantized weights' records are new."""
+    if isinstance(tree, dict):
+        return {k: with_arm(v, arm) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(with_arm(v, arm) for v in tree)
+    return dataclasses.replace(tree, arm=arm) if is_quantized(tree) else tree
+
+
 def has_quantized(params: Any) -> bool:
     return any(is_quantized(w) for w in _all_leaves(params))
 
@@ -236,9 +258,11 @@ __all__ = [
     "dequant",
     "has_quantized",
     "is_quantized",
+    "iter_quantized",
     "pack_int4",
     "quant_mode",
     "unpack_int4",
+    "with_arm",
     "quantize_array",
     "quantize_params",
     "weight_stream_bytes",

@@ -15,15 +15,28 @@ engine in float32 on the CPU through ``LLMHandler(provider="cpu")``,
 
 The port must reproduce them token for token, on the CPU and on the GPU.
 
+``--native`` writes four other files instead, the same served with
+``PILOTTAI_QMATMUL=native`` (the integer-operand arm: activations quantized
+per row to int8, int32 sums, the scales after), and leaves the three above
+as they are:
+
+* ``protocol_s_int8_native_golden.json``: int8, dense cache;
+* ``protocol_s_int4_native_golden.json``: int4 at group 128, dense cache;
+* ``protocol_s_int4_native_paged_golden.json``: int4 at group 96, paged
+  cache of 16-token pages with 64-token prefill segments;
+* ``protocol_s_int4_native_spec_golden.json``: int4 at group 128, dense
+  cache, ``engine_speculate=4``.
+
 Run from the repository root (uses JAX on the CPU)::
 
-    JAX_PLATFORMS=cpu python scripts/export_protocol_s_quant_golden.py
+    JAX_PLATFORMS=cpu python scripts/export_protocol_s_quant_golden.py [--native]
 """
 
 from __future__ import annotations
 
 import asyncio
 import json
+import os
 import sys
 from pathlib import Path
 
@@ -48,6 +61,17 @@ QUANT_GOLDEN = {
     "protocol_s_int4_golden.json": dict(ENGINE, engine_quant="int4", engine_quant_group=128),
     "protocol_s_int4_paged_golden.json": dict(PAGED_ENGINE, engine_quant="int4",
                                               engine_quant_group=96),
+}
+
+#: The integer-operand arm's files (``--native``).
+NATIVE_GOLDEN = {
+    "protocol_s_int8_native_golden.json": dict(ENGINE, engine_quant="int8"),
+    "protocol_s_int4_native_golden.json": dict(ENGINE, engine_quant="int4",
+                                               engine_quant_group=128),
+    "protocol_s_int4_native_paged_golden.json": dict(PAGED_ENGINE, engine_quant="int4",
+                                                     engine_quant_group=96),
+    "protocol_s_int4_native_spec_golden.json": dict(ENGINE, engine_quant="int4",
+                                                    engine_quant_group=128, engine_speculate=4),
 }
 
 
@@ -96,14 +120,20 @@ async def run_cases(prompts: list, engine: dict) -> list:
 
 
 def main() -> None:
+    native = "--native" in sys.argv[1:]
+    if native:
+        os.environ["PILOTTAI_QMATMUL"] = "native"
     prompts = golden_prompts()
-    for name, engine in QUANT_GOLDEN.items():
+    for name, engine in (NATIVE_GOLDEN if native else QUANT_GOLDEN).items():
         cases = asyncio.run(run_cases(prompts, engine))
         golden = {
             "model": "protocol-s",
             "source": f"JAX engine, LLMHandler(provider='cpu'), float32, greedy, weight-only "
                       f"{engine['engine_quant']}"
                       + (", paged KV with chunked prefill" if engine.get("engine_paged_kv")
+                         else "")
+                      + (", engine_speculate=4" if engine.get("engine_speculate") else "")
+                      + (", PILOTTAI_QMATMUL=native (the integer-operand arm)" if native
                          else ""),
             "engine": engine,
             "max_new_tokens": MAX_NEW_TOKENS,

@@ -3,12 +3,13 @@ product's kernel (``ops/kernels/qmatmul.py``) against its plain version on
 both sides of ``FUSED_MAX_ROWS``, bit-identical repeats, both fused
 bodies (bf16 and fp32) within ``chip_smoke.TOL_QMM`` from 1 to 64 rows on
 layouts that take the bf16 body's tensor maps and its plain-load producer,
-the native arm refused, the product captured in a CUDA graph on both
+the product captured in a CUDA graph on both
 sides of ``FUSED_MAX_ROWS`` and in both bodies, the split sum's arrival
 counters zero after a thousand launches, and decode chunks with int8
 weights captured as CUDA graphs giving their eager runs' ids: plain steps
 with the fused kernel launched seven times a layer a step, and verify
-blocks of 72 rows, which take the dequant path inside the graph. This
+blocks of 72 rows, which take the dequant path inside the graph. The
+integer-operand arm's kernels are ``tests/test_torch_quant_native_cuda.py``'s. This
 file imports no JAX, so it runs on a machine without it: ``python -m
 pytest --noconftest -p no:cacheprovider -m cuda
 tests/test_torch_quant_cuda.py``."""
@@ -153,16 +154,6 @@ def test_cuda_head_tile_slice_with_an_fp32_result():
     got = qmatmul(x, tile, preferred_element_type=torch.float32)
     assert got.dtype == torch.float32
     _check(got, qk.qmatmul_plain(x, tile, torch.float32), torch.float32)
-
-
-@pytest.mark.cuda
-def test_cuda_native_arm_is_refused(monkeypatch):
-    """``PILOTTAI_QMATMUL=native`` on a CUDA tensor raises, naming P5c."""
-    dev = _device()
-    qw = quantize_array(torch.randn((64, 64), device=dev), torch.float32)
-    monkeypatch.setenv("PILOTTAI_QMATMUL", "native")
-    with pytest.raises(NotImplementedError, match="P5c"):
-        qmatmul(torch.randn((2, 64), device=dev), qw)
 
 
 @pytest.mark.cuda
