@@ -14,8 +14,10 @@ result line is printed only when every phase passed):
    speculative verify run on (without them those paths raise), and which
    of ``CUDAGraph``'s conditional-node methods it has (a chunk's exit once
    every slot is done needs them; without them every step runs);
-2. build — the seven hand-written kernel sources from
-   ``pilottai_tpu_torch/csrc`` with ``nvcc`` for sm_90a, in parallel;
+2. build — the eight hand-written kernel sources from
+   ``pilottai_tpu_torch/csrc`` with ``nvcc`` for sm_90a, in parallel (K3's
+   head_dim 256 instantiations are a source of their own,
+   ``paged_attention_h256.cu``, beside ``paged_attention.cu``);
 3. kernels — K1 (flash prefill), K2 (dense decode statistics) and K3
    (paged decode statistics, ring fused) held against their plain PyTorch
    versions at llama3-8b (head_dim 128), llama3-1b (64) and protocol-s (32)
@@ -61,7 +63,13 @@ result line is printed only when every phase passed):
    int8 and int4 at groups 128 and 96 at K 4100 (off both groups) and 1,
    8, 17, 32, 256 and 2048 rows in fp32 and bf16, llama3-8b's wq and wd
    at 8 and 2048 rows, protocol-s's matrices in fp32, and the pair captured
-   in a CUDA graph;
+   in a CUDA graph. Then the head_dim 256 bodies of K1, K2 and K3 (the
+   Gemma family) in both dtypes, each case twice for the same bits
+   (``gemma_kernel_cases``): K1 at gemma2-2b's prefill (8 query heads on
+   4 kv heads, a window, soft-cap 50) and gemma-2b's (one kv head), a tail
+   shape and rows with no key; K2 at G 2 and 8, a window crossing splits,
+   every slot empty, and its int8 body; K3 at pages of 128 and 16, the
+   ring, ``q_blocks`` 4, a window and int8 pools;
 4. golden — the committed protocol-s checkpoint in fp32 (TF32 off) served
    through ``LLMHandler.generate_response``, once on the dense cache and
    once paged with chunked prefill, the prefix cache off as on the JAX
@@ -110,7 +118,11 @@ result line is printed only when every phase passed):
    int4 at group 128 dense, int4 at group 96 paged, 6/6 each, and int4 at
    group 128 with ``engine_speculate=4`` and the prefix cache on, each case
    twice, 12/12; the integer product and its quantizer seven times a layer
-   a step, block and prefill, the dequant arm's kernels never;
+   a step, block and prefill, the dequant arm's kernels never; (h) the
+   Gemma golden files (``scripts/export_gemma_golden.py``: two head_dim
+   256 test models registered from their files, gemma2-tiny-h256 with its
+   128-key window and soft-caps and gemma-tiny-h256 with one kv head),
+   dense and paged, 6/6 each;
 5. full width — llama3-8b in bf16 from random init, the prefix cache off
    in (a) to (c); the engines of (a) and (b) serve the later runs at their
    settings too (5d with the cache off, 5e with speculation off, 5c), and
@@ -131,7 +143,7 @@ result line is printed only when every phase passed):
    the useful ones per wave, with the median and the spread; the first
    wave's TTFT beside the timed median; the TTFT of one request sent while
    a decode chunk is in flight; in (a) one replay of the 16-step graph with
-   every slot done; (c) five waves of each under torch.profiler, on the
+   every slot done; (c) three waves of each under torch.profiler, on the
    shared engines:
    the device's busy share (after every plain wave: the profiler leaves
    the process's launches slower), and the fp32 GEMMs and the kinds of
@@ -167,7 +179,8 @@ result line is printed only when every phase passed):
    first-token logits' correlation and argmax agreement with 5a's bf16
    weights of the same seed; the head is tied, so it stays dense; (g) 5a's
    dense engine and requests and 5b's paged engine and requests (the
-   6050-token prompt in 1024-token segments) with
+   6050-token prompt in 1024-token segments; fixed chunks,
+   ``KV8_PAGED_KNOBS``) with
    ``engine_kv_quantize="int8"`` at all 32 layers: the first wave, a
    counted wave (K2's int8 body or K3 on the int8 pools once per layer a
    step, and one live step's logits through it against its plain version,
@@ -179,7 +192,16 @@ result line is printed only when every phase passed):
    chunks), int8 and int4: the integer product seven times a layer a step
    by shape, the admission's prefill through it, one live step's logits
    against ``native_matmul_plain`` (``TOL_E2E``, the same argmax), and the
-   TTFT and TPOT p50 of three timed waves beside 5f's and 5a's;
+   TTFT and TPOT p50 of three timed waves beside 5f's and 5a's; (i) the
+   Gemma family at head_dim 256 after 5c (``phase_gemma_full_width``,
+   fixed chunks): gemma2-2b paged (8192) on 5b's requests, so its
+   4096-key window masks in K1's segments and in K3, and gemma-2b dense
+   (2048) on 5a's; the first-token logits of the longest prompt through
+   K1 and one live decode step through K3 or K2 against their plain
+   versions (``TOL_E2E``, the same argmax; gemma2-2b's logits before its
+   soft-cap, ``uncapped``, the capped ones recorded), the decode kernel once per
+   layer a step, TTFT and TPOT p50 of three timed waves, the engine's own
+   peak, no graph captured after ``start()``;
 7. training — (a) golden: four ``Trainer.step`` calls on protocol-s in fp32
    (TF32 off) from the shipped checkpoint, on ``protocol_batches(4, 512,
    seed=11)``; the batches' hash and each step's loss and grad norm must
@@ -218,8 +240,12 @@ result line is printed only when every phase passed):
    (wq, wk, wg, wd at 8, 32 and 2048 rows, int8 and int4, the product
    launch alone) beside ``native_matmul_plain``, ``torch._int_mm`` on the
    same int8 operands (more than 16 rows; timed only) and the dequant
-   arm's kernel, and its row quantizer; the kernels line, then the result
-   line.
+   arm's kernel, and its row quantizer; the head_dim 256 bodies at 5i's
+   shapes (K1 and K2 at gemma-2b's dense wave, K3 at gemma2-2b's paged
+   wave, K1 at its widest segment) in bf16 and at 4h's gemma2-tiny-h256
+   shapes in fp32, each beside its bound and SDPA; the kernels line, then
+   the result line. Each phase's header prints the second it starts at,
+   and the last lines the smoke's wall time.
 
 ``--kernels-only`` stops after phase 3; ``--seed`` changes the kernel
 checks' inputs and the llama3-8b and llama3-1b weights.
@@ -632,6 +658,9 @@ def phase_kernels(torch, fa, da, pa, device, seed):
     # And K2's int8 body.
     kgen = torch.Generator(device=device)
     kgen.manual_seed(seed)
+    # And the head_dim 256 bodies of K1, K2 and K3 (Gemma).
+    ggen = torch.Generator(device=device)
+    ggen.manual_seed(seed)
     results, worst = [], {}
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype)[6:]
@@ -909,9 +938,85 @@ def phase_kernels(torch, fa, da, pa, device, seed):
             ok, err = check_decode_int8(torch, da, kgen, device, name, dtype, **kw)
             results.append(ok)
             worst[("decode_int8", dn)] = max(worst.get(("decode_int8", dn), 0.0), err)
+        results += gemma_kernel_cases(torch, fa, da, pa, ggen, device, dtype, worst)
     if not all(results):
         raise SystemExit("kernel check failed")
     return worst
+
+
+def gemma_kernel_cases(torch, fa, da, pa, gen, device, dtype, worst):
+    """The head_dim 256 bodies (slice P9a): K1 at gemma2-2b's prefill (8
+    query heads on 4 kv heads, a window, soft-cap 50) and gemma-2b's (one
+    kv head), a tail shape and rows with no key; K2 at G 2 and 8, a window
+    crossing splits, empty slots, and its int8 body; K3 at pages of 128
+    and 16, the ring, ``q_blocks`` 4 (the verify), a window, int8 pools.
+    Each case twice (bit-identical repeats). The errors go to the
+    ``*_h256`` keys of ``worst``."""
+    dn = str(dtype)[6:]
+    results = []
+    flash_cases = [
+        ("gemma2-2b T512 window softcap", dict(B=2, T=512, N=8, K=4, H=256, valid=[512, 300],
+                                               window=200, softcap=50.0)),
+        ("gemma-2b G8 T512 ragged", dict(B=2, T=512, N=8, K=1, H=256, valid=[512, 377])),
+        ("gemma2-2b tail Tq64 S1100", dict(B=2, T=64, S=1100, N=8, K=4, H=256,
+                                           valid=[1100, 1000], offset=1036, window=300,
+                                           softcap=50.0)),
+        ("gemma-2b Tq77 no-key rows shuffled", dict(B=2, T=77, S=150, N=8, K=1, H=256,
+                                                    valid=[150, 0], offset=-10, window=40,
+                                                    shuffle=True)),
+    ]
+    for name, kw in flash_cases:
+        ok, err = check_flash(torch, fa, gen, device, name, dtype, **kw)
+        results.append(ok)
+        worst[("flash_h256", dn)] = max(worst.get(("flash_h256", dn), 0.0), err)
+    decode_cases = [
+        ("gemma2-2b G2 window crosses splits", dict(B=8, N=8, K=4, S=2048, H=256,
+                                                   last=[2047, 700, 333, 100, -1, 64, 1500,
+                                                         31], window=300, softcap=50.0,
+                                                   shift=9)),
+        ("gemma-2b G8 S2048 ragged", dict(B=8, N=8, K=1, S=2048, H=256,
+                                          last=[2047, 1000, 230, 0, -1, 1500, 64, 2046])),
+        ("H256 G8 every slot empty", dict(B=4, N=8, K=1, S=512, H=256, last=[-1] * 4)),
+    ]
+    for name, kw in decode_cases:
+        ok, err = check_decode(torch, da, gen, device, name, dtype, **kw)
+        results.append(ok)
+        worst[("decode_h256", dn)] = max(worst.get(("decode_h256", dn), 0.0), err)
+    int8_cases = [
+        ("gemma2-2b G2 S2048", dict(B=8, N=8, K=4, S=2048, H=256,
+                                    last=[2047, 1000, 230, 0, -1, 1500, 64, 2046])),
+        ("gemma-2b G8 S1001 window softcap", dict(B=4, N=8, K=1, S=1001, H=256,
+                                                  last=[1000, 512, 3, -1], window=300,
+                                                  softcap=50.0, shift=5)),
+    ]
+    for name, kw in int8_cases:
+        ok, err = check_decode_int8(torch, da, gen, device, name, dtype, **kw)
+        results.append(ok)
+        worst[("decode_int8_h256", dn)] = max(worst.get(("decode_int8_h256", dn), 0.0), err)
+    paged_cases = [
+        ("gemma2-2b P128 6050+short window ring@0", dict(
+            B=8, N=8, K=4, H=256, P=128, lengths=[6050, 184, 190, 201, 176, 0, 188, 195],
+            hole=(6, 1), window=4096, softcap=50.0, ring=16, step=0)),
+        ("gemma-2b G8 P16 ring@15", dict(
+            B=4, N=8, K=1, H=256, P=16, lengths=[415, 510, 0, 1], hole=(1, 5), ring=16,
+            step=15)),
+        ("gemma2-2b verify q_blocks4 window", dict(
+            B=4, N=32, K=4, H=256, P=128, lengths=[1500, 260, 0, 33], q_blocks=4, window=200,
+            softcap=50.0)),
+        ("gemma-2b G32 P16 verify q_blocks4", dict(
+            B=4, N=32, K=1, H=256, P=16, lengths=[415, 63, 0, 200], q_blocks=4, window=40)),
+        ("gemma2-2b P128 int8 pools ring@7", dict(
+            B=4, N=8, K=4, H=256, P=128, lengths=[3000, 100, 0, 700], hole=(3, 1),
+            softcap=50.0, quantized=True, ring=16, step=7)),
+        ("gemma-2b P16 int8 window hole", dict(
+            B=4, N=8, K=1, H=256, P=16, lengths=[415, 513, 0, 33], quantized=True, window=300,
+            hole=(1, 3))),
+    ]
+    for name, kw in paged_cases:
+        ok, err = check_paged(torch, pa, gen, device, name, dtype, **kw)
+        results.append(ok)
+        worst[("paged_h256", dn)] = max(worst.get(("paged_h256", dn), 0.0), err)
+    return results
 
 
 # --------------------------------------------------------------------- #
@@ -1453,6 +1558,16 @@ def phase_golden(torch, kernels, root, asset, paged, page_size=None, knobs=None,
     torch.backends.cudnn.allow_tf32 = False
     log("  TF32 off for matmuls and cuDNN (torch.backends.*.allow_tf32 = False)")
     golden = json.loads((root / "pilottai_tpu_torch" / "assets" / asset).read_text())
+    model, checkpoint = "protocol-s", PROTOCOL_S_NPZ
+    if "config" in golden:
+        # A test model the golden file defines (4h: the head_dim 256 Gemma
+        # ones), registered from its config, its weights beside it.
+        from pilottai_tpu_torch.models.common import ModelConfig
+        from pilottai_tpu_torch.models.registry import register_model
+
+        register_model(ModelConfig(**golden["config"]))
+        model = golden["model"]
+        checkpoint = str(root / "pilottai_tpu_torch" / "assets" / golden["checkpoint"])
     if page_size is not None:
         golden["engine"] = dict(golden["engine"], engine_page_size=page_size)
     golden["engine"] = dict(golden["engine"], **(knobs or {}))
@@ -1463,7 +1578,7 @@ def phase_golden(torch, kernels, root, asset, paged, page_size=None, knobs=None,
 
     async def run():
         handler = LLMHandler(LLMConfig(
-            provider="cuda", model_name="protocol-s", checkpoint_path=PROTOCOL_S_NPZ,
+            provider="cuda", model_name=model, checkpoint_path=checkpoint,
             sampling={"temperature": 0.0, "max_new_tokens": golden["max_new_tokens"]},
             **golden["engine"],
         ))
@@ -1644,8 +1759,15 @@ SPEC_MIN_REPLY_SHARE = 0.5
 # 5c's waves under torch.profiler. The busy share sums the profiler's raw
 # device events (``device_busy_us``): building its event tree, as
 # ``key_averages`` does, costs tens of seconds a wave (~60,000 kernel
-# events), so only the first wave's kernel table takes that path.
-PROFILED_WAVES = 5
+# events), so only the first wave's kernel table takes that path. Three
+# waves, not five: the Gemma phases (4h, 5i) needed the time.
+PROFILED_WAVES = 3
+# 5g's paged engine runs fixed chunks, not the adaptive policy: a quarter of
+# the graphs to capture (14 of 56; ~100 s of capture on the H100 at
+# adaptive chunks), for the Gemma phases' time. The phase measures the
+# int8 cache, not the chunk policy; its TTFT and TPOT are therefore no
+# longer held beside 5b's, whose engine runs the adaptive policy.
+KV8_PAGED_KNOBS = dict(engine_chunk_policy="fixed")
 
 _LOOP = None
 
@@ -2087,6 +2209,17 @@ def plain_decode_attention(da):
         decode.decode_attention = kernel
 
 
+def uncapped(cfg):
+    """``cfg`` with the logits' soft-cap off. The logits checks
+    (``TOL_E2E``: max |difference| over max |logit|) compare a soft-capped
+    head before the cap: gemma2-2b's cap of 30 pins max |logit| at 30 on
+    random weights (the raw logits reach ~2000), and the cap turns a
+    relative difference of ~2e-4 into ~2e-2 there, with the plain bf16
+    forward itself ~5e-2 from the fp32 one (an H100 reading, PERF.md).
+    The cap is monotonic, so the argmax is the same either way."""
+    return cfg.replace(logit_softcap=0.0) if cfg.logit_softcap > 0.0 else cfg
+
+
 def decode_step_check(torch, mod, batcher, plain=None, others=()):
     """One decode step of the batcher's live state (on its device thread,
     between two chunks) through its decode kernel, K2 on the dense cache or
@@ -2094,10 +2227,11 @@ def decode_step_check(torch, mod, batcher, plain=None, others=()):
     through the route ``plain`` sets up): the logits of every live slot.
     The step writes only fresh rings, never the cache, and its launches
     (of ``mod`` and of the modules in ``others``) are taken back out of the
-    counts."""
+    counts. A soft-capped head (gemma2) is compared before its cap
+    (``uncapped``), its capped logits recorded beside (``"capped"``)."""
     from pilottai_tpu_torch.engine import decode
 
-    cfg, cache, dstate = batcher.cfg, batcher.cache, batcher.dstate
+    cfg, cache, dstate = uncapped(batcher.cfg), batcher.cache, batcher.dstate
     dev = batcher.device
     counters = [(m, a) for m in (mod, *others)
                 for a in ("launches", "launches_dequant", "launches_quant", "launches_by_shape")
@@ -2132,6 +2266,10 @@ def decode_step_check(torch, mod, batcher, plain=None, others=()):
     out = logits_agreement(got, want, live)
     out["finite"] = bool(torch.isfinite(got).all())
     out["lengths"] = pos.tolist()
+    cap = batcher.cfg.logit_softcap
+    if cap > 0.0:
+        out["capped"] = logits_agreement(torch.tanh(got / cap) * cap,
+                                         torch.tanh(want / cap) * cap, live)
     return out
 
 
@@ -2427,6 +2565,211 @@ def phase_full_width_paged(torch, kernels, seed):
 
 
 # --------------------------------------------------------------------- #
+# Phase 5i: the Gemma family at full width (head_dim 256)
+# --------------------------------------------------------------------- #
+
+# 5i's timed waves, after the checked one (fewer than 5a's ``WAVES``, for the
+# smoke's time limit).
+GEMMA_WAVES = 3
+# 5i's engines: fixed chunks, and no fused greedy epilogue, which JSON
+# requests never take: 7 graphs to capture at 8192 (of 56 at the defaults;
+# a gemma2-2b graph took ~3 s to capture on the H100) and 1 at 2048.
+GEMMA_KNOBS = dict(engine_chunk_policy="fixed", engine_fused_epilogue=False)
+
+
+def phase_gemma_full_width(torch, kernels, seed, model, max_seq):
+    """``model`` (gemma2-2b or gemma-2b) at full width, bf16, random
+    weights from ``seed`` and the byte vocab, through the user's entry
+    points, on fixed chunks without the fused epilogue (``GEMMA_KNOBS``:
+    the phase does not measure the adaptive policy, and its JSON requests
+    never take the epilogue). ``max_seq`` 8192
+    pages the cache (pages of 128, 1024-token segments) and serves 5b's
+    requests, one ~6050-token report ahead of seven ~184-token JSON ones, so
+    gemma2-2b's 4096-key window masks in K1's segments and in K3; 2048 keeps
+    the cache dense and serves 5a's eight. The first decode step with every
+    slot live runs through the path's kernel (K2 or K3) and through its
+    plain version; the longest prompt's first-token logits through K1 and
+    through the plain K1; then ``GEMMA_WAVES`` timed waves. Returns the
+    wave's launches and the shapes phase 6 times the head_dim 256 bodies
+    at."""
+    from pilottai_tpu_torch import LLMConfig, LLMHandler
+    from pilottai_tpu_torch.engine.types import GenerationParams
+    from pilottai_tpu_torch.models.transformer import forward_prefill
+
+    fa = kernels["flash"]
+    paged = max_seq >= 4096
+    mod = kernels["paged"] if paged else kernels["decode"]
+    label = f"5i {model}"
+    short = [[FULL_PROMPT.format(i=i)] for i in range(8)]
+    requests = [[long_prompt(5900)]] + short[:7] if paged else short
+    reqs = [(p, 64) for p in requests]
+    state = {}
+
+    async def run():
+        gc.collect()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        handler = LLMHandler(LLMConfig(
+            provider="cuda", model_name=model, dtype="bfloat16", engine_slots=8,
+            engine_admit_batch=8, engine_max_seq=max_seq, engine_chunk=16, seed=seed,
+            engine_prefix_cache=0, **GEMMA_KNOBS))
+        t0 = time.perf_counter()
+        await handler.start()
+        torch.cuda.synchronize()
+        RESIDENT[handler] = torch.cuda.memory_allocated() - before
+        batcher = handler.backend.batcher
+        cfg = batcher.cfg
+        log(f"  {label}: bf16 random init at {cfg.n_layers} layers (head_dim {cfg.head_dim}, "
+            f"{cfg.n_heads} query heads on {cfg.n_kv_heads} kv heads, windows "
+            f"{sorted(set(cfg.window_sizes().tolist()))}, soft-caps {cfg.attn_softcap:g} / "
+            f"{cfg.logit_softcap:g}) and start() in {time.perf_counter() - t0:.1f} s "
+            f"({cfg.param_count() / 1e9:.2f}B params, vocab {cfg.vocab_size}); it holds "
+            f"{RESIDENT[handler] / 2**30:.2f} GiB")
+        sweep_check(batcher, label)
+        if batcher.paged != paged or cfg.head_dim != 256:
+            raise SystemExit(f"{label}: paged {batcher.paged}, head_dim {cfg.head_dim}")
+        if paged:
+            log(f"  {label}: {batcher.num_pages} pages of {batcher.page_size}, prefill "
+                f"segments of {batcher.prefill_chunk}")
+        decode = batcher._decode
+
+        def watching():
+            if "e2e" not in state and all(s is not None for s in batcher._slots):
+                state["e2e"] = decode_step_check(torch, mod, batcher)
+                state["last"] = [int(n) - 1 for n in batcher.cache.lengths.tolist()]
+                if paged:
+                    state["table"] = batcher.alloc.table.tolist()
+            decode()
+
+        def send(p):
+            return asyncio.ensure_future(handler.generate_response(
+                p, params=GenerationParams(temperature=0.0, max_new_tokens=64),
+                json_mode=True))
+
+        batcher._decode = watching
+        batcher.completed.clear()
+        seen = record_requests(handler)
+        seg0 = batcher.prefill_segments
+        torch.cuda.reset_peak_memory_stats()
+        reset(kernels)
+        steps0 = batcher.blocks_dispatched
+        t0 = time.perf_counter()
+        with recording_tail_k1(state.setdefault("tail_calls", [])):
+            tasks = [send(requests[0])]
+            while (paged and batcher._segmenting is None and batcher.prefill_segments == seg0
+                   and not tasks[0].done()):
+                await asyncio.sleep(0.001)
+            tasks += [send(p) for p in requests[1:]]
+            replies = await asyncio.gather(*tasks)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            await settle(batcher)
+        launches = counts(kernels)
+        per_step_check(launches, batcher, batcher.blocks_dispatched - steps0, label)
+        batcher._decode = decode
+        out = dict(replies=replies, wall=wall, launches=launches, model=cfg,
+                   timings=list(batcher.completed), peak=own_peak(torch, handler),
+                   prompt_lens=[len(r.prompt_ids) for r in seen],
+                   gen_lens=[len(r.future.result()) for r in seen],
+                   segments=batcher.prefill_segments - seg0, R=batcher.chunk_size)
+        if paged:
+            out.update(num_pages=batcher.num_pages, P=batcher.page_size,
+                       free_after=batcher.alloc.free_pages, usable=batcher.num_pages - 1)
+        # The longest prompt's first-token logits through K1 (its windowed
+        # layers mask past 4096 keys) against the same forward with the plain
+        # K1 on the same card.
+        ids = torch.tensor([max((r.prompt_ids for r in seen), key=len)], device=batcher.device)
+        T = ids.shape[1]
+        pos = torch.arange(T, device=batcher.device, dtype=torch.int32)[None]
+        val = torch.tensor([T], device=batcher.device, dtype=torch.int32)
+        logits, _, _ = forward_prefill(batcher.params, uncapped(cfg), ids, pos, val)
+        with plain_prefill_attention(fa):
+            ref, _, _ = forward_prefill(batcher.params, uncapped(cfg), ids, pos, val)
+        out["finite"] = (bool(torch.isfinite(logits).all())
+                         and tuple(logits.shape) == (1, T, cfg.vocab_size))
+        got, want = logits[0, T - 1][None], ref[0, T - 1][None]
+        out["k1"] = logits_agreement(got, want, [0])
+        out["k1"]["T"] = T
+        if cfg.logit_softcap > 0.0:
+            cap = cfg.logit_softcap
+            out["k1"]["capped"] = logits_agreement(torch.tanh(got / cap) * cap,
+                                                   torch.tanh(want / cap) * cap, [0])
+        del logits, ref
+        out["waves"], _ = await timed_waves(handler, reqs, label, long_first=paged,
+                                            n_waves=GEMMA_WAVES)
+        log(f"  after the waves: {graph_text(batcher)}")
+        no_capture_check(batcher, label)
+        RESIDENT.pop(handler, None)
+        await handler.stop()
+        return out
+
+    out = arun(run())
+    timings = out["timings"]
+    tpot = median((t["e2e_s"] - t["ttft_s"]) / max(t["tokens"] - 1, 1) for t in timings)
+    short_t = [t["ttft_s"] for t in timings if t["prompt_tokens"] <= 1000]
+    long_t = [t["ttft_s"] for t in timings if t["prompt_tokens"] > 1000]
+    parsed = sum(1 for r in out["replies"] if parses(r.content))
+    log(f"  8 requests, prompt tokens {out['prompt_lens']}, generated {out['gen_lens']}")
+    log(f"  the checked wave: TTFT p50 {median(short_t) * 1e3:.4f} ms"
+        + (f", long {long_t[0] * 1e3:.4f} ms" if long_t else "")
+        + f"; TPOT p50 {tpot * 1e3:.4f} ms; "
+        f"{sum(t['tokens'] for t in timings) / out['wall']:.1f} tokens/s over "
+        f"{out['wall']:.2f} s; peak memory {out['peak'] / 2**30:.2f} GiB (the engine's own); "
+        f"JSON replies that parse: {parsed}/8 (random weights)")
+    log(f"  launches on this run: {launches_text(out['launches'])}")
+    k1 = out["k1"]
+    k1_ok = out["finite"] and k1["rel"] <= TOL_E2E and k1["argmax_ok"]
+    which = " before the soft-cap" if "capped" in k1 else ""
+
+    def capped_text(check):
+        c = check.get("capped")
+        return (f"; after the cap (recorded): {c['max_diff']:.3e} over {c['max_logit']:.3e} = "
+                f"{c['rel']:.3e}, same argmax {c['same_argmax']}") if c else ""
+
+    log(f"  first-token logits{which} of a {k1['T']}-token prompt, K1 vs plain K1 (bf16): max "
+        f"|diff| {k1['max_diff']:.3e} over max |logit| {k1['max_logit']:.3e} = {k1['rel']:.3e}, "
+        f"tol {TOL_E2E:g}; same argmax {k1['same_argmax']} (top-2 margin {k1['margin']:.3e}); "
+        f"finite, shape [1, T, vocab] {out['finite']} {'ok' if k1_ok else 'FAIL'}"
+        + capped_text(k1))
+    step = state.get("e2e")
+    step_ok = bool(step) and step["finite"] and step["rel"] <= TOL_E2E and step["argmax_ok"]
+    kname = "K3" if paged else "K2"
+    if step:
+        log(f"  one decode step of the live wave (slot lengths {step['lengths']}), logits{which}, "
+            f"{kname} vs plain {kname} (bf16): max |diff| {step['max_diff']:.3e} over max "
+            f"|logit| {step['max_logit']:.3e} = {step['rel']:.3e}, tol {TOL_E2E:g}; same argmax "
+            f"{step['same_argmax']} (smallest top-2 margin {step['margin']:.3e}); finite "
+            f"{step['finite']} {'ok' if step_ok else 'FAIL'}" + capped_text(step))
+    else:
+        log("  the wave never had all eight slots live: no decode-step check")
+    launches = out["launches"]
+    if paged:
+        log(f"  prefill segments {out['segments']}; free pages after the wave "
+            f"{out['free_after']} of {out['usable']}")
+        if launches["flash"] <= 0 or launches["paged"] <= 0 or launches["decode"] != 0:
+            raise SystemExit(f"{label}: the paged path did not go through K1 and K3 with K2 "
+                             "at zero")
+        if out["segments"] <= 0 or out["free_after"] != out["usable"]:
+            raise SystemExit(f"{label}: chunked prefill did not run, or pages were not returned")
+    elif launches["flash"] <= 0 or launches["decode"] <= 0 or launches["paged"] != 0:
+        raise SystemExit(f"{label}: the dense path did not go through K1 and K2 alone")
+    if not (k1_ok and step_ok):
+        raise SystemExit(f"{label}: full-width outputs are wrong")
+    shapes = dict(model=out["model"], last=state["last"], prompt_lens=out["prompt_lens"],
+                  requests=len(requests), waves=out["waves"], tpot_ms=tpot * 1e3,
+                  ttft_ms=median(short_t) * 1e3, peak=out["peak"])
+    if paged:
+        calls = state["tail_calls"]
+        A, T, S = max(calls, key=lambda c: c[2])
+        long_len = max(out["prompt_lens"])
+        shapes.update(table=state["table"], num_pages=out["num_pages"], P=out["P"],
+                      R=out["R"], step=out["R"] // 2,
+                      segment=dict(A=A, T=T, plen=S - T, tails=[min(T, long_len - (S - T))],
+                                   launches=len(calls), model=out["model"]))
+    return launches, shapes
+
+
+# --------------------------------------------------------------------- #
 # Phase 5f: llama3-8b at full width with int8 and int4 weights
 # --------------------------------------------------------------------- #
 
@@ -2617,7 +2960,8 @@ async def greedy_ids(handler, messages, n):
 
 def phase_kv8_full_width(torch, kernels, seed, paged):
     """5a's dense engine and requests (``paged=False``) or 5b's paged engine
-    and requests (the 6050-token prompt in 1024-token segments) with
+    and requests (the 6050-token prompt in 1024-token segments; fixed
+    chunks, ``KV8_PAGED_KNOBS``) with
     ``engine_kv_quantize="int8"``, at all 32 layers: the first wave served,
     a counted wave whose first step with all eight slots live runs
     ``decode_step_check`` through K2's int8 body (dense) or K3 on the int8
@@ -2636,7 +2980,8 @@ def phase_kv8_full_width(torch, kernels, seed, paged):
 
     async def run():
         handler = await full_width_engine(torch, seed, max_seq, f"{tag} engine",
-                                          engine_kv_quantize="int8")
+                                          engine_kv_quantize="int8",
+                                          **(KV8_PAGED_KNOBS if paged else {}))
         batcher = handler.backend.batcher
         if batcher.cache.scales is None or batcher.paged != paged:
             raise SystemExit(f"{tag}: the engine's cache is not int8 or not "
@@ -3985,6 +4330,41 @@ def sdpa_yardstick(torch, device, gen, shape):
     return {label: [key for _, key, _ in r] for label, r in rows.items()}
 
 
+def time_gemma(torch, fa, da, pa, device, timer, gen, worst, paths):
+    """The head_dim 256 bodies, each at the shapes its own run gave it: K1
+    and K2 bf16 at gemma-2b's dense wave and K3 bf16 at gemma2-2b's paged
+    wave, K1 at its widest segment (5i); K1, K2 and K3 fp32 at the
+    gemma2-tiny-h256 golden requests (4h). Their errors are phase 3's
+    head_dim 256 cases'."""
+    w256 = {(key[0][:-len("_h256")], key[1]): err for key, err in worst.items()
+            if isinstance(key, tuple) and key[0].endswith("_h256")}
+    d_launches, d = paths["gemma_dense"]
+    lens = d["prompt_lens"]
+    T = 64
+    while T < max(lens):
+        T *= 2
+    out = time_kernels(torch, fa, da, device, timer, gen, torch.bfloat16, d["model"],
+                       flash=dict(B=len(lens), T=T, lens=lens),
+                       decode=dict(B=len(d["last"]), S=2048, last=d["last"]),
+                       launches=d_launches, worst=w256, suffix="_h256")
+    p_launches, p = paths["gemma_paged"]
+    out[0]["launches_paged"] = p_launches["flash"]
+    out.append(time_paged(torch, pa, device, timer, gen, torch.bfloat16, p,
+                          p_launches["paged"], w256, suffix="_h256"))
+    out.append(time_tail(torch, fa, device, timer, gen, p["segment"], w256,
+                         "flash_fwd_segment_h256"))
+    g_launches, g = paths["gemma_golden"]
+    fp32 = time_kernels(torch, fa, da, device, timer, gen, torch.float32, g["model"],
+                        flash=g["flash"], decode=g["decode"], launches=g_launches, worst=w256,
+                        suffix="_h256_fp32")
+    gp_launches, gp = paths["gemma_golden_paged"]
+    fp32[0]["launches_paged"] = gp_launches["flash"]
+    fp32.append(time_paged(torch, pa, device, timer, gen, torch.float32,
+                           dict(gp["paged"], model=gp["model"], requests=gp["requests"]),
+                           gp_launches["paged"], w256, suffix="_h256_fp32"))
+    return out + fp32
+
+
 def phase_timing(torch, kernels, device, seed, worst, paths):
     """Every path's kernels, each at the shapes its own run gave it: bf16 at
     the llama3-8b waves', fp32 at the golden protocol-s requests'."""
@@ -4062,12 +4442,14 @@ def phase_timing(torch, kernels, device, seed, worst, paths):
     for e in fp32:
         if e["name"].startswith("flash_"):
             e["library_kernels"] = yard["backward" if "bwd" in e["name"] else "forward"]
+    log("  -- head_dim 256 (Gemma): K1, K2 and K3 at 5i's shapes (bf16) and 4h's (fp32)")
+    gemma = time_gemma(torch, fa, da, pa, device, timer, gen, worst, paths)
     log("  -- the quantized product (csrc/qmatmul.cu), no pallas_call counterpart")
     qmm = time_qmatmul(torch, kernels["qmatmul"], device, timer, gen, worst["qmatmul"], paths)
     log("  -- the integer arm (csrc/int8_matmul.cu), no pallas_call counterpart")
     native = time_native(torch, kernels["int8_matmul"], kernels["qmatmul"], device, timer, gen,
                          worst["int8_matmul"], paths)
-    return out + fp32 + qmm + native
+    return out + fp32 + gemma + qmm + native
 
 
 def main() -> int:
@@ -4117,10 +4499,11 @@ def main() -> int:
         + ", ".join(f"CUDAGraph.{m} {'present' if ok else 'ABSENT'}" for m, ok in found.items())
         + ("" if all(found.values()) else "; every step of a chunk graph runs (ROADMAP C.4)"))
 
-    stage("2. build (nvcc, sm_90a, the seven kernel sources in parallel)")
+    stage("2. build (nvcc, sm_90a, the eight kernel sources in parallel)")
     t0 = time.perf_counter()
-    build.build_libraries(["flash_fwd", "decode_attention", "paged_attention", "flash_bwd_dq",
-                           "flash_bwd_dkv", "qmatmul", "int8_matmul"])
+    build.build_libraries(["flash_fwd", "decode_attention", "paged_attention",
+                           "paged_attention_h256", "flash_bwd_dq", "flash_bwd_dkv", "qmatmul",
+                           "int8_matmul"])
     log(f"  built in {time.perf_counter() - t0:.1f} s")
     for name, (secs, text) in build.build_log.items():
         log(f"  {name}: nvcc {secs:.1f} s")
@@ -4203,6 +4586,14 @@ def main() -> int:
         paths[key] = phase_golden(torch, kernels, root, asset, paged="paged" in key, knobs=knobs,
                                   prefix_cache=None if repeat > 1 else 0, repeat=repeat,
                                   native=True)
+    for stem in ("gemma2_tiny_h256", "gemma_tiny_h256"):
+        for paged in (False, True):
+            asset = f"{stem}{'_paged' if paged else ''}_golden.json"
+            stage(f"4h. golden {stem.replace('_', '-')} token ids (fp32, head_dim 256): "
+                  f"{'paged cache, chunked prefill' if paged else 'dense cache'}")
+            got = phase_golden(torch, kernels, root, asset, paged=paged)
+            if stem == "gemma2_tiny_h256":
+                paths["gemma_golden_paged" if paged else "gemma_golden"] = got
     stage("5a. llama3-8b full width, bf16, dense cache, 8 concurrent JSON requests")
     paths["full"] = phase_full_width(torch, kernels, args.seed)
     gc.collect()
@@ -4242,12 +4633,20 @@ def main() -> int:
           "requests)")
     paths["kv8"] = phase_kv8_full_width(torch, kernels, args.seed, paged=False)
     stage("5g. the same, paged (engine_max_seq 8192; 5b's requests, the long prompt in "
-          "1024-token segments)")
+          "1024-token segments; fixed chunks)")
     paths["kv8_paged"] = phase_kv8_full_width(torch, kernels, args.seed, paged=True)
     stage(f"5c. the device's busy share: {PROFILED_WAVES} profiled waves of each llama3-8b "
           "workload")
     paths["full"][1].update(phase_busy(torch, args.seed))
     stop_shared()
+    gc.collect()
+    torch.cuda.empty_cache()
+    stage("5i. gemma2-2b full width, bf16, paged cache (engine_max_seq 8192, pages of 128), "
+          "5b's requests, fixed chunks")
+    paths["gemma_paged"] = phase_gemma_full_width(torch, kernels, args.seed, "gemma2-2b", 8192)
+    stage("5i. gemma-2b full width, bf16, dense cache (engine_max_seq 2048), 5a's requests, "
+          "fixed chunks")
+    paths["gemma_dense"] = phase_gemma_full_width(torch, kernels, args.seed, "gemma-2b", 2048)
     gc.collect()
     torch.cuda.empty_cache()
     stage("7a. golden training: protocol-s fp32, 4 steps against the JAX trainer")

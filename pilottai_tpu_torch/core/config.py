@@ -28,12 +28,13 @@ ROADMAP = {
     "sched": "P6c (scheduling policies: priority, gangs and pre-warming)",
     "kvtier": "P7 (KV cache tier)",
     "serve": "P8 (Serve, agents and the document pipeline on the port)",
-    "models": "P9 (Gemma, MoE and Hugging Face checkpoints)",
+    "models": "P9b (MoE, Hugging Face checkpoints and tokenizers)",
     "multi": "P10 (multi-GPU)",
     "tooling": "P12 (tooling)",
     # Training (slice P11) refuses what its one-device path does not carry.
     "ring": "P10 (multi-GPU: ring attention, sharded flash, a mesh)",
-    "moe": "P9 (Gemma, MoE and Hugging Face checkpoints: the MoE layers)",
+    "moe": "P9b (MoE, Hugging Face checkpoints and tokenizers: the MoE layers)",
+    "gemma_train": "P9c (Gemma training, with kernels K4 and K5 at head_dim 256)",
     "corpora": "P12 (tooling: cli.py train and text corpora)",
 }
 

@@ -91,8 +91,11 @@
 // dtype before the PV broadcast.
 //
 // Modes: bf16 and fp32 caches (q in the cache's dtype), and int8 caches
-// with q in bf16 or fp32; window, softcap; head_dim 32, 64, 128; at most 8
-// query heads per kv head.
+// with q in bf16 or fp32; window, softcap; head_dim 32, 64, 128, 256; at
+// most 8 query heads per kv head. At head_dim 256 (Gemma) a lane owns 8
+// output columns and a staged row is 256 elements: the walk is the same,
+// and the fp32 ring's three stages (195 KB) and q (G KB) still fit one
+// block's shared memory.
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -123,29 +126,42 @@ template <> __device__ __forceinline__ float round_p<__nv_bfloat16>(float x) {
   return __bfloat162float(__float2bfloat16(x));
 }
 
-// N consecutive elements of type T from shared memory, widened to fp32.
+// N consecutive elements of type T from shared memory, widened to fp32:
+// one vector load, or 16-byte loads for more than 16 bytes (the PV
+// product's 8 fp32 columns a lane at head_dim 256).
 template <typename T, int N>
 __device__ __forceinline__ void load_row(const unsigned char* src, float* out) {
   constexpr int BYTES = N * static_cast<int>(sizeof(T));
-  static_assert(BYTES == 1 || BYTES == 2 || BYTES == 4 || BYTES == 8 || BYTES == 16,
-                "one vector load");
-  using V = typename std::conditional<
-      BYTES == 16, uint4,
-      typename std::conditional<
-          BYTES == 8, uint2,
-          typename std::conditional<
-              BYTES == 4, uint32_t,
-              typename std::conditional<BYTES == 2, uint16_t, uint8_t>::type>::type>::type>::type;
-  const V raw = *reinterpret_cast<const V*>(src);
-  const T* e = reinterpret_cast<const T*>(&raw);
+  if constexpr (BYTES > 16) {
+    static_assert(BYTES % 16 == 0, "whole 16-byte loads");
+    constexpr int PER = 16 / static_cast<int>(sizeof(T));
 #pragma unroll
-  for (int i = 0; i < N; ++i) out[i] = to_f(e[i]);
+    for (int i = 0; i < N; i += PER) load_row<T, PER>(src + i * sizeof(T), out + i);
+  } else {
+    static_assert(BYTES == 1 || BYTES == 2 || BYTES == 4 || BYTES == 8 || BYTES == 16,
+                  "one vector load");
+    using V = typename std::conditional<
+        BYTES == 16, uint4,
+        typename std::conditional<
+            BYTES == 8, uint2,
+            typename std::conditional<
+                BYTES == 4, uint32_t,
+                typename std::conditional<BYTES == 2, uint16_t, uint8_t>::type>::type>::type>::type;
+    const V raw = *reinterpret_cast<const V*>(src);
+    const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+    for (int i = 0; i < N; ++i) out[i] = to_f(e[i]);
+  }
 }
 
 // N consecutive fp32 values from device memory through L2 (not L1: another
 // SM wrote them), in one vector load.
 template <int N> __device__ __forceinline__ void load_cg(const float* src, float* out) {
-  if constexpr (N == 4) {
+  if constexpr (N > 4) {
+    static_assert(N % 4 == 0, "whole float4 loads");
+#pragma unroll
+    for (int i = 0; i < N; i += 4) load_cg<4>(src + i, out + i);
+  } else if constexpr (N == 4) {
     const float4 v = __ldcg(reinterpret_cast<const float4*>(src));
     out[0] = v.x, out[1] = v.y, out[2] = v.z, out[3] = v.w;
   } else if constexpr (N == 2) {
@@ -506,6 +522,8 @@ cudaError_t dispatch_h(int H, const Params& p, int B, cudaStream_t stream) {
       return launch<TQ, T, 64>(p, B, stream);
     case 128:
       return launch<TQ, T, 128>(p, B, stream);
+    case 256:
+      return launch<TQ, T, 256>(p, B, stream);
     default:
       return cudaErrorInvalidValue;
   }

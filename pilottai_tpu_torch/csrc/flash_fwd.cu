@@ -11,6 +11,9 @@
 //   o = softmax(logits) . v  (p cast to the input dtype before the PV product)
 //   lse = m + log(l), NEG_INF (-2^30) where a row saw no key (o = 0 there)
 //
+// Head dims 32, 64, 128 and 256 (Gemma); each body's note says what 256
+// changes.
+//
 // What bounds it on an H100: at long T the work is compute (4*H multiply-adds
 // per live (query, key, head) pair against T*(N+2K)*H inputs), so the kernel
 // is bounded by operations; at short T by the bytes of q, k, v and o. Both
@@ -73,13 +76,23 @@ __device__ __forceinline__ bool attends(int qp, int kp, int window) {
 // zero-filled); kv tiles are live, full or masked pair by pair from the
 // bounds pass (staged in shared memory once) and the block's and the
 // warp's own position bounds, as in the bf16 body, and a super-tile with no
-// live kv tile is never loaded.
+// live kv tile is never loaded. At head_dim 256 (Gemma) a kv tile is 16
+// keys (r_bk) and the PV product runs over O's columns in passes of four
+// n-tiles (r_och): O alone takes 128 registers a lane there.
 constexpr int R_ROWW = 2;     // row warps, 16 rows each
 constexpr int R_GROUPS = 2;   // key groups
 constexpr int R_NT = 32 * R_ROWW * R_GROUPS;
 constexpr int R_BR = 16 * R_ROWW;  // flattened rows a block
-// Keys per kv tile, a key group's share of a super-tile.
-template <int H> __host__ __device__ constexpr int r_bk() { return H == 128 ? 32 : 64; }
+// Keys per kv tile, a key group's share of a super-tile: 16 at head_dim 256,
+// where the staged tiles of 32 keys would pass the 227 KB a block can have
+// (R_BR + 4 * BKS rows of H + 4 floats: 300 KB at 32 keys, 166 KB at 16).
+template <int H> __host__ __device__ constexpr int r_bk() {
+  return H == 256 ? 16 : H == 128 ? 32 : 64;
+}
+// Output n-tiles a pass of O += P V: all of them up to head_dim 128; at 256,
+// whose O already takes 128 registers a lane, four at a time, so that the
+// pass's two fresh accumulators take 32 registers and not 256.
+template <int H> __host__ __device__ constexpr int r_och() { return H == 256 ? 4 : H / 8; }
 // Q's split fragments in registers (H of them) up to head_dim 64.
 template <int H> __host__ __device__ constexpr bool r_qreg() { return H <= 64; }
 
@@ -319,36 +332,42 @@ __global__ void __launch_bounds__(R_NT) flash_fwd_fp32_kernel(
       // for the odd k-steps, added to O on the CUDA cores: the tensor cores'
       // accumulation truncates, and its error would grow with every tile
       // summed into O.
-      constexpr int NC = ONT < 4 ? ONT : 4;  // n-tiles a pass
-      float pv[2][ONT][4];
+      constexpr int NC = ONT < 4 ? ONT : 4;  // n-tiles a product batch
+      constexpr int OCH = r_och<H>();         // n-tiles a pass
 #pragma unroll
-      for (int u = 0; u < 2; ++u) {
-#pragma unroll
-        for (int nt = 0; nt < ONT; ++nt) pv[u][nt][0] = pv[u][nt][1] = pv[u][nt][2] = pv[u][nt][3] = 0.f;
-      }
-#pragma unroll
-      for (int kk = 0; kk < SNT; kk += 2) {
-        FragA pa[2];
+      for (int c0 = 0; c0 < ONT; c0 += OCH) {
+        float pv[2][OCH][4];
 #pragma unroll
         for (int u = 0; u < 2; ++u) {
-          split_a(pa[u], sacc[kk + u][0], sacc[kk + u][2], sacc[kk + u][1], sacc[kk + u][3]);
+#pragma unroll
+          for (int nt = 0; nt < OCH; ++nt) {
+            pv[u][nt][0] = pv[u][nt][1] = pv[u][nt][2] = pv[u][nt][3] = 0.f;
+          }
         }
 #pragma unroll
-        for (int c = 0; c < ONT; c += NC) {
-          FragB vb[2][NC];
+        for (int kk = 0; kk < SNT; kk += 2) {
+          FragA pa[2];
 #pragma unroll
           for (int u = 0; u < 2; ++u) {
-            const float* vr = tV + ((kk + u) * 8 + cq) * LD + (lane >> 2) + c * 8;
-#pragma unroll
-            for (int i = 0; i < NC; ++i) split_b(vb[u][i], vr[i * 8], vr[LD + i * 8]);
+            split_a(pa[u], sacc[kk + u][0], sacc[kk + u][2], sacc[kk + u][1], sacc[kk + u][3]);
           }
-          mma_3xtf32(pv, c, pa, vb);
+#pragma unroll
+          for (int c = 0; c < OCH; c += NC) {
+            FragB vb[2][NC];
+#pragma unroll
+            for (int u = 0; u < 2; ++u) {
+              const float* vr = tV + ((kk + u) * 8 + cq) * LD + (lane >> 2) + (c0 + c) * 8;
+#pragma unroll
+              for (int i = 0; i < NC; ++i) split_b(vb[u][i], vr[i * 8], vr[LD + i * 8]);
+            }
+            mma_3xtf32(pv, c, pa, vb);
+          }
         }
-      }
 #pragma unroll
-      for (int nt = 0; nt < ONT; ++nt) {
+        for (int nt = 0; nt < OCH; ++nt) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) oacc[nt][e] += pv[0][nt][e] + pv[1][nt][e];
+          for (int e = 0; e < 4; ++e) oacc[c0 + nt][e] += pv[0][nt][e] + pv[1][nt][e];
+        }
       }
     }
     __syncthreads();  // every warp is done with stage st before it is refilled
@@ -433,7 +452,12 @@ __global__ void __launch_bounds__(R_NT) flash_fwd_fp32_kernel(
 // so that four blocks fit an SM's shared memory) come through a 2-stage
 // shared-memory ring filled with cp.async (rows past valid[b]
 // zero-filled), so the next tile's bytes arrive while this one is
-// computed.
+// computed. At head_dim 256 (Gemma) O's 64 x 256 fp32 accumulator takes
+// 128 registers a thread on its own, so two blocks share an SM (up to 255
+// registers a thread) with tiles of 32 keys (98 KB of shared memory a
+// block), and P V is two m64n128k16 products a k16 step, one per half of
+// O's columns (pv_step). A simple body first: FlashAttention-3's split of
+// O over two consumer warpgroups and a producer warp is later work.
 //
 // Tile liveness comes from bounds, not a pair scan: with qmin/qmax the
 // q tile's positions and kmin/kmax the kv tile's (over real rows and keys),
@@ -449,7 +473,11 @@ __global__ void __launch_bounds__(R_NT) flash_fwd_fp32_kernel(
 // longest under causal positions, to the first.
 constexpr int F_BQ = 64, F_NT = 128;
 // Keys per kv tile.
-template <int H> __host__ __device__ constexpr int f_bk() { return H == 128 ? 32 : 64; }
+template <int H> __host__ __device__ constexpr int f_bk() { return H >= 128 ? 32 : 64; }
+// Blocks an SM: four, at most 128 registers a thread; two at head_dim 256,
+// whose 64 x 256 fp32 output accumulator alone takes 128 registers a
+// thread (up to 255 a thread at two blocks).
+template <int H> __host__ __device__ constexpr int f_min_blocks() { return H == 256 ? 2 : 4; }
 
 // From head_dim 64 on, both products run on wgmma with Q, K and V in the
 // swizzled layout (plus 1 KB to align it); at 32 on mma.sync from padded
@@ -485,8 +513,23 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// O += P V over one k16 step of P: one m64nHk16 wgmma up to head_dim 128; at
+// 256 two m64n128k16 on O's two column halves, V's panels 0-1 and 2-3.
+template <int ONT>
+__device__ __forceinline__ void pv_step(float (&oacc)[ONT][4], const uint32_t (&a)[4],
+                                        const unsigned char* v_rows, int panel_bytes) {
+  if constexpr (ONT == 32) {
+    wgmma_bf16_rs(*reinterpret_cast<float(*)[16][4]>(&oacc[0]), a,
+                  wgmma_desc_mn(v_rows, panel_bytes));
+    wgmma_bf16_rs(*reinterpret_cast<float(*)[16][4]>(&oacc[16]), a,
+                  wgmma_desc_mn(v_rows + 2 * panel_bytes, panel_bytes));
+  } else {
+    wgmma_bf16_rs(oacc, a, wgmma_desc_mn(v_rows, panel_bytes));
+  }
+}
+
 template <int H>
-__global__ void __launch_bounds__(F_NT, 4) flash_fwd_bf16_kernel(
+__global__ void __launch_bounds__(F_NT, f_min_blocks<H>()) flash_fwd_bf16_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const int32_t* __restrict__ qpos,
     const int32_t* __restrict__ kpos, const int32_t* __restrict__ valid,
@@ -729,7 +772,7 @@ __global__ void __launch_bounds__(F_NT, 4) flash_fwd_bf16_kernel(
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < F_BK / 16; ++kk) {
-        wgmma_bf16_rs(oacc, pf[kk], wgmma_desc_mn(vb + kk * 16 * 128, F_BK * 128));
+        pv_step(oacc, pf[kk], vb + kk * 16 * 128, F_BK * 128);
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -776,8 +819,8 @@ __global__ void __launch_bounds__(F_NT, 4) flash_fwd_bf16_kernel(
   }
 }
 
-// bounds: scratch of B * ceil(S / 32) int2 (32: the smallest f_bk), filled by
-// the first launch.
+// bounds: scratch of B * ceil(S / 16) int2 (16: the smallest tile, r_bk<256>),
+// filled by the first launch.
 template <int H>
 cudaError_t launch_bf16_tc(const void* q, const void* k, const void* v, const void* qpos,
                            const void* kpos, const void* valid, void* bounds, void* o, void* lse,
@@ -804,7 +847,7 @@ cudaError_t launch_bf16_tc(const void* q, const void* k, const void* v, const vo
   return cudaGetLastError();
 }
 
-// bounds: scratch of B * ceil(S / 32) int2, filled by the first launch.
+// bounds: scratch of B * ceil(S / 16) int2, filled by the first launch.
 template <int H>
 cudaError_t launch_fp32(const void* q, const void* k, const void* v, const void* qpos,
                         const void* kpos, const void* valid, void* bounds, void* o, void* lse,
@@ -849,7 +892,7 @@ cudaError_t launch(int dtype, const void* q, const void* k, const void* v, const
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. bounds: int32 scratch of 2 * B * ceil(S / 32),
+// dtype: 0 = float32, 1 = bfloat16. bounds: int32 scratch of 2 * B * ceil(S / 16),
 // where the first launch puts the kv tiles' position bounds. All tensors
 // contiguous; returns cudaGetLastError().
 extern "C" int pt_flash_fwd(int dtype, const void* q, const void* k, const void* v,
@@ -867,6 +910,9 @@ extern "C" int pt_flash_fwd(int dtype, const void* q, const void* k, const void*
                         window, scale, softcap, st);
     case 128:
       return launch<128>(dtype, q, k, v, qpos, kpos, valid, bounds, o, lse, B, Tq, S, N, Kh,
+                         window, scale, softcap, st);
+    case 256:
+      return launch<256>(dtype, q, k, v, qpos, kpos, valid, bounds, o, lse, B, Tq, S, N, Kh,
                          window, scale, softcap, st);
     default:
       return cudaErrorInvalidValue;

@@ -63,7 +63,8 @@
 // Modes: bf16 and fp32 pools (q and the ring in the pool's dtype), int8 pools
 // with scales (q and the ring in bf16 or fp32), q_blocks >= 1 (speculative
 // rows: row = head*q_blocks + d sits at position qpos + d), ring or none,
-// window, softcap; head_dim 32, 64, 128; any page size P >= 8 (the JAX
+// window, softcap; head_dim 32, 64, 128 and, built from this source by
+// paged_attention_h256.cu, 256; any page size P >= 8 (the JAX
 // engine's floor: a page is walked in tiles of 32 keys, the last one of a
 // page cut to what the page holds, and a page longer than a split is a
 // split of its own); at most 32 query rows per kv head. The engine runs
@@ -72,6 +73,9 @@
 // the ring, the verify block and the paged model drafts. The dequantize-first
 // algebra above is the TPU kernel's; the JAX engine's CPU path applies the
 // scales after the dots instead, which differs from it only in rounding.
+// At head_dim 256 (Gemma) a lane owns 8 output columns a row; with fp32 q
+// (fp32 pools, or int8 pools under fp32 q) the ring is two stages deep
+// (stages() below) so that q for 32 rows and the ring fit a block.
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -85,7 +89,6 @@ constexpr int kMaxRows = 32;               // query rows per kv head
 constexpr int TS = 32;                     // keys per tile: one warp lane per key
 constexpr int NT = 128;                    // threads per block
 constexpr int NW = NT / 32;
-constexpr int STAGES = 3;                  // tiles in the shared-memory ring
 
 template <typename T> __device__ __forceinline__ float to_f(T x);
 template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
@@ -103,23 +106,32 @@ template <> __device__ __forceinline__ float round_p<__nv_bfloat16>(float x) {
   return __bfloat162float(__float2bfloat16(x));
 }
 
-// N consecutive elements of type T from shared memory, widened to fp32.
+// N consecutive elements of type T from shared memory, widened to fp32:
+// one vector load, or 16-byte loads for more than 16 bytes (the PV
+// product's 8 fp32 columns a lane at head_dim 256).
 template <typename T, int N>
 __device__ __forceinline__ void load_row(const unsigned char* src, float* out) {
   constexpr int BYTES = N * static_cast<int>(sizeof(T));
-  static_assert(BYTES == 1 || BYTES == 2 || BYTES == 4 || BYTES == 8 || BYTES == 16,
-                "one vector load");
-  using V = typename std::conditional<
-      BYTES == 16, uint4,
-      typename std::conditional<
-          BYTES == 8, uint2,
-          typename std::conditional<BYTES == 4, uint32_t,
-                                    typename std::conditional<BYTES == 2, uint16_t,
-                                                              uint8_t>::type>::type>::type>::type;
-  const V raw = *reinterpret_cast<const V*>(src);
-  const T* e = reinterpret_cast<const T*>(&raw);
+  if constexpr (BYTES > 16) {
+    static_assert(BYTES % 16 == 0, "whole 16-byte loads");
+    constexpr int PER = 16 / static_cast<int>(sizeof(T));
 #pragma unroll
-  for (int i = 0; i < N; ++i) out[i] = to_f(e[i]);
+    for (int i = 0; i < N; i += PER) load_row<T, PER>(src + i * sizeof(T), out + i);
+  } else {
+    static_assert(BYTES == 1 || BYTES == 2 || BYTES == 4 || BYTES == 8 || BYTES == 16,
+                  "one vector load");
+    using V = typename std::conditional<
+        BYTES == 16, uint4,
+        typename std::conditional<
+            BYTES == 8, uint2,
+            typename std::conditional<BYTES == 4, uint32_t,
+                                      typename std::conditional<BYTES == 2, uint16_t,
+                                                                uint8_t>::type>::type>::type>::type;
+    const V raw = *reinterpret_cast<const V*>(src);
+    const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+    for (int i = 0; i < N; ++i) out[i] = to_f(e[i]);
+  }
 }
 
 __device__ __forceinline__ float warp_max(float x) {
@@ -183,10 +195,20 @@ template <typename TQ, typename TKV, int H> __host__ __device__ constexpr int st
   return 2 * TS * rb + 2 * TS * static_cast<int>(sizeof(float));
 }
 
+// Tiles in the shared-memory ring: three, or two where three stages and
+// q for kMaxRows rows would pass the 227 KB a block can have (fp32 rows at
+// head_dim 256: 3 x 66.8 KB + 32 KB).
+template <typename TQ, typename TKV, int H> __host__ __device__ constexpr int stages() {
+  return static_cast<size_t>(kMaxRows) * H * sizeof(float) + 3 * stage_bytes<TQ, TKV, H>() <=
+                 227 * 1024
+             ? 3
+             : 2;
+}
+
 template <typename TQ, typename TKV, int H>
 constexpr size_t smem_bytes(int G) {
   return static_cast<size_t>(G) * H * sizeof(float) +
-         static_cast<size_t>(STAGES) * stage_bytes<TQ, TKV, H>();
+         static_cast<size_t>(stages<TQ, TKV, H>()) * stage_bytes<TQ, TKV, H>();
 }
 
 
@@ -361,7 +383,7 @@ __device__ __forceinline__ void attend_tile(const unsigned char* stage, bool sca
 // Stream n_tiles tiles (tile(i) says where tile i lives, or that it is
 // dead) through the STAGES-deep ring: tile i + STAGES - 1 is copied while
 // tile i is computed.
-template <typename T, typename VT, int H, int RPW, typename TileAt>
+template <typename T, typename VT, int H, int RPW, int STAGES, typename TileAt>
 __device__ __forceinline__ void stream_tiles(TileAt tile, int n_tiles, unsigned char* ring,
                                              int stage_stride, bool scaled, const Params& p,
                                              int G, const float* sq, float (&m)[RPW],
@@ -435,12 +457,12 @@ __global__ void __launch_bounds__(NT) paged_split_kernel(const Params p) {
     const int r_lo = p.window > 0 ? max(0, p.ring_step - p.window + 1) : 0;
     const int r_first = (r_lo / TS) * TS;
     const int n_tiles = (p.ring_step - r_first) / TS + 1;
-    stream_tiles<TQ, TQ, H, RPW>(
+    stream_tiles<TQ, TQ, H, RPW, stages<TQ, TKV, H>()>(
         [&](int i) { return ring_tile<TQ, H>(p, kh, b, r_first, i); }, n_tiles, ring, stride,
         false, p, G, sq, m, l, acc);
   } else {
     const int tpp = (p.P + TS - 1) / TS;
-    stream_tiles<TKV, VT, H, RPW>(
+    stream_tiles<TKV, VT, H, RPW, stages<TQ, TKV, H>()>(
         [&](int i) { return page_tile<TKV, H>(p, kh, b, page_lo, page_hi, last, qp, i); },
         (page_hi - page_lo) * tpp, ring, stride, p.k_scales != nullptr, p, G, sq, m, l, acc);
   }
@@ -539,15 +561,23 @@ cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// Head dims 32, 64 and 128 here; 256 in the library that
+// paged_attention_h256.cu builds from this source, so that nvcc compiles
+// the two halves side by side.
 template <typename TQ, typename TKV>
 cudaError_t dispatch_h(int H, const Params& p, int B, cudaStream_t stream) {
   switch (H) {
+#ifdef PT_PAGED_HEAD_DIM_256
+    case 256:
+      return launch<TQ, TKV, 256>(p, B, stream);
+#else
     case 32:
       return launch<TQ, TKV, 32>(p, B, stream);
     case 64:
       return launch<TQ, TKV, 64>(p, B, stream);
     case 128:
       return launch<TQ, TKV, 128>(p, B, stream);
+#endif
     default:
       return cudaErrorInvalidValue;
   }

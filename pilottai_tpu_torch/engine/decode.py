@@ -74,16 +74,16 @@ import torch
 
 from pilottai_tpu_torch.device import upload
 from pilottai_tpu_torch.engine.sampling import SamplingState, admit_sampling, sample_core
-from pilottai_tpu_torch.models.common import ModelConfig, matmul_f32, rms_norm, rope_tables
+from pilottai_tpu_torch.models.common import ModelConfig, matmul_f32, rope_tables
 from pilottai_tpu_torch.models.qmatmul import qmatmul
 from pilottai_tpu_torch.models.quant import Q4Tensor, QTensor
 from pilottai_tpu_torch.models.transformer import (
-    _attn_out,
     _embed,
-    _mlp,
     _qkv,
     _unembed,
     forward_prefill,
+    layer_tail,
+    norm,
 )
 from pilottai_tpu_torch.ops.kernels.decode_attention import decode_attention
 from pilottai_tpu_torch.ops.kernels.flash_attention import flash_attention_with_lse
@@ -189,15 +189,6 @@ def release_decode(state: DecodeState, slots: Sequence[int]) -> DecodeState:
             state.done[int(s)] = True
             state.budget[int(s)] = 0
     return state
-
-
-def _layer_tail(cfg: ModelConfig, lp: Dict[str, Any], x: torch.Tensor,
-                attn: torch.Tensor) -> torch.Tensor:
-    """Everything after a layer's attention weights: projection,
-    residual, MLP, residual."""
-    x = x + _attn_out(cfg, lp["attn"], attn)
-    h = rms_norm(x, lp["ln2"]["scale"], cfg.rms_eps)
-    return x + _mlp(lp, h)
 
 
 def _merge_stats(acc_a, m_a, l_a, acc_b, m_b, l_b):
@@ -331,7 +322,7 @@ def decode_step_logits(
     B = tokens.shape[0]
     G = cfg.n_heads // cfg.n_kv_heads
     windows = cfg.window_sizes()
-    x = _embed(params, tokens[:, None].long())
+    x = _embed(cfg, params, tokens[:, None].long())
     sin, cos = rope_tables(pos[:, None], cfg.head_dim, cfg.rope_theta)
     ring_rows = torch.full((B,), i + 1, dtype=torch.int32, device=tokens.device)
     for l, lp in enumerate(params["layers"]):
@@ -339,7 +330,7 @@ def decode_step_logits(
         layer_k, layer_v = cache.layers[l]
         k_sc, v_sc = _layer_scales(cache, l)
         rk, rv = rings[l]
-        h = rms_norm(x, lp["ln1"]["scale"], cfg.rms_eps)
+        h = norm(cfg, x, lp["ln1"])
         q, k, v = _qkv(cfg, lp["attn"], h, sin, cos)
         rk[:, :, i] = k[:, 0].to(rk.dtype)
         rv[:, :, i] = v[:, 0].to(rv.dtype)
@@ -365,10 +356,10 @@ def decode_step_logits(
             )
             attn = _combine_stats(acc_p, m_p, l_p, acc_c.reshape(acc_p.shape),
                                   m_c.reshape(m_p.shape), l_c.reshape(l_p.shape))
-        x = _layer_tail(
+        x = layer_tail(
             cfg, lp, x, attn.to(x.dtype).reshape(B, 1, cfg.n_heads, cfg.head_dim)
         )
-    h = rms_norm(x, params["final_norm"]["scale"], cfg.rms_eps)
+    h = norm(cfg, x, params["final_norm"])
     if fused_epilogue:
         return fused_greedy_epilogue(cfg, params, h)[:, 0]
     return _unembed(cfg, params, h)[:, 0]
@@ -635,7 +626,7 @@ def _model_drafts(
     drafts = []
     for j in range(draft_bufs[0][0].shape[2]):
         qpos = pos + j
-        x = _embed(params, tok[:, None].long())
+        x = _embed(cfg, params, tok[:, None].long())
         sin, cos = rope_tables(qpos[:, None], H, cfg.rope_theta)
         count = torch.full((B,), j + 1, dtype=torch.int32, device=cur.device)
         for l in range(draft_layers):
@@ -645,7 +636,7 @@ def _model_drafts(
             bk, bv = draft_bufs[l]
             layer_k, layer_v = cache.layers[l]
             k_sc, v_sc = _layer_scales(cache, l)
-            h = rms_norm(x, lp["ln1"]["scale"], cfg.rms_eps)
+            h = norm(cfg, x, lp["ln1"])
             q, k, v = _qkv(cfg, lp["attn"], h, sin, cos)
             bk[:, :, j] = k[:, 0].to(bk.dtype)
             bv[:, :, j] = v[:, 0].to(bv.dtype)
@@ -671,8 +662,8 @@ def _model_drafts(
                                          l_p.reshape(B, K, G), acc_r, m_r, l_r)
             acc, _, l_sum = _merge_stats(acc, m, l_sum, acc_b, m_b, l_b)
             attn = acc / torch.clamp(l_sum, min=1e-30)[..., None]
-            x = _layer_tail(cfg, lp, x, attn.to(x.dtype).reshape(B, 1, cfg.n_heads, H))
-        h = rms_norm(x, params["final_norm"]["scale"], cfg.rms_eps)
+            x = layer_tail(cfg, lp, x, attn.to(x.dtype).reshape(B, 1, cfg.n_heads, H))
+        h = norm(cfg, x, params["final_norm"])
         tok = torch.argmax(_unembed(cfg, params, h)[:, 0], dim=-1).to(torch.int32)
         drafts.append(tok)
     return torch.stack(drafts, dim=1)
@@ -701,7 +692,7 @@ def spec_block_forward(
     G = cfg.n_heads // K
     windows = cfg.window_sizes()
     prefix_last = start - 1
-    x = _embed(params, blk.long())
+    x = _embed(cfg, params, blk.long())
     sin, cos = rope_tables(pvec, H, cfg.rope_theta)
     new_blk = []
     for l, lp in enumerate(params["layers"]):
@@ -709,7 +700,7 @@ def spec_block_forward(
         layer_k, layer_v = cache.layers[l]
         k_sc, v_sc = _layer_scales(cache, l)
         rk, rv = rings[l]
-        h = rms_norm(x, lp["ln1"]["scale"], cfg.rms_eps)
+        h = norm(cfg, x, lp["ln1"])
         q, k, v = _qkv(cfg, lp["attn"], h, sin, cos)                # [B, D, heads, H]
         blk_k = k.transpose(1, 2).to(rk.dtype)                      # [B, K, D, H]
         blk_v = v.transpose(1, 2).to(rv.dtype)
@@ -731,9 +722,9 @@ def spec_block_forward(
                                     cfg.attn_softcap, window,
                                     kv_scales=None if k_sc is None else (k_sc[:, :, :Sb],
                                                                          v_sc[:, :, :Sb]))
-        x = _layer_tail(cfg, lp, x, attn.to(x.dtype).reshape(B, D, cfg.n_heads, H))
+        x = layer_tail(cfg, lp, x, attn.to(x.dtype).reshape(B, D, cfg.n_heads, H))
         new_blk.append((blk_k, blk_v))
-    return rms_norm(x, params["final_norm"]["scale"], cfg.rms_eps), new_blk
+    return norm(cfg, x, params["final_norm"]), new_blk
 
 
 @dataclass
@@ -1077,23 +1068,23 @@ def _tail_prefill(
     A, Tt = tail_tokens.shape
     positions = prefix_len + torch.arange(Tt, dtype=torch.int32, device=tail_tokens.device)
     positions = positions[None].expand(A, Tt)
-    x = _embed(params, tail_tokens)
+    x = _embed(cfg, params, tail_tokens)
     sin, cos = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
     windows = cfg.window_sizes()
     ks: List[torch.Tensor] = []
     vs: List[torch.Tensor] = []
     for l, lp in enumerate(params["layers"]):
         pk, pv = prefix_layer(l)
-        h = rms_norm(x, lp["ln1"]["scale"], cfg.rms_eps)
+        h = norm(cfg, x, lp["ln1"])
         q, k, v = _qkv(cfg, lp["attn"], h, sin, cos)
         attn = _tail_prefix_attn(
             q, k, v, pk, pv, prefix_len, tail_lens, cfg.qscale, cfg.attn_softcap,
             int(windows[l]),
         )
-        x = _layer_tail(cfg, lp, x, attn.to(x.dtype))
+        x = layer_tail(cfg, lp, x, attn.to(x.dtype))
         ks.append(k)
         vs.append(v)
-    x = rms_norm(x, params["final_norm"]["scale"], cfg.rms_eps)
+    x = norm(cfg, x, params["final_norm"])
     return _unembed(cfg, params, x), torch.stack(ks), torch.stack(vs)
 
 

@@ -85,7 +85,7 @@ class TorchEngine(LLMBackend):
         if config.checkpoint_path is not None and Path(config.checkpoint_path).is_dir():
             raise NotInSlice(
                 "checkpoint_path must be a .npz written by scripts/export_protocol_s_npz.py; "
-                "orbax and Hugging Face checkpoints arrive with ROADMAP item P9"
+                "orbax and Hugging Face checkpoints arrive with ROADMAP item P9b"
             )
         self._start_lock = asyncio.Lock()
 

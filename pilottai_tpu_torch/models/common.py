@@ -1,5 +1,6 @@
 """Model configuration, parameter init, RMSNorm and RoPE — the port's
-counterpart of ``pilottai_tpu/models/common.py`` for the llama family.
+counterpart of ``pilottai_tpu/models/common.py`` for the llama and Gemma
+families.
 
 Parameters are a plain nested dict mirroring the JAX tree, except that
 the stacked ``layers/…`` leaves (leading L axis, for ``lax.scan``)
@@ -35,7 +36,12 @@ class ModelConfig:
     rope_theta: float = 500_000.0
     rms_eps: float = 1e-5
     tie_embeddings: bool = True
-    # Attention options the two kernels implement (0 = off for llama).
+    # Family behaviours, explicit fields as in the JAX config.
+    act: str = "silu"              # "silu" (llama) | "gelu_tanh" (gemma)
+    scale_embed: bool = False      # gemma: x *= sqrt(hidden)
+    rms_offset: bool = False       # gemma: scale = (1 + w)
+    post_norms: bool = False       # gemma2: post-attention and post-MLP norms
+    # Attention options the kernels implement (0 = off for llama).
     logit_softcap: float = 0.0
     attn_softcap: float = 0.0
     sliding_window: int = 0
@@ -71,8 +77,8 @@ class ModelConfig:
         E, F, V, L = self.hidden_size, self.intermediate_size, self.vocab_size, self.n_layers
         per_layer = (
             E * self.q_dim + 2 * E * self.kv_dim + self.q_dim * E  # attn
-            + 3 * E * F                                             # SwiGLU
-            + 2 * E                                                 # norms
+            + 3 * E * F                                             # gated MLP
+            + 2 * E + (2 * E if self.post_norms else 0)             # norms
         )
         head = 0 if self.tie_embeddings else E * V
         return V * E + L * per_layer + E + head
@@ -86,9 +92,11 @@ def init_params(
 ) -> Dict[str, Any]:
     """Random-init parameters with the JAX init's scaling: every matmul
     weight is ``N(0, 1) * fan_in**-0.5`` (the embedding ``N(0, 1)``), norm
-    scales are ones. Each leaf is drawn in float32 on ``device`` from
-    ``generator`` (which must live on that device) and cast, one leaf at
-    a time, so an 8B bf16 init peaks at the tree plus one fp32 leaf."""
+    scales are ones, or zeros where the config's RMSNorm adds 1 to its
+    scale (Gemma's ``rms_offset``). Each leaf is drawn in float32 on
+    ``device`` from ``generator`` (which must live on that device) and
+    cast, one leaf at a time, so an 8B bf16 init peaks at the tree plus
+    one fp32 leaf."""
     device = resolve_device(device)
     dtype = dtype or cfg.dtype
     E, F, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
@@ -97,14 +105,16 @@ def init_params(
         w = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
         return (w * fan_in**-0.5).to(dtype)
 
-    def ones(n: int) -> torch.Tensor:
-        return torch.ones((n,), device=device, dtype=dtype)
+    fill = torch.zeros if cfg.rms_offset else torch.ones
+
+    def norm(n: int) -> Dict[str, torch.Tensor]:
+        return {"scale": fill((n,), device=device, dtype=dtype)}
 
     layers = []
     for _ in range(cfg.n_layers):
         layers.append({
-            "ln1": {"scale": ones(E)},
-            "ln2": {"scale": ones(E)},
+            "ln1": norm(E),
+            "ln2": norm(E),
             "attn": {
                 "wq": normal((E, cfg.q_dim), E),
                 "wk": normal((E, cfg.kv_dim), E),
@@ -117,10 +127,13 @@ def init_params(
                 "wd": normal((F, E), F),
             },
         })
+        if cfg.post_norms:
+            layers[-1]["ln1_post"] = norm(E)
+            layers[-1]["ln2_post"] = norm(E)
     params: Dict[str, Any] = {
         "embed": normal((V, E), 1.0),
         "layers": layers,
-        "final_norm": {"scale": ones(E)},
+        "final_norm": norm(E),
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = normal((E, V), E)
@@ -145,11 +158,16 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a.float() @ b.float()
 
 
-def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
-    """RMSNorm with fp32 statistics; the result is cast back to x's dtype."""
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float,
+             offset: bool = False) -> torch.Tensor:
+    """RMSNorm with fp32 statistics; the result is cast back to x's dtype.
+    With ``offset`` (Gemma) the scale is ``1 + w``, added in fp32."""
     xf = x.float()
     normed = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
-    return (normed * scale.float()).to(x.dtype)
+    s = scale.float()
+    if offset:
+        s = s + 1.0
+    return (normed * s).to(x.dtype)
 
 
 def rope_tables(

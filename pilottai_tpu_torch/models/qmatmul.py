@@ -28,7 +28,7 @@ with no arm stamped (a call outside an engine) reads the variable at each
 call, as the JAX function reads it at each trace.
 
 The einsum-shaped ``spec`` form of the JAX function serves the MoE experts
-and comes with them (ROADMAP P9).
+and comes with them (ROADMAP P9b).
 """
 
 from __future__ import annotations

@@ -1,24 +1,34 @@
-"""Model registry: name → ModelConfig (llama family of this slice)."""
+"""Model registry: name → ModelConfig (the llama and Gemma families; the
+Mixtral entries wait for the MoE slice)."""
 
 from __future__ import annotations
 
 from typing import Dict, List
 
-from pilottai_tpu_torch.models import llama
+from pilottai_tpu_torch.models import gemma, llama
 from pilottai_tpu_torch.models.common import ModelConfig
 
-_REGISTRY: Dict[str, ModelConfig] = {
-    cfg.name: cfg
-    for cfg in (
-        llama.LLAMA3_8B,
-        llama.LLAMA3_1B,
-        llama.LLAMA3_8B_BYTE,
-        llama.LLAMA3_1B_BYTE,
-        llama.LLAMA_TINY,
-        llama.PROTOCOL_S,
-        llama.PROTOCOL_XS,
-    )
-}
+_REGISTRY: Dict[str, ModelConfig] = {}
+
+
+def register_model(config: ModelConfig) -> None:
+    _REGISTRY[config.name] = config
+
+
+for _cfg in (
+    llama.LLAMA3_8B,
+    llama.LLAMA3_1B,
+    llama.LLAMA3_8B_BYTE,
+    llama.LLAMA3_1B_BYTE,
+    llama.LLAMA_TINY,
+    llama.PROTOCOL_S,
+    llama.PROTOCOL_XS,
+    gemma.GEMMA_2B,
+    gemma.GEMMA2_2B,
+    gemma.GEMMA_2B_BYTE,
+    gemma.GEMMA_TINY,
+):
+    register_model(_cfg)
 
 
 def get_model_config(name: str) -> ModelConfig:

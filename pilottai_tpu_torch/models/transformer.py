@@ -1,6 +1,8 @@
 """Transformer forward: prefill, the single-step decode reference and the
 training forward (the port's counterpart of
-``pilottai_tpu/models/transformer.py`` for the dense llama trunk).
+``pilottai_tpu/models/transformer.py`` for the dense llama and Gemma
+trunks: the activation, the embedding scale, the RMSNorm offset and the
+post norms follow the config's fields, as in the JAX package).
 
 Full-sequence attention goes through kernel K1 (``ops/kernels/
 flash_attention.py``) for every prompt and every training row — no size
@@ -34,10 +36,21 @@ from pilottai_tpu_torch.ops.kernels.flash_attention import flash_attention
 from pilottai_tpu_torch.ops.kvcache import KVCache
 
 
-def _mlp(lp: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
-    """Dense SwiGLU."""
+def _activation(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    if cfg.act == "gelu_tanh":
+        return F.gelu(x, approximate="tanh")
+    return F.silu(x)
+
+
+def _mlp(cfg: ModelConfig, lp: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
+    """Dense gated MLP: SwiGLU (llama) or GeGLU (Gemma)."""
     p = lp["mlp"]
-    return qmatmul(F.silu(qmatmul(x, p["wg"])) * qmatmul(x, p["wu"]), p["wd"])
+    return qmatmul(_activation(cfg, qmatmul(x, p["wg"])) * qmatmul(x, p["wu"]), p["wd"])
+
+
+def norm(cfg: ModelConfig, x: torch.Tensor, p: Dict[str, Any]) -> torch.Tensor:
+    """The config's RMSNorm of ``x`` with the scale of norm ``p``."""
+    return rms_norm(x, p["scale"], cfg.rms_eps, cfg.rms_offset)
 
 
 def _qkv(
@@ -56,8 +69,31 @@ def _attn_out(cfg: ModelConfig, p: Dict[str, Any], attn: torch.Tensor) -> torch.
     return qmatmul(attn.reshape(B, T, cfg.q_dim), p["wo"])
 
 
-def _embed(params: Dict[str, Any], tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"][tokens]
+def _embed(cfg: ModelConfig, params: Dict[str, Any], tokens: torch.Tensor) -> torch.Tensor:
+    """Embedding rows, times ``sqrt(hidden)`` cast to their dtype when the
+    config scales them (Gemma), as the JAX ``_embed`` multiplies. The tied
+    head reads the unscaled table."""
+    x = params["embed"][tokens]
+    if cfg.scale_embed:
+        x = x * torch.tensor(cfg.hidden_size**0.5, dtype=x.dtype)
+    return x
+
+
+def layer_tail(cfg: ModelConfig, lp: Dict[str, Any], x: torch.Tensor,
+               attn: torch.Tensor) -> torch.Tensor:
+    """Everything after a layer's attention: projection, optional post
+    norm, residual, MLP, optional post norm, residual. One definition for
+    every layer body of the port (prefill, the decode reference, and
+    ``engine/decode.py``'s chunk, speculative block, drafts and tail
+    prefill), as the JAX engine's ``_layer_tail`` requires of its own."""
+    out = _attn_out(cfg, lp["attn"], attn)
+    if cfg.post_norms:
+        out = norm(cfg, out, lp["ln1_post"])
+    x = x + out
+    out = _mlp(cfg, lp, norm(cfg, x, lp["ln2"]))
+    if cfg.post_norms:
+        out = norm(cfg, out, lp["ln2_post"])
+    return x + out
 
 
 class LogitsHead(torch.autograd.Function):
@@ -125,15 +161,12 @@ def _full_seq_block(
     valid: torch.Tensor,      # [B]
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One transformer block over a full sequence. Returns (x, k, v)."""
-    h = rms_norm(x, lp["ln1"]["scale"], cfg.rms_eps)
-    q, k, v = _qkv(cfg, lp["attn"], h, sin, cos)
+    q, k, v = _qkv(cfg, lp["attn"], norm(cfg, x, lp["ln1"]), sin, cos)
     attn = flash_attention(
         q, k, v, positions, positions, valid, window,
         scale=cfg.qscale, softcap=cfg.attn_softcap,
     )
-    x = x + _attn_out(cfg, lp["attn"], attn)
-    h = rms_norm(x, lp["ln2"]["scale"], cfg.rms_eps)
-    return x + _mlp(lp, h), k, v
+    return layer_tail(cfg, lp, x, attn), k, v
 
 
 def forward_prefill(
@@ -145,7 +178,7 @@ def forward_prefill(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Full-prompt forward. Returns (logits [B, T, V] fp32, k, v) with k/v
     stacked ``[L, B, T, K, H]`` ready to insert into a ``KVCache``."""
-    x = _embed(params, tokens)
+    x = _embed(cfg, params, tokens)
     sin, cos = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
     windows = cfg.window_sizes()
     ks: List[torch.Tensor] = []
@@ -154,7 +187,7 @@ def forward_prefill(
         x, k, v = _full_seq_block(cfg, x, lp, int(windows[l]), sin, cos, positions, valid)
         ks.append(k)
         vs.append(v)
-    x = rms_norm(x, params["final_norm"]["scale"], cfg.rms_eps)
+    x = norm(cfg, x, params["final_norm"])
     return _unembed(cfg, params, x), torch.stack(ks), torch.stack(vs)
 
 
@@ -172,7 +205,7 @@ def forward_decode(
     B = tokens.shape[0]
     S = cache.max_len
     positions = cache.lengths.long()
-    x = _embed(params, tokens[:, None])
+    x = _embed(cfg, params, tokens[:, None])
     sin, cos = rope_tables(positions[:, None], cfg.head_dim, cfg.rope_theta)
     windows = cfg.window_sizes()
     G = cfg.n_heads // cfg.n_kv_heads
@@ -181,8 +214,7 @@ def forward_decode(
     pos_b = positions[:, None, None, None]
     for l, lp in enumerate(params["layers"]):
         layer_k, layer_v = cache.layers[l]
-        h = rms_norm(x, lp["ln1"]["scale"], cfg.rms_eps)
-        q, k_new, v_new = _qkv(cfg, lp["attn"], h, sin, cos)
+        q, k_new, v_new = _qkv(cfg, lp["attn"], norm(cfg, x, lp["ln1"]), sin, cos)
         layer_k[live, :, positions[live]] = k_new[live, 0].to(layer_k.dtype)
         layer_v[live, :, positions[live]] = v_new[live, 0].to(layer_v.dtype)
         qg = q[:, 0].reshape(B, cfg.n_kv_heads, G, cfg.head_dim)
@@ -195,10 +227,8 @@ def forward_decode(
         s = torch.where(mask, s, torch.full_like(s, NEG_INF))
         w = torch.softmax(s, dim=-1).to(layer_v.dtype)
         attn = torch.einsum("bkgs,bksh->bkgh", w.float(), layer_v.float()).to(x.dtype)
-        x = x + _attn_out(cfg, lp["attn"], attn.reshape(B, 1, cfg.n_heads, cfg.head_dim))
-        h = rms_norm(x, lp["ln2"]["scale"], cfg.rms_eps)
-        x = x + _mlp(lp, h)
-    x = rms_norm(x, params["final_norm"]["scale"], cfg.rms_eps)
+        x = layer_tail(cfg, lp, x, attn.reshape(B, 1, cfg.n_heads, cfg.head_dim))
+    x = norm(cfg, x, params["final_norm"])
     logits = _unembed(cfg, params, x)[:, 0]
     cache.lengths.copy_(torch.where(active, cache.lengths + 1, cache.lengths))
     return logits, cache
@@ -226,7 +256,7 @@ def forward_train(
     if has_quantized(params):
         raise ValueError("forward_train: the parameters hold quantized (int8 or int4) weights; "
                          "quantization is for serving only, train on the dense weights")
-    x = _embed(params, tokens)
+    x = _embed(cfg, params, tokens)
     sin, cos = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
     windows = cfg.window_sizes()
     for l, lp in enumerate(params["layers"]):
@@ -235,7 +265,7 @@ def forward_train(
             x = checkpoint(_train_block, *args, use_reentrant=False, preserve_rng_state=False)
         else:
             x = _train_block(*args)
-    x = rms_norm(x, params["final_norm"]["scale"], cfg.rms_eps)
+    x = norm(cfg, x, params["final_norm"])
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return _unembed(cfg, params, x), aux
 

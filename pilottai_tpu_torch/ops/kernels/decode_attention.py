@@ -45,12 +45,22 @@ MAX_GROUP = 8  # query heads per kv head the kernel takes
 TILE = 32  # keys a tile of the kernel's walk: splits are runs of whole tiles
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _INT8_DTYPES = {torch.float32: 2, torch.bfloat16: 3}  # by q's dtype
-_HEAD_DIMS = (32, 64, 128)
+_HEAD_DIMS = (32, 64, 128, 256)
 # Per (device index, stream): the int32 arrival counters of the splits,
 # zero between launches (the last split of each (kv head, slot) resets its
 # own), and the device's SM count.
 _arrivals: Dict[Tuple[int, int], torch.Tensor] = {}
 _sm_count: Dict[int, int] = {}
+
+
+def check_kernel_shapes(n_heads: int, n_kv_heads: int, head_dim: int) -> None:
+    """Raise ``ValueError`` for heads the CUDA kernel does not take: head_dim
+    32, 64, 128 or 256, at most ``MAX_GROUP`` query heads per kv head."""
+    if (head_dim not in _HEAD_DIMS or n_kv_heads < 1 or n_heads % n_kv_heads
+            or n_heads // n_kv_heads > MAX_GROUP):
+        raise ValueError(f"decode_attention: the CUDA kernel takes head_dim in {_HEAD_DIMS} and "
+                         f"at most {MAX_GROUP} query heads per kv head; got heads "
+                         f"{n_heads}/{n_kv_heads}, head_dim {head_dim}")
 
 
 def split_count(B: int, n_kv_heads: int, S: int, n_sm: int) -> int:
@@ -224,8 +234,8 @@ def _launch(q, k_cache, v_cache, last_valid, q_positions, scale, softcap, window
                         f"got {q.dtype}/{k_cache.dtype}/{v_cache.dtype}")
     else:
         code = _DTYPES[q.dtype]
-    if (H not in _HEAD_DIMS or k_cache.shape != (B, K, S, H) or v_cache.shape != k_cache.shape
-            or N % K or N // K > MAX_GROUP):
+    check_kernel_shapes(N, K, H)
+    if k_cache.shape != (B, K, S, H) or v_cache.shape != k_cache.shape:
         raise ValueError(f"decode_attention: unsupported shapes q {tuple(q.shape)} "
                          f"cache {tuple(k_cache.shape)}")
     if not (q.is_contiguous() and k_cache.is_contiguous() and v_cache.is_contiguous()):

@@ -55,7 +55,8 @@ REPLACES_DQ = "pilottai_tpu/ops/pallas/flash_attention.py:202"
 SOURCE_DKV = "pilottai_tpu_torch/csrc/flash_bwd_dkv.cu"
 REPLACES_DKV = "pilottai_tpu/ops/pallas/flash_attention.py:274"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (32, 64, 128)
+_HEAD_DIMS = (32, 64, 128, 256)  # K1
+_BWD_HEAD_DIMS = (32, 64, 128)  # K4 and K5: head_dim 256 comes with Gemma training (P9c)
 
 
 def flash_attention_plain(
@@ -128,7 +129,20 @@ def tile_bounds(positions: torch.Tensor, block: int,
     return lo, hi
 
 
-def _check(name: str, q, k, v, extra=()) -> None:
+def check_kernel_shapes(n_heads: int, n_kv_heads: int, head_dim: int,
+                        backward: bool = False) -> None:
+    """Raise ``ValueError`` for heads the CUDA kernels do not take: K1 any
+    GQA grouping at head_dim 32, 64, 128 or 256; K4 and K5
+    (``backward``) not yet at 256."""
+    head_dims = _BWD_HEAD_DIMS if backward else _HEAD_DIMS
+    if head_dim not in head_dims or n_kv_heads < 1 or n_heads % n_kv_heads:
+        which = "K4 and K5 take" if backward else "K1 takes"
+        raise ValueError(f"flash_attention: the CUDA kernel {which} head_dim in {head_dims} "
+                         f"and whole query groups; got heads {n_heads}/{n_kv_heads}, "
+                         f"head_dim {head_dim}")
+
+
+def _check(name: str, q, k, v, extra=(), backward=False) -> None:
     """The kernels' common contract; raises on what they do not take."""
     B, T, N, H = q.shape
     _, S, K, _ = k.shape
@@ -137,7 +151,8 @@ def _check(name: str, q, k, v, extra=()) -> None:
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"{name}: q/k/v must share float32 or bfloat16, got "
                         f"{q.dtype}/{k.dtype}/{v.dtype}")
-    if H not in _HEAD_DIMS or k.shape != (B, S, K, H) or v.shape != k.shape or N % K:
+    check_kernel_shapes(N, K, H, backward)
+    if k.shape != (B, S, K, H) or v.shape != k.shape:
         raise ValueError(f"{name}: unsupported shapes q {tuple(q.shape)} "
                          f"k {tuple(k.shape)} v {tuple(v.shape)}")
     tensors = (q, k, v, *extra)
@@ -183,8 +198,9 @@ def flash_attention_fwd(
     o = torch.empty_like(q)
     lse = torch.empty((B, N, T), device=q.device, dtype=torch.float32)
     # The per-(batch row, kv tile) position bounds that K1's first launch
-    # writes, in both dtypes.
-    bounds = torch.empty((B, 2 * -(-S // 32)), device=q.device, dtype=torch.int32)
+    # writes, in both dtypes: tiles of 32 keys, or 16 in the fp32 body at
+    # head_dim 256.
+    bounds = torch.empty((B, 2 * -(-S // 16)), device=q.device, dtype=torch.int32)
 
     from pilottai_tpu_torch.ops.kernels.build import load_library
 
@@ -346,7 +362,7 @@ def bwd_operands(q, k, v, q_positions, kv_positions, valid, window, o, lse, do,
     do = do.contiguous()
     lse_rows = lse.transpose(1, 2).contiguous()                       # [B, N, T]
     delta = _delta(o, do, dlse)
-    _check("flash_attention_bwd", q, k, v, (do, lse_rows, delta))
+    _check("flash_attention_bwd", q, k, v, (do, lse_rows, delta), backward=True)
     if do.shape != q.shape or do.dtype != q.dtype or lse_rows.dtype != torch.float32:
         raise ValueError("flash_attention_bwd: do must match q in shape and dtype, and lse "
                          "must be fp32 [B,T,N]")

@@ -5,7 +5,8 @@ Replaces ``pilottai_tpu/ops/pallas/paged_attention.py:_paged_kernel``
 online-softmax statistics ``(acc, m, l)`` over each slot's live pages and,
 when a ring is given, over the decode chunk's in-flight rows too, merged
 as ``engine/decode.py:_merge_stats`` merges them. The CUDA source is
-``csrc/paged_attention.cu``; its header says what bounds it on an H100
+``csrc/paged_attention.cu`` (head_dim 256 built from it as a library of
+its own, ``csrc/paged_attention_h256.cu``); its header says what bounds it on an H100
 (the live pages' bytes) and what the design does about it: each slot's
 page walk is cut into splits of ``split_plan`` that run as blocks of their
 own, and a second pass merges the splits' statistics in split order.
@@ -43,7 +44,7 @@ KEYS_PER_SPLIT = 256  # keys' worth of page slots one block of the kernel walks
 MIN_PAGE = 8  # the smallest page the kernel takes, engine_page_size's floor
 _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-_HEAD_DIMS = (32, 64, 128)
+_HEAD_DIMS = (32, 64, 128, 256)
 
 
 def check_kernel_shapes(n_heads: int, n_kv_heads: int, head_dim: int, page_size: int,
@@ -333,7 +334,7 @@ def _launch(q, k_pool, v_pool, table, last_valid, q_positions, n_blocks, scale, 
 
     from pilottai_tpu_torch.ops.kernels.build import load_library
 
-    lib = _bind(load_library("paged_attention"))
+    lib = _bind(load_library("paged_attention_h256" if H == 256 else "paged_attention"))
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     status = lib.pt_paged_attention(
         _Q_DTYPES[q.dtype], _KV_DTYPES[k_pool.dtype], q.data_ptr(), k_pool.data_ptr(),

@@ -13,8 +13,9 @@ scheduler steps after the optimizer), and its clip scales by
 ``max_norm / g_norm`` only when ``g_norm >= max_norm`` (no epsilon).
 
 Outside the slice, refused with ``NotInSlice`` naming the ROADMAP item: a
-mesh, sharding rules or ``context_parallel`` (P10), MoE and Gemma configs
-(P9). ``cli.py train`` and its text corpora come with P12.
+mesh, sharding rules or ``context_parallel`` (P10), MoE configs (P9b) and
+Gemma configs (P9c: K4 and K5 at head_dim 256). ``cli.py train`` and its
+text corpora come with P12.
 """
 
 from __future__ import annotations
@@ -206,7 +207,7 @@ class Trainer:
         if getattr(model_cfg, "n_experts", 0) > 0:
             raise refuse_later("n_experts", model_cfg.n_experts, "moe")
         if model_cfg.family != "llama":
-            raise refuse_later("family", model_cfg.family, "models")
+            raise refuse_later("family", model_cfg.family, "gemma_train")
         self.model_cfg = model_cfg
         self.train_cfg = train_cfg or TrainConfig()
         self.device = resolve_device(device)

@@ -24,6 +24,7 @@ banned = [
     or m.startswith(("jax.", "jaxlib.", "orbax.", "optax.", "pilottai_tpu."))
 ]
 print(len(names), "modules")
+print("GEMMA", "pilottai_tpu_torch.models.gemma" in names)
 print("BANNED", banned)
 """
 
@@ -35,7 +36,8 @@ def test_port_imports_no_jax_and_no_jax_package():
     )
     assert out.returncode == 0, out.stderr
     lines = out.stdout.strip().splitlines()
-    assert int(lines[0].split()[0]) >= 38          # every module was imported
+    assert int(lines[0].split()[0]) >= 39          # every module was imported
+    assert lines[1] == "GEMMA True"                # the Gemma configs (slice P9a) among them
     assert lines[-1] == "BANNED []", lines[-1]
 
 
@@ -66,6 +68,8 @@ def test_entry_points_need_a_gpu_or_an_explicit_cpu(monkeypatch):
         KVCache.create(1, 1, 8, 2, 32)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         LLMHandler(LLMConfig(model_name="llama-tiny"))       # provider defaults to "cuda"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LLMHandler(LLMConfig(model_name="gemma2-2b"))        # the Gemma family too
     assert LLMConfig().provider == "cuda"
     # The explicit CPU request is honoured.
     assert resolve_device("cpu").type == "cpu"
