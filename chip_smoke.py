@@ -14,10 +14,11 @@ result line is printed only when every phase passed):
    speculative verify run on (without them those paths raise), and which
    of ``CUDAGraph``'s conditional-node methods it has (a chunk's exit once
    every slot is done needs them; without them every step runs);
-2. build — the eight hand-written kernel sources from
-   ``pilottai_tpu_torch/csrc`` with ``nvcc`` for sm_90a, in parallel (K3's
-   head_dim 256 instantiations are a source of their own,
-   ``paged_attention_h256.cu``, beside ``paged_attention.cu``);
+2. build — the ten hand-written kernel sources from
+   ``pilottai_tpu_torch/csrc`` with ``nvcc`` for sm_90a, in parallel (the
+   head_dim 256 instantiations of K3, K4 and K5 are sources of their own,
+   ``paged_attention_h256.cu``, ``flash_bwd_dq_h256.cu`` and
+   ``flash_bwd_dkv_h256.cu``, beside the kernels' sources);
 3. kernels — K1 (flash prefill), K2 (dense decode statistics) and K3
    (paged decode statistics, ring fused) held against their plain PyTorch
    versions at llama3-8b (head_dim 128), llama3-1b (64) and protocol-s (32)
@@ -69,7 +70,12 @@ result line is printed only when every phase passed):
    4 kv heads, a window, soft-cap 50) and gemma-2b's (one kv head), a tail
    shape and rows with no key; K2 at G 2 and 8, a window crossing splits,
    every slot empty, and its int8 body; K3 at pages of 128 and 16, the
-   ring, ``q_blocks`` 4, a window and int8 pools;
+   ring, ``q_blocks`` 4, a window and int8 pools; then K4 and K5 at head_dim
+   256 (Gemma training) in both dtypes, each case twice for the same bits
+   (``gemma_bwd_cases``): gemma2-2b's training shape (G 2, soft-cap 50, its
+   4096-key window and one that bites, an lse cotangent, a ragged row),
+   gemma-2b's (G 8, an empty row), G 1 with T != S and offset queries,
+   shuffled keys, and 7c's two tiny shapes (4 x 512);
 4. golden — the committed protocol-s checkpoint in fp32 (TF32 off) served
    through ``LLMHandler.generate_response``, once on the dense cache and
    once paged with chunked prefill, the prefix cache off as on the JAX
@@ -214,7 +220,15 @@ result line is printed only when every phase passed):
    below the first, exact launch counts, step time, tokens/s, model FLOPs
    utilisation, peak memory, one profiled step, and every parameter's
    gradient through the kernels against the same step through the plain
-   K1, K4 and K5 (``TOL_E2E_TRAIN``);
+   K1, K4 and K5 (``TOL_E2E_TRAIN``); (c) golden at head_dim 256: 7a's
+   check on the two tiny Gemma test models (gemma2-tiny-h256 with its
+   soft-caps and a 128-key window that bites at 512, gemma-tiny-h256 with
+   G 4 on one kv head), four steps each from the file's weights, against
+   ``assets/*_train_golden.json`` (the JAX trainer's,
+   ``scripts/export_gemma_train_golden.py``); (d) gemma2-2b at its
+   published widths (26 layers, head_dim 256, soft-caps 30 and 50, the
+   256,128-token vocab), 7b's run and checks at ``GEMMA_TRAIN_B`` x 2048,
+   peak memory printed;
 6. last, each path's kernels timed at the shapes that path gave them (bf16
    at phase 5's and 7b's, fp32 at phase 4's and 7a's; K1 also at 5d's hit
    shapes and 5b's last segment; K2 and K3 with the
@@ -243,7 +257,9 @@ result line is printed only when every phase passed):
    arm's kernel, and its row quantizer; the head_dim 256 bodies at 5i's
    shapes (K1 and K2 at gemma-2b's dense wave, K3 at gemma2-2b's paged
    wave, K1 at its widest segment) in bf16 and at 4h's gemma2-tiny-h256
-   shapes in fp32, each beside its bound and SDPA; the kernels line, then
+   shapes in fp32, and K1, K4 and K5 at 7d's gemma2-2b step in bf16 and
+   7c's gemma2-tiny-h256 steps in fp32, each beside its bound and SDPA
+   (its backward for K4 and K5); the kernels line, then
    the result line. Each phase's header prints the second it starts at,
    and the last lines the smoke's wall time.
 
@@ -332,6 +348,11 @@ TOL_TRAIN_GOLDEN = {"loss": 3e-5, "grad_norm": 1e-4}
 # carry the difference to every gradient.
 TOL_E2E_TRAIN = 4e-2
 TRAIN_STEPS = 8
+# Phase 7d: gemma2-2b's batch rows of 2048 tokens. Its 2.615B parameters
+# take ~47 GB as fp32 master weights, their gradients, AdamW's two moments
+# and the bf16 copy, and each fp32 [B, T, V] tensor of the soft-capped loss
+# takes 2.1 GB a row at the 256,128-token vocab: two rows fit one card.
+GEMMA_TRAIN_B = 2
 # H100 SXM dense bf16 on the tensor cores (NVIDIA data sheet), and for fp32
 # the fp32-accurate tensor-core rate, TF32's 495e12 over the three products
 # of 3xTF32: the least time this card takes for fp32-accurate products. The
@@ -658,9 +679,11 @@ def phase_kernels(torch, fa, da, pa, device, seed):
     # And K2's int8 body.
     kgen = torch.Generator(device=device)
     kgen.manual_seed(seed)
-    # And the head_dim 256 bodies of K1, K2 and K3 (Gemma).
+    # And the head_dim 256 bodies of K1, K2 and K3 (Gemma), and of K4 and K5.
     ggen = torch.Generator(device=device)
     ggen.manual_seed(seed)
+    tgen = torch.Generator(device=device)
+    tgen.manual_seed(seed)
     results, worst = [], {}
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype)[6:]
@@ -939,6 +962,7 @@ def phase_kernels(torch, fa, da, pa, device, seed):
             results.append(ok)
             worst[("decode_int8", dn)] = max(worst.get(("decode_int8", dn), 0.0), err)
         results += gemma_kernel_cases(torch, fa, da, pa, ggen, device, dtype, worst)
+        results += gemma_bwd_cases(torch, fa, tgen, device, dtype, worst)
     if not all(results):
         raise SystemExit("kernel check failed")
     return worst
@@ -1016,6 +1040,45 @@ def gemma_kernel_cases(torch, fa, da, pa, gen, device, dtype, worst):
         ok, err = check_paged(torch, pa, gen, device, name, dtype, **kw)
         results.append(ok)
         worst[("paged_h256", dn)] = max(worst.get(("paged_h256", dn), 0.0), err)
+    return results
+
+
+def gemma_bwd_cases(torch, fa, gen, device, dtype, worst):
+    """The head_dim 256 bodies of K4 and K5 (slice P9c): gemma2-2b's
+    training shape (8 query heads on 4 kv heads, soft-cap 50, its 4096-key
+    window, which T 2048 does not reach, and a window that bites),
+    gemma-2b's (G 8 on one kv head, an empty row), G 1 with T != S and
+    offset query positions, shuffled keys, and the two tiny h256 models'
+    golden training shapes (7c: 4 x 512, a 128-key window and soft-cap 50
+    at G 2, G 4 on one kv head). Each case twice (bit-identical
+    gradients). The errors go to the ``bwd_*_h256`` keys of ``worst``."""
+    dn = str(dtype)[6:]
+    cases = [
+        ("gemma2-2b T2048 window4096 softcap dlse", dict(B=2, T=2048, S=2048, N=8, K=4, H=256,
+                                                         valid=[2048, 1377], window=4096,
+                                                         softcap=50.0, dlse=True)),
+        ("gemma2-2b T1024 window 200 softcap", dict(B=2, T=1024, S=1024, N=8, K=4, H=256,
+                                                    valid=[1024, 700], window=200,
+                                                    softcap=50.0)),
+        ("gemma-2b G8 T1024 empty row", dict(B=2, T=1024, S=1024, N=8, K=1, H=256,
+                                             valid=[1024, 0])),
+        ("H256 G1 Tq100 S160 offset 60 dlse", dict(B=3, T=100, S=160, N=4, K=4, H=256,
+                                                   valid=[160, 97, 0], offset=60, dlse=True)),
+        ("H256 G2 Tq130 S300 shuffled softcap", dict(B=2, T=130, S=300, N=8, K=4, H=256,
+                                                     valid=[300, 211], offset=170,
+                                                     softcap=50.0, shuffle=True, dlse=True)),
+        ("gemma2-tiny-h256 T512 window 128", dict(B=4, T=512, S=512, N=4, K=2, H=256,
+                                                  valid=[512, 415, 1, 0], window=128,
+                                                  softcap=50.0, dlse=True)),
+        ("gemma-tiny-h256 G4 T512", dict(B=4, T=512, S=512, N=4, K=1, H=256,
+                                         valid=[512, 415, 300, 0])),
+    ]
+    results = []
+    for name, kw in cases:
+        ok, err_dq, err_dkv = check_flash_bwd(torch, fa, gen, device, name, dtype, **kw)
+        results.append(ok)
+        worst[("bwd_dq_h256", dn)] = max(worst.get(("bwd_dq_h256", dn), 0.0), err_dq)
+        worst[("bwd_dkv_h256", dn)] = max(worst.get(("bwd_dkv_h256", dn), 0.0), err_dkv)
     return results
 
 
@@ -3455,23 +3518,38 @@ def expect_train_launches(launches, layers, steps, label):
         raise SystemExit(f"the {label} training path did not launch K1, K4 and K5 as expected")
 
 
-def phase_train_golden(torch, kernels, root):
-    """Four fp32 steps of the port's Trainer from the shipped protocol-s
-    checkpoint, held to the JAX trainer's losses and grad norms."""
-    import numpy as np
-
+def golden_train_state(torch, root, golden):
+    """The Trainer and its state for a golden training file: protocol-s
+    from its shipped checkpoint, or the model of the file's ``config``
+    from its ``checkpoint`` times ``init_scale`` (the Gemma files,
+    ``scripts/export_gemma_train_golden.py``), in fp32."""
+    from pilottai_tpu_torch.models.common import ModelConfig
     from pilottai_tpu_torch.models.loader import PROTOCOL_S_NPZ, load_npz
     from pilottai_tpu_torch.models.registry import get_model_config
-    from pilottai_tpu_torch.train.protocol import protocol_batches
     from pilottai_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    cfg = (ModelConfig(**golden["config"]) if "config" in golden
+           else get_model_config(golden["model"])).replace(dtype=torch.float32)
+    npz = (root / "pilottai_tpu_torch" / "assets" / golden["checkpoint"] if "checkpoint" in golden
+           else PROTOCOL_S_NPZ)
+    trainer = Trainer(cfg, TrainConfig(**golden["train_config"]))
+    params = load_npz(npz, cfg, dtype=torch.float32, scale=golden.get("init_scale"))
+    return trainer, trainer.init_from_params(params)
+
+
+def phase_train_golden(torch, kernels, root, asset="protocol_s_train_golden.json"):
+    """Four fp32 steps of the port's Trainer from a golden file's weights
+    (the shipped protocol-s checkpoint; 7c: a head_dim 256 Gemma test
+    model's), held to the JAX trainer's losses and grad norms."""
+    import numpy as np
+
+    from pilottai_tpu_torch.train.protocol import protocol_batches
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    golden = json.loads((root / "pilottai_tpu_torch" / "assets" /
-                         "protocol_s_train_golden.json").read_text())
-    cfg = get_model_config(golden["model"]).replace(dtype=torch.float32)
-    trainer = Trainer(cfg, TrainConfig(**golden["train_config"]))
-    state = trainer.init_from_params(load_npz(PROTOCOL_S_NPZ, cfg, dtype=torch.float32))
+    golden = json.loads((root / "pilottai_tpu_torch" / "assets" / asset).read_text())
+    trainer, state = golden_train_state(torch, root, golden)
+    cfg = trainer.model_cfg
     spec = golden["batches"]
     stream = protocol_batches(spec["batch_size"], spec["seq_len"], seed=spec["seed"])
     batches = [next(stream) for _ in range(golden["steps"])]
@@ -3496,9 +3574,10 @@ def phase_train_golden(torch, kernels, root):
             f"{norm:.9g} (JAX {want['grad_norm']:.9g}, rel {rn:.2e}) tol loss "
             f"{TOL_TRAIN_GOLDEN['loss']:g} grad_norm {TOL_TRAIN_GOLDEN['grad_norm']:g} "
             f"{'ok' if step_ok else 'FAIL'}")
-    expect_train_launches(launches, cfg.n_layers, len(batches), "golden")
+    expect_train_launches(launches, cfg.n_layers, len(batches), golden["model"])
     if not ok:
-        raise SystemExit("the golden training steps differ from the JAX trainer's")
+        raise SystemExit(f"the golden {golden['model']} training steps differ from the JAX "
+                         "trainer's")
     shapes = dict(B=spec["batch_size"], T=spec["seq_len"],
                   lens=[int(n) for n in batches[0]["valid"]], model=cfg)
     return launches, shapes
@@ -3517,23 +3596,26 @@ def plain_train_attention(fa):
         fa.flash_attention_fwd, fa.flash_attention_bwd = fwd, bwd
 
 
-def train_grads(trainer, state, batch):
+def train_grads(trainer, state, batch, host=False):
     """Every master leaf's gradient of one loss at the state's parameters
-    (no update)."""
+    (no update); with ``host``, copied to the host's memory, so that the
+    next run's gradients do not share the card with them."""
     from pilottai_tpu_torch.train.trainer import param_leaves
 
     trainer.loss_and_grads(state, batch)
     leaves = param_leaves(state.params)
-    grads = [p.grad for p in leaves]
+    grads = [p.grad.to("cpu") if host else p.grad for p in leaves]
     for p in leaves:
         p.grad = None
     return grads
 
 
 def phase_train_full(torch, kernels, seed, model="llama3-1b", B=4, T=2048):
-    """llama3-1b, bf16 compute over fp32 master weights, remat on: 8 steps on
-    one fixed batch of 4 x 2048, then a profiled step and the gradient
-    check against the plain kernels."""
+    """A model at its published widths (7b llama3-1b, B 4; 7d gemma2-2b, B
+    2), bf16 compute over fp32 master weights, remat on: 8 steps on one
+    fixed batch of B x T, then a profiled step and the gradient check
+    against the plain kernels (the kernels' gradients held on the host
+    meanwhile)."""
     from torch.profiler import ProfilerActivity, profile
 
     from pilottai_tpu_torch.models.registry import get_model_config
@@ -3593,7 +3675,7 @@ def phase_train_full(torch, kernels, seed, model="llama3-1b", B=4, T=2048):
     busy = report_profile(prof, wall_us, f"train step ({model}, {B} x {T})", top=12)
 
     before = counts(kernels)
-    got = train_grads(trainer, state, batch)
+    got = train_grads(trainer, state, batch, host=True)
     with plain_train_attention(fa):
         want = train_grads(trainer, state, batch)
     torch.cuda.synchronize()
@@ -3605,6 +3687,7 @@ def phase_train_full(torch, kernels, seed, model="llama3-1b", B=4, T=2048):
 
     worst, where, finite = -1.0, "", True
     for (name, _), g, w in zip(named_leaves(state.params), got, want):
+        g = g.to(w.device)
         finite &= bool(torch.isfinite(g).all())
         rel = float((g - w).abs().max() / w.abs().max().clamp_min(1e-30))
         if rel > worst:
@@ -4330,14 +4413,21 @@ def sdpa_yardstick(torch, device, gen, shape):
     return {label: [key for _, key, _ in r] for label, r in rows.items()}
 
 
+def worst_h256(worst):
+    """Phase 3's head_dim 256 errors under the keys of the other head dims'
+    (``("flash_h256", dtype)`` as ``("flash", dtype)``)."""
+    return {(key[0][:-len("_h256")], key[1]): err for key, err in worst.items()
+            if isinstance(key, tuple) and key[0].endswith("_h256")}
+
+
 def time_gemma(torch, fa, da, pa, device, timer, gen, worst, paths):
     """The head_dim 256 bodies, each at the shapes its own run gave it: K1
     and K2 bf16 at gemma-2b's dense wave and K3 bf16 at gemma2-2b's paged
     wave, K1 at its widest segment (5i); K1, K2 and K3 fp32 at the
-    gemma2-tiny-h256 golden requests (4h). Their errors are phase 3's
-    head_dim 256 cases'."""
-    w256 = {(key[0][:-len("_h256")], key[1]): err for key, err in worst.items()
-            if isinstance(key, tuple) and key[0].endswith("_h256")}
+    gemma2-tiny-h256 golden requests (4h); K1, K4 and K5 bf16 at gemma2-2b's
+    training step (7d) and fp32 at the gemma2-tiny-h256 golden training
+    steps (7c). Their errors are phase 3's head_dim 256 cases'."""
+    w256 = worst_h256(worst)
     d_launches, d = paths["gemma_dense"]
     lens = d["prompt_lens"]
     T = 64
@@ -4362,7 +4452,17 @@ def time_gemma(torch, fa, da, pa, device, timer, gen, worst, paths):
     fp32.append(time_paged(torch, pa, device, timer, gen, torch.float32,
                            dict(gp["paged"], model=gp["model"], requests=gp["requests"]),
                            gp_launches["paged"], w256, suffix="_h256_fp32"))
-    return out + fp32
+    t_launches, t_shape = paths["train_gemma"]
+    out += time_train_kernels(torch, fa, device, timer, gen, torch.bfloat16, t_shape,
+                              t_launches, w256, suffix="_h256")
+    g_launches, g_shape = paths["train_golden_gemma2_tiny_h256"]
+    train_fp32 = time_train_kernels(torch, fa, device, timer, gen, torch.float32, g_shape,
+                                    g_launches, w256, suffix="_h256_fp32")
+    # 7c's gemma-tiny-h256 steps launched the same kernels at G 4.
+    other = paths["train_golden_gemma_tiny_h256"][0]
+    for e, key in zip(train_fp32, ("flash", "bwd_dq", "bwd_dkv")):
+        e["launches_gemma_tiny_h256"] = other[key]
+    return out + fp32 + train_fp32
 
 
 def phase_timing(torch, kernels, device, seed, worst, paths):
@@ -4442,7 +4542,8 @@ def phase_timing(torch, kernels, device, seed, worst, paths):
     for e in fp32:
         if e["name"].startswith("flash_"):
             e["library_kernels"] = yard["backward" if "bwd" in e["name"] else "forward"]
-    log("  -- head_dim 256 (Gemma): K1, K2 and K3 at 5i's shapes (bf16) and 4h's (fp32)")
+    log("  -- head_dim 256 (Gemma): K1, K2 and K3 at 5i's shapes (bf16) and 4h's (fp32); K1, K4 "
+        "and K5 at 7d's (bf16) and 7c's (fp32)")
     gemma = time_gemma(torch, fa, da, pa, device, timer, gen, worst, paths)
     log("  -- the quantized product (csrc/qmatmul.cu), no pallas_call counterpart")
     qmm = time_qmatmul(torch, kernels["qmatmul"], device, timer, gen, worst["qmatmul"], paths)
@@ -4499,11 +4600,11 @@ def main() -> int:
         + ", ".join(f"CUDAGraph.{m} {'present' if ok else 'ABSENT'}" for m, ok in found.items())
         + ("" if all(found.values()) else "; every step of a chunk graph runs (ROADMAP C.4)"))
 
-    stage("2. build (nvcc, sm_90a, the eight kernel sources in parallel)")
+    stage("2. build (nvcc, sm_90a, the ten kernel sources in parallel)")
     t0 = time.perf_counter()
     build.build_libraries(["flash_fwd", "decode_attention", "paged_attention",
-                           "paged_attention_h256", "flash_bwd_dq", "flash_bwd_dkv", "qmatmul",
-                           "int8_matmul"])
+                           "paged_attention_h256", "flash_bwd_dq", "flash_bwd_dq_h256",
+                           "flash_bwd_dkv", "flash_bwd_dkv_h256", "qmatmul", "int8_matmul"])
     log(f"  built in {time.perf_counter() - t0:.1f} s")
     for name, (secs, text) in build.build_log.items():
         log(f"  {name}: nvcc {secs:.1f} s")
@@ -4654,6 +4755,17 @@ def main() -> int:
     stage("7b. llama3-1b full width, bf16 compute, fp32 master weights, remat, 8 steps of 4 x "
           "2048")
     paths["train_full"] = phase_train_full(torch, kernels, args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    for stem in ("gemma2_tiny_h256", "gemma_tiny_h256"):
+        stage(f"7c. golden training: {stem.replace('_', '-')} fp32 (head_dim 256), 4 steps "
+              "against the JAX trainer")
+        paths[f"train_golden_{stem}"] = phase_train_golden(torch, kernels, root,
+                                                           f"{stem}_train_golden.json")
+    stage(f"7d. gemma2-2b full width, bf16 compute, fp32 master weights, remat, 8 steps of "
+          f"{GEMMA_TRAIN_B} x 2048 (head_dim 256: K1, K4, K5)")
+    paths["train_gemma"] = phase_train_full(torch, kernels, args.seed, model="gemma2-2b",
+                                            B=GEMMA_TRAIN_B)
     gc.collect()
     torch.cuda.empty_cache()
     stage("6. kernel times at each path's shapes")

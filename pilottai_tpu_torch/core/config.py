@@ -34,7 +34,6 @@ ROADMAP = {
     # Training (slice P11) refuses what its one-device path does not carry.
     "ring": "P10 (multi-GPU: ring attention, sharded flash, a mesh)",
     "moe": "P9b (MoE, Hugging Face checkpoints and tokenizers: the MoE layers)",
-    "gemma_train": "P9c (Gemma training, with kernels K4 and K5 at head_dim 256)",
     "corpora": "P12 (tooling: cli.py train and text corpora)",
 }
 

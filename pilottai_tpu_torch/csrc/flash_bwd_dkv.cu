@@ -33,6 +33,10 @@
 // at fp32's accuracy and the fp32-accurate tensor-core rate (495e12 / 3
 // FLOP/s, where the CUDA cores cap full fp32 at 67e12), with the same
 // ring, walk and tile rule.
+// Head dims 32, 64, 128 and 256 (Gemma); the head_dim 256 instantiations
+// are built from flash_bwd_dkv_h256.cu, a source of their own, so nvcc
+// compiles them in parallel with the others. Each body's note says what 256
+// changes.
 // Left on the table: S^T and dP^T read both operands from shared memory,
 // and an m64n64k16 product reads as many bytes a cycle as shared memory
 // delivers, so K and V held in registers (they are resident) or wider
@@ -71,7 +75,7 @@ __device__ __forceinline__ bool attends(int qp, int kp, int window) {
 // in registers for the whole walk, as the split A fragments of S^T and
 // dP^T (64 registers; at 64 and 128 they would not fit beside dK and dV,
 // and are read from shared memory and split at each use instead). Items
-// come through a 3-stage ring (2 at head_dim 128, for shared memory). Per
+// come through a 3-stage ring (2 at head_dim 128 and 256, for shared memory). Per
 // item, each warp runs mma.sync m16n8k8 in 3xTF32 on its 16 keys and 32
 // q rows:
 //   S^T = K Q^T and dP^T = V dO^T, Q and dO read as B operands;
@@ -85,12 +89,25 @@ __device__ __forceinline__ bool attends(int qp, int kp, int window) {
 // banks. Items in which none of a warp's keys is live are skipped by that
 // warp, and a warp whose every pair is live masks nothing. dK and dV stay
 // in registers until the epilogue; no atomics, bit-identical repeats.
-constexpr int W_BK = 64, W_BQ = 64;  // keys a block, q rows an item
-constexpr int W_KW = 4, W_QG = 2;      // key warps, q groups
-constexpr int W_NT = 32 * W_KW * W_QG;
-constexpr int W_GQ = W_BQ / W_QG;      // q rows a group takes of an item
+// At head_dim 256 (Gemma) dK and dV of a warp's 16 keys would take 256
+// registers a lane, and K, V and one ring stage of 64 rows 400 KB of shared
+// memory. So a block holds W_BK = 32 keys with its eight warps as two key
+// warps, times two column halves, times two q groups, over items of 32 q
+// rows (16 a group): a warp keeps its keys' dK and dV on its 128 columns
+// only (128 registers), computes S^T and dP^T over all 256 as its partner
+// on the other half does (the product's cost grows from 4 to 6 units of
+// H multiply-adds a (key, q row) pair; sharing p and ds through shared memory
+// would avoid that), and runs dV += P^T dO and dK += dS^T Q over its
+// columns in passes of four n-tiles, each in fresh accumulators. K, V and
+// a two-stage ring take 200 KB.
+constexpr int W_QG = 2;    // q groups
+constexpr int W_NT = 256;  // eight warps: key warps x column groups x q groups
+// Keys a block (16 a key warp), column groups, q rows an item.
+template <int H> __host__ __device__ constexpr int w_bk() { return H == 256 ? 32 : 64; }
+template <int H> __host__ __device__ constexpr int w_ch() { return H == 256 ? 2 : 1; }
+template <int H> __host__ __device__ constexpr int w_bq() { return H == 256 ? 32 : 64; }
 // Items in the ring.
-template <int H> __host__ __device__ constexpr int w_stages() { return H == 128 ? 2 : 3; }
+template <int H> __host__ __device__ constexpr int w_stages() { return H >= 128 ? 2 : 3; }
 // An item of the walk: q tile i (-1 past the last) of query head g, and
 // the q tile's position bounds.
 struct Item {
@@ -103,6 +120,7 @@ template <int H> __host__ __device__ constexpr bool w_kvreg() { return H == 32; 
 // bounds.
 template <int H>
 size_t w_smem_bytes(int Tq) {
+  constexpr int W_BK = w_bk<H>(), W_BQ = w_bq<H>();
   return static_cast<size_t>(2 * W_BK + 2 * w_stages<H>() * W_BQ) * (H + 4) * sizeof(float) +
          static_cast<size_t>(w_stages<H>() * 3 * W_BQ) * sizeof(float) +
          static_cast<size_t>((Tq + W_BQ - 1) / W_BQ) * sizeof(int2);
@@ -116,14 +134,20 @@ __global__ void __launch_bounds__(W_NT, 1) flash_bwd_dkv_fp32_kernel(
     const int32_t* __restrict__ kpos, const int32_t* __restrict__ valid,
     const int2* __restrict__ bounds, float* __restrict__ dk, float* __restrict__ dv, int Tq,
     int S, int N, int Kh, int window, float scale, float softcap) {
-  constexpr int LD = H + 4;      // fp32 row stride of the staged tiles
-  constexpr int CPR = H / 4;     // 16-byte chunks per row
-  constexpr int KSTEPS = H / 8;  // k-steps of S^T and dP^T over the head dim
-  constexpr int SNT = W_GQ / 8;  // n-tiles of a warp's s^T and dp^T
-  constexpr int ONT = H / 8;     // n-tiles of dk and dv
+  constexpr int W_BK = w_bk<H>(), W_BQ = w_bq<H>(), W_CH = w_ch<H>();
+  constexpr int W_KW = W_BK / 16;         // key warps, 16 keys each
+  constexpr int W_GQ = W_BQ / W_QG;       // q rows a group takes of an item
+  constexpr int LD = H + 4;               // fp32 row stride of the staged tiles
+  constexpr int CPR = H / 4;              // 16-byte chunks per row
+  constexpr int KSTEPS = H / 8;           // k-steps of S^T and dP^T over the head dim
+  constexpr int SNT = W_GQ / 8;           // n-tiles of a warp's s^T and dp^T
+  constexpr int ONT = H / 8 / W_CH;       // n-tiles of the warp's columns of dk and dv
+  constexpr int NP = W_CH > 1 ? 4 : ONT;  // n-tiles a pass of the item's products
+  constexpr int NC = NP < 4 ? NP : 4;     // n-tiles a product step
   constexpr int W_STAGES = w_stages<H>();
   constexpr bool KVREG = w_kvreg<H>();
-  static_assert(W_BK == 16 * W_KW && W_QG == 2, "a key warp owns 16 keys; two q groups");
+  static_assert(32 * W_KW * W_CH * W_QG == W_NT && W_QG == 2,
+                "a key warp owns 16 keys; column groups; two q groups");
 
   extern __shared__ __align__(16) float smem_w[];
   float* sK = smem_w;                                              // [BK][LD]
@@ -136,7 +160,10 @@ __global__ void __launch_bounds__(W_NT, 1) flash_bwd_dkv_fp32_kernel(
   int2* sBounds = reinterpret_cast<int2*>(sQpos + W_STAGES * W_BQ);  // [ceil(Tq / BQ)]
 
   const int tid = threadIdx.x, lane = tid & 31;
-  const int warp = (tid >> 5) % W_KW, grp = (tid >> 5) / W_KW;  // key warp, q group
+  const int warp = (tid >> 5) % W_KW;             // key warp
+  const int ch = (tid >> 5) / W_KW % W_CH;        // column group
+  const int grp = (tid >> 5) / (W_KW * W_CH);     // q group
+  const int c0 = ch * ONT * 8;                    // the warp's first column of dk and dv
   const int kh = blockIdx.x, b = blockIdx.y;
   const int j0 = blockIdx.z * W_BK;  // the first kv tiles, the longest, first
   const int G = N / Kh;
@@ -346,43 +373,46 @@ __global__ void __launch_bounds__(W_NT, 1) flash_bwd_dkv_fp32_kernel(
         }
       }
 
-      // dV += P^T dO and dK += dS^T Q: n-tile kk of P^T and dS^T is k-step
-      // kk, its column tq q row 2tq and column tq + 4 q row 2tq + 1; dO's
-      // and Q's B elements come from those rows. The item's products sum in
-      // fresh accumulators, added to dK and dV on the CUDA cores: the tensor
-      // cores' accumulation truncates, and its error would grow with every
-      // item summed into dK and dV.
-      constexpr int NC = ONT < 4 ? ONT : 4;  // n-tiles a pass
-      float item[2][ONT][4];  // this item's dV and dK
+      // dV += P^T dO and dK += dS^T Q over the warp's columns: n-tile kk of
+      // P^T and dS^T is k-step kk, its column tq q row 2tq and column tq + 4
+      // q row 2tq + 1; dO's and Q's B elements come from those rows. The
+      // item's products sum in fresh accumulators, NP n-tiles a pass (all of
+      // them below head_dim 256), added to dK and dV on the CUDA cores: the
+      // tensor cores' accumulation truncates, and its error would grow with
+      // every item summed into dK and dV.
 #pragma unroll
-      for (int nt = 0; nt < ONT; ++nt) {
+      for (int p0 = 0; p0 < ONT; p0 += NP) {
+        float item[2][NP][4];  // this item's dV and dK on the pass's n-tiles
 #pragma unroll
-        for (int e = 0; e < 4; ++e) item[0][nt][e] = item[1][nt][e] = 0.f;
-      }
+        for (int nt = 0; nt < NP; ++nt) {
 #pragma unroll
-      for (int kk = 0; kk < SNT; ++kk) {
-        FragA pda[2];
-        split_a(pda[0], sacc[kk][0], sacc[kk][2], sacc[kk][1], sacc[kk][3]);
-        split_a(pda[1], pacc[kk][0], pacc[kk][2], pacc[kk][1], pacc[kk][3]);
-        const int at = (kk * 8 + cq) * LD + (lane >> 2);
-#pragma unroll
-        for (int c = 0; c < ONT; c += NC) {
-          FragB oqb[2][NC];
-#pragma unroll
-          for (int i = 0; i < NC; ++i) {
-            const int x = at + (c + i) * 8;
-            split_b(oqb[0][i], tDO[x], tDO[x + LD]);
-            split_b(oqb[1][i], tQ[x], tQ[x + LD]);
-          }
-          mma_3xtf32(item, c, pda, oqb);
+          for (int e = 0; e < 4; ++e) item[0][nt][e] = item[1][nt][e] = 0.f;
         }
-      }
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
+        for (int kk = 0; kk < SNT; ++kk) {
+          FragA pda[2];
+          split_a(pda[0], sacc[kk][0], sacc[kk][2], sacc[kk][1], sacc[kk][3]);
+          split_a(pda[1], pacc[kk][0], pacc[kk][2], pacc[kk][1], pacc[kk][3]);
+          const int at = (kk * 8 + cq) * LD + (lane >> 2) + c0 + p0 * 8;
 #pragma unroll
-        for (int nt = 0; nt < ONT; ++nt) {
+          for (int c = 0; c < NP; c += NC) {
+            FragB oqb[2][NC];
 #pragma unroll
-          for (int e = 0; e < 4; ++e) acc[r][nt][e] += item[r][nt][e];
+            for (int i = 0; i < NC; ++i) {
+              const int x = at + (c + i) * 8;
+              split_b(oqb[0][i], tDO[x], tDO[x + LD]);
+              split_b(oqb[1][i], tQ[x], tQ[x + LD]);
+            }
+            mma_3xtf32(item, c, pda, oqb);
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+#pragma unroll
+          for (int nt = 0; nt < NP; ++nt) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[r][p0 + nt][e] += item[r][nt][e];
+          }
         }
       }
     }
@@ -404,7 +434,7 @@ __global__ void __launch_bounds__(W_NT, 1) flash_bwd_dkv_fp32_kernel(
     for (int r = 0; r < 2; ++r) {
 #pragma unroll
       for (int hr = 0; hr < 2; ++hr) {
-        float* row = xacc + (r * W_BK + r_lo + 8 * hr) * LD + cq;
+        float* row = xacc + (r * W_BK + r_lo + 8 * hr) * LD + c0 + cq;
 #pragma unroll
         for (int nt = 0; nt < ONT; ++nt) {
           *reinterpret_cast<float2*>(row + nt * 8) =
@@ -419,9 +449,9 @@ __global__ void __launch_bounds__(W_NT, 1) flash_bwd_dkv_fp32_kernel(
   for (int hr = 0; hr < 2; ++hr) {
     const int s = j0 + r_lo + 8 * hr;
     if (s >= S) continue;
-    const size_t off = ((static_cast<size_t>(b) * S + s) * Kh + kh) * H + cq;
-    const float* xv = xacc + (r_lo + 8 * hr) * LD + cq;
-    const float* xk = xacc + (W_BK + r_lo + 8 * hr) * LD + cq;
+    const size_t off = ((static_cast<size_t>(b) * S + s) * Kh + kh) * H + c0 + cq;
+    const float* xv = xacc + (r_lo + 8 * hr) * LD + c0 + cq;
+    const float* xk = xacc + (W_BK + r_lo + 8 * hr) * LD + c0 + cq;
 #pragma unroll
     for (int nt = 0; nt < ONT; ++nt) {
       const float2 v1 = *reinterpret_cast<const float2*>(xv + nt * 8);
@@ -465,13 +495,27 @@ __global__ void __launch_bounds__(W_NT, 1) flash_bwd_dkv_fp32_kernel(
 // masked pair by pair. The grid starts with the first kv tiles, which
 // under causal positions have the most live q tiles; a block walks its q
 // tiles from the last.
-constexpr int V_BK = 64, V_NT = 128;
+//
+// At head_dim 256 (Gemma) dK and dV of 64 keys would take 256 registers a
+// thread in one warpgroup, above the 255 a thread can have, and wgmma's M
+// is 64 rows a warpgroup, so fewer keys would not help. So the block is two
+// warpgroups over the same staged K, V and ring: each computes S^T and
+// dP^T for all 64 keys and all 256 columns (the same products), and owns
+// dK and dV on one half of the columns (128 registers), its P^T dO and dS^T
+// Q one m64n128k16 a k16 step from its half's two panels of dO and Q. The
+// doubled S^T and dP^T raise the work from 4 to 6 units of H multiply-adds
+// a (key, q row) pair; passing p and ds between the warpgroups through
+// shared memory would avoid that, at the price of a hand-over each item.
+// K, V and the ring of 32-row items take 130 KB, one block an SM.
+constexpr int V_BK = 64, V_NT = 128;  // keys a block, threads a warpgroup
 // q rows per item.
-template <int H> __host__ __device__ constexpr int v_bq() { return H == 128 ? 32 : 64; }
+template <int H> __host__ __device__ constexpr int v_bq() { return H >= 128 ? 32 : 64; }
+// Warpgroups a block, each owning dK and dV on its share of the columns.
+template <int H> __host__ __device__ constexpr int v_wg() { return H == 256 ? 2 : 1; }
 // Blocks an SM: three from head_dim 64 down (a little spilling, measured
 // faster than two without), two at 128, where dK and dV alone fill 128
-// registers a thread.
-template <int H> constexpr int v_min_blocks() { return H == 128 ? 2 : 3; }
+// registers a thread, one at 256 (shared memory).
+template <int H> constexpr int v_min_blocks() { return H == 256 ? 1 : H == 128 ? 2 : 3; }
 
 template <int H>
 constexpr size_t v_smem_bytes() {
@@ -481,7 +525,8 @@ constexpr size_t v_smem_bytes() {
 }
 
 template <int H>
-__global__ void __launch_bounds__(V_NT, v_min_blocks<H>()) flash_bwd_dkv_bf16_tc_kernel(
+__global__ void __launch_bounds__(V_NT * v_wg<H>(), v_min_blocks<H>())
+    flash_bwd_dkv_bf16_tc_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
@@ -490,12 +535,15 @@ __global__ void __launch_bounds__(V_NT, v_min_blocks<H>()) flash_bwd_dkv_bf16_tc
     float* __restrict__ dv, int Tq, int S, int N, int Kh, int window, float scale,
     float softcap) {
   constexpr int BQ = v_bq<H>();
+  constexpr int WG = v_wg<H>();
+  constexpr int NT = V_NT * WG;     // threads a block
   constexpr int HP = staged_cols<H>();
-  constexpr int CPR = HP / 8;      // 16-byte chunks per staged row
-  constexpr int KSTEPS = HP / 16;  // k-steps of S^T and dP^T over the head dim
-  constexpr int SNT = BQ / 8;      // n-tiles of s^T and dp^T
-  constexpr int ONT = HP / 8;      // n-tiles of dk and dv
-  static_assert(V_BK == 16 * (V_NT / 32) && BQ % 16 == 0 && HP % 64 == 0, "wgmma tiles");
+  constexpr int CPR = HP / 8;       // 16-byte chunks per staged row
+  constexpr int KSTEPS = HP / 16;   // k-steps of S^T and dP^T over the head dim
+  constexpr int SNT = BQ / 8;       // n-tiles of s^T and dp^T
+  constexpr int ONT = HP / 8 / WG;  // n-tiles of the warpgroup's columns of dk and dv
+  static_assert(V_BK == 16 * (V_NT / 32) && BQ % 16 == 0 && HP % (64 * WG) == 0,
+                "wgmma tiles");
 
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   // The swizzle pattern follows address bits: tiles start 1024-aligned.
@@ -512,7 +560,9 @@ __global__ void __launch_bounds__(V_NT, v_min_blocks<H>()) flash_bwd_dkv_bf16_tc
     return reinterpret_cast<unsigned char*>(tile) + swizzled(r, c, rows);
   };
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x, lane = tid & 31, warp = (tid >> 5) % 4;
+  const int wg = tid / V_NT;                 // the warpgroup: its share of the columns
+  const int c0 = wg * ONT * 8;               // the warpgroup's first column
   const int kh = blockIdx.x, b = blockIdx.y;
   const int j0 = blockIdx.z * V_BK;  // the first kv tiles, the longest, first
   const int G = N / Kh;
@@ -523,7 +573,7 @@ __global__ void __launch_bounds__(V_NT, v_min_blocks<H>()) flash_bwd_dkv_bf16_tc
 
   // K and V go in flight first (keys past valid[b] and padded columns
   // zero-filled); the keys' positions and bounds are read meanwhile.
-  for (int idx = tid; idx < V_BK * CPR; idx += V_NT) {
+  for (int idx = tid; idx < V_BK * CPR; idx += NT) {
     const int r = idx / CPR, c = (idx % CPR) * 8, s = j0 + r;
     const bool real = s < kv_end && c < H;
     const size_t off =
@@ -568,7 +618,7 @@ __global__ void __launch_bounds__(V_NT, v_min_blocks<H>()) flash_bwd_dkv_bf16_tc
   };
   auto load_item = [&](int i, int g, int st) {
     const int t0 = i * BQ, nh = kh * G + g;
-    for (int idx = tid; idx < BQ * CPR; idx += V_NT) {
+    for (int idx = tid; idx < BQ * CPR; idx += NT) {
       const int r = idx / CPR, c = (idx % CPR) * 8, t = t0 + r;
       const bool real = t < Tq && c < H;
       const size_t off =
@@ -577,7 +627,7 @@ __global__ void __launch_bounds__(V_NT, v_min_blocks<H>()) flash_bwd_dkv_bf16_tc
       cp_async16_zfill(at(sDO + st * BQ * HP, r, c, BQ), dout + off, real);
     }
     const size_t row = (static_cast<size_t>(b) * N + nh) * Tq;
-    for (int idx = tid; idx < 3 * BQ; idx += V_NT) {
+    for (int idx = tid; idx < 3 * BQ; idx += NT) {
       const int which = idx / BQ, r = idx % BQ, t = t0 + r, tc = min(t, Tq - 1);
       if (which == 0) cp_async4_zfill(sLse + st * BQ + r, lse + row + tc, t < Tq);
       if (which == 1) cp_async4_zfill(sDelta + st * BQ + r, delta + row + tc, t < Tq);
@@ -683,12 +733,13 @@ __global__ void __launch_bounds__(V_NT, v_min_blocks<H>()) flash_bwd_dkv_bf16_tc
       }
     }
 
-    // dV += P^T dO: q rows kk*16 on are 16 swizzled rows into each panel of
-    // dO.
+    // dV += P^T dO on the warpgroup's columns: q rows kk*16 on are 16
+    // swizzled rows into each of its panels of dO.
+    const int half = c0 / 64 * BQ * 128;  // the warpgroup's first panel of dO and Q
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BQ / 16; ++kk) {
-      wgmma_bf16_rs(dv_acc, pf[kk], wgmma_desc_mn(dob + kk * 16 * 128, BQ * 128));
+      wgmma_bf16_rs_rows(dv_acc, pf[kk], dob + half + kk * 16 * 128, BQ * 128);
     }
     wgmma_commit();
     wgmma_wait<0>();  // dP^T and P^T dO have landed: P^T's registers are free
@@ -709,7 +760,7 @@ __global__ void __launch_bounds__(V_NT, v_min_blocks<H>()) flash_bwd_dkv_bf16_tc
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BQ / 16; ++kk) {
-      wgmma_bf16_rs(dk_acc, dsf[kk], wgmma_desc_mn(qb + kk * 16 * 128, BQ * 128));
+      wgmma_bf16_rs_rows(dk_acc, dsf[kk], qb + half + kk * 16 * 128, BQ * 128);
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -729,10 +780,10 @@ __global__ void __launch_bounds__(V_NT, v_min_blocks<H>()) flash_bwd_dkv_bf16_tc
   for (int hr = 0; hr < 2; ++hr) {
     const int s = j0 + r_lo + 8 * hr;
     if (s >= S) continue;
-    const size_t off = ((static_cast<size_t>(b) * S + s) * Kh + kh) * H + cq;
+    const size_t off = ((static_cast<size_t>(b) * S + s) * Kh + kh) * H + c0 + cq;
 #pragma unroll
     for (int nt = 0; nt < ONT; ++nt) {
-      if (nt * 8 >= H) continue;
+      if (c0 + nt * 8 >= H) continue;
       *reinterpret_cast<float2*>(dk + off + nt * 8) =
           make_float2(dk_acc[nt][2 * hr] * scale, dk_acc[nt][2 * hr + 1] * scale);
       *reinterpret_cast<float2*>(dv + off + nt * 8) =
@@ -760,7 +811,7 @@ cudaError_t launch_bf16_tc(const void* q, const void* k, const void* v, const vo
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const dim3 grid(Kh, B, (S + V_BK - 1) / V_BK);
-  kern<<<grid, V_NT, smem, stream>>>(
+  kern<<<grid, V_NT * v_wg<H>(), smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -777,6 +828,7 @@ cudaError_t launch_fp32(const void* q, const void* k, const void* v, const void*
                         const void* valid, void* bounds, void* dk, void* dv, int B, int Tq, int S,
                         int N, int Kh, int window, float scale, float softcap,
                         cudaStream_t stream) {
+  constexpr int W_BK = w_bk<H>(), W_BQ = w_bq<H>();
   const size_t smem = w_smem_bytes<H>(Tq);
   auto kern = flash_bwd_dkv_fp32_kernel<H>;
   cudaError_t err =
@@ -819,6 +871,7 @@ cudaError_t launch(int dtype, const void* q, const void* k, const void* v, const
 // dtype: 0 = float32, 1 = bfloat16. lse and delta are fp32 [B,N,T]; bounds:
 // int32 scratch of 2 * B * ceil(T / 32), where the first launch puts the q
 // tiles' position bounds; all tensors contiguous; dk and dv fp32 [B,S,K,H].
+// H: 32, 64 and 128, or 256 in the library built from flash_bwd_dkv_h256.cu.
 // Returns cudaGetLastError().
 extern "C" int pt_flash_bwd_dkv(int dtype, const void* q, const void* k, const void* v,
                                 const void* dout, const void* lse, const void* delta,
@@ -829,6 +882,11 @@ extern "C" int pt_flash_bwd_dkv(int dtype, const void* q, const void* k, const v
   if (B <= 0 || Tq <= 0 || S <= 0 || Kh <= 0 || N % Kh != 0) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (H) {
+#ifdef PT_BWD_HEAD_DIM_256
+    case 256:
+      return launch<256>(dtype, q, k, v, dout, lse, delta, qpos, kpos, valid, bounds, dk, dv, B,
+                         Tq, S, N, Kh, window, scale, softcap, st);
+#else
     case 32:
       return launch<32>(dtype, q, k, v, dout, lse, delta, qpos, kpos, valid, bounds, dk, dv, B, Tq,
                         S, N, Kh, window, scale, softcap, st);
@@ -838,6 +896,7 @@ extern "C" int pt_flash_bwd_dkv(int dtype, const void* q, const void* k, const v
     case 128:
       return launch<128>(dtype, q, k, v, dout, lse, delta, qpos, kpos, valid, bounds, dk, dv, B,
                          Tq, S, N, Kh, window, scale, softcap, st);
+#endif
     default:
       return cudaErrorInvalidValue;
   }

@@ -35,6 +35,10 @@
 // a cp.async ring and shared by the G heads of a kv head; at the golden
 // training shape it is latency-bound, which its two key groups a block
 // answer.
+// Head dims 32, 64, 128 and 256 (Gemma); the head_dim 256 instantiations
+// are built from flash_bwd_dq_h256.cu, a source of their own, so nvcc
+// compiles them in parallel with the others. Each body's note says what 256
+// changes.
 // Left on the table: S and dP read both operands from shared memory, and an
 // m64n64k16 product reads as many bytes a cycle as shared memory delivers,
 // so wider tiles or Q and dO held in registers would relieve it; TMA from
@@ -103,14 +107,19 @@ __device__ __forceinline__ bool attends(int qp, int kp, int window) {
 // walking up to 4 super-tiles of ~290 mma.sync (dependent in threes) and
 // ~250 split, load and elementwise instructions. Hence two warps a row
 // (the key groups) on each block's walk and Q and dO held in registers,
-// rather than wider tiles.
+// rather than wider tiles. At head_dim 256 (Gemma) a kv tile is 16 keys
+// (q_bk): dq alone takes 128 registers a lane there, and the staged tiles
+// of 32 keys would pass the 227 KB a block can have (2 * Q_BR + 4 * BKS
+// rows of H + 4 floats: 333 KB at 32 keys, 200 KB at 16).
 constexpr int Q_ROWW = 2;     // row warps, 16 rows each
 constexpr int Q_GROUPS = 2;   // key groups
 constexpr int Q_NT = 32 * Q_ROWW * Q_GROUPS;
 constexpr int Q_BR = 16 * Q_ROWW;     // flattened rows a block
 constexpr int kMaxSmem = 227 * 1024;  // an H100 block's dynamic shared memory
 // Keys per kv tile, a key group's share of a super-tile.
-template <int H> __host__ __device__ constexpr int q_bk() { return H == 128 ? 32 : 64; }
+template <int H> __host__ __device__ constexpr int q_bk() {
+  return H == 256 ? 16 : H == 128 ? 32 : 64;
+}
 // Q's and dO's split fragments in registers (2H of them) at head_dim 32.
 template <int H> __host__ __device__ constexpr bool q_reg() { return H == 32; }
 
@@ -441,7 +450,12 @@ __global__ void __launch_bounds__(Q_NT) flash_bwd_dq_fp32_kernel(
 // V tiles come through a 2-stage cp.async ring (keys past valid[b] and
 // padded columns zero-filled), so the next tile's bytes arrive while this
 // one is computed. A row whose lse is NEG_INF, or past Tq, carries
-// lse = +inf into the exponent, which gives p = 0 exactly.
+// lse = +inf into the exponent, which gives p = 0 exactly. At head_dim 256
+// (Gemma) dQ's 64 x 256 fp32 accumulator takes 128 registers a thread on
+// its own, so a block takes 32-key tiles and an SM one block (Q, dO and two
+// stages of K and V are 129 KB of shared memory), and dS K is two
+// m64n128k16 a k16 step, one per half of dQ's columns
+// (wgmma_bf16_rs_rows), as K1's P V at 256.
 //
 // Tile liveness comes from position bounds, by K1's rule (tile_live,
 // tile_full in hopper.cuh): a first small launch (tile_bounds_kernel)
@@ -451,10 +465,11 @@ __global__ void __launch_bounds__(Q_NT) flash_bwd_dq_fp32_kernel(
 // from the last, the longest under causal positions, to the first.
 constexpr int D_BQ = 64, D_NT = 128;
 // Keys per kv tile.
-template <int H> __host__ __device__ constexpr int d_bk() { return H == 128 ? 32 : 64; }
+template <int H> __host__ __device__ constexpr int d_bk() { return H >= 128 ? 32 : 64; }
 // Blocks an SM: four from head_dim 64 down (a little spilling, measured
-// faster than three without, and than 32-key tiles without), three at 128.
-template <int H> constexpr int d_min_blocks() { return H == 128 ? 3 : 4; }
+// faster than three without, and than 32-key tiles without), three at 128,
+// one at 256 (shared memory; up to 255 registers a thread).
+template <int H> constexpr int d_min_blocks() { return H == 256 ? 1 : H == 128 ? 3 : 4; }
 
 template <int H>
 constexpr size_t d_smem_bytes() {
@@ -666,7 +681,7 @@ __global__ void __launch_bounds__(D_NT, d_min_blocks<H>()) flash_bwd_dq_bf16_tc_
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
-      wgmma_bf16_rs(dacc, dsf[kk], wgmma_desc_mn(kb + kk * 16 * 128, BK * 128));
+      wgmma_bf16_rs_rows(dacc, dsf[kk], kb + kk * 16 * 128, BK * 128);
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -722,7 +737,8 @@ cudaError_t launch_bf16_tc(const void* q, const void* k, const void* v, const vo
   return cudaGetLastError();
 }
 
-// bounds: scratch of B * ceil(S / 32) int2, filled by the first launch.
+// bounds: scratch of B * ceil(S / 16) int2 (16: q_bk<256>), filled by the
+// first launch.
 template <int H>
 cudaError_t launch_fp32(const void* q, const void* k, const void* v, const void* dout,
                         const void* lse, const void* delta, const void* qpos, const void* kpos,
@@ -773,8 +789,9 @@ cudaError_t launch(int dtype, const void* q, const void* k, const void* v, const
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. lse and delta are fp32 [B,N,T]; bounds:
-// int32 scratch of 2 * B * ceil(S / 32), the kv tile bounds of the first launch;
-// all tensors contiguous; dq in q's dtype. Returns cudaGetLastError().
+// int32 scratch of 2 * B * ceil(S / 16), the kv tile bounds of the first launch;
+// all tensors contiguous; dq in q's dtype. H: 32, 64 and 128, or 256 in the
+// library built from flash_bwd_dq_h256.cu. Returns cudaGetLastError().
 extern "C" int pt_flash_bwd_dq(int dtype, const void* q, const void* k, const void* v,
                                const void* dout, const void* lse, const void* delta,
                                const void* qpos, const void* kpos, const void* valid,
@@ -783,6 +800,11 @@ extern "C" int pt_flash_bwd_dq(int dtype, const void* q, const void* k, const vo
   if (B <= 0 || Tq <= 0 || S <= 0 || Kh <= 0 || N % Kh != 0) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (H) {
+#ifdef PT_BWD_HEAD_DIM_256
+    case 256:
+      return launch<256>(dtype, q, k, v, dout, lse, delta, qpos, kpos, valid, bounds, dq, B, Tq,
+                         S, N, Kh, window, scale, softcap, st);
+#else
     case 32:
       return launch<32>(dtype, q, k, v, dout, lse, delta, qpos, kpos, valid, bounds, dq, B, Tq, S,
                         N, Kh, window, scale, softcap, st);
@@ -792,6 +814,7 @@ extern "C" int pt_flash_bwd_dq(int dtype, const void* q, const void* k, const vo
     case 128:
       return launch<128>(dtype, q, k, v, dout, lse, delta, qpos, kpos, valid, bounds, dq, B, Tq,
                          S, N, Kh, window, scale, softcap, st);
+#endif
     default:
       return cudaErrorInvalidValue;
   }

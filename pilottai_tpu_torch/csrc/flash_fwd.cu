@@ -456,7 +456,7 @@ __global__ void __launch_bounds__(R_NT) flash_fwd_fp32_kernel(
 // 128 registers a thread on its own, so two blocks share an SM (up to 255
 // registers a thread) with tiles of 32 keys (98 KB of shared memory a
 // block), and P V is two m64n128k16 products a k16 step, one per half of
-// O's columns (pv_step). A simple body first: FlashAttention-3's split of
+// O's columns (wgmma_bf16_rs_rows). A simple body first: FlashAttention-3's split of
 // O over two consumer warpgroups and a producer warp is later work.
 //
 // Tile liveness comes from bounds, not a pair scan: with qmin/qmax the
@@ -511,21 +511,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// O += P V over one k16 step of P: one m64nHk16 wgmma up to head_dim 128; at
-// 256 two m64n128k16 on O's two column halves, V's panels 0-1 and 2-3.
-template <int ONT>
-__device__ __forceinline__ void pv_step(float (&oacc)[ONT][4], const uint32_t (&a)[4],
-                                        const unsigned char* v_rows, int panel_bytes) {
-  if constexpr (ONT == 32) {
-    wgmma_bf16_rs(*reinterpret_cast<float(*)[16][4]>(&oacc[0]), a,
-                  wgmma_desc_mn(v_rows, panel_bytes));
-    wgmma_bf16_rs(*reinterpret_cast<float(*)[16][4]>(&oacc[16]), a,
-                  wgmma_desc_mn(v_rows + 2 * panel_bytes, panel_bytes));
-  } else {
-    wgmma_bf16_rs(oacc, a, wgmma_desc_mn(v_rows, panel_bytes));
-  }
 }
 
 template <int H>
@@ -772,7 +757,7 @@ __global__ void __launch_bounds__(F_NT, f_min_blocks<H>()) flash_fwd_bf16_kernel
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < F_BK / 16; ++kk) {
-        pv_step(oacc, pf[kk], vb + kk * 16 * 128, F_BK * 128);
+        wgmma_bf16_rs_rows(oacc, pf[kk], vb + kk * 16 * 128, F_BK * 128);
       }
       wgmma_commit();
       wgmma_wait<0>();

@@ -156,6 +156,22 @@ __device__ __forceinline__ uint64_t wgmma_desc_mn(const void* p, int panel_bytes
          (static_cast<uint64_t>(panel_bytes >> 4) << 16) |  // 64-column panels apart
          (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
 }
+// d (m64 x n(8 NT)) += A . B over one k16 step, B the 16 MN-major rows at
+// `rows` of a tile stored as 64-column panels `panel_bytes` apart: one
+// wgmma up to n128; at n256 (head_dim 256) two m64n128k16 on d's column
+// halves, B's panels 0-1 and 2-3.
+template <int NT>
+__device__ __forceinline__ void wgmma_bf16_rs_rows(float (&d)[NT][4], const uint32_t (&a)[4],
+                                                   const unsigned char* rows, int panel_bytes) {
+  if constexpr (NT == 32) {
+    wgmma_bf16_rs(*reinterpret_cast<float(*)[16][4]>(&d[0]), a,
+                  wgmma_desc_mn(rows, panel_bytes));
+    wgmma_bf16_rs(*reinterpret_cast<float(*)[16][4]>(&d[16]), a,
+                  wgmma_desc_mn(rows + 2 * panel_bytes, panel_bytes));
+  } else {
+    wgmma_bf16_rs(d, a, wgmma_desc_mn(rows, panel_bytes));
+  }
+}
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }

@@ -165,8 +165,11 @@ def load_npz(
     cfg: ModelConfig,
     device: DeviceLike = None,
     dtype: torch.dtype | None = None,
+    scale: Mapping[str, float] | None = None,
 ) -> Dict[str, Any]:
-    """Load a flat ``.npz`` checkpoint (``layers/attn/wq`` … keys)."""
+    """Load a flat ``.npz`` checkpoint (``layers/attn/wq`` … keys); each
+    leaf named in ``scale`` is multiplied by its factor in float32 first."""
+    scale = scale or {}
     with np.load(path) as data:
-        flat = {k: data[k] for k in data.files}
+        flat = {k: data[k] * np.float32(scale[k]) if k in scale else data[k] for k in data.files}
     return params_from_numpy(flat, cfg, device=device, dtype=dtype)

@@ -6,8 +6,11 @@ K1 replaces ``pilottai_tpu/ops/pallas/flash_attention.py:_flash_kernel``
 ``flash_attention_with_lse``); its CUDA source is ``csrc/flash_fwd.cu``.
 K4 replaces ``_bwd_dq_kernel`` (``csrc/flash_bwd_dq.cu``) and K5
 ``_bwd_dkv_kernel`` (``csrc/flash_bwd_dkv.cu``), which the TPU package
-reaches through ``_bwd_impl`` and the ``custom_vjp`` rules. Each source's
-header says what bounds it on an H100 and what the design does about it.
+reaches through ``_bwd_impl`` and the ``custom_vjp`` rules; their head_dim
+256 instantiations are libraries of their own (``csrc/flash_bwd_dq_h256.cu``,
+``csrc/flash_bwd_dkv_h256.cu``), which nvcc builds in parallel with the
+others. Each source's header says what bounds it on an H100 and what the
+design does about it.
 
 ``flash_attention_fwd`` and ``flash_attention_bwd`` are the wrappers: for
 CUDA tensors they launch the kernels (or raise), for CPU tensors they run
@@ -55,8 +58,7 @@ REPLACES_DQ = "pilottai_tpu/ops/pallas/flash_attention.py:202"
 SOURCE_DKV = "pilottai_tpu_torch/csrc/flash_bwd_dkv.cu"
 REPLACES_DKV = "pilottai_tpu/ops/pallas/flash_attention.py:274"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (32, 64, 128, 256)  # K1
-_BWD_HEAD_DIMS = (32, 64, 128)  # K4 and K5: head_dim 256 comes with Gemma training (P9c)
+_HEAD_DIMS = (32, 64, 128, 256)  # K1, K4 and K5
 
 
 def flash_attention_plain(
@@ -131,13 +133,12 @@ def tile_bounds(positions: torch.Tensor, block: int,
 
 def check_kernel_shapes(n_heads: int, n_kv_heads: int, head_dim: int,
                         backward: bool = False) -> None:
-    """Raise ``ValueError`` for heads the CUDA kernels do not take: K1 any
-    GQA grouping at head_dim 32, 64, 128 or 256; K4 and K5
-    (``backward``) not yet at 256."""
-    head_dims = _BWD_HEAD_DIMS if backward else _HEAD_DIMS
-    if head_dim not in head_dims or n_kv_heads < 1 or n_heads % n_kv_heads:
+    """Raise ``ValueError`` for heads the CUDA kernels do not take: K1, and
+    K4 and K5 (``backward``, named in the message), take any GQA grouping
+    at head_dim 32, 64, 128 or 256."""
+    if head_dim not in _HEAD_DIMS or n_kv_heads < 1 or n_heads % n_kv_heads:
         which = "K4 and K5 take" if backward else "K1 takes"
-        raise ValueError(f"flash_attention: the CUDA kernel {which} head_dim in {head_dims} "
+        raise ValueError(f"flash_attention: the CUDA kernel {which} head_dim in {_HEAD_DIMS} "
                          f"and whole query groups; got heads {n_heads}/{n_kv_heads}, "
                          f"head_dim {head_dim}")
 
@@ -346,7 +347,9 @@ def flash_attention_bwd(
         )
     from pilottai_tpu_torch.ops.kernels.build import build_libraries
 
-    build_libraries(["flash_bwd_dq", "flash_bwd_dkv"])   # a cold start compiles both at once
+    H = q.shape[-1]
+    # A cold start compiles both at once.
+    build_libraries([bwd_library("flash_bwd_dq", H), bwd_library("flash_bwd_dkv", H)])
     ops = bwd_operands(q, k, v, q_positions, kv_positions, valid, window, o, lse, do, dlse,
                        scale, softcap)
     return (flash_bwd_dq(ops), *flash_bwd_dkv(ops))
@@ -357,8 +360,9 @@ def bwd_operands(q, k, v, q_positions, kv_positions, valid, window, o, lse, do,
     """What K4 and K5 read, checked and laid out for them: ``do``
     contiguous, lse rows and delta fp32 ``[B, N, T]``, int32 positions,
     and the int32 scratch in which a kernel's first launch puts its tile
-    bounds (K4's per kv tile in bf16, K5's per q tile in both dtypes; one
-    after the other on the stream, so they share it)."""
+    bounds (K4's per kv tile, K5's per q tile; one after the other on the
+    stream, so they share it; sized for the smallest tile, K4's 16 keys in
+    fp32 at head_dim 256)."""
     do = do.contiguous()
     lse_rows = lse.transpose(1, 2).contiguous()                       # [B, N, T]
     delta = _delta(o, do, dlse)
@@ -369,18 +373,24 @@ def bwd_operands(q, k, v, q_positions, kv_positions, valid, window, o, lse, do,
     B, T = q.shape[:2]
     S = k.shape[1]
     qpos, kpos, val = _index_args(q, q_positions, kv_positions, valid, S)
-    bounds = torch.empty((B, 2 * -(-max(T, S) // 32)), device=q.device, dtype=torch.int32)
+    bounds = torch.empty((B, 2 * -(-max(T, S) // 16)), device=q.device, dtype=torch.int32)
     return dict(q=q, k=k, v=v, do=do, lse=lse_rows, delta=delta, qpos=qpos, kpos=kpos,
                 valid=val, bounds=bounds, window=int(window),
                 scale=float(scale if scale is not None else q.shape[-1] ** -0.5),
                 softcap=float(softcap))
 
 
+def bwd_library(name: str, head_dim: int) -> str:
+    """The library that holds kernel ``name`` (``flash_bwd_dq`` or
+    ``flash_bwd_dkv``) at ``head_dim``: its ``_h256`` build at 256."""
+    return f"{name}_h256" if head_dim == 256 else name
+
+
 def _launch_bwd(name: str, ops: dict, outs) -> None:
     from pilottai_tpu_torch.ops.kernels.build import load_library
 
-    lib = _bind(load_library(name), f"pt_{name}", 10 + len(outs))
     q, k = ops["q"], ops["k"]
+    lib = _bind(load_library(bwd_library(name, q.shape[-1])), f"pt_{name}", 10 + len(outs))
     B, T, N, H = q.shape
     _, S, K, _ = k.shape
     ptrs = [ops[key].data_ptr() for key in

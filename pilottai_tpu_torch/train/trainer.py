@@ -12,9 +12,10 @@ optax's schedule counts from 0, so update ``i`` uses ``schedule(i)`` (the
 scheduler steps after the optimizer), and its clip scales by
 ``max_norm / g_norm`` only when ``g_norm >= max_norm`` (no epsilon).
 
-Outside the slice, refused with ``NotInSlice`` naming the ROADMAP item: a
-mesh, sharding rules or ``context_parallel`` (P10), MoE configs (P9b) and
-Gemma configs (P9c: K4 and K5 at head_dim 256). ``cli.py train`` and its
+Every dense family trains: llama, and the Gemma family (slice P9c), whose
+head_dim 256 runs K1, K4 and K5 at 256. Outside the slice, refused with
+``NotInSlice`` naming the ROADMAP item: a mesh, sharding rules or
+``context_parallel`` (P10) and MoE configs (P9b). ``cli.py train`` and its
 text corpora come with P12.
 """
 
@@ -206,8 +207,6 @@ class Trainer:
             raise refuse_later("rules", rules, "ring")
         if getattr(model_cfg, "n_experts", 0) > 0:
             raise refuse_later("n_experts", model_cfg.n_experts, "moe")
-        if model_cfg.family != "llama":
-            raise refuse_later("family", model_cfg.family, "gemma_train")
         self.model_cfg = model_cfg
         self.train_cfg = train_cfg or TrainConfig()
         self.device = resolve_device(device)

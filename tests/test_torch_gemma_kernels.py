@@ -194,8 +194,8 @@ def test_paged_plain_h256_matches_jax_kernel(case):
 
 def test_kernel_shape_checks_take_head_dim_256_and_refuse_the_rest():
     """K1, K2 and K3 take head_dim 256 (gemma-2b's one kv head and
-    gemma2-2b's four); every other head dim outside 32, 64, 128 is still
-    refused, and K4 and K5 (training, slice P9c) still refuse 256."""
+    gemma2-2b's four), and so do K4 and K5 (training, slice P9c); every
+    other head dim outside 32, 64, 128 is still refused."""
     for n_heads, n_kv in ((8, 1), (8, 4)):
         fa.check_kernel_shapes(n_heads, n_kv, 256)
         da.check_kernel_shapes(n_heads, n_kv, 256)
@@ -208,9 +208,10 @@ def test_kernel_shape_checks_take_head_dim_256_and_refuse_the_rest():
             da.check_kernel_shapes(8, 4, head_dim)
         with pytest.raises(ValueError, match="head_dim"):
             pa.check_kernel_shapes(8, 4, head_dim, 128)
-    with pytest.raises(ValueError, match="K4 and K5"):
-        fa.check_kernel_shapes(8, 4, 256, backward=True)
+    fa.check_kernel_shapes(8, 4, 256, backward=True)
     fa.check_kernel_shapes(32, 8, 128, backward=True)
+    with pytest.raises(ValueError, match="K4 and K5"):
+        fa.check_kernel_shapes(8, 4, 192, backward=True)
     with pytest.raises(ValueError, match="query heads"):
         da.check_kernel_shapes(16, 1, 256)
 
