@@ -128,17 +128,28 @@ result line is printed only when every phase passed):
    Gemma golden files (``scripts/export_gemma_golden.py``: two head_dim
    256 test models registered from their files, gemma2-tiny-h256 with its
    128-key window and soft-caps and gemma-tiny-h256 with one kv head),
-   dense and paged, 6/6 each;
+   dense and paged, 6/6 each; (i) on 4a's and 4b's first engines, after
+   their checks, the golden cases once more under injected faults
+   (``golden_faults``): the third decode dispatch of a JSON case (it
+   restarts) and of a plain case (it replays its tokens) fails, on the
+   paged cache a segmented prompt's last prefill fails, and one fold is
+   poisoned; every case but the poisoned one (``PoisonedOutput``) gives the
+   golden ids, two rebuilds run in place, no graph is captured and every
+   page comes back;
 5. full width — llama3-8b in bf16 from random init, the prefix cache off
    in (a) to (c); the engines of (a) and (b) serve the later runs at their
    settings too (5d with the cache off, 5e with speculation off, 5c), and
-   stop after 5c. Peak memory is each engine's own: the process's peak
+   stop after 5c. Every engine but (a)'s serves JSON requests alone and
+   starts with the fused greedy epilogue off (``JSON_ONLY``): a JSON
+   request never takes it. Peak memory is each engine's own: the process's peak
    less what the other live engines hold. (a) on the dense cache: the first wave served after
    ``start()``, then 8 concurrent JSON-mode greedy requests, the counters
    > 0, one prompt's
    first-token logits through K1 against the plain K1 and one decode step
    of the live wave through K2 against the plain K2 (``TOL_E2E``); (b)
-   paged, switched on by ``engine_max_seq=8192`` alone: one ~6000-token
+   paged, switched on by ``engine_max_seq=8192`` (fixed chunks, the
+   smoke's time; 5d's cache-on engine runs the adaptive policy paged at
+   full width): one ~6000-token
    prompt (prefilled in 1024-token segments) and seven short ones, K1 and
    K3 > 0 with K2 at zero, every page back on the free list, and one decode
    step of the wave's live state through K3 against the plain K3
@@ -207,7 +218,16 @@ result line is printed only when every phase passed):
    versions (``TOL_E2E``, the same argmax; gemma2-2b's logits before its
    soft-cap, ``uncapped``, the capped ones recorded), the decode kernel once per
    layer a step, TTFT and TPOT p50 of three timed waves, the engine's own
-   peak, no graph captured after ``start()``;
+   peak, no graph captured after ``start()``; (j) on 5a's kept engine
+   (``phase_fault_recovery``), 5a's eight JSON requests once uninjected
+   and once with a dispatch failing halfway through 5a's wave (every
+   request restarts; its ids must equal 5a's), then the same prompts
+   greedy with JSON off and streamed, uninjected and under the same fault
+   (every request completes, each stream equals its result and begins
+   with the tokens it replayed; how many equal the uninjected ones is
+   printed): the rebuild's device ms, ``engine.recovery_ms`` p50 and max,
+   and each recovered wave's TTFT and end-to-end p50 against the
+   uninjected one; no graph captured;
 7. training — (a) golden: four ``Trainer.step`` calls on protocol-s in fp32
    (TF32 off) from the shipped checkpoint, on ``protocol_batches(4, 512,
    seed=11)``; the batches' hash and each step's loss and grad norm must
@@ -1602,7 +1622,7 @@ def per_step_check(launches, batcher, steps, label):
 
 
 def phase_golden(torch, kernels, root, asset, paged, page_size=None, knobs=None,
-                 prefix_cache=0, repeat=1, force_drafts=False, native=False):
+                 prefix_cache=0, repeat=1, force_drafts=False, native=False, faults=False):
     """Serve the golden prompts with the asset's engine settings (the page
     size replaced by ``page_size``, the pipeline or speculation knobs by
     ``knobs``, if given) and hold the ids to it. The prefix cache is off,
@@ -1611,8 +1631,10 @@ def phase_golden(torch, kernels, root, asset, paged, page_size=None, knobs=None,
     times in a row, every serving held to the golden; ``force_drafts``
     puts every slot in model-draft mode at admission; ``native`` starts the
     engine with ``PILOTTAI_QMATMUL=native`` (the variable unset again once
-    it has started: the engine holds the arm it read). Returns the path's
-    launches and the shapes its fp32 kernels saw."""
+    it has started: the engine holds the arm it read); ``faults`` serves the
+    cases once more on the same engine, after every check above, with
+    faults injected (``golden_faults``, 4i). Returns the path's launches and
+    the shapes its fp32 kernels saw."""
     from pilottai_tpu_torch import LLMConfig, LLMHandler, PROTOCOL_S_NPZ
     from pilottai_tpu_torch.engine.types import ChatMessage, ToolSpec
     from pilottai_tpu_torch.models.transformer import forward_prefill
@@ -1670,15 +1692,18 @@ def phase_golden(torch, kernels, root, asset, paged, page_size=None, knobs=None,
                     )
                     out.append((list(seen[0].prompt_ids), seen[0].future.result()))
             await settle(batcher)
-            return out, batcher
+            return out, handler, batcher
         finally:
-            await handler.stop()
+            if not faults:
+                await handler.stop()
 
     t0 = time.perf_counter()
+    clean = fault_counts()
     qmm_counter = {}
     with counting_prefill_qmm(kernels["qmatmul"], qmm_counter):
-        got, batcher = arun(run())
-    launches = counts(kernels)      # read once the engine's threads have stopped
+        got, handler, batcher = arun(run())
+    # Read once the engine's threads have stopped, or (``faults``) are idle.
+    launches = counts(kernels)
     no_capture_check(batcher, "golden")
     if golden["engine"].get("engine_kv_quantize"):
         panels, scales = cache_bytes(batcher.cache)
@@ -1754,6 +1779,12 @@ def phase_golden(torch, kernels, root, asset, paged, page_size=None, knobs=None,
     log(f"  golden phase {time.perf_counter() - t0:.1f} s")
     if failed:
         raise SystemExit("golden token ids differ")
+    fault_free(clean, "golden")
+    if faults:
+        try:
+            golden_faults(handler, golden, paged)
+        finally:
+            arun(handler.stop())
     # The shapes the fp32 kernels saw: one request at a time, the prompt
     # padded to its bucket, the decode read over every slot's panel (or,
     # paged, the request's pages) at mid-generation, mid-chunk.
@@ -1774,6 +1805,131 @@ def phase_golden(torch, kernels, root, asset, paged, page_size=None, knobs=None,
         shapes["paged"] = dict(last=last, table=table, num_pages=batcher.num_pages, P=P,
                                R=batcher.chunk_size, step=batcher.chunk_size // 2)
     return launches, shapes
+
+
+# The counters that move only when something failed (``global_metrics``):
+# the fault domain's, the handler's failed attempts (retried or not), the
+# shed and the expired requests, and ``faults``, every fault the degrade
+# ladder was told of (the sum of ``engine.faults.<reason>``).
+FAULT_COUNTERS = ("engine.rebuilds", "engine.recovery_requeued", "engine.recovered_requests",
+                  "engine.tokens_replayed", "engine.recovery_failed", "engine.poisoned",
+                  "engine.errors", "engine.shed", "engine.expired")
+
+
+def fault_counts():
+    from pilottai_tpu_torch.utils.metrics import global_metrics
+
+    counters = global_metrics.snapshot()["counters"]
+    got = {name: counters.get(name, 0.0) for name in FAULT_COUNTERS}
+    got["engine.faults"] = sum(v for k, v in counters.items() if k.startswith("engine.faults."))
+    return got
+
+
+def fault_moved(before):
+    return {name.split(".", 1)[1]: int(v - before[name]) for name, v in fault_counts().items()}
+
+
+def fault_free(before, label):
+    """Every engine recovers in-flight requests and every handler retries,
+    by default: a phase that injects nothing must leave every fault counter
+    where it found it, or a fault it recovered from would pass unseen.
+    Logs the counts (zeros)."""
+    moved = fault_moved(before)
+    log(f"  {label}: fault counters {moved}")
+    if any(moved.values()):
+        raise SystemExit(f"{label}: a fault was recovered, retried, shed or expired in a phase "
+                         f"that injects none: {moved}")
+
+
+def golden_faults(handler, golden, paged):
+    """4i: the golden cases once more on the engine that just served them,
+    with faults injected: the third decode dispatch of the first case (JSON:
+    it restarts from its prompt) and of the fourth (plain: it replays the
+    tokens it had) fails (``engine.step``, chunks in flight), on the paged
+    cache the second
+    case's admission prefill fails after its segments ran
+    (``engine.prefill``), and the third case's first fold is corrupted
+    (``engine.fold.corrupt``), sent to the batcher itself so that the
+    handler's retry does not hide the ``PoisonedOutput``. The recovered
+    cases and every other one must give the golden ids; no chunk graph is
+    captured (the rebuild resets the state in place), and every page comes
+    back."""
+    from pilottai_tpu_torch.engine.types import ChatMessage, GenerationParams, ToolSpec
+    from pilottai_tpu_torch.reliability import PoisonedOutput, global_injector
+
+    batcher = handler.backend.batcher
+    graphs0 = batcher.graph_report()["graphs"]
+    seen = record_requests(handler)
+    before = fault_counts()
+    segments0 = batcher.prefill_segments
+    faults = {i: ("engine.step", dict(exc=RuntimeError("injected device failure"), skip=2))
+              for i in (0, 3)}
+    if paged:
+        faults[1] = ("engine.prefill", dict(exc=RuntimeError("injected prefill failure")))
+    poisoned_case = 2
+    t0 = time.perf_counter()
+
+    async def serve():
+        out = []
+        for i, case in enumerate(golden["cases"]):
+            p = golden["prompts"][case["prompt"]]
+            messages = [ChatMessage(**m) for m in p["messages"]]
+            tools = [ToolSpec(**t) for t in p["tools"]] if p["tools"] else None
+            global_injector.reset()
+            if i in faults:
+                point, kw = faults[i]
+                global_injector.arm(point, kw.pop("exc"), times=1, **kw)
+            if i == poisoned_case:
+                req = handler.backend._build_request(messages, tools, GenerationParams(
+                    temperature=0.0, max_new_tokens=golden["max_new_tokens"],
+                    json_mode=case["json_mode"]))
+                global_injector.arm("engine.fold.corrupt", value=True, times=1)
+                try:
+                    await asyncio.wrap_future(batcher.submit(req))
+                    out.append(("poison", "not poisoned"))
+                except PoisonedOutput as exc:
+                    out.append(("poison", exc))
+                continue
+            seen.clear()
+            await handler.generate_response(messages, tools=tools, json_mode=case["json_mode"])
+            fired = global_injector.fired(faults[i][0]) if i in faults else None
+            out.append((seen[-1], fired))
+        global_injector.reset()
+        await settle(batcher)
+        return out
+
+    got = arun(serve())
+    moved = fault_moved(before)
+    failed = False
+    for i, (case, (req, fired)) in enumerate(zip(golden["cases"], got)):
+        if req == "poison":
+            ok = isinstance(fired, PoisonedOutput)
+            log(f"  4i case {i}: engine.fold.corrupt -> {type(fired).__name__}: {fired} "
+                f"{'ok' if ok else 'FAIL'}")
+            failed |= not ok
+            continue
+        ids = req.future.result()
+        same = ids == case["token_ids"]
+        what = f"{faults[i][0]} fired {fired}" if i in faults else "no fault"
+        log(f"  4i case {i}: {what}, recovery attempts {req.recovery_attempts}, replayed "
+            f"{len(req.recovered_tokens)} tokens; {len(ids)} tokens "
+            f"{'equal' if same else 'DIFFER'} to the golden")
+        failed |= not same or (i in faults and (fired != 1 or req.recovery_attempts != 1))
+    report = batcher.graph_report()
+    rebuild = report["rebuild_s"]
+    log(f"  4i: {moved}; prefill segments {batcher.prefill_segments - segments0}; the last "
+        f"rebuild {'not run' if rebuild is None else f'{rebuild * 1e3:.4f} ms'}; degrade "
+        f"{batcher.degrade.snapshot()}; {time.perf_counter() - t0:.1f} s")
+    if (moved["rebuilds"] != 2 or moved["poisoned"] != 1 or rebuild is None
+            or moved["recovery_failed"] or moved["errors"] or moved["shed"]
+            or moved["expired"]):
+        failed = True
+    if report["graphs"] != graphs0:
+        raise SystemExit(f"4i: {report['graphs'] - graphs0} chunk graphs captured by recovery")
+    if paged and batcher.alloc.free_pages != batcher.num_pages - 1:
+        raise SystemExit(f"4i: {batcher.num_pages - 1 - batcher.alloc.free_pages} pages leaked")
+    if failed:
+        raise SystemExit("4i: recovery under injected faults went wrong")
 
 
 # --------------------------------------------------------------------- #
@@ -1804,6 +1960,13 @@ def long_prompt(n_chars: int) -> str:
 WAVES = 5
 # 5h's timed waves, fewer than 5f's ``WAVES`` for the smoke's time limit.
 NATIVE_WAVES = 3
+# A JSON request never takes the fused greedy epilogue (only greedy,
+# unconstrained slots do), so an engine that serves JSON requests alone
+# captures its epilogue graphs, half of its sweep, and never replays them.
+# Every llama3-8b engine of phase 5 but 5a's serves JSON alone and starts
+# with the epilogue off (5i's Gemma engines too, ``GEMMA_KNOBS``); 5a's
+# keeps it, for 5j's greedy streamed waves.
+JSON_ONLY = dict(engine_fused_epilogue=False)
 # 5e's speculative engines run llama3-8b at 24 of its 32 layers (full
 # width): their warm-up sweeps took ~290 s of the smoke at 32, and 4e and
 # 5f need the time. At 16 layers the random model ended its replies after
@@ -1815,7 +1978,7 @@ SPEC_LAYERS = 24
 # 24 layers and adaptive chunks they took 80-135 s each, and at 20 or 16
 # layers the random model's replies end after 2 to 7 tokens with no draft
 # accepted, so their depth cannot give the time back (PERF.md §4).
-SPEC_KNOBS = dict(engine_speculate=4, engine_chunk_policy="fixed")
+SPEC_KNOBS = dict(engine_speculate=4, engine_chunk_policy="fixed", **JSON_ONLY)
 # 5e's timed waves must accept drafts (more than one token a verify block)
 # and run their replies to at least this share of the 64-token budget.
 SPEC_MIN_REPLY_SHARE = 0.5
@@ -1826,11 +1989,11 @@ SPEC_MIN_REPLY_SHARE = 0.5
 # waves, not five: the Gemma phases (4h, 5i) needed the time.
 PROFILED_WAVES = 3
 # 5g's paged engine runs fixed chunks, not the adaptive policy: a quarter of
-# the graphs to capture (14 of 56; ~100 s of capture on the H100 at
-# adaptive chunks), for the Gemma phases' time. The phase measures the
-# int8 cache, not the chunk policy; its TTFT and TPOT are therefore no
-# longer held beside 5b's, whose engine runs the adaptive policy.
-KV8_PAGED_KNOBS = dict(engine_chunk_policy="fixed")
+# the graphs to capture (14 of 56, 7 of 28 with ``JSON_ONLY``; ~100 s of
+# capture on the H100 at adaptive chunks), for the Gemma phases' time. The
+# phase measures the int8 cache, not the chunk policy. 5b's shared engine
+# runs fixed chunks too (``SHARED_KNOBS``), so the two are held side by side.
+KV8_PAGED_KNOBS = dict(engine_chunk_policy="fixed", **JSON_ONLY)
 
 _LOOP = None
 
@@ -1848,6 +2011,11 @@ def arun(coro):
 # 5d's cache-off waves, 5e's speculation-off waves and 5c's profiled ones,
 # which would otherwise each sweep the same graphs again. Stopped after 5c.
 SHARED = {}
+# The settings each shared engine starts with besides the smoke's. 5b's
+# runs fixed chunks, for the smoke's time limit (7 graphs, not 28): 5d's
+# cache-on engine still drives the adaptive policy paged at full width, and
+# 5e's and 5g's paged engines, held beside this one, run fixed chunks too.
+SHARED_KNOBS = {2048: {}, 8192: dict(engine_chunk_policy="fixed", **JSON_ONLY)}
 # The device bytes each live llama3-8b engine holds once started (its
 # weights, cache, chunk buffers and graphs): a wave's peak less the other
 # live engines' is the engine's own (``own_peak``).
@@ -1886,9 +2054,12 @@ async def full_width_engine(torch, seed, max_seq, label, layers=None, **knobs):
     sweep and the bytes it holds."""
     from pilottai_tpu_torch import LLMHandler
 
-    if not knobs and layers is None and max_seq in SHARED:
+    shared = not knobs and layers is None
+    if shared and max_seq in SHARED:
         log(f"  {label}: the shared engine of engine_max_seq {max_seq}")
         return SHARED[max_seq]
+    if shared:
+        knobs = SHARED_KNOBS.get(max_seq, {})
     gc.collect()                        # an earlier engine's garbage goes first
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated()
@@ -1903,7 +2074,7 @@ async def full_width_engine(torch, seed, max_seq, label, layers=None, **knobs):
         f"{time.perf_counter() - t0:.1f} s ({cfg.param_count() / 1e9:.2f}B params, vocab "
         f"{cfg.vocab_size}); it holds {RESIDENT[handler] / 2**30:.2f} GiB")
     sweep_check(handler.backend.batcher, label)
-    if not knobs and layers is None:
+    if shared:
         SHARED[max_seq] = handler
     return handler
 
@@ -2356,10 +2527,13 @@ def phase_full_width(torch, kernels, seed):
 
         def watching():
             # The first step with all eight slots live is checked against
-            # the plain K2.
+            # the plain K2; the wave's dispatches are counted (5j arms its
+            # fault halfway through them).
             if "e2e" not in state and all(s is not None for s in batcher._slots):
                 state["e2e"] = decode_step_check(torch, da, batcher)
+            steps = batcher.blocks_dispatched
             decode()
+            state["dispatches"] = state.get("dispatches", 0) + (batcher.blocks_dispatched > steps)
 
         batcher._decode = watching
         batcher.completed.clear()
@@ -2381,6 +2555,11 @@ def phase_full_width(torch, kernels, seed):
         shapes["prompt_lens"] = [len(r.prompt_ids) for r in seen]
         shapes["gen_lens"] = [len(r.future.result()) for r in seen]
         timings = list(batcher.completed)
+        # The wave 5j serves again under a fault: its ids, timings and
+        # dispatches.
+        shapes["wave"] = {"prompts": prompts, "prompt_ids": [list(r.prompt_ids) for r in seen],
+                          "ids": [r.future.result() for r in seen], "timings": timings,
+                          "dispatches": state.get("dispatches", 0)}
         peak = own_peak(torch, handler)
         # Finite logits of the expected shape at full width, and the
         # first-token logits through K1 against the same forward with the
@@ -2434,6 +2613,148 @@ def phase_full_width(torch, kernels, seed):
     if parsed != 8 or not finite or not e2e_ok or not step_ok:
         raise SystemExit("full-width outputs are wrong")
     return launches, shapes
+
+
+def p50_ms(timings, key):
+    return median([t[key] for t in timings]) * 1e3
+
+
+def phase_fault_recovery(torch, seed, wave):
+    """5j, on 5a's kept engine (nothing new captured): 5a's eight JSON
+    requests again with ``engine.step`` armed halfway through the wave's
+    dispatches (``skip=``); not streamed, each restarts from its prompt, and
+    its ids must equal 5a's. Then the same prompts greedy, JSON off,
+    streamed through ``on_tokens`` straight into the batcher: once
+    uninjected and once under the same fault; every request must complete,
+    its stream equal its result and its output begin with the tokens it
+    had before the fault. How many streamed outputs equal the uninjected
+    ones is printed, not required: a bf16 re-prefill of prompt and tokens is
+    not the decode steps' arithmetic. Prints the rebuild's ms, the
+    ``engine.recovery_ms`` p50 and max, and each recovered wave's TTFT and
+    end-to-end p50 against the uninjected one."""
+    from pilottai_tpu_torch.engine.batcher import GenRequest
+    from pilottai_tpu_torch.engine.types import GenerationParams
+    from pilottai_tpu_torch.reliability import global_injector
+    from pilottai_tpu_torch.utils.metrics import global_metrics
+
+    skip = max(1, wave["dispatches"] // 2)
+
+    def armed():
+        global_injector.reset()
+        global_metrics.reset_histograms("engine.recovery_ms")
+        global_injector.arm("engine.step", RuntimeError("injected device failure"), times=1,
+                            skip=skip)
+
+    def recovery_ms():
+        h = global_metrics.snapshot()["histograms"].get("engine.recovery_ms") or {}
+        # p99 of at most 100 samples is their maximum.
+        return h.get("count", 0), h.get("p50"), h.get("p99")
+
+    async def run():
+        handler = await full_width_engine(torch, seed, 2048, "5j, 5a's engine")
+        batcher = handler.backend.batcher
+        graphs0 = batcher.graph_report()["graphs"]
+        out = {}
+        params = GenerationParams(temperature=0.0, max_new_tokens=64)
+
+        async def json_wave(arm):
+            await settle(batcher)
+            seen = record_requests(handler)
+            before = fault_counts()
+            if arm:
+                armed()
+            batcher.completed.clear()
+            await asyncio.gather(*[handler.generate_response(p, params=params, json_mode=True)
+                                   for p in wave["prompts"]])
+            fired = global_injector.fired("engine.step")
+            global_injector.reset()
+            await settle(batcher)
+            return dict(reqs=list(seen), timings=list(batcher.completed), fired=fired,
+                        moved=fault_moved(before),
+                        rebuild_s=batcher.graph_report()["rebuild_s"],
+                        recovery_ms=recovery_ms())
+
+        # The uninjected JSON wave is the timings' baseline (5a's checked wave
+        # carries its decode-step check); the ids are held to 5a's.
+        out["json_plain"] = await json_wave(False)
+        out["json"] = await json_wave(True)
+        eos = handler.backend.tokenizer.eos_id
+
+        async def streamed(arm):
+            streams = [[] for _ in wave["prompt_ids"]]
+            reqs = [GenRequest(prompt_ids=list(ids), max_new_tokens=64, eos_id=eos,
+                               on_tokens=streams[i].extend)
+                    for i, ids in enumerate(wave["prompt_ids"])]
+            before = fault_counts()
+            if arm:
+                armed()
+            batcher.completed.clear()
+            results = await asyncio.gather(*[asyncio.wrap_future(batcher.submit(r))
+                                             for r in reqs])
+            fired = global_injector.fired("engine.step")
+            global_injector.reset()
+            await settle(batcher)
+            return dict(reqs=reqs, results=results, streams=streams, fired=fired,
+                        timings=list(batcher.completed), moved=fault_moved(before),
+                        rebuild_s=batcher.graph_report()["rebuild_s"],
+                        recovery_ms=recovery_ms())
+
+        out["plain"] = await streamed(False)
+        out["stream"] = await streamed(True)
+        out["graphs"] = batcher.graph_report()["graphs"] - graphs0
+        # The engine serves 5c as 5a built it: two faults stay under the
+        # ladder's threshold, so it must still be at its top rung.
+        out["degrade"] = batcher.degrade.snapshot()
+        return out
+
+    t0 = time.perf_counter()
+    got = arun(run())
+    failed = False
+    j = got["json"]
+    ids = [r.future.result() for r in j["reqs"]]
+    same = sum(a == b for a, b in zip(ids, wave["ids"]))
+    log(f"  5j JSON wave, engine.step armed with skip={skip} of 5a's {wave['dispatches']} "
+        f"dispatches: fired {j['fired']}; {j['moved']}; recovery attempts "
+        f"{[r.recovery_attempts for r in j['reqs']]}; outputs equal to 5a's {same}/8")
+    failed |= j["fired"] != 1 or j["moved"]["rebuilds"] != 1 or same != 8
+    s = got["stream"]
+    complete = len(s["results"]) == 8
+    stream_ok = all(st == res for st, res in zip(s["streams"], s["results"]))
+    prefix_ok = all(res[: len(r.recovered_tokens)] == r.recovered_tokens
+                    for r, res in zip(s["reqs"], s["results"]))
+    same_plain = sum(a == b for a, b in zip(s["results"], got["plain"]["results"]))
+    log(f"  5j streamed wave (JSON off), the same fault: fired {s['fired']}; {s['moved']}; "
+        f"replayed tokens {[len(r.recovered_tokens) for r in s['reqs']]}; complete "
+        f"{complete}, every stream equal to its result {stream_ok}, every output beginning "
+        f"with its replayed tokens {prefix_ok}; outputs equal to the uninjected streamed "
+        f"wave's {same_plain}/8 (reported: a bf16 re-prefill is not the decode steps' "
+        f"arithmetic)")
+    failed |= s["fired"] != 1 or s["moved"]["rebuilds"] != 1 or not (
+        complete and stream_ok and prefix_ok)
+    for label, rec, base in (("JSON", j, got["json_plain"]["timings"]),
+                             ("streamed", s, got["plain"]["timings"])):
+        n, p50, top = rec["recovery_ms"]
+        log(f"  5j {label} wave: rebuild {rec['rebuild_s'] * 1e3:.4f} ms (device time of the "
+            f"in-place resets); recovery_ms over {n} re-admissions p50 {p50:.4f} max "
+            f"{top:.4f}; TTFT p50 {p50_ms(rec['timings'], 'ttft_s'):.4f} ms against "
+            f"{p50_ms(base, 'ttft_s'):.4f} uninjected; end to end p50 "
+            f"{p50_ms(rec['timings'], 'e2e_s'):.4f} ms against {p50_ms(base, 'e2e_s'):.4f}")
+    for label in ("json_plain", "plain"):
+        log(f"  5j uninjected {'JSON' if label == 'json_plain' else 'streamed'} wave: fault "
+            f"counters {got[label]['moved']}")
+        failed |= any(got[label]["moved"].values())
+    for rec in (j, s):
+        failed |= any(rec["moved"][k] for k in ("recovery_failed", "errors", "shed", "expired",
+                                                  "poisoned"))
+    log(f"  5j: degrade ladder after the waves {got['degrade']}; {time.perf_counter() - t0:.1f} s")
+    if got["degrade"]["level"] != 0:
+        raise SystemExit("5j: the degrade ladder left its top rung; 5c would time a degraded "
+                         "engine")
+    if got["graphs"]:
+        raise SystemExit(f"5j: {got['graphs']} chunk graphs captured by recovery")
+    if failed:
+        raise SystemExit("5j: recovery at full width went wrong")
+    return got
 
 
 def phase_busy(torch, seed):
@@ -2894,7 +3215,7 @@ def phase_quant_full_width(torch, kernels, seed, mode, native=False):
     i8 = kernels["int8_matmul"]
     prompts = [[FULL_PROMPT.format(i=i)] for i in range(8)]
     reqs = [(p, 64) for p in prompts]
-    knobs = dict(engine_quant=mode)
+    knobs = dict(engine_quant=mode, **JSON_ONLY)
     if mode == "int4":
         knobs["engine_quant_group"] = 128
     if native:
@@ -3044,7 +3365,7 @@ def phase_kv8_full_width(torch, kernels, seed, paged):
     async def run():
         handler = await full_width_engine(torch, seed, max_seq, f"{tag} engine",
                                           engine_kv_quantize="int8",
-                                          **(KV8_PAGED_KNOBS if paged else {}))
+                                          **(KV8_PAGED_KNOBS if paged else JSON_ONLY))
         batcher = handler.backend.batcher
         if batcher.cache.scales is None or batcher.paged != paged:
             raise SystemExit(f"{tag}: the engine's cache is not int8 or not "
@@ -3256,7 +3577,7 @@ def phase_prefix_agent_steps(torch, kernels, root, seed, paged):
     async def serve(prefix_cache):
         handler = await full_width_engine(
             torch, seed, 8192 if paged else 2048, f"5d engine_prefix_cache={prefix_cache}",
-            **(dict(engine_prefix_cache=prefix_cache) if prefix_cache else {}))
+            **(dict(engine_prefix_cache=prefix_cache, **JSON_ONLY) if prefix_cache else {}))
         batcher = handler.backend.batcher
         if batcher.paged != paged:
             raise SystemExit("5d: the engine did not page as configured")
@@ -4580,7 +4901,18 @@ def main() -> int:
     smi = nvidia_smi()
     t_start = time.perf_counter()
 
-    def stage(title):
+    opened = {}
+
+    def close_stage():
+        # Only 4a's and 4b's fault runs (4i) and 5j inject: every other
+        # stage must leave the fault counters where it found them.
+        if opened and not opened["injects"]:
+            fault_free(opened["before"], f"stage {opened['id']}")
+
+    def stage(title, injects=False):
+        close_stage()
+        opened.update(id=title.split(" ", 1)[0].rstrip("."), injects=injects,
+                      before=fault_counts())
         log(f"== {title} (at {time.perf_counter() - t_start:.1f} s)")
 
     stage("1. environment")
@@ -4623,14 +4955,17 @@ def main() -> int:
     if args.kernels_only:
         return 0
     paths = {}
-    stage("4a. golden protocol-s token ids (fp32), dense cache")
-    paths["golden"] = phase_golden(torch, kernels, root, "protocol_s_golden.json", paged=False)
+    stage("4a. golden protocol-s token ids (fp32), dense cache; then 4i, the same engine "
+          "under injected faults", injects=True)
+    paths["golden"] = phase_golden(torch, kernels, root, "protocol_s_golden.json", paged=False,
+                                   faults=True)
     stage("4a. again with the decode pipeline's knobs off")
     phase_golden(torch, kernels, root, "protocol_s_golden.json", paged=False,
                  knobs=SERIAL_KNOBS)
-    stage("4b. golden protocol-s token ids (fp32), paged cache, chunked prefill")
+    stage("4b. golden protocol-s token ids (fp32), paged cache, chunked prefill; then 4i, the "
+          "same engine under injected faults", injects=True)
     paths["golden_paged"] = phase_golden(torch, kernels, root, "protocol_s_paged_golden.json",
-                                         paged=True)
+                                         paged=True, faults=True)
     stage("4b. again with the decode pipeline's knobs off")
     phase_golden(torch, kernels, root, "protocol_s_paged_golden.json", paged=True,
                  knobs=SERIAL_KNOBS)
@@ -4701,6 +5036,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"  after 5a (its engine kept for 5c): {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
         "allocated")
+    stage("5j. 5a's engine under injected faults: its JSON wave, and a streamed wave, recover",
+          injects=True)
+    paths["recovery"] = phase_fault_recovery(torch, args.seed, paths["full"][1]["wave"])
     stage("5b. llama3-8b full width, bf16, paged cache (engine_max_seq 8192), "
           "1 long + 7 short JSON requests")
     paths["full_paged"] = phase_full_width_paged(torch, kernels, args.seed)
@@ -4772,6 +5110,7 @@ def main() -> int:
     kernels_line = phase_timing(torch, kernels, device, args.seed, worst, paths)
     if not all(math.isfinite(k["ms"]) for k in kernels_line):
         raise SystemExit("non-finite timing")
+    close_stage()
     log(f"  smoke wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels_line}), flush=True)
     print(smi, flush=True)

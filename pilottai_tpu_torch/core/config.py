@@ -24,10 +24,10 @@ class NotInSlice(ValueError):
 
 # ROADMAP.md, "Port slices", in the order they land.
 ROADMAP = {
-    "reliability": "P6b (retries, rate limits, deadlines and the reliability ladder)",
     "sched": "P6c (scheduling policies: priority, gangs and pre-warming)",
     "kvtier": "P7 (KV cache tier)",
     "serve": "P8 (Serve, agents and the document pipeline on the port)",
+    "edge": "P8a (Serve on the port: the HTTP edge and ServeConfig)",
     "models": "P9b (MoE, Hugging Face checkpoints and tokenizers)",
     "multi": "P10 (multi-GPU)",
     "tooling": "P12 (tooling)",
@@ -43,10 +43,6 @@ _LATER: Dict[str, Tuple[Tuple[Any, ...], str]] = {
     "engine_gang_wait_ms": ((50.0,), "sched"),
     "engine_priority_aging_s": ((2.0,), "sched"),
     "engine_prewarm_depth": ((0,), "sched"),
-    "max_rpm": ((None,), "reliability"),
-    "retries": ((0,), "reliability"),
-    "retry_delay": ((1.0,), "reliability"),
-    "reliability": ((None,), "reliability"),
     "engine_kvcache_host_mb": ((0,), "kvtier"),
     "engine_kvcache_policy": (("cost",), "kvtier"),
     "cell_disagg": ((None,), "serve"),
@@ -79,13 +75,104 @@ class SamplingConfig(BaseModel):
     json_mode: bool = False
 
 
+class ReliabilityConfig(BaseModel):
+    """Overload, deadline and failure-handling knobs, the JAX package's
+    (``pilottai_tpu/core/config.py:ReliabilityConfig``) under the same
+    names, defaults and meaning: queue-depth shedding raises
+    ``EngineOverloaded``, an open breaker ``CircuitOpenError``, a passed
+    deadline ``DeadlineExceeded``."""
+
+    model_config = ConfigDict(extra="forbid")
+
+    # Engine admission control: submits beyond this many queued-but-not-
+    # admitted requests are rejected (EngineOverloaded). None = unbounded.
+    max_queue_depth: Optional[int] = Field(default=None, ge=1)
+    # Per-request deadline defaults at the HTTP edge: ``default_timeout``
+    # when a client sets none, ``max_timeout`` capping what it asks for.
+    # Only the edge reads them, so the port takes their defaults alone
+    # until its edge comes (``_refuse_edge_knobs``).
+    default_timeout: Optional[float] = Field(default=None, gt=0)
+    max_timeout: float = Field(default=600.0, gt=0)
+    # Retry backoff shaping (engine/handler.py): capped exponential with
+    # jitter — synchronized retry herds re-break a recovering backend.
+    retry_max_delay: float = Field(default=30.0, ge=0)
+    retry_jitter: bool = True
+    # Circuit breaker over engine calls (reliability/breaker.py).
+    breaker_enabled: bool = True
+    breaker_failure_threshold: int = Field(default=5, ge=1)
+    breaker_recovery_timeout: float = Field(default=30.0, gt=0)
+    breaker_half_open_max: int = Field(default=1, ge=1)
+    # In-flight request recovery (engine/batcher.py): on a device or reader
+    # failure each occupied slot's progress (prompt + accepted tokens)
+    # re-admits through the normal admission path after the device state
+    # is rebuilt in place, instead of failing the request. Attempts are
+    # bounded per request; exhausting them fails with the original
+    # exception. 0 disables (every in-flight request fails).
+    recovery_max_attempts: int = Field(default=2, ge=0)
+    # Device watchdog (reliability/watchdog.py): declare the engine stalled
+    # when fold/prefill heartbeats go stale this many seconds with work in
+    # flight. Must exceed the slowest healthy dispatch (the warm-up sweep
+    # is excluded). None disables.
+    watchdog_stall_s: Optional[float] = Field(default=None, gt=0)
+    # Degradation ladder (reliability/degrade.py): this many faults inside
+    # the rolling window step capability down one rung (drafting → chunk
+    # size → slots → batch-class shed); a clean promote-window soak steps
+    # back up.
+    degrade_enabled: bool = True
+    degrade_fault_threshold: int = Field(default=3, ge=1)
+    degrade_window_s: float = Field(default=30.0, gt=0)
+    degrade_promote_s: float = Field(default=60.0, gt=0)
+    # Per-SLO-class shedding: batch-class requests shed at this fraction of
+    # max_queue_depth.
+    batch_shed_frac: float = Field(default=0.5, gt=0, le=1.0)
+
+    @model_validator(mode="after")
+    def _refuse_edge_knobs(self) -> "ReliabilityConfig":
+        for knob, default in (("default_timeout", None), ("max_timeout", 600.0)):
+            if getattr(self, knob) != default:
+                raise refuse_later(f"reliability.{knob}", getattr(self, knob), "edge")
+        return self
+
+
+class LogConfig(BaseModel):
+    """Logging configuration (``utils/logging.py:setup_logging``), the JAX
+    package's ``LogConfig``."""
+
+    level: str = "INFO"
+    log_to_file: bool = False
+    log_dir: str = "logs"
+    json_format: bool = True
+    rotate_max_bytes: int = 10 * 1024 * 1024
+    rotate_backups: int = 5
+
+    @field_validator("level")
+    @classmethod
+    def _valid_level(cls, v: str) -> str:
+        allowed = {"DEBUG", "INFO", "WARNING", "ERROR", "CRITICAL"}
+        v = v.upper()
+        if v not in allowed:
+            raise ValueError(f"log level must be one of {sorted(allowed)}")
+        return v
+
+    @field_validator("log_to_file")
+    @classmethod
+    def _refuse_file_logs(cls, v: bool) -> bool:
+        # The JAX package writes its files for ``ServeConfig.log``.
+        if v:
+            raise refuse_later("log_to_file", v, "edge")
+        return v
+
+
 class LLMConfig(BaseModel):
     """The port's engine configuration: one device, KV in the compute dtype
     or int8 (dense, or paged from ``engine_max_seq`` 4096 on), the device
     tier of the prefix cache, speculative decoding, weight-only
-    quantization (int8 or packed int4). The decode pipeline's five knobs,
-    the prefix cache's two, speculation's two and quantization's four
-    have the JAX package's names, defaults and meaning."""
+    quantization (int8 or packed int4), and the fault domain: the handler's
+    rate limit, retries and breaker, and the batcher's recovery, deadlines,
+    shedding and degrade ladder (``reliability``). The decode pipeline's
+    five knobs, the prefix cache's two, speculation's two, quantization's
+    four and the reliability knobs have the JAX package's names, defaults
+    and meaning."""
 
     model_config = ConfigDict(extra="forbid", protected_namespaces=())
 
@@ -93,8 +180,17 @@ class LLMConfig(BaseModel):
     provider: Provider = "cuda"
     checkpoint_path: Optional[str] = None   # a .npz written by scripts/export_protocol_s_npz.py
     sampling: SamplingConfig = Field(default_factory=SamplingConfig)
+    # Client-side throttling and retries (engine/handler.py): a sliding
+    # requests-per-minute window, the concurrency cap, and retries with
+    # capped, jittered exponential backoff from ``retry_delay``.
+    max_rpm: Optional[int] = None
     max_concurrent_requests: int = Field(default=64, ge=1)
+    retries: int = Field(default=3, ge=0)
+    retry_delay: float = Field(default=1.0, ge=0)
     timeout: float = Field(default=120.0, gt=0)
+    # Deadlines, shedding, the breaker, in-flight recovery, the watchdog
+    # and the degrade ladder.
+    reliability: ReliabilityConfig = Field(default_factory=ReliabilityConfig)
     dtype: Literal["bfloat16", "float32"] = "bfloat16"
     engine_slots: int = Field(default=8, ge=1)
     engine_admit_batch: int = Field(default=8, ge=1)

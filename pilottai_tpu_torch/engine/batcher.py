@@ -91,9 +91,29 @@ weights of its own copy of the parameter tree
 (``models/qmatmul.py:hold_arm``): the warm-up sweep captures
 every graph under it and ``graph_report()`` records it.
 
-Retries, rate limits, deadlines and the reliability ladder (ROADMAP P6b)
-and the scheduling policies (P6c) are not here; a failed dispatch fails
-its requests (the JAX batcher re-admits them).
+The fault domain (the JAX batcher's, ``reliability/``): a request may
+carry a ``deadline``, checked at submit, at selection and at dispatch, and
+swept every device-loop cycle (``_expire_deadlines``: an expired slot is
+released and fails with ``DeadlineExceeded``); ``max_queue_depth`` sheds
+submits (``EngineOverloaded``), batch-class ones at ``batch_shed_frac`` of
+it. A fold whose tokens fall outside the vocab fails only its slot
+(``PoisonedOutput``). A failed dispatch or fold goes through one recovery
+decision (``_fail_occupied_slots``): each occupant re-admits at the
+backlog head with its prompt plus the tokens it had (a JSON request
+restarts from its prompt, or fails if it streamed), up to
+``recovery_max_attempts`` times, and the device state is rebuilt in place
+first (``_rebuild_device_state``): the captured chunk graphs read the
+cache, the decode and sampling states, the block table and the history by
+address, so those are reset with fills, never reallocated, and no graph is
+captured again. Chunks already in flight fold behind their generation
+stamps, which the rebuild bumps. A sticky CUDA error
+(``sticky_device_error``) leaves nothing to recover in the process: the
+occupants fail and the engine is marked stalled. Repeated faults step the
+``DegradeLadder`` down (model drafts off, the smallest chunk bucket, half
+the slots, batch-class shedding; each a graph the sweep captured), and a
+``Watchdog`` (``watchdog_stall_s``) turns a hung dispatch into a stall on
+``global_engine_health``. The scheduling policies (ROADMAP P6c) are not
+here.
 """
 
 from __future__ import annotations
@@ -101,7 +121,6 @@ from __future__ import annotations
 import collections
 import contextlib
 import gc
-import logging
 import math
 import queue
 import threading
@@ -132,18 +151,31 @@ from pilottai_tpu_torch.engine.decode import (
     extend_prompt_paged,
     pack_admit_meta,
     release_decode,
+    reset_decode,
 )
 from pilottai_tpu_torch.engine.graphs import ChunkRunner, VariantKey
 from pilottai_tpu_torch.engine.kvcache.index import KVCacheIndex
 from pilottai_tpu_torch.engine.page_prefix import PagePrefixIndex
 from pilottai_tpu_torch.engine.prefix_cache import PrefixStore
-from pilottai_tpu_torch.engine.sampling import SamplingState
+from pilottai_tpu_torch.engine.sampling import SamplingState, reset_sampling
 from pilottai_tpu_torch.models.common import ModelConfig
 from pilottai_tpu_torch.models.qmatmul import hold_arm
 from pilottai_tpu_torch.models.quant import quant_mode, weight_stream_bytes
 from pilottai_tpu_torch.ops.kernels.paged_attention import check_kernel_shapes
-from pilottai_tpu_torch.ops.kvcache import KVCache, free_slots
+from pilottai_tpu_torch.ops.kvcache import KVCache, free_slots, reset_cache
 from pilottai_tpu_torch.ops.paged import PageAllocator, PagedKVCache
+from pilottai_tpu_torch.reliability import degrade as degrade_levels
+from pilottai_tpu_torch.reliability.deadline import (
+    DeadlineExceeded,
+    EngineOverloaded,
+    PoisonedOutput,
+)
+from pilottai_tpu_torch.reliability.degrade import DegradeLadder
+from pilottai_tpu_torch.reliability.inject import global_injector
+from pilottai_tpu_torch.reliability.watchdog import Watchdog, global_engine_health
+from pilottai_tpu_torch.utils.logging import get_logger, setup_logging
+from pilottai_tpu_torch.utils.metrics import global_metrics
+from pilottai_tpu_torch.utils.tracing import global_tracer
 
 #: Smallest prompt bucket of an admission group (prompts pad up to a power
 #: of two at least this long).
@@ -159,7 +191,17 @@ MIN_DECODE_BUCKET = 128
 #: Admission groups the prep thread may stage ahead of the device thread.
 PREP_DEPTH = 2
 
-_log = logging.getLogger("pilottai_tpu_torch.engine.batcher")
+_log = get_logger("engine.batcher")
+
+#: CUDA errors after which the context is unusable, so nothing in the
+#: process can be recovered (the messages ``cudaGetErrorString`` gives).
+STICKY_CUDA_ERRORS = ("illegal memory access", "unspecified launch failure",
+                      "device-side assert", "misaligned address", "illegal instruction",
+                      "the launch timed out and was terminated",
+                      "uncorrectable ecc error encountered", "hardware stack error",
+                      "invalid program counter",
+                      "operation not supported on global/shared address space",
+                      "uncorrectable nvlink error")
 
 
 @dataclass
@@ -178,6 +220,27 @@ class GenRequest:
     # Set by the caller (any thread) to abandon the request; the reader
     # frees its slot at the next fold.
     cancelled: bool = False
+    # End-to-end deadline: absolute ``time.monotonic()`` time, checked at
+    # submit, at selection and dispatch, and swept every device-loop cycle
+    # (an occupied slot past it is released; DeadlineExceeded). None = none.
+    deadline: Optional[float] = None
+    # Streaming: called from the reader thread with each batch of newly
+    # folded tokens (EOS left out: exactly the ids the result will hold, in
+    # order). Must be cheap and non-blocking; its exceptions are logged.
+    on_tokens: Optional[Any] = None
+    # Trace correlation: the request's engine span is emitted under
+    # ``trace_id`` at its end. None = untracked.
+    trace_id: Optional[str] = None
+    # SLO class: "batch" sheds at batch_shed_frac of max_queue_depth and at
+    # the degrade ladder's last rung; None or anything else is interactive.
+    slo_class: Optional[str] = None
+    # In-flight recovery: ``recovered_tokens`` are the tokens accepted
+    # before a fault (prepended to the result, never streamed again),
+    # ``recovery_attempts`` the strikes spent, and ``recovery_started_at``
+    # the snapshot time the ``engine.recovery_ms`` histogram reads.
+    recovery_attempts: int = 0
+    recovered_tokens: List[int] = field(default_factory=list)
+    recovery_started_at: Optional[float] = None
     # The prefix lookup counted this request (a head that waits for pages
     # is looked up again at every selection, and counted once).
     kv_counted: bool = False
@@ -280,9 +343,15 @@ class ContinuousBatcher:
         speculate: int = 0,
         draft_layers: int = 0,
         kv_quantize: bool = False,
+        max_queue_depth: Optional[int] = None,
+        batch_shed_frac: float = 0.5,
+        recovery_max_attempts: int = 2,
+        watchdog_stall_s: Optional[float] = None,
+        degrade: Optional[DegradeLadder] = None,
     ) -> None:
         if device.type == "cuda" and device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
+        setup_logging()
         self.cfg = cfg
         #: The quantized product's arm, held for the batcher's life on its
         #: own copy of the tree (the caller's weights are not stamped).
@@ -465,6 +534,36 @@ class ContinuousBatcher:
         self.sweep: Optional[Dict[str, Any]] = None
         # Work handed to the device thread (``call_on_device``).
         self._device_jobs: "queue.Queue[Tuple[Any, Future]]" = queue.Queue()
+        # Requests inside ``_prepped`` (queue_depth counts them: they hold
+        # no slot yet), and the gate the prep thread holds from selection to
+        # hand-off, which a rebuild takes to drain every staged admission.
+        self._prepped_reqs = 0
+        self._prep_gate = threading.Lock()
+        # Overload shedding: submits beyond this many queued-but-not-admitted
+        # requests raise EngineOverloaded (None: unbounded); batch-class ones
+        # at batch_shed_frac of it.
+        self.max_queue_depth = max_queue_depth
+        self.batch_shed_frac = batch_shed_frac
+        # Wall seconds a dispatched block takes (an EMA of dispatch to fold
+        # over the blocks): a slot's deadline caps its chunk need. 0: unknown.
+        self._block_seconds = 0.0
+        # The fault domain: bounded in-flight recovery, the capability ladder
+        # and, with ``watchdog_stall_s``, the watchdog. ``health_source``
+        # names this engine on ``global_engine_health``.
+        self.recovery_max_attempts = max(0, recovery_max_attempts)
+        self.degrade = degrade if degrade is not None else DegradeLadder()
+        self.health_source = f"{cfg.name}:{id(self) & 0xFFFF:04x}"
+        # A rebuild another thread's failure arm asks of the device thread,
+        # consumed at the top of its loop; the failed rebuilds in a row.
+        self._rebuild_requested: Optional[str] = None
+        self._rebuild_failures = 0
+        #: Seconds the last rebuild took (``graph_report()["rebuild_s"]``):
+        #: the resets' device time between two events on CUDA, read lazily.
+        self._last_rebuild: Optional[Tuple[float, Any, Any]] = None
+        self._watchdog: Optional[Watchdog] = None
+        if watchdog_stall_s:
+            self._watchdog = Watchdog(stall_s=watchdog_stall_s, has_work=self._watchdog_has_work,
+                                      on_stall=self._on_watchdog_stall, name=self.health_source)
 
     # ------------------------------------------------------------------ #
     # Lifecycle
@@ -480,11 +579,17 @@ class ContinuousBatcher:
             t = threading.Thread(target=target, name=f"pilottai-torch-{name}", daemon=True)
             t.start()
             self._threads.append(t)
+        if self._watchdog is not None:
+            self._watchdog.start()
 
     def stop(self) -> None:
         self._stop.set()
         self._wake.set()
         self._prep_wake.set()
+        if self._watchdog is not None:
+            self._watchdog.stop()
+        # An engine that could not recover stays stalled until it stops.
+        global_engine_health.mark_recovered(self.health_source)
         for t in self._threads:
             t.join(timeout=60)
         self._threads = []
@@ -507,6 +612,7 @@ class ContinuousBatcher:
                 break
             pairs = [tuple(item.seg[:2])] if isinstance(item, _SegmentStart) else item.group
             self._fail_group(pairs, err)
+        self._prepped_reqs = 0
         if self._segmenting is not None:
             self._fail_group([tuple(self._segmenting[:2])], err)
             self._end_segmentation()
@@ -521,11 +627,59 @@ class ContinuousBatcher:
                     if not slot.request.future.done():
                         slot.request.future.set_exception(err)
 
+    def queue_depth(self) -> int:
+        """Requests submitted but not yet admitted to a slot (any thread;
+        approximate — the containers move concurrently). Staged admissions
+        count: they hold no slot yet."""
+        return self._pending.qsize() + len(self._backlog) + self._prepped_reqs
+
+    def saturated(self) -> bool:
+        return self.max_queue_depth is not None and self.queue_depth() >= self.max_queue_depth
+
+    def _shed_reason(self, request: GenRequest) -> Optional[str]:
+        """Why this submit must shed, or None. Interactive traffic sheds at
+        ``max_queue_depth``, the ``batch`` class at ``batch_shed_frac`` of
+        it, and outright at the degrade ladder's last rung (the JAX
+        batcher's rule: only the literal ``batch`` class sheds early)."""
+        cls = self._shed_class(request)
+        if cls == "batch" and self.degrade.level() >= degrade_levels.SHED_BATCH:
+            return (f"engine degraded to level {degrade_levels.SHED_BATCH} "
+                    f"({degrade_levels.LEVEL_NAMES[degrade_levels.SHED_BATCH]}); "
+                    f"shedding {cls}-class requests")
+        limit = self.max_queue_depth
+        if limit is None:
+            return None
+        if cls == "batch":
+            limit = max(1, int(limit * self.batch_shed_frac))
+        depth = self.queue_depth()
+        if depth >= limit:
+            return f"engine queue depth {depth} at configured {cls}-class limit {limit}; shedding"
+        return None
+
+    @staticmethod
+    def _shed_class(request: GenRequest) -> str:
+        """``batch``, ``interactive``, or ``other`` (an unknown string:
+        interactive rules, a bounded metrics key)."""
+        cls = request.slo_class or "interactive"
+        return cls if cls in ("interactive", "batch") else "other"
+
     def submit(self, request: GenRequest) -> Future:
-        """Queue a request (any thread). Prompts longer than the keep
+        """Queue a request (any thread). A request the shedding rules refuse
+        raises ``EngineOverloaded`` here and leaves no trace; one whose
+        deadline has passed fails at once. Prompts longer than the keep
         window are left-truncated, as the JAX batcher does."""
         if self._stop.is_set():
             raise RuntimeError("engine stopped")
+        shed = self._shed_reason(request)
+        if shed is not None:
+            global_metrics.inc("engine.shed")
+            global_metrics.inc(f"engine.shed.{self._shed_class(request)}")
+            global_metrics.set_gauge("engine.queue_depth", float(self.queue_depth()))
+            raise EngineOverloaded(shed)
+        if request.deadline is not None and time.monotonic() >= request.deadline:
+            global_metrics.inc("engine.expired")
+            request.future.set_exception(DeadlineExceeded("request deadline expired before submit"))
+            return request.future
         if not request.prompt_ids:
             request.prompt_ids = [0]
         keep = self.max_seq_len - 1 - request.max_new_tokens
@@ -533,6 +687,7 @@ class ContinuousBatcher:
         if len(request.prompt_ids) > keep:
             request.prompt_ids = request.prompt_ids[-keep:]
         self._pending.put(request)
+        global_metrics.set_gauge("engine.queue_depth", float(self.queue_depth()))
         self._wake.set()
         self._prep_wake.set()
         return request.future
@@ -686,10 +841,20 @@ class ContinuousBatcher:
         sweep (none, once it has run) and the seconds those captures took,
         the bytes the variants' buffers and the graphs' shared memory pool
         hold (the pool None where it is not known), the replays of
-        model-draft variants, the sweep (``self.sweep``; None before it)
-        and the quantized product's arm the graphs were captured under."""
+        model-draft variants, the sweep (``self.sweep``; None before it),
+        the quantized product's arm the graphs were captured under, and the
+        seconds the last failure-path rebuild took (None before one): on
+        CUDA the in-place resets' device time, between two events on the
+        device thread's stream."""
         shared, _ = self.runner.buffer_bytes()
+        rebuild_s = None
+        if self._last_rebuild is not None:
+            rebuild_s, ev0, ev1 = self._last_rebuild
+            if ev0 is not None:
+                ev1.synchronize()
+                rebuild_s = ev0.elapsed_time(ev1) / 1e3
         return {"qmatmul_arm": self.qmatmul_arm,
+                "rebuild_s": rebuild_s,
                 "graphs": self.runner.graphs_captured,
                 "capture_s": self.runner.capture_seconds,
                 "buffer_bytes": shared,
@@ -805,20 +970,32 @@ class ContinuousBatcher:
         """The next dispatch's steps, or verify blocks (lock held).
         "fixed": ``chunk_size``. "adaptive": each live slot's remaining
         need (budget less what is folded and in flight) in blocks at the
-        acceptance EMA's tokens a block, the mean of them, or the smallest
-        while requests wait for a slot (a finishing slot's release then
-        comes at the earliest chunk boundary); quantised up to the bucket
-        ladder."""
+        acceptance EMA's tokens a block, capped by its deadline at the
+        blocks' wall time, the mean of them, or the smallest while requests
+        wait for a slot (a finishing slot's release then comes at the
+        earliest chunk boundary); quantised up to the bucket ladder. From
+        the degrade ladder's ``min_chunk`` rung on, the smallest bucket."""
         if self._force_chunk is not None:       # the warm-up sweep
             return max(1, min(self._force_chunk, self.chunk_size))
+        # Degrade rung 2+: the smallest bucket (a short blast radius per
+        # fault, fast fold heartbeats for the watchdog).
+        if self.degrade.level() >= degrade_levels.MIN_CHUNK:
+            return self.chunk_buckets[0]
         if self.chunk_policy != "adaptive":
             return self.chunk_size
         rate = max(self._spec_rate if self.speculate else 1.0, 0.5)
+        now = time.monotonic()
         needs = []
         for s in self._occupied():
             rem = s.request.max_new_tokens - 1 - max(0, len(s.generated) - 1) - s.est_pending
             if rem > 0:
-                needs.append(max(int(-(-rem // rate)), 1))
+                need = int(-(-rem // rate))
+                ddl = s.request.deadline
+                if ddl is not None and self._block_seconds > 0:
+                    # Blocks past the deadline are waste: the sweep releases
+                    # the slot before they fold.
+                    need = min(need, max(int((ddl - now) / self._block_seconds), 1))
+                needs.append(max(need, 1))
         if not needs:
             return self.chunk_buckets[0]
         target = sum(needs) / len(needs)
@@ -843,6 +1020,9 @@ class ContinuousBatcher:
         with ctx:
             while not self._stop.is_set():
                 try:
+                    if self._rebuild_requested is not None:
+                        self._requested_rebuild()
+                    self._expire_deadlines()
                     self._apply_releases()
                     self._run_device_jobs()
                     issued = self._admit()
@@ -859,7 +1039,48 @@ class ContinuousBatcher:
                         self._wake.wait(timeout=0.05)
                         self._wake.clear()
                 except Exception as exc:  # noqa: BLE001 — device loop boundary
-                    self._fail_all(exc)
+                    _log.error("device loop error: %s", exc, exc_info=True)
+                    if sticky_device_error(exc):
+                        self._declare_dead(exc, "sticky CUDA error")
+                        continue
+                    self._fail_occupied_slots(exc)
+                    # Conservative containment: a dispatch that raised may
+                    # have left device state half-written, so the recovered
+                    # requests re-prefill into state reset from scratch.
+                    self._rebuild_or_retry("device_loop_error")
+
+    def _requested_rebuild(self) -> None:
+        """The rebuild another thread's failure arm asked for (device
+        thread, at the top of its loop). Anyone occupying a slot now (an
+        admission installed since that arm swept the slots) is recovered
+        first: nothing decodes on across a reset."""
+        reason, self._rebuild_requested = self._rebuild_requested, None
+        with self._lock:
+            occupied = bool(self._occupied())
+        if occupied:
+            self._fail_occupied_slots(
+                RuntimeError(f"device state rebuilt ({reason}) with request in flight"),
+                record_fault=False)
+        self._rebuild_or_retry(reason)
+
+    def _rebuild_or_retry(self, reason: str) -> None:
+        """Rebuild the device state; a rebuild that fails is retried at the
+        next cycle (``rebuild_retry``), at most ``recovery_max_attempts``
+        times in a row (once when recovery is off), after which the engine
+        is declared unable to recover rather than left spinning."""
+        try:
+            self._rebuild_device_state(reason=reason)
+            self._rebuild_failures = 0
+        except Exception as exc:  # noqa: BLE001 — retried next cycle, bounded
+            self._rebuild_failures += 1
+            _log.error("device-state rebuild failed (%d in a row): %s", self._rebuild_failures,
+                       exc, exc_info=True)
+            if self._rebuild_failures >= max(1, self.recovery_max_attempts):
+                self._rebuild_failures = 0
+                self._declare_dead(exc, f"device-state rebuild ({reason}) failed")
+            else:
+                self._rebuild_requested = "rebuild_retry"
+                self._wake.set()
 
     def _run_device_jobs(self) -> None:
         while True:
@@ -903,27 +1124,87 @@ class ContinuousBatcher:
         if self.overlap_admission:
             while True:
                 try:
-                    items.append(self._prepped.get_nowait())
+                    item = self._prepped.get_nowait()
                 except queue.Empty:
                     break
+                items.append(item)
+                with self._lock:
+                    self._prepped_reqs = max(0, self._prepped_reqs - self._item_requests(item))
             if items:
                 self._prep_wake.set()
         else:
             self._drain_pending()
             items = self._stage()
+        for i, item in enumerate(items):
+            try:
+                if isinstance(item, _SegmentStart):
+                    # Selection stops at a long prompt, so nothing follows it.
+                    self._segmenting = item.seg
+                    self._advance_segment()
+                elif self._all_expired(item.group):
+                    self._fail_group(item.group, DeadlineExceeded(
+                        "request deadline expired before admission dispatch"))
+                else:
+                    self._dispatch_prefill(item)
+            except BaseException:
+                # The device loop's fault arm takes over; what was not
+                # dispatched goes back to the backlog's head, in order.
+                with self._lock:
+                    self._requeue_locked(items[i + 1:])
+                raise
+        return bool(items)
+
+    @staticmethod
+    def _item_requests(item: Any) -> int:
+        return 1 if isinstance(item, _SegmentStart) else len(item.group)
+
+    def _all_expired(self, group: Sequence[Tuple[int, GenRequest]]) -> bool:
+        """Every member of a staged group was cancelled or passed its
+        deadline while it waited (a staged group can wait out a whole
+        segmented prefill): its prefill would be dead work. Counts the
+        expired ones. A mixed group dispatches; the sweep reaps the rest."""
+        now = time.monotonic()
+        dead = [req.cancelled or req.future.done()
+                or (req.deadline is not None and now >= req.deadline) for _, req in group]
+        if not all(dead):
+            return False
+        expired = sum(1 for _, req in group if req.deadline is not None and now >= req.deadline
+                      and not req.future.done())
+        if expired:
+            global_metrics.inc("engine.expired", expired)
+        return True
+
+    def _requeue_locked(self, items: Sequence[Any]) -> None:
+        """Staged admissions back to the backlog's head, in order (lock
+        held): their slots unreserved and their pages released."""
+        reqs: List[GenRequest] = []
         for item in items:
             if isinstance(item, _SegmentStart):
-                # Selection stops at a long prompt, so nothing follows it.
-                self._segmenting = item.seg
-                self._advance_segment()
+                self._seg_pending = False
+                pairs = [tuple(item.seg[:2])]
             else:
-                self._dispatch_prefill(item)
-        return bool(items)
+                pairs = item.group
+            for idx, req in pairs:
+                self._prep_reserved.discard(idx)
+                if self.alloc is not None:
+                    self.alloc.release(idx)
+                reqs.append(req)
+        self._backlog.extendleft(reversed(reqs))
+        if reqs:
+            self._prep_wake.set()
+            self._wake.set()
 
     def _dispatch_prefill(self, prep: _Prepared) -> None:
         """Install a staged group and enqueue its prefill; the first tokens'
-        copy starts here and the reader folds it. A failed admission fails
-        this group only and returns its slots and pages."""
+        copy starts here and the reader folds it. A failed admission
+        returns this group's slots and pages and re-admits its requests
+        (``_prefill_failed``); the other occupants are untouched."""
+        try:
+            # Fault point: a slow (delay=) or failed (exc=) admission prefill.
+            global_injector.fire("engine.prefill", n_requests=len(prep.group))
+        except Exception as exc:  # noqa: BLE001 — contain to this group
+            self._prefill_failed(prep.group, exc)
+            return
         with self._lock:
             for idx, req in prep.group:
                 self._slots[idx] = _Slot(request=req, prompt_len=len(req.prompt_ids))
@@ -958,8 +1239,9 @@ class ContinuousBatcher:
                 )
             copy = _HostCopy([first])
         except Exception as exc:  # noqa: BLE001 — contain to this group
-            self._fail_group(prep.group, exc)
+            self._prefill_failed(prep.group, exc)
             return
+        admit_at = time.perf_counter()
         with self._lock:
             if prep.kind != "full" and not prep.segmented:
                 self.prefix_admitted += len(prep.group)
@@ -968,8 +1250,30 @@ class ContinuousBatcher:
             # folds it, nothing can release these slots' pages.
             self._maybe_register(prep.group)
             self._first_reads.append((stamps, copy))
+            for _, req in prep.group:
+                if req.recovery_started_at is not None:
+                    # Snapshot to re-admission: what the fault cost it.
+                    global_metrics.observe("engine.recovery_ms",
+                                           (admit_at - req.recovery_started_at) * 1e3)
+                    req.recovery_started_at = None
+        self._beat()                          # prefill enqueued: progress
+        global_metrics.inc("engine.admitted", len(prep.group))
+        global_metrics.set_gauge("engine.queue_depth", float(self.queue_depth()))
         if prep.kind == "full":
             self._maybe_export(prep.group)
+
+    def _prefill_failed(self, group: Sequence[Tuple[int, GenRequest]], exc: Exception) -> None:
+        """A failed admission prefill is a device fault, not the client's:
+        no token existed for the group yet, so its requests re-admit at
+        the backlog's head (bounded strikes) and the failure steps the
+        degrade ladder. A sticky CUDA error fails them instead."""
+        _log.error("prefill failed: %s", exc, exc_info=True)
+        if sticky_device_error(exc):
+            self._fail_group(group, exc)
+            self._declare_dead(exc, "sticky CUDA error")
+            return
+        self._fail_group(group, exc, recover=True)
+        self.degrade.record_fault("prefill")
 
     @staticmethod
     def _full_prompts(group: List[Tuple[int, GenRequest]]) -> np.ndarray:
@@ -1049,7 +1353,10 @@ class ContinuousBatcher:
 
     def _decode(self) -> None:
         """Plan one decode chunk under the lock, dispatch it and hand it to
-        the reader."""
+        the reader. From the degrade ladder's ``no_draft`` rung on, the
+        model drafts are off (the variant without them). A dispatch that
+        raises leaves the planned blocks uncounted and reaches the device
+        loop's fault arm."""
         with self._lock:
             if not self._chunk_useful():
                 return
@@ -1077,16 +1384,30 @@ class ContinuousBatcher:
             stamp = tuple(self._gen)
             table = self.alloc.table.copy() if self.alloc is not None else None
             draft_mode = self._draft_on.copy() if self.draft_layers else None
+            if draft_mode is not None and self.degrade.level() >= degrade_levels.NO_DRAFT:
+                draft_mode[:] = False
+            drafting = draft_mode is not None and bool(draft_mode.any())
             self.blocks_dispatched += n
-            if draft_mode is not None and draft_mode.any():
-                self.draft_blocks += n
+            self.draft_blocks += n if drafting else 0
         n_blocks = None
         if table is not None:
             n_blocks = min(-(-self._decode_bucket(bound) // self.page_size), table.shape[1])
         prefix_bound = self._decode_bucket(bound) if self.speculate else None
-        toks, valid = self.runner.run(n, fused, n_blocks, table, prefix_bound=prefix_bound,
-                                      draft_mode=draft_mode)
-        self._put_result((_HostCopy([toks, valid]), stamp, n, est, hi))
+        t_dispatch = time.perf_counter()
+        try:
+            # Fault points: a failed dispatch (exc=), and a stuck one
+            # (delay=, which only the watchdog sees).
+            global_injector.fire("engine.step")
+            global_injector.fire("engine.dispatch.hang")
+            toks, valid = self.runner.run(n, fused, n_blocks, table, prefix_bound=prefix_bound,
+                                          draft_mode=draft_mode)
+            copy = _HostCopy([toks, valid])
+        except BaseException:
+            with self._lock:
+                self.blocks_dispatched -= n
+                self.draft_blocks -= n if drafting else 0
+            raise
+        self._put_result((copy, stamp, n, est, hi, t_dispatch))
 
     # ------------------------------------------------------------------ #
     # Admission staging (the prep thread, or the device thread inline)
@@ -1100,9 +1421,14 @@ class ContinuousBatcher:
                         or not self._backlog)
             made = False
             if not idle and self._prepped.qsize() < PREP_DEPTH:
-                for item in self._stage():
-                    self._prepped.put(item)
-                    made = True
+                # Selection to hand-off under the gate: a rebuild drains
+                # ``_prepped`` under it, so no staged admission outlives one.
+                with self._prep_gate:
+                    for item in self._stage():
+                        with self._lock:
+                            self._prepped_reqs += self._item_requests(item)
+                        self._prepped.put(item)
+                        made = True
             if made:
                 self._wake.set()
             else:
@@ -1149,10 +1475,22 @@ class ContinuousBatcher:
         with self._lock:
             free = [i for i, s in enumerate(self._slots)
                     if s is None and i not in self._release and i not in self._prep_reserved]
+            if self.degrade.level() >= degrade_levels.HALF_SLOTS:
+                # Degrade rung 3+: at most half the slots live (less work
+                # in flight a fault, smaller recovery replays).
+                live = len(self._occupied()) + len(self._prep_reserved)
+                free = free[: max(0, max(1, self.n_slots // 2) - live)]
             while self._backlog and len(group) < min(len(free), self.admit_batch):
                 req = self._backlog[0]
                 if req.cancelled or req.future.done():
                     self._backlog.popleft()
+                    continue
+                if req.deadline is not None and time.monotonic() >= req.deadline:
+                    # Expired while queued: no prefill for a caller gone.
+                    self._backlog.popleft()
+                    global_metrics.inc("engine.expired")
+                    req.future.set_exception(
+                        DeadlineExceeded("request deadline expired before admission"))
                     continue
                 key = self._prefix_hit(req)
                 prefix_pages: Tuple[int, ...] = ()
@@ -1263,12 +1601,17 @@ class ContinuousBatcher:
         """Run one chunked-prefill segment of the segmenting request, or
         dispatch its final segment, which admits it."""
         idx, req, done = self._segmenting
-        if req.cancelled or req.future.done():
-            # Abandoned by its caller: return the slot and the pages.
+        expired = req.deadline is not None and time.monotonic() >= req.deadline
+        if req.cancelled or req.future.done() or expired:
+            # Abandoned by its caller, or past its deadline: return the slot
+            # and the pages.
             with self._lock:
                 self._prep_reserved.discard(idx)
                 self._drop_slot_locked(idx)
             self._end_segmentation()
+            if expired and not req.future.done():
+                global_metrics.inc("engine.expired")
+                req.future.set_exception(DeadlineExceeded("request deadline expired mid-prefill"))
             return
         if len(req.prompt_ids) - done > self.prefill_chunk:
             seg = self.prefill_chunk
@@ -1279,11 +1622,15 @@ class ContinuousBatcher:
                     [seg], self._page_rows([idx]),
                 )
             except Exception as exc:  # noqa: BLE001 — contain to this request
-                self._fail_group([(idx, req)], exc)
+                # No token exists yet: the request re-admits from scratch
+                # (its slot stays reserved until then, so the prep thread,
+                # woken by the end of segmentation, cannot take it early).
+                self._prefill_failed([(idx, req)], exc)
                 self._end_segmentation()
                 return
             self.prefill_segments += 1
             self._segmenting[2] = done + seg
+            self._beat()                      # segment landed: progress
             return
         mi, mf = self._meta([(idx, req)])
         tokens = self._tails([(idx, req)], done, mi)
@@ -1311,19 +1658,37 @@ class ContinuousBatcher:
                         self._drain_queued = False
                     self._fold_first_reads()
                 else:
-                    self._process_chunk(*item)
+                    try:
+                        self._process_chunk(*item)
+                    finally:
+                        # Folded or lost, the chunk has left the pipeline.
+                        with self._lock:
+                            self.blocks_folded += item[2]
             except Exception as exc:  # noqa: BLE001 — reader boundary
-                self._fail_all(exc)
+                # The chunk's tokens are lost on the host while the device
+                # spent their budget: the occupants recover, and the device
+                # thread rebuilds the state a failed copy makes suspect.
+                # The request comes first, so the device thread sees it
+                # before it can re-admit anyone.
+                _log.error("reader error: %s", exc, exc_info=True)
+                if sticky_device_error(exc):
+                    self._declare_dead(exc, "sticky CUDA error")
+                else:
+                    self._rebuild_requested = "reader_error"
+                    self._fail_occupied_slots(exc)
             self._wake.set()
 
     def _fold_first_reads(self) -> None:
         """Fold the admissions' first tokens (their copies started at
         dispatch). Entries carry the slot's generation, so a stale one can
-        never feed the slot's next occupant."""
+        never feed the slot's next occupant. A first token outside the
+        vocab poisons only its slot."""
         with self._lock:
             groups, self._first_reads = self._first_reads, []
         hosts = [copy.wait()[0] for _, copy in groups]
         now = time.perf_counter()
+        emits: List[Tuple[Any, List[int]]] = []
+        poisoned: List[Tuple[int, GenRequest]] = []
         with self._lock:
             for (stamps, _), host in zip(groups, hosts):
                 for row, (idx, gen) in enumerate(stamps):
@@ -1331,12 +1696,24 @@ class ContinuousBatcher:
                     if slot is None or not slot.first_pending or gen != self._gen[idx]:
                         continue
                     slot.first_pending = False
-                    slot.request.first_token_at = now
-                    slot.generated.append(int(host[row]))
+                    tok = int(host[row])
+                    if not 0 <= tok < self.cfg.vocab_size:
+                        poisoned.append(self._poison_slot_locked(idx, [tok]))
+                        continue
+                    req = slot.request
+                    if req.first_token_at is None:    # a recovered one's came before
+                        req.first_token_at = now
+                    slot.generated.append(tok)
+                    if req.on_tokens is not None and tok != req.eos_id:
+                        emits.append((req.on_tokens, [tok]))
                     self._check_finished(idx)
+        self._report_poisoned(poisoned)
+        self._fire_stream(emits)
+        if groups:
+            self._beat()
 
     def _process_chunk(self, copy: _HostCopy, stamp: Tuple[int, ...], n_blocks: int,
-                       est: float, hi: int) -> None:
+                       est: float, hi: int, t_dispatch: float) -> None:
         """Fold one chunk into its slots once its copy has landed. First
         tokens sampled before the chunk ran fold first. Under speculation
         the rows come block-major (``[n·D, B]``); the acceptance EMAs move
@@ -1344,6 +1721,20 @@ class ContinuousBatcher:
         stamp, so a late chunk never changes a new occupant's mode."""
         self._fold_first_reads()
         toks_h, valid_h = copy.wait()
+        # Fault point: out-of-vocab ids in one slot's tokens (value= the
+        # slot, or True for the first slot that emitted), as NaN logits or
+        # corrupted device memory would show at the fold.
+        corrupt = global_injector.fire("engine.fold.corrupt")
+        if corrupt is not None and toks_h.size:
+            toks_h = toks_h.copy()
+            if isinstance(corrupt, bool) or not isinstance(corrupt, int):
+                cols = np.flatnonzero(valid_h.any(axis=0))
+                corrupt = int(cols[0]) if cols.size else 0
+            toks_h[:, corrupt] = self.cfg.vocab_size + 7
+        bad_valid = ((toks_h < 0) | (toks_h >= self.cfg.vocab_size)) & valid_h
+        any_bad = bool(bad_valid.any())
+        emits: List[Tuple[Any, List[int]]] = []
+        poisoned: List[Tuple[int, GenRequest]] = []
         D = self.speculate or 1
         blk_any = valid_h.reshape(n_blocks, D, -1).any(axis=1)      # [n_blocks, B]
         slot_blocks = blk_any.sum(axis=0)
@@ -1367,15 +1758,26 @@ class ContinuousBatcher:
                 slot.hi_pending = max(0, slot.hi_pending - hi)
                 if slot.first_pending:
                     continue
+                if any_bad and bad_valid[:, b].any():
+                    # Only this slot's request fails; the engine and the
+                    # other occupants keep serving.
+                    poisoned.append(self._poison_slot_locked(
+                        b, [int(t) for t in toks_h[bad_valid[:, b], b]]))
+                    continue
+                req = slot.request
                 new_tokens = [int(t) for t, ok in zip(toks_h[:, b], valid_h[:, b]) if ok]
                 if not new_tokens:
                     self._check_finished(b)
+                fresh = []
                 for tok in new_tokens:
                     slot.generated.append(tok)
+                    if tok != req.eos_id:
+                        fresh.append(tok)
                     if self._check_finished(b):
                         break
+                if fresh and req.on_tokens is not None:
+                    emits.append((req.on_tokens, fresh))
             self.blocks_useful += int(blk_any.any(axis=1).sum())
-            self.blocks_folded += n_blocks
             if self.speculate:
                 # Tokens a block over the (block, slot) pairs that emitted:
                 # done slots and trailing empty blocks would drag the EMA
@@ -1387,6 +1789,15 @@ class ContinuousBatcher:
                 if active_blocks:
                     obs = min(max(accepted / active_blocks, 0.5), float(D))
                     self._spec_rate = 0.5 * self._spec_rate + 0.5 * obs
+            # Wall seconds a block (dispatch to fold), the deadline cap of
+            # the chunk pick; pipelining makes it a mild overestimate.
+            per_block = (time.perf_counter() - t_dispatch) / max(n_blocks, 1)
+            if 0.0 < per_block < 5.0:
+                self._block_seconds = (0.5 * self._block_seconds + 0.5 * per_block
+                                       if self._block_seconds else per_block)
+        self._report_poisoned(poisoned)
+        self._fire_stream(emits)
+        self._beat()                          # a fold landed: progress
 
     def _check_finished(self, idx: int) -> bool:
         """Apply the completion rules to a slot (lock held); a finished
@@ -1405,16 +1816,58 @@ class ContinuousBatcher:
         self._drop_slot_locked(idx)
         if eos:
             out = out[:-1]
+        # A recovered request's result is what it had before the fault
+        # plus this admission's: the stream it already emitted, continued.
+        out = req.recovered_tokens + out
         now = time.perf_counter()
         self.completed.append({
-            "prompt_tokens": slot.prompt_len,
+            "prompt_tokens": slot.prompt_len - len(req.recovered_tokens),
             "tokens": len(out),
             "ttft_s": (req.first_token_at or now) - req.submitted_at,
             "e2e_s": now - req.submitted_at,
         })
+        global_metrics.inc("engine.completed")
+        global_metrics.inc("engine.generated_tokens", len(out))
+        if req.trace_id is not None:
+            global_tracer.emit("engine.batch_decode", trace_id=req.trace_id,
+                               start=req.submitted_at, end=now, slot=idx,
+                               prompt_len=slot.prompt_len, tokens=len(out))
         if not req.future.done():
             req.future.set_result(out)
+            if req.recovery_attempts:
+                global_metrics.inc("engine.recovered_requests")
         return True
+
+    def _poison_slot_locked(self, idx: int, bad_ids: List[int]) -> Tuple[int, GenRequest]:
+        """Contain a poisoned fold to its request (lock held): the slot is
+        released and the future fails with ``PoisonedOutput``; the engine
+        and the other occupants serve on. Not recovered: decoding the same
+        state again would give the same poison (the handler's retry gives
+        the request a fresh attempt)."""
+        req = self._slots[idx].request
+        self._drop_slot_locked(idx)
+        self._gen[idx] += 1
+        if not req.future.done():
+            req.future.set_exception(PoisonedOutput(
+                f"decode fold produced out-of-vocab token id(s) {bad_ids[:4]} (vocab "
+                f"{self.cfg.vocab_size}, slot {idx}); failing this request only"))
+        global_metrics.inc("engine.poisoned")
+        return idx, req
+
+    def _report_poisoned(self, poisoned: List[Tuple[int, GenRequest]]) -> None:
+        """Each poisoned fold is a fault on the degrade ladder (outside the
+        lock)."""
+        for _ in poisoned:
+            self.degrade.record_fault("poison")
+
+    def _fire_stream(self, emits: List[Tuple[Any, List[int]]]) -> None:
+        """Streaming callbacks, outside the lock (user code: a slow one must
+        not stall the folds)."""
+        for cb, ids in emits:
+            try:
+                cb(ids)
+            except Exception as exc:  # noqa: BLE001 — the consumer's problem
+                _log.warning("stream callback failed: %s", exc)
 
     # ------------------------------------------------------------------ #
     # Releases and failures (any thread)
@@ -1430,24 +1883,253 @@ class ContinuousBatcher:
         self._wake.set()
         self._prep_wake.set()
 
-    def _fail_group(self, group: Sequence[Tuple[int, GenRequest]], exc: Exception) -> None:
+    def _fail_group(self, group: Sequence[Tuple[int, GenRequest]], exc: Exception,
+                    recover: bool = False) -> None:
         """Fail one admission group's requests and return their slots and
-        pages."""
+        pages. With ``recover`` (a failed prefill: a device fault, not the
+        client's) each request re-admits at the backlog's head instead,
+        within its strikes: it has no token yet, so it is admitted again
+        as it was."""
+        now, t_snap = time.monotonic(), time.perf_counter()
+        requeue: List[GenRequest] = []
         with self._lock:
             for idx, req in group:
                 self._prep_reserved.discard(idx)
                 slot = self._slots[idx]
                 if slot is None or slot.request is req:
                     self._drop_slot_locked(idx)
-                if not req.future.done():
+                if req.future.done():
+                    continue
+                if not recover:
                     req.future.set_exception(exc)
+                elif self._recovery_decision_locked(req, exc, now, t_snap):
+                    requeue.append(req)
+            self._backlog.extendleft(reversed(requeue))
+        if requeue:
+            global_metrics.inc("engine.recovery_requeued", len(requeue))
 
-    def _fail_all(self, exc: Exception) -> None:
-        """A failed dispatch or fold fails every occupant (recovery is
-        ROADMAP P6b)."""
+    # ------------------------------------------------------------------ #
+    # The fault domain: deadlines, recovery, the rebuild, the watchdog
+    # ------------------------------------------------------------------ #
+
+    def _expire_deadlines(self) -> None:
+        """Release the occupied slots whose deadline passed mid-decode
+        (device thread, every cycle): the slot frees now, its device side
+        at the next release, and the generation stamp keeps a chunk in
+        flight from folding into it; the future fails with
+        ``DeadlineExceeded``."""
+        now = time.monotonic()
+        expired: List[Tuple[int, _Slot]] = []
         with self._lock:
             for i, slot in enumerate(self._slots):
-                if slot is not None:
-                    self._drop_slot_locked(i)
-                    if not slot.request.future.done():
-                        slot.request.future.set_exception(exc)
+                req = slot.request if slot is not None else None
+                if req is None or req.deadline is None or now < req.deadline:
+                    continue
+                self._drop_slot_locked(i)
+                self._gen[i] += 1
+                global_metrics.inc("engine.expired")
+                global_metrics.inc("engine.deadline_releases")
+                expired.append((i, slot))
+                if not req.future.done():
+                    req.future.set_exception(DeadlineExceeded(
+                        f"request deadline expired after {len(slot.generated)} generated "
+                        f"token(s)"))
+        for i, slot in expired:
+            req = slot.request
+            if req.trace_id is not None:
+                global_tracer.emit("engine.batch_decode", trace_id=req.trace_id,
+                                   start=req.submitted_at, end=time.perf_counter(), slot=i,
+                                   prompt_len=slot.prompt_len, tokens=len(slot.generated),
+                                   status="deadline")
+
+    def _recoverable(self, req: GenRequest, now: float) -> bool:
+        """May this request re-admit instead of failing? (lock held)"""
+        return (self.recovery_max_attempts > 0
+                and req.recovery_attempts < self.recovery_max_attempts
+                and not req.cancelled and not req.future.cancelled()
+                and (req.deadline is None or now < req.deadline))
+
+    def _recovery_decision_locked(self, req: GenRequest, exc: Exception, now: float,
+                                  t_snap: float) -> bool:
+        """The one requeue-or-fail rule of every failure arm (lock held).
+        True: the request re-admits (a strike spent, the snapshot time
+        stamped); the caller puts it at the backlog's head. False: its
+        future failed with ``exc``."""
+        if self._recoverable(req, now):
+            req.recovery_attempts += 1
+            req.recovery_started_at = t_snap
+            return True
+        if self.recovery_max_attempts > 0 and req.recovery_attempts >= self.recovery_max_attempts:
+            global_metrics.inc("engine.recovery_failed")
+        req.future.set_exception(exc)
+        return False
+
+    def _fail_occupied_slots(self, exc: Exception, record_fault: bool = True,
+                             allow_recovery: bool = True) -> None:
+        """Contain a device or transfer failure to the engine, not its
+        requests (any thread). Each occupant's progress is snapshotted and
+        re-admitted at the backlog's head through the normal admission
+        path: its prompt plus the tokens it had, so greedy output is the
+        uninterrupted run's and a stream resumes at the next new token
+        (``recovered_tokens`` are never emitted again). Strikes are bounded
+        per request (``recovery_max_attempts``, then the original
+        exception). Cancelled and expired requests fail. The JSON rule: a
+        JSON request that streamed fails (the grammar's state follows the
+        position after the prompt, so a spliced replay cannot be
+        constrained, nor can a seen stream restart), one that did not
+        restarts from its prompt. ``allow_recovery=False`` fails every
+        occupant with ``exc``."""
+        now, t_snap = time.monotonic(), time.perf_counter()
+        recovered: List[GenRequest] = []
+        failed = 0
+        with self._lock:
+            for i, slot in enumerate(self._slots):
+                if slot is None:
+                    continue
+                self._drop_slot_locked(i)
+                self._gen[i] += 1
+                req = slot.request
+                if req.future.done():
+                    continue
+                replay = list(slot.generated)
+                if not allow_recovery or (req.json_mode and replay and req.on_tokens is not None):
+                    req.future.set_exception(exc)
+                    failed += 1
+                    continue
+                if not self._recovery_decision_locked(req, exc, now, t_snap):
+                    failed += 1
+                    continue
+                if req.json_mode:
+                    replay = []                # restart from the prompt
+                if not replay:
+                    # Its tokens, if any, are discarded: its first comes anew.
+                    req.first_token_at = None
+                if replay:
+                    # A new list: callers hold the original prompt.
+                    req.prompt_ids = req.prompt_ids + replay
+                    req.recovered_tokens.extend(replay)
+                    req.max_new_tokens -= len(replay)
+                    global_metrics.inc("engine.tokens_replayed", len(replay))
+                recovered.append(req)
+            self._first_reads.clear()
+            # In submission order at the head: they were admitted earliest.
+            self._backlog.extendleft(reversed(recovered))
+        if recovered or failed:
+            global_metrics.inc("engine.recovery_requeued", len(recovered))
+            _log.warning("engine failure (%s): %d in-flight request(s) requeued for recovery, "
+                         "%d failed", exc, len(recovered), failed)
+        if record_fault:
+            self.degrade.record_fault("device")
+        self._prep_wake.set()
+        self._wake.set()
+
+    def _declare_dead(self, exc: BaseException, reason: str) -> None:
+        """Nothing can be recovered in the process (a sticky CUDA error, or
+        rebuilds that kept failing): fail the occupants with the original
+        exception and mark this engine stalled on ``global_engine_health``,
+        which force-opens the subscribed breakers, until ``stop()``. No
+        rebuild is tried."""
+        global_engine_health.mark_stalled(reason=f"{reason}: {exc}", source=self.health_source)
+        self._fail_occupied_slots(exc, allow_recovery=False)
+
+    def _rebuild_device_state(self, reason: str) -> None:
+        """Reset the device state after a failure, in place (device thread,
+        on its stream; the failure arm has swept the occupants first). The
+        captured chunk graphs read the cache (panels or pools, their int8
+        scales), the decode and sampling states, the block table, the
+        draft-mode vector and the history by address, so each is filled as
+        it was made, and nothing a graph holds is allocated again or
+        captured: every graph stays valid. On the host: staged admissions
+        and a segmenting prompt go back to the backlog's head, a fresh page
+        allocator, the page index and the dense prefix store emptied (their
+        contents lived in, or came from, the suspect state), every slot's
+        generation bumped, so chunks in flight fold into nothing. The JAX
+        batcher allocates fresh state here instead
+        (``pilottai_tpu/engine/batcher.py:_rebuild_device_state``)."""
+        # Fault point: a rebuild that itself fails (retried, bounded).
+        global_injector.fire("engine.rebuild", reason=reason)
+        t0 = time.perf_counter()
+        with self._prep_gate:
+            staged = []
+            while True:
+                try:
+                    staged.append(self._prepped.get_nowait())
+                except queue.Empty:
+                    break
+            with self._lock:
+                if self._segmenting is not None:
+                    staged.insert(0, _SegmentStart(self._segmenting))
+                    self._segmenting = None
+                self._requeue_locked(staged)
+                self._prepped_reqs = 0
+                self._seg_pending = False
+                self._prep_reserved.clear()
+                self._first_reads.clear()
+                self._gen = [g + 1 for g in self._gen]
+                if self.alloc is not None:
+                    self.alloc = PageAllocator(self.num_pages, self.page_size, self.n_slots,
+                                               self.alloc.table.shape[1])
+                if self.page_index is not None:
+                    self.page_index.clear()
+                if self.prefix_store is not None:
+                    self.prefix_store.clear()
+        events = None
+        if self.stream is not None:
+            events = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            events[0].record()
+        reset_cache(self.cache)
+        reset_decode(self.dstate)
+        reset_sampling(self.sampling)
+        for t in (self.history, self.runner.draft_mode):
+            if t is not None:
+                t.zero_()
+        if self.runner.table is not None:
+            self.runner.table.fill_(self.num_pages - 1)
+        if events is not None:
+            events[1].record()
+        self._last_rebuild = (time.perf_counter() - t0, *(events or (None, None)))
+        global_metrics.inc("engine.rebuilds")
+        global_metrics.inc(f"engine.rebuilds.{reason}")
+        _log.warning("device state rebuilt in place (reason=%s)", reason)
+        self._beat()        # the rebuild is progress: re-admissions must not race the watchdog
+        self._prep_wake.set()
+        self._wake.set()
+
+    def _beat(self) -> None:
+        """Progress heartbeat (folds, prefills, segments, rebuilds)."""
+        if self._watchdog is not None:
+            self._watchdog.beat()
+
+    def _watchdog_has_work(self) -> bool:
+        """Anything in flight or queued? (watchdog thread; a lock-free
+        approximation.) The warm-up sweep never trips the watchdog: its
+        captures stall the heartbeats for legitimate minutes."""
+        if self._warming:
+            return False
+        return (self.blocks_dispatched != self.blocks_folded
+                or any(s is not None for s in self._slots)
+                or bool(self._backlog) or self._pending.qsize() > 0
+                or self._segmenting is not None or bool(self._prep_reserved)
+                or self._prepped_reqs > 0)
+
+    def _on_watchdog_stall(self, info: Dict[str, Any]) -> None:
+        """A stall counts as a fault on the degrade ladder (watchdog thread)."""
+        self.degrade.record_fault("stall")
+
+
+def sticky_device_error(exc: BaseException) -> bool:
+    """Does this error leave the CUDA context unusable (``STICKY_CUDA_ERRORS``
+    in its message or its cause's)? Such a fault cannot be recovered in
+    the process: the batcher fails the occupants and marks the engine
+    stalled instead of rebuilding. Injected and host faults re-admit. The
+    JAX package classifies device errors per shard for its mesh
+    (``pilottai_tpu/parallel/meshplan.py:classify_device_error``); this is
+    the one-card counterpart."""
+    seen = set()
+    while exc is not None and id(exc) not in seen:
+        seen.add(id(exc))
+        text = str(exc).lower()
+        if any(s in text for s in STICKY_CUDA_ERRORS):
+            return True
+        exc = exc.__cause__ or exc.__context__
+    return False

@@ -191,6 +191,14 @@ def release_decode(state: DecodeState, slots: Sequence[int]) -> DecodeState:
     return state
 
 
+def reset_decode(state: DecodeState) -> None:
+    """Every slot as ``DecodeState.create`` makes it (empty and done), in
+    place: a captured chunk graph reads this storage."""
+    state.tokens.zero_()
+    state.done.fill_(True)
+    state.budget.zero_()
+
+
 def _merge_stats(acc_a, m_a, l_a, acc_b, m_b, l_b):
     """Unnormalized online-softmax merge over disjoint key sets."""
     m = torch.maximum(m_a, m_b)

@@ -11,6 +11,9 @@ matmul weights are quantized once, after they are loaded or made and
 before the batcher is built (``models/quant.py:quantize_params``, in
 place, leaf by leaf). With ``engine_kv_quantize="int8"`` the batcher's
 KV cache is int8 with per-token scales; the two quantizations compose.
+``LLMConfig.reliability`` reaches the batcher as in the JAX engine: the
+queue depth it sheds at, in-flight recovery, the watchdog and the degrade
+ladder; a request's ``deadline`` and ``slo_class`` ride with it.
 ``start``
 returns once the batcher's warm-up sweep has captured every chunk graph
 and run every prefill bucket (``ContinuousBatcher.warmup``); a sweep that
@@ -43,12 +46,11 @@ from pilottai_tpu_torch.models.common import init_params
 from pilottai_tpu_torch.models.loader import load_npz
 from pilottai_tpu_torch.models.quant import quantize_params
 from pilottai_tpu_torch.models.registry import get_model_config
+from pilottai_tpu_torch.reliability.degrade import DegradeLadder
 
 # Request fields whose feature belongs to a later slice, and its ROADMAP item.
 _REQUEST_LATER = {
     "json_schema": "serve",
-    "deadline": "reliability",
-    "slo_class": "reliability",
     "priority": "sched",
     "gang_id": "sched",
     "session_id": "kvtier",
@@ -113,6 +115,7 @@ class TorchEngine(LLMBackend):
             _log.info("quantized matmul weights to %s (weight-only%s) in %.2f s", self.quant_mode,
                       f", group {self.config.engine_quant_group}"
                       if self.quant_mode == "int4" else "", self.quantize_seconds)
+        rel = self.config.reliability
         batcher = ContinuousBatcher(
             cfg, params, self.device,
             n_slots=self.config.engine_slots,
@@ -133,6 +136,16 @@ class TorchEngine(LLMBackend):
             speculate=self.config.engine_speculate,
             draft_layers=self.config.engine_draft_layers,
             kv_quantize=self.config.engine_kv_quantize == "int8",
+            # The fault domain (ReliabilityConfig): shedding, bounded
+            # in-flight recovery, the watchdog and the capability ladder.
+            max_queue_depth=rel.max_queue_depth,
+            batch_shed_frac=rel.batch_shed_frac,
+            recovery_max_attempts=rel.recovery_max_attempts,
+            watchdog_stall_s=rel.watchdog_stall_s,
+            degrade=DegradeLadder(
+                fault_threshold=rel.degrade_fault_threshold, window_s=rel.degrade_window_s,
+                promote_s=rel.degrade_promote_s, enabled=rel.degrade_enabled,
+            ),
         )
         batcher.start()
         try:
@@ -168,6 +181,9 @@ class TorchEngine(LLMBackend):
             seed=params.seed if params.seed is not None else 0,
             eos_id=self.tokenizer.eos_id,
             json_mode=params.json_mode,
+            deadline=params.deadline,
+            slo_class=params.slo_class,
+            trace_id=params.trace_id,
         )
 
     async def generate(

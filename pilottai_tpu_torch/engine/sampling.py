@@ -79,6 +79,19 @@ class SamplingState:
         )
 
 
+def reset_sampling(state: SamplingState, seed: int = 0) -> None:
+    """Every slot as ``SamplingState.create(seed=seed)`` makes it, in place
+    (the captured chunk graphs read these tensors and hold the
+    generators)."""
+    for t in (state.temperature, state.top_k, state.json_enabled, state.json_state,
+              state.json_stack, state.json_depth):
+        t.zero_()
+    state.top_p.fill_(1.0)
+    state.eos_id.fill_(-1)
+    for i, g in enumerate(state.generators):
+        g.manual_seed(seed + i)
+
+
 def admit_sampling(
     state: SamplingState,
     slots: Sequence[int],

@@ -1,9 +1,8 @@
 """Engine wire types: messages, tool specs, generation parameters,
 responses — the port's copy of ``pilottai_tpu/engine/types.py`` for the
-fields this slice serves. Fields whose feature belongs to a later slice
-(schemas, deadlines, SLO classes, sessions, priorities, gangs) are kept
-so a caller gets a clear refusal from the engine, not a validation
-error."""
+fields the port serves. Fields whose feature belongs to a later slice
+(schemas, sessions, priorities, gangs) are kept so a caller gets a clear
+refusal from the engine, not a validation error."""
 
 from __future__ import annotations
 
@@ -54,10 +53,22 @@ class GenerationParams(BaseModel):
     seed: Optional[int] = None
     stop: List[str] = Field(default_factory=list)
     json_mode: bool = False
+    # End-to-end request deadline: ABSOLUTE ``time.monotonic()`` time (not
+    # a relative budget — a deadline survives queueing and retries without
+    # re-arming; ``reliability.deadline_from_timeout`` makes one). The
+    # handler's retry loop and the batcher's admission and decode check it
+    # and fail with ``reliability.DeadlineExceeded`` when it passes. None =
+    # no deadline.
+    deadline: Optional[float] = None
+    # Trace correlation id, threaded handler → backend → batcher (the
+    # handler assigns one when the caller sets none); the batcher emits the
+    # request's engine span under it.
+    trace_id: Optional[str] = None
+    # SLO service class: "interactive" (None) or "batch", which sheds at a
+    # lower queue depth and outright at the degrade ladder's last rung.
+    slo_class: Optional[str] = None
     # Later slices; the engine refuses a request that sets them.
     json_schema: Optional[Dict[str, Any]] = None
-    deadline: Optional[float] = None
-    slo_class: Optional[str] = None
     session_id: Optional[str] = None
     priority: Optional[int] = None
     gang_id: Optional[str] = None

@@ -181,3 +181,14 @@ def free_slots(cache: KVCache, slots: Sequence[int]) -> KVCache:
         if 0 <= int(s) < cache.n_slots:
             cache.lengths[int(s)] = 0   # a fill: no host copy to wait on
     return cache
+
+
+def reset_cache(cache) -> None:
+    """Zero a dense or paged cache in place — its panels or pools, their
+    int8 scales and the lengths — as a new cache is made: the engine's
+    failure-path rebuild keeps every tensor a captured chunk graph reads
+    at its address."""
+    for pair in cache.layers + (cache.scales or []):
+        for t in pair:
+            t.zero_()
+    cache.lengths.zero_()

@@ -155,8 +155,11 @@ def test_knobs_outside_the_slice_are_refused(monkeypatch):
                                                                      None, True)
     LLMConfig(engine_chunk_policy="fixed", engine_chunk_buckets=(4, 8), engine_pipeline=1,
               engine_overlap_admission=False, engine_fused_epilogue=False)
-    with pytest.raises(ValueError, match="P6b"):
-        LLMConfig(retries=3)
+    # The handler's retries, rate limit and reliability knobs (slice P6b)
+    # are accepted at the JAX package's defaults.
+    cfg = LLMConfig()
+    assert (cfg.retries, cfg.retry_delay, cfg.max_rpm) == (3, 1.0, None)
+    LLMConfig(retries=0, max_rpm=60, reliability={"recovery_max_attempts": 0})
     with pytest.raises(ValueError, match="P6c"):
         LLMConfig(engine_sched_policy="dag")
     with pytest.raises(ValueError, match="P10"):

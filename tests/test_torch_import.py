@@ -25,6 +25,14 @@ banned = [
 ]
 print(len(names), "modules")
 print("GEMMA", "pilottai_tpu_torch.models.gemma" in names)
+print("P6B", all(m in names for m in (
+    "pilottai_tpu_torch.reliability", "pilottai_tpu_torch.reliability.breaker",
+    "pilottai_tpu_torch.reliability.deadline", "pilottai_tpu_torch.reliability.degrade",
+    "pilottai_tpu_torch.reliability.inject", "pilottai_tpu_torch.reliability.watchdog",
+    "pilottai_tpu_torch.utils.metrics", "pilottai_tpu_torch.utils.logging",
+    "pilottai_tpu_torch.utils.tracing")))
+root = __import__("logging").getLogger("pilottai_tpu_torch")
+print("LOGGING", root.handlers == [] and root.propagate)
 print("BANNED", banned)
 """
 
@@ -38,6 +46,8 @@ def test_port_imports_no_jax_and_no_jax_package():
     lines = out.stdout.strip().splitlines()
     assert int(lines[0].split()[0]) >= 39          # every module was imported
     assert lines[1] == "GEMMA True"                # the Gemma configs (slice P9a) among them
+    assert lines[2] == "P6B True"                  # the fault domain's modules (slice P6b)
+    assert lines[3] == "LOGGING True"              # importing configures no logging
     assert lines[-1] == "BANNED []", lines[-1]
 
 
