@@ -95,10 +95,11 @@ result line is printed only when every phase passed):
    the buffers shared by shape against one set a variant, the shared
    pool) and fails if serving captured a graph after ``start()``.
    (c) the same golden at the port's defaults, prefix cache on, each case
-   served twice in a row, dense and paged: every serving's ids equal the
-   golden's, the lookups hit at least once a case (the second serving),
-   no export fails, and every page is back on the free list or pinned by
-   the page index; (d) the same golden with ``engine_speculate=4``, dense
+   served twice in a row, dense and paged, the KV cache tier's host tier
+   on (``TIER_GOLDEN_MB``): every serving's ids equal the golden's, the
+   lookups hit at least once a case (the second serving), no export
+   fails, and every page is back on the free list or pinned by the page
+   index; (d) the same golden with ``engine_speculate=4``, dense
    and paged (6/6 each), and again with ``engine_draft_layers=2`` with
    every slot put in model-draft mode at admission (the hysteresis alone
    never switches on these prompts), the model-draft graph replayed at
@@ -135,7 +136,15 @@ result line is printed only when every phase passed):
    paged cache a segmented prompt's last prefill fails, and one fold is
    poisoned; every case but the poisoned one (``PoisonedOutput``) gives the
    golden ids, two rebuilds run in place, no graph is captured and every
-   page comes back;
+   page comes back; (j) on (c)'s engines, after their checks, the KV cache
+   tier (``phase_tier_golden``): the caches emptied and shrunk to one dense
+   entry or two pinned pages, the golden cases served once more, each
+   prompt under its own ``session_id``, so that each prompt's second case
+   resumes after its K/V was spilled (the paged capacity back at its
+   default before the resumes): 6/6 golden ids, restores, a restored
+   request's ``engine.prefill_tokens`` under half its prompt, every
+   eviction spilled (the hooks counted), no integrity failure, no graph
+   captured and, the index emptied, every page back on the free list;
 5. full width — llama3-8b in bf16 from random init, the prefix cache off
    in (a) to (c); the engines of (a) and (b) serve the later runs at their
    settings too (5d with the cache off, 5e with speculation off, 5c), and
@@ -170,10 +179,22 @@ result line is printed only when every phase passed):
    rules and whose task differs in every request, dense (2048) and paged
    (8192): a cold wave, then five timed waves with the prefix cache on
    (8 hits a wave, each tail one K1 launch a layer against the cached
-   prefix: the store's derived preamble entry, or 7 shared pages) and the
+   prefix: the store's derived preamble entry, or 7 shared pages; the
+   cache-on engines run the host tier, ``TIER_HOST_MB``) and the
    same waves on the shared engine, whose cache is off; TTFT and TPOT p50 of both, the store or the
    pinned pages, and one warm request's first-token logits through the
    hit path against a full K1 prefill (``TOL_E2E``, the same argmax);
+   (k) on (d)'s cache-on engines after its checks, sessions through the
+   KV cache tier (``phase_tier_sessions``): eight sessions' first turns
+   (distinct ~900-byte documents), eight unrelated requests that evict
+   them (the spills), then each session's resume alone (its K/V restored
+   from host memory) and once more (a device-resident hit): the resume's
+   TTFT p50 against the hit's and (d)'s warm and cold waves, the bytes
+   restored, the D2H and H2D rates, a restored resume's first-token
+   logits against a full prefill (``TOL_E2E``, the same argmax), one
+   session exported, the host tier cleared, imported and resumed to the
+   same ids; every eviction spilled, no integrity failure, no graph
+   captured;
    (e) speculative decoding at full width: 8 concurrent JSON requests,
    dense (2048) and paged (8192), ``engine_speculate=4``, the first wave
    served (its TTFT beside the timed median), a wave with the row-0 check
@@ -1622,7 +1643,8 @@ def per_step_check(launches, batcher, steps, label):
 
 
 def phase_golden(torch, kernels, root, asset, paged, page_size=None, knobs=None,
-                 prefix_cache=0, repeat=1, force_drafts=False, native=False, faults=False):
+                 prefix_cache=0, repeat=1, force_drafts=False, native=False, faults=False,
+                 keep=None):
     """Serve the golden prompts with the asset's engine settings (the page
     size replaced by ``page_size``, the pipeline or speculation knobs by
     ``knobs``, if given) and hold the ids to it. The prefix cache is off,
@@ -1633,8 +1655,10 @@ def phase_golden(torch, kernels, root, asset, paged, page_size=None, knobs=None,
     engine with ``PILOTTAI_QMATMUL=native`` (the variable unset again once
     it has started: the engine holds the arm it read); ``faults`` serves the
     cases once more on the same engine, after every check above, with
-    faults injected (``golden_faults``, 4i). Returns the path's launches and
-    the shapes its fp32 kernels saw."""
+    faults injected (``golden_faults``, 4i); ``keep`` (a dict) receives the
+    started engine and the golden file instead of their stop, for a later
+    stage (4j). Returns the path's launches and the shapes its fp32 kernels
+    saw."""
     from pilottai_tpu_torch import LLMConfig, LLMHandler, PROTOCOL_S_NPZ
     from pilottai_tpu_torch.engine.types import ChatMessage, ToolSpec
     from pilottai_tpu_torch.models.transformer import forward_prefill
@@ -1694,7 +1718,7 @@ def phase_golden(torch, kernels, root, asset, paged, page_size=None, knobs=None,
             await settle(batcher)
             return out, handler, batcher
         finally:
-            if not faults:
+            if not faults and keep is None:
                 await handler.stop()
 
     t0 = time.perf_counter()
@@ -1785,6 +1809,8 @@ def phase_golden(torch, kernels, root, asset, paged, page_size=None, knobs=None,
             golden_faults(handler, golden, paged)
         finally:
             arun(handler.stop())
+    if keep is not None:
+        keep.update(handler=handler, golden=golden)
     # The shapes the fp32 kernels saw: one request at a time, the prompt
     # padded to its bucket, the decode read over every slot's panel (or,
     # paged, the request's pages) at mid-generation, mid-chunk.
@@ -1930,6 +1956,329 @@ def golden_faults(handler, golden, paged):
         raise SystemExit(f"4i: {batcher.num_pages - 1 - batcher.alloc.free_pages} pages leaked")
     if failed:
         raise SystemExit("4i: recovery under injected faults went wrong")
+
+
+# --------------------------------------------------------------------- #
+# The KV cache tier (4j, 5k)
+# --------------------------------------------------------------------- #
+
+#: The host tier's budget on 4c's protocol-s engines (4j): every entry they
+#: spill fits (dense entries of 512 rows, 4 layers; pages of 16 tokens).
+TIER_GOLDEN_MB = 64
+#: The host tier's budget on 5d's cache-on llama3-8b engines (5d, 5k): one
+#: wave of sessions and the traffic that evicts them, and 5d's own spills,
+#: fit (dense: 16 entries of 1024 rows, 134 MB each in bf16; paged: 112
+#: pages of 128 tokens, 16.8 MB each), so no session leaves the tier
+#: before its resume.
+TIER_HOST_MB = 4096
+KV_SERIES = ("lookups", "hits", "host_hits", "restores", "restored_tokens", "spills",
+             "spill_bytes", "evictions", "integrity_failures", "prefill_tokens_saved")
+
+
+def kv_counts():
+    """The ``engine.kvcache.*`` counters and ``engine.prefill_tokens``."""
+    from pilottai_tpu_torch.utils.metrics import global_metrics
+
+    got = {k: global_metrics.get(f"engine.kvcache.{k}") for k in KV_SERIES}
+    got["prefill_tokens"] = global_metrics.get("engine.prefill_tokens")
+    return got
+
+
+def kv_moved(before):
+    return {k: int(v - before[k]) for k, v in kv_counts().items()}
+
+
+def counting_evictions(batcher):
+    """Wrap the device tier's eviction hooks (the dense store's, the page
+    index's) so that every eviction counts here; the host tier's spill
+    behind each must then be made. Returns the count and the unwrap."""
+    calls = [0]
+    wrapped = []
+    for owner in (batcher.prefix_store, batcher.page_index):
+        if owner is None or owner.on_evict is None:
+            continue
+        hook = owner.on_evict
+
+        def counted(*args, _hook=hook):
+            calls[0] += 1
+            return _hook(*args)
+
+        owner.on_evict = counted
+        wrapped.append((owner, hook))
+
+    def unwrap():
+        for owner, hook in wrapped:
+            owner.on_evict = hook
+
+    return calls, unwrap
+
+
+def tier_check(moved, evictions, label):
+    """Every eviction spilled, and no entry failed its integrity frame."""
+    log(f"  {label}: engine.kvcache.* deltas {moved}; evictions the hooks saw {evictions}")
+    if moved["integrity_failures"]:
+        raise SystemExit(f"{label}: {moved['integrity_failures']} integrity failures")
+    if moved["spills"] != evictions:
+        raise SystemExit(f"{label}: {evictions} evictions but {moved['spills']} spills: an "
+                         "eviction did not spill")
+
+
+def empty_tier(batcher):
+    """Empty the dense store or the page index (its pages unpinned) and the
+    host tier, on the device thread under the batcher's lock (idle)."""
+    def clear():
+        with batcher._lock:
+            if batcher.prefix_store is not None:
+                batcher.prefix_store.clear()
+            if batcher.page_index is not None:
+                batcher.page_index.clear(batcher.alloc)
+            batcher.kvcache.host.clear()
+
+    batcher.call_on_device(clear)
+
+
+def phase_tier_golden(torch, kept, paged):
+    """4j, on 4c's engine after 4c's checks: the caches emptied and the hot
+    capacity shrunk as the JAX tier tests shrink it (one dense entry, two
+    pinned pages), the golden cases served once more, each prompt under its
+    own ``session_id``. The golden file serves each prompt's JSON case
+    first and its plain case after the others, so each second case resumes
+    after its prompt's K/V was spilled (the paged capacity back at its
+    default before them, so that a whole chain restores). Every case's ids
+    must equal the golden's, something must restore, a restored request
+    must prefill under half its prompt (``engine.prefill_tokens``), every
+    eviction must spill, no frame may fail, no graph may be captured, and
+    with the index emptied every page must be back on the free list."""
+    from pilottai_tpu_torch.engine.types import ChatMessage, ToolSpec
+
+    handler, golden = kept["handler"], kept["golden"]
+    batcher = handler.backend.batcher
+    t0 = time.perf_counter()
+    try:
+        empty_tier(batcher)
+        cap = batcher.page_index.capacity if paged else batcher.prefix_store.capacity
+        if paged:
+            batcher.page_index.capacity = 2
+        else:
+            batcher.prefix_store.capacity = 1
+        firsts = len({case["prompt"] for case in golden["cases"]})
+        evictions, unwrap = counting_evictions(batcher)
+        seen = record_requests(handler)
+        before = kv_counts()
+
+        async def serve():
+            rows = []
+            for i, case in enumerate(golden["cases"]):
+                if paged and i == firsts:
+                    batcher.page_index.capacity = cap
+                p = golden["prompts"][case["prompt"]]
+                k0 = kv_counts()
+                seen.clear()
+                await handler.generate_response(
+                    [ChatMessage(**m) for m in p["messages"]],
+                    tools=[ToolSpec(**t) for t in p["tools"]] if p["tools"] else None,
+                    json_mode=case["json_mode"], session_id=f"4j-{case['prompt']}")
+                await settle(batcher)
+                rows.append((case, seen[-1], kv_moved(k0)))
+            return rows
+
+        rows = arun(serve())
+        unwrap()
+        moved = kv_moved(before)
+        failed = False
+        for case, req, d in rows:
+            ids = req.future.result()
+            same = ids == case["token_ids"] and list(req.prompt_ids) == case["prompt_ids"]
+            n = len(req.prompt_ids)
+            log(f"  4j prompt {case['prompt']} json_mode={case['json_mode']!s:<5} session "
+                f"4j-{case['prompt']}: restores {d['restores']} ({d['restored_tokens']} tokens), "
+                f"prefilled {d['prefill_tokens']} of {n} prompt tokens, spills {d['spills']}; "
+                f"{len(ids)} tokens {'equal' if same else 'DIFFER'} to the golden")
+            failed |= not same or (d["restores"] > 0 and not d["prefill_tokens"] < n / 2)
+        tier_check(moved, evictions[0], "4j")
+        no_capture_check(batcher, "4j")
+        if paged:
+            pinned = batcher.page_index.pinned_pages
+            log(f"  4j pages: {batcher.alloc.free_pages} free + {pinned} pinned of "
+                f"{batcher.num_pages - 1}")
+            failed |= batcher.alloc.free_pages + pinned != batcher.num_pages - 1
+            empty_tier(batcher)
+            log(f"  4j pages with the index emptied: {batcher.alloc.free_pages} free of "
+                f"{batcher.num_pages - 1}")
+            failed |= batcher.alloc.free_pages != batcher.num_pages - 1
+        log(f"  4j: {sum(1 for c, r, _ in rows if r.future.result() == c['token_ids'])}/"
+            f"{len(rows)} golden, {moved['restores']} restores, {time.perf_counter() - t0:.1f} s")
+        if failed or moved["restores"] < 1:
+            raise SystemExit("4j: a golden id differs, nothing restored, a restored request "
+                             "prefilled half its prompt or more, or a page leaked")
+    finally:
+        arun(handler.stop())
+
+
+#: 5k: the sessions, their first turn's budget (TTFT is what 5k measures),
+#: and the follow-up message of their resume.
+SESSIONS = 8
+SESSION_NEW = 16
+SESSION_WORDS = ("report", "invoice", "section", "total", "date", "vendor", "amount", "churn",
+                 "pipeline", "summary", "table", "column", "figure", "quarter", "region",
+                 "forecast", "account", "ledger", "audit", "review")
+FOLLOW_UP = "Continue: plan the step after that one, with the same keys."
+
+
+def session_messages(s, n_bytes=900):
+    """Session ``s``'s first turn: its own document (distinct from its
+    first bytes on, so no two sessions share a cached prefix) and a task."""
+    import random
+
+    from pilottai_tpu_torch.engine.types import ChatMessage
+
+    rng = random.Random(1000 + s)
+    text = f"Session {s} notes:"
+    while len(text) < n_bytes:
+        text += " " + rng.choice(SESSION_WORDS)
+    return [ChatMessage(role="system", content=text[:n_bytes]),
+            ChatMessage(role="user", content=AGENT_TASK.format(r=100 + s))]
+
+
+def phase_tier_sessions(torch, kept, paged):
+    """5k, on 5d's cache-on engine after 5d's checks: eight sessions' first
+    turns as one wave, eight unrelated requests that evict them (a wave),
+    then each session's resume alone (restored from the host tier) and the
+    same resume once more (a device-resident hit); the resume's TTFT p50
+    against the hit's and against 5d's warm and cold waves, the bytes and
+    the D2H and H2D rates of the copies, the last restored resume's
+    first-token logits against a full prefill; then session 0 exported, the
+    host tier and the device tier emptied, the export imported and the
+    resume served again: its ids must be the first resume's."""
+    from pilottai_tpu_torch.engine.types import ChatMessage, GenerationParams
+    from pilottai_tpu_torch.utils.metrics import global_metrics
+
+    handler = kept["handler"]
+    batcher = handler.backend.batcher
+    params = GenerationParams(temperature=0.0, max_new_tokens=SESSION_NEW)
+    t0 = time.perf_counter()
+    # Host ms of each restore's integrity check (the CRC over the entry),
+    # beside ``engine.kvcache.restore_ms`` (the staging after it).
+    checks = []
+    entry_ok = batcher.kvcache._entry_ok
+
+    def timed_entry_ok(entry):
+        t = time.perf_counter()
+        ok = entry_ok(entry)
+        checks.append((time.perf_counter() - t) * 1e3)
+        return ok
+
+    batcher.kvcache._entry_ok = timed_entry_ok
+    evictions, unwrap = counting_evictions(batcher)
+    seen = record_requests(handler)
+    before = kv_counts()
+    xfer0 = batcher.kvcache.transfer_report()
+
+    async def ask(messages, sid):
+        seen.clear()
+        reply = await handler.generate_response(messages, params=params, json_mode=True,
+                                                session_id=sid)
+        await settle(batcher)
+        return reply, seen[-1], batcher.completed[-1]["ttft_s"] * 1e3
+
+    async def run():
+        docs = [session_messages(s) for s in range(SESSIONS)]
+        firsts = await asyncio.gather(*[
+            handler.generate_response(docs[s], params=params, json_mode=True,
+                                      session_id=f"5k-{s}") for s in range(SESSIONS)])
+        await asyncio.gather(*[
+            handler.generate_response(session_messages(100 + r), params=params,
+                                      json_mode=True) for r in range(SESSIONS)])
+        await settle(batcher)
+        out = {"after_traffic": kv_moved(before), "resumes": []}
+        checks.clear()
+        global_metrics.reset_histograms("engine.kvcache.restore_ms")
+        for s in range(SESSIONS):
+            msgs = docs[s] + [ChatMessage(role="assistant", content=firsts[s].content),
+                              ChatMessage(role="user", content=FOLLOW_UP)]
+            k0 = kv_counts()
+            _, req, ttft = await ask(msgs, f"5k-{s}")
+            restored = kv_moved(k0)
+            if s == SESSIONS - 1:
+                out["e2e"] = hit_logits_check(torch, batcher, list(req.prompt_ids))
+            k1 = kv_counts()
+            _, again, ttft_hot = await ask(msgs, f"5k-{s}")
+            out["resumes"].append(dict(
+                msgs=msgs, ids=req.future.result(), ttft=ttft, d=restored,
+                n=len(req.prompt_ids), hot_ttft=ttft_hot, hot=kv_moved(k1),
+                hot_same=again.future.result() == req.future.result()))
+        out["checks"] = list(checks)
+        out["staging"] = global_metrics.snapshot()["histograms"].get("engine.kvcache.restore_ms")
+        export = batcher.export_session_kv("5k-0")
+        empty_tier(batcher)
+        out["import"] = batcher.import_session_kv(export)
+        out["export"] = export
+        k0 = kv_counts()
+        _, req, ttft = await ask(out["resumes"][0]["msgs"], "5k-0")
+        out["imported"] = dict(ids=req.future.result(), ttft=ttft, d=kv_moved(k0))
+        return out
+
+    out = arun(run())
+    unwrap()
+    del batcher.kvcache._entry_ok
+    moved = kv_moved(before)
+    xfer = {k: v - xfer0[k] for k, v in batcher.kvcache.transfer_report().items()}
+    cfg = handler.backend.model_cfg
+    token_bytes = cfg.n_layers * cfg.n_kv_heads * cfg.head_dim * 2 * 2
+    res = out["resumes"]
+    log(f"  5k after the first turns and the traffic: {out['after_traffic']}")
+    for s, r in enumerate(res):
+        log(f"  5k session {s}: resume of {r['n']} tokens: TTFT {r['ttft']:.4f} ms, restores "
+            f"{r['d']['restores']} ({r['d']['restored_tokens']} tokens), prefilled "
+            f"{r['d']['prefill_tokens']}; again (device-resident hit) TTFT {r['hot_ttft']:.4f} "
+            f"ms, restores {r['hot']['restores']}, same ids {r['hot_same']}")
+    ttft = median([r["ttft"] for r in res])
+    hot = median([r["hot_ttft"] for r in res])
+    restored_tokens = sum(r["d"]["restored_tokens"] for r in res)
+    log(f"  5k resume TTFT p50 {ttft:.4f} ms (restored) against {hot:.4f} ms (the same resume as "
+        f"a device-resident hit), 5d's warm waves {kept['warm_ttft']:.4f} ms and cold wave "
+        f"{kept['cold_ttft']:.4f} ms (waves of 8)")
+    log(f"  5k restores' host work: {len(out['checks'])} integrity checks (CRC-32 over an entry) "
+        f"{sum(out['checks']):.3f} ms in all, p50 {median(out['checks']):.3f} ms; staging after "
+        f"them (engine.kvcache.restore_ms) {out['staging']}")
+    log(f"  5k restored {restored_tokens} tokens ({restored_tokens * token_bytes / 2**20:.1f} MiB "
+        f"at {token_bytes} bytes a token in bf16) in {sum(r['d']['restores'] for r in res)} "
+        f"restores")
+    log(f"  5k transfers before the stage {xfer0}, during it {xfer}")
+    for way, nb, ms in (("D2H (spill copies)", xfer["d2h_bytes"], xfer["d2h_ms"]),
+                        ("H2D (restore uploads)", xfer["h2d_bytes"], xfer["h2d_ms"])):
+        rate = f"{nb / (ms * 1e6):.3f} GB/s" if ms else "not measured (no copy landed)"
+        log(f"  5k {way}: {nb / 2**20:.1f} MiB in {ms:.3f} ms of device time: {rate}")
+    e2e = out["e2e"]
+    e2e_ok = e2e["finite"] and e2e["rel"] <= TOL_E2E and e2e["same_argmax"]
+    log(f"  5k first-token logits of the last restored resume (a {e2e['tail']}-token tail against "
+        f"{e2e['plen']} restored tokens) vs a full K1 prefill: max |diff| {e2e['max_diff']:.3e} "
+        f"over max |logit| {e2e['max_logit']:.3e} = {e2e['rel']:.3e}, tol {TOL_E2E:g}; same "
+        f"argmax {e2e['same_argmax']} {'ok' if e2e_ok else 'FAIL'}")
+    imp = out["imported"]
+    same = imp["ids"] == res[0]["ids"]
+    log(f"  5k session 0 exported ({len(out['export']['entries'])} entries, "
+        f"{sum(e['k'].nbytes + e['v'].nbytes for e in out['export']['entries']) / 2**20:.1f} "
+        f"MiB), tiers emptied, imported {out['import']}, resumed: TTFT {imp['ttft']:.4f} ms, "
+        f"restores {imp['d']['restores']}, ids {'equal' if same else 'DIFFER'} to its first "
+        f"resume")
+    tier_check(moved, evictions[0], "5k")
+    no_capture_check(batcher, "5k")
+    if paged:
+        pinned = batcher.page_index.pinned_pages
+        log(f"  5k pages: {batcher.alloc.free_pages} free + {pinned} pinned of "
+            f"{batcher.num_pages - 1}")
+        if batcher.alloc.free_pages + pinned != batcher.num_pages - 1:
+            raise SystemExit("5k: pages were neither returned nor pinned")
+    log(f"  5k: {time.perf_counter() - t0:.1f} s")
+    arun(release(handler))
+    if (not e2e_ok or not same or imp["d"]["restores"] < 1
+            or out["import"]["accepted"] != len(out["export"]["entries"])
+            or any(r["d"]["restores"] < 1 or not r["d"]["prefill_tokens"] < r["n"] / 2
+                   or not r["hot_same"] for r in res)):
+        raise SystemExit("5k: a resume did not restore or prefilled half its prompt or more, its "
+                         "logits are off, or the imported session answered differently")
+    return dict(ttft=ttft, hot_ttft=hot, restored_tokens=restored_tokens, xfer=xfer)
 
 
 # --------------------------------------------------------------------- #
@@ -3564,20 +3913,23 @@ def hit_logits_check(torch, batcher, prompt_ids):
     return out
 
 
-def phase_prefix_agent_steps(torch, kernels, root, seed, paged):
+def phase_prefix_agent_steps(torch, kernels, root, seed, paged, keep=None):
     """llama3-8b, 8 concurrent agent steps a wave sharing the preamble: a
     cold wave (it stores entries or pins pages), then ``WAVES`` timed waves
     of new tasks on the same engine with the prefix cache on (every request
-    a hit, its tail prefilled through one K1 launch a layer), and the same
-    waves on the shared engine, whose cache is off. Returns the hit path's
-    K1 launches and shape."""
+    a hit, its tail prefilled through one K1 launch a layer) and the host
+    tier behind it (``TIER_HOST_MB``), and the same waves on the shared
+    engine, whose cache is off. ``keep`` (a dict) receives the cache-on
+    engine, not stopped, and its waves' TTFT, for 5k. Returns the hit
+    path's K1 launches and shape."""
     waves = [agent_step_prompts(root, w) for w in range(1 + WAVES)]
     results = {}
 
     async def serve(prefix_cache):
         handler = await full_width_engine(
             torch, seed, 8192 if paged else 2048, f"5d engine_prefix_cache={prefix_cache}",
-            **(dict(engine_prefix_cache=prefix_cache, **JSON_ONLY) if prefix_cache else {}))
+            **(dict(engine_prefix_cache=prefix_cache, engine_kvcache_host_mb=TIER_HOST_MB,
+                    **JSON_ONLY) if prefix_cache else {}))
         batcher = handler.backend.batcher
         if batcher.paged != paged:
             raise SystemExit("5d: the engine did not page as configured")
@@ -3602,7 +3954,10 @@ def phase_prefix_agent_steps(torch, kernels, root, seed, paged):
         if prefix_cache:
             out["e2e"] = hit_logits_check(torch, batcher, list(seen[-1].prompt_ids))
         no_capture_check(batcher, "5d")
-        await release(handler)
+        if prefix_cache and keep is not None:
+            keep["handler"] = handler
+        else:
+            await release(handler)
         return out
 
     for label, prefix_cache in (("cache on", 4), ("cache off", 0)):
@@ -3653,8 +4008,13 @@ def phase_prefix_agent_steps(torch, kernels, root, seed, paged):
     else:
         log(f"  store: {report['entries']} entries of {report['entry_tokens']} tokens, "
             f"{report['bytes'] / 2**20:.1f} MiB")
-    if any(h != 8 for h in on["hits"]) or report["export_failures"] or any(off["hits"]):
-        raise SystemExit("5d: a warm wave did not hit 8 times, or an export failed")
+    if report.get("host"):
+        log(f"  host tier after the waves: {report['host']}")
+    if keep is not None:
+        keep.update(warm_ttft=median([wv["ttft_ms"] for wv in on["waves"]]),
+                    cold_ttft=on["cold"]["ttft_ms"])
+    if any(h < 8 for h in on["hits"]) or report["export_failures"] or any(off["hits"]):
+        raise SystemExit("5d: a warm wave hit fewer than 8 times, or an export failed")
     if on["launches"]["flash"] != len(calls) or not calls or not e2e_ok:
         raise SystemExit("5d: the hit path did not run through K1 alone, or its logits are off")
     plen = S - T
@@ -4973,13 +5333,18 @@ def main() -> int:
     paths["golden_paged_p8"] = phase_golden(torch, kernels, root,
                                             "protocol_s_paged_golden.json", paged=True,
                                             page_size=8)
-    stage("4c. golden protocol-s token ids (fp32) with the prefix cache on (the port's "
-          "defaults), each case served twice: dense")
-    phase_golden(torch, kernels, root, "protocol_s_golden.json", paged=False, prefix_cache=None,
-                 repeat=2)
-    stage("4c. the same, paged cache, chunked prefill")
-    phase_golden(torch, kernels, root, "protocol_s_paged_golden.json", paged=True,
-                 prefix_cache=None, repeat=2)
+    for label, asset, paged in (("dense", "protocol_s_golden.json", False),
+                                ("paged cache, chunked prefill", "protocol_s_paged_golden.json",
+                                 True)):
+        stage(f"4c. golden protocol-s token ids (fp32) with the prefix cache on (the port's "
+              f"defaults) and its host tier ({TIER_GOLDEN_MB} MiB), each case served twice: "
+              f"{label}")
+        kept = {}
+        phase_golden(torch, kernels, root, asset, paged=paged, prefix_cache=None, repeat=2,
+                     knobs=dict(engine_kvcache_host_mb=TIER_GOLDEN_MB), keep=kept)
+        stage(f"4j. the KV cache tier on 4c's engine: the golden cases under three sessions, "
+              f"each resume after its spill: {label}")
+        phase_tier_golden(torch, kept, paged)
     for label, asset, paged in (("dense", "protocol_s_golden.json", False),
                                 ("paged cache, chunked prefill", "protocol_s_paged_golden.json",
                                  True)):
@@ -5044,11 +5409,15 @@ def main() -> int:
     paths["full_paged"] = phase_full_width_paged(torch, kernels, args.seed)
     gc.collect()
     torch.cuda.empty_cache()
-    stage("5d. llama3-8b full width, bf16, 8 agent steps a wave sharing a preamble, prefix "
-          "cache on and off: dense (engine_max_seq 2048)")
-    paths["prefix_dense"] = phase_prefix_agent_steps(torch, kernels, root, args.seed, False)
-    stage("5d. the same, paged (engine_max_seq 8192, pages of 128)")
-    paths["prefix_paged"] = phase_prefix_agent_steps(torch, kernels, root, args.seed, True)
+    for label, key, paged in (("dense (engine_max_seq 2048)", "prefix_dense", False),
+                              ("paged (engine_max_seq 8192, pages of 128)", "prefix_paged", True)):
+        stage(f"5d. llama3-8b full width, bf16, 8 agent steps a wave sharing a preamble, prefix "
+              f"cache on (host tier {TIER_HOST_MB} MiB) and off: {label}")
+        kept = {}
+        paths[key] = phase_prefix_agent_steps(torch, kernels, root, args.seed, paged, keep=kept)
+        stage(f"5k. the KV cache tier on 5d's cache-on engine: {SESSIONS} sessions, evicted, "
+              f"resumed from host memory, one exported and imported: {label}")
+        paths[f"tier_{key}"] = phase_tier_sessions(torch, kept, paged)
     gc.collect()
     torch.cuda.empty_cache()
     stage("5e. llama3-8b full width, bf16, engine_speculate=4, 8 concurrent JSON requests, "

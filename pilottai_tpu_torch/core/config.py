@@ -25,7 +25,6 @@ class NotInSlice(ValueError):
 # ROADMAP.md, "Port slices", in the order they land.
 ROADMAP = {
     "sched": "P6c (scheduling policies: priority, gangs and pre-warming)",
-    "kvtier": "P7 (KV cache tier)",
     "serve": "P8 (Serve, agents and the document pipeline on the port)",
     "edge": "P8a (Serve on the port: the HTTP edge and ServeConfig)",
     "models": "P9b (MoE, Hugging Face checkpoints and tokenizers)",
@@ -43,8 +42,6 @@ _LATER: Dict[str, Tuple[Tuple[Any, ...], str]] = {
     "engine_gang_wait_ms": ((50.0,), "sched"),
     "engine_priority_aging_s": ((2.0,), "sched"),
     "engine_prewarm_depth": ((0,), "sched"),
-    "engine_kvcache_host_mb": ((0,), "kvtier"),
-    "engine_kvcache_policy": (("cost",), "kvtier"),
     "cell_disagg": ((None,), "serve"),
     "function_calling": ((True,), "serve"),
     "api_key": ((None,), "serve"),
@@ -165,12 +162,12 @@ class LogConfig(BaseModel):
 
 class LLMConfig(BaseModel):
     """The port's engine configuration: one device, KV in the compute dtype
-    or int8 (dense, or paged from ``engine_max_seq`` 4096 on), the device
-    tier of the prefix cache, speculative decoding, weight-only
+    or int8 (dense, or paged from ``engine_max_seq`` 4096 on), the prefix
+    cache with its host tier, speculative decoding, weight-only
     quantization (int8 or packed int4), and the fault domain: the handler's
     rate limit, retries and breaker, and the batcher's recovery, deadlines,
     shedding and degrade ladder (``reliability``). The decode pipeline's
-    five knobs, the prefix cache's two, speculation's two, quantization's
+    five knobs, the prefix cache's four, speculation's two, quantization's
     four and the reliability knobs have the JAX package's names, defaults
     and meaning."""
 
@@ -222,6 +219,15 @@ class LLMConfig(BaseModel):
     # The dense store's entry floor in tokens (None = the 64-token prompt
     # bucket); shorter prompts never cache.
     engine_prefix_min_len: Optional[int] = Field(default=None, ge=1)
+    # The KV cache tier (engine/kvcache/): the host-RAM budget in MiB.
+    # Evicted prefix K/V (dense panel entries, paged chain pages) is copied
+    # to pinned host memory instead of dropped, and a session resume or a
+    # repeated preamble restores it from there instead of prefilling it
+    # again. 0 turns the tier off (evictions drop the K/V).
+    engine_kvcache_host_mb: int = Field(default=0, ge=0)
+    # The eviction policy of the dense store and the host tier: "cost"
+    # (recency times the prefill saved per byte held) or "lru".
+    engine_kvcache_policy: str = Field(default="cost")
     # Speculative decoding: verify blocks of this many tokens a weight pass,
     # drafted from each slot's own history (0 = off; values below 2 are off).
     engine_speculate: int = Field(default=0, ge=0)
@@ -254,6 +260,13 @@ class LLMConfig(BaseModel):
     def _valid_engine_quant(cls, v: Optional[str]) -> Optional[str]:
         if v not in (None, "none", "int8", "int4"):
             raise ValueError("engine_quant must be 'none', 'int8' or 'int4'")
+        return v
+
+    @field_validator("engine_kvcache_policy")
+    @classmethod
+    def _valid_kvcache_policy(cls, v: str) -> str:
+        if v not in ("cost", "lru"):
+            raise ValueError("engine_kvcache_policy must be 'cost' or 'lru'")
         return v
 
     @field_validator("engine_kv_quantize")

@@ -52,6 +52,22 @@ only what lies past its chain. Selection keys a group by its hit: one
 cached prefix per admission dispatch. Exports are best-effort, counted
 in ``prefix_export_failures``; ``prefix_report()`` reads the counters.
 
+With ``kvcache_host_mb > 0`` (``engine_kvcache_host_mb``) the prefix
+cache has a host-RAM tier behind it (``engine/kvcache/``): an entry the
+dense store or the page index evicts is copied to pinned host memory
+instead of dropped, and a later lookup that the device tier misses
+restores it from there. A dense restore uploads the panels on the prep
+thread, on a copy stream, and the admission waits on the upload's event; a
+paged restore takes fresh pages, registers the chain and queues a
+``PendingRestore``, which the device thread writes into the pool in place
+(``_apply_restores``) before any admission, segment or chunk can read
+those pages. A request's ``session_id`` pins its lineage in the host tier;
+``export_session_kv``, ``export_request_kv`` and their imports move a
+session's or a request's K/V in the JAX package's sealed transfer format.
+Restores staged before a rebuild carry the allocator's epoch
+(``_alloc_epoch``) and are unwound, their host entries handed back. Every
+admission adds its prefilled tokens to ``engine.prefill_tokens``.
+
 With ``speculate`` D >= 2 each dispatch is a speculative chunk
 (``decode.decode_chunk_spec``): verify blocks of D rows a slot, drafts
 from the slot's token history (``history``, installed at every admission
@@ -155,7 +171,7 @@ from pilottai_tpu_torch.engine.decode import (
 )
 from pilottai_tpu_torch.engine.graphs import ChunkRunner, VariantKey
 from pilottai_tpu_torch.engine.kvcache.index import KVCacheIndex
-from pilottai_tpu_torch.engine.page_prefix import PagePrefixIndex
+from pilottai_tpu_torch.engine.page_prefix import PagePrefixIndex, device_fault
 from pilottai_tpu_torch.engine.prefix_cache import PrefixStore
 from pilottai_tpu_torch.engine.sampling import SamplingState, reset_sampling
 from pilottai_tpu_torch.models.common import ModelConfig
@@ -244,6 +260,11 @@ class GenRequest:
     # The prefix lookup counted this request (a head that waits for pages
     # is looked up again at every selection, and counted once).
     kv_counted: bool = False
+    # KV-cache session handle: the turns of one conversation send the same
+    # id, which pins their K/V lineage in the host tier across device-cache
+    # evictions, so a resume restores instead of prefilling its history.
+    # None: anonymous (cached, not pinned).
+    session_id: Optional[str] = None
 
 
 @dataclass
@@ -348,6 +369,8 @@ class ContinuousBatcher:
         recovery_max_attempts: int = 2,
         watchdog_stall_s: Optional[float] = None,
         degrade: Optional[DegradeLadder] = None,
+        kvcache_host_mb: int = 0,
+        kvcache_policy: str = "cost",
     ) -> None:
         if device.type == "cuda" and device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
@@ -434,6 +457,9 @@ class ContinuousBatcher:
         self._seg_pending = False  # a _SegmentStart is staged, not yet taken
         #: Chunked-prefill segments run (``extend_prompt_paged`` calls).
         self.prefill_segments = 0
+        # The device thread's stream: every device op of the engine runs on
+        # it, a spill's page gather too (whichever thread evicts).
+        self.stream = torch.cuda.Stream(device) if device.type == "cuda" else None
         # Automatic prefix caching: a store of copied panels on the dense
         # cache, a radix of pinned, shared pages on the paged one.
         self.prefix_store: Optional[PrefixStore] = None
@@ -450,10 +476,23 @@ class ContinuousBatcher:
                     capacity=prefix_cache,
                     min_len=prefix_min_len if prefix_min_len is not None else MIN_BUCKET,
                     max_len=min(max_seq_len, PREFIX_MAX_LEN),
-                    policy="cost",
+                    policy=kvcache_policy,
                 )
-            self.kvcache = KVCacheIndex(prefix_store=self.prefix_store,
-                                        page_index=self.page_index)
+            # One lookup over the device tier and, with kvcache_host_mb,
+            # the host tier that evictions spill to.
+            self.kvcache = KVCacheIndex(
+                prefix_store=self.prefix_store, page_index=self.page_index,
+                page_size=page_size, host_bytes=int(kvcache_host_mb) * 1024 * 1024,
+                policy=kvcache_policy, get_cache=lambda: self.cache, min_len=prefix_min_len,
+                device=device, stream=self.stream,
+            )
+        # Restored page chains awaiting their pool write (appended under the
+        # lock at lookup, drained by ``_apply_restores`` on the device thread
+        # before any dispatch can read the pages), and the allocator's
+        # generation, bumped by every rebuild: a record of an older one is
+        # unwound.
+        self._pending_restores: List[Any] = []
+        self._alloc_epoch = 0
         #: Requests admitted by a tail prefill against a cached prefix (a
         #: chunked prefill's final segment over its own chain is not one;
         #: nor is a hit whose rest was long enough to segment), the prompt
@@ -508,7 +547,6 @@ class ContinuousBatcher:
             max_pages=self.alloc.table.shape[1] if self.alloc is not None else None,
             history=self.history, speculate=self.speculate, draft_layers=self.draft_layers,
         )
-        self.stream = torch.cuda.Stream(device) if device.type == "cuda" else None
         self._slots: List[Optional[_Slot]] = [None] * n_slots
         # Bumped when a slot gets a new occupant; chunks carry a snapshot.
         self._gen = [0] * n_slots
@@ -593,6 +631,13 @@ class ContinuousBatcher:
         for t in self._threads:
             t.join(timeout=60)
         self._threads = []
+        if self._pending_restores:
+            # Restores staged but not written: write them now (the threads
+            # are joined; this thread owns the device state), so no chain
+            # the index holds is left unwritten.
+            with (torch.cuda.stream(self.stream) if self.stream is not None
+                  else contextlib.nullcontext()):
+                self._apply_restores()
         if self.device.type == "cuda":
             # Chunks dispatched just before the stop may still run.
             torch.cuda.synchronize(self.device)
@@ -864,14 +909,56 @@ class ContinuousBatcher:
 
     @property
     def prefix_lookups(self) -> int:
-        """Prefix-cache lookups, one per request."""
+        """Prefix-cache lookups, one per request (this engine's share of
+        ``engine.kvcache.lookups``)."""
         return self.kvcache.lookups if self.kvcache is not None else 0
 
     @property
     def prefix_hits(self) -> int:
         """Lookups that found a usable cached prefix (an entry that fits, or
-        a page chain)."""
+        a page chain, device-resident or restored; this engine's share of
+        ``engine.kvcache.hits``)."""
         return self.kvcache.hits if self.kvcache is not None else 0
+
+    # ------------------------------------------------------------------ #
+    # Session and request K/V transfer (the host tier's sealed format)
+    # ------------------------------------------------------------------ #
+
+    def export_session_kv(self, session_id: str):
+        """A session's K/V lineage in the transfer format, taken under the
+        slot lock so no spill or restore interleaves. None when the tier is
+        off or the session unknown: the target then prefills."""
+        if self.kvcache is None or self.kvcache.host is None:
+            return None
+        with self._lock:
+            return self.kvcache.export_session(session_id)
+
+    def import_session_kv(self, export) -> Dict[str, int]:
+        """Land an exported session in this engine's host tier, so its next
+        turn restores here. Returns the accepted, token and rejected
+        counts (budget pressure may refuse some entries)."""
+        if self.kvcache is None or self.kvcache.host is None or not export:
+            return {"accepted": 0, "tokens": 0, "rejected": 0}
+        with self._lock:
+            return self.kvcache.import_session(export)
+
+    def export_request_kv(self, prompt_ids, session_id: Optional[str] = None):
+        """The K/V a prefilled request left in the cache tier (the dense
+        entry, the page chain, host spills), keyed by its prompt ids; no
+        session pin moves. None when nothing is cached for it."""
+        if self.kvcache is None:
+            return None
+        with self._lock:
+            return self.kvcache.export_request(tuple(prompt_ids), session_id=session_id)
+
+    def import_request_kv(self, export) -> Dict[str, int]:
+        """Land a prefilled request's K/V in the host tier, so its
+        admission here restores instead of prefilling. Not under the slot
+        lock: it writes only the host tier (its own lock), and checksums a
+        whole prompt's K/V."""
+        if self.kvcache is None or self.kvcache.host is None or not export:
+            return {"accepted": 0, "tokens": 0, "rejected": 0}
+        return self.kvcache.import_session(export)
 
     def spec_report(self) -> Dict[str, Any]:
         """Speculative decoding: the block rows, tokens folded from
@@ -894,7 +981,9 @@ class ContinuousBatcher:
         """The prefix cache: lookups (one per request), hits, requests
         admitted by a tail prefill against a cached prefix, the prompt
         tokens saved, failed exports, and the store's entries and bytes
-        (dense) or the pinned pages (paged). Empty when the cache is off."""
+        (dense) or the pinned pages (paged); with the host tier, ``host``:
+        its entries and bytes, host hits, restores, restored tokens and
+        integrity failures. Empty when the cache is off."""
         if self.kvcache is None:
             return {}
         with self._lock:
@@ -909,6 +998,13 @@ class ContinuousBatcher:
             else:
                 out["pinned_pages"] = self.page_index.pinned_pages
                 out["free_pages"] = self.alloc.free_pages
+            host = self.kvcache.host
+            if host is not None:
+                counts = self.kvcache.counts
+                out["host"] = {"entries": len(host), "bytes": host.bytes_held,
+                               **{k: int(counts[k]) for k in (
+                                   "host_hits", "restores", "restored_tokens",
+                                   "integrity_failures")}}
         return out
 
     # ------------------------------------------------------------------ #
@@ -930,21 +1026,31 @@ class ContinuousBatcher:
         ``PageNode`` chain on the paged cache, a ``PrefixEntry`` on the
         dense one, or None. A dense entry whose tail bucket would pass
         ``max_seq`` is a miss (``fits``): its tail would land on the
-        cached prefix rows."""
+        cached prefix rows. Both go through the one lookup of the KV cache
+        tier: the device tier first, then the host tier, whose hit
+        restores (a paged restore's ``PendingRestore`` is queued for the
+        device thread)."""
         if self.kvcache is None or self._warming:
             return None
         count = not req.kv_counted
         req.kv_counted = True
         if self.page_index is not None:
-            return self.kvcache.lookup_paged(req.prompt_ids, max_seq_len=self.max_seq_len,
-                                             count=count)
+            need = min(len(req.prompt_ids) + req.max_new_tokens, self.max_seq_len)
+            node, rec = self.kvcache.lookup_paged(
+                req.prompt_ids, session_id=req.session_id, alloc=self.alloc,
+                max_seq_len=self.max_seq_len, need_tokens=need, epoch=self._alloc_epoch,
+                count=count)
+            if rec is not None:
+                self._pending_restores.append(rec)
+            return node
         n = len(req.prompt_ids)
 
         def fits(plen: int, p_bucket: int) -> bool:
             return (plen + self._tail_bucket(n - plen) <= self.max_seq_len
                     and p_bucket <= self.max_seq_len)
 
-        return self.kvcache.lookup_dense(req.prompt_ids, fits=fits, count=count)
+        return self.kvcache.lookup_dense(req.prompt_ids, session_id=req.session_id, fits=fits,
+                                         bucket=self._bucket, count=count)
 
     def _decode_bucket(self, n: int) -> int:
         """Prefix-bound rung of a paged chunk: the prompt ladder with a
@@ -1116,7 +1222,9 @@ class ContinuousBatcher:
     def _admit(self) -> bool:
         """One admission step: advance a segmented prefill by one segment,
         or dispatch the staged groups (staged here when admission does not
-        overlap). True when device work was issued."""
+        overlap). True when device work was issued. Pending host-tier
+        restores are written first: any admission may map their pages."""
+        self._apply_restores()
         if self._segmenting is not None:
             self._advance_segment()
             return True
@@ -1199,6 +1307,10 @@ class ContinuousBatcher:
         copy starts here and the reader folds it. A failed admission
         returns this group's slots and pages and re-admits its requests
         (``_prefill_failed``); the other occupants are untouched."""
+        # A restore record that landed after ``_admit``'s drain is written
+        # here, before this dispatch can read its pages (one thread: program
+        # order).
+        self._apply_restores()
         try:
             # Fault point: a slow (delay=) or failed (exc=) admission prefill.
             global_injector.fire("engine.prefill", n_requests=len(prep.group))
@@ -1226,6 +1338,10 @@ class ContinuousBatcher:
                     history=self.history, full_tokens=full,
                 )
             elif prep.kind == "prefix":
+                if prep.entry.ready is not None and self.stream is not None:
+                    # A restored entry: its panels were uploaded on the
+                    # index's copy stream; K1 reads them after that copy.
+                    self.stream.wait_event(prep.entry.ready)
                 self.cache, self.dstate, self.sampling, first = admit_group_prefix(
                     self.params, self.cfg, self.cache, self.dstate, self.sampling,
                     prep.entry.ks, prep.entry.vs, prep.tokens, prep.meta_i32, prep.meta_f32,
@@ -1242,6 +1358,13 @@ class ContinuousBatcher:
             self._prefill_failed(prep.group, exc)
             return
         admit_at = time.perf_counter()
+        if not self._warming:
+            # The tokens this dispatch prefilled (tails on the prefix kinds;
+            # the cached prefix was not computed again).
+            global_metrics.inc("engine.prefill_tokens", int(prep.meta_i32[AI_LEN].sum()))
+            if prep.kind != "full" and not prep.segmented:
+                global_metrics.inc("engine.kvcache.prefill_tokens_saved",
+                                   prep.prefix_len * len(prep.group))
         with self._lock:
             if prep.kind != "full" and not prep.segmented:
                 self.prefix_admitted += len(prep.group)
@@ -1274,6 +1397,29 @@ class ContinuousBatcher:
             return
         self._fail_group(group, exc, recover=True)
         self.degrade.record_fault("prefill")
+
+    def _apply_restores(self) -> None:
+        """Write the pending host-tier page restores into the pool (device
+        thread, on its stream: uploads from pinned memory and the scatter,
+        never awaited). Runs before any admission or segment dispatch, so a
+        restored chain is in the pool before anything reads it. Records of
+        an older allocator epoch are unwound inside ``apply_restores``. The
+        unwritten-page guard lifts for every record taken, written or not:
+        a failed write reaches the device loop's fault arm, whose rebuild
+        drops the pool's pages anyway."""
+        if self.kvcache is None:
+            return
+        with self._lock:
+            if not self._pending_restores:
+                return
+            records, self._pending_restores = self._pending_restores, []
+            epoch = self._alloc_epoch
+        try:
+            self.cache = self.kvcache.apply_restores(self.cache, records, epoch)
+        finally:
+            with self._lock:
+                self.kvcache.mark_written(records)
+        self._beat()                          # restores enqueued: progress
 
     @staticmethod
     def _full_prompts(group: List[Tuple[int, GenRequest]]) -> np.ndarray:
@@ -1335,6 +1481,8 @@ class ContinuousBatcher:
                     with self._lock:
                         store.store(ids[:p], ks2, vs2, pb2)
             except Exception as exc:  # noqa: BLE001 — the cache is optional
+                if device_fault(exc):
+                    raise                     # the device loop's fault arm
                 with self._lock:
                     self.prefix_export_failures += 1
                 _log.warning("prefix export failed: %s", exc)
@@ -1468,10 +1616,13 @@ class ContinuousBatcher:
         past its cached chain is long ends the group and is returned as the
         segmentation to start there. A slot whose release the device has
         not applied yet is not selectable: that release would stop its new
-        occupant."""
+        occupant. A lookup or reservation that raises (a failed restore or
+        spill) fails its request and ends the group; a sticky CUDA error
+        marks the engine stalled."""
         group: List[Tuple[int, GenRequest]] = []
         group_key = None
         seg = None
+        failed: Optional[Exception] = None
         with self._lock:
             free = [i for i, s in enumerate(self._slots)
                     if s is None and i not in self._release and i not in self._prep_reserved]
@@ -1492,24 +1643,31 @@ class ContinuousBatcher:
                     req.future.set_exception(
                         DeadlineExceeded("request deadline expired before admission"))
                     continue
-                key = self._prefix_hit(req)
-                prefix_pages: Tuple[int, ...] = ()
-                if self.page_index is not None and key is not None:
-                    prefix_pages = key.path_pages
-                long_req = bool(self.prefill_chunk) and (
-                    len(req.prompt_ids) - len(prefix_pages) * self.page_size
-                    > 2 * self.prefill_chunk
-                )
-                if group and (key is not group_key or long_req):
-                    break  # the next selection takes it
-                idx = free[len(group)]
-                if self.alloc is not None:
-                    # Clamped to slot capacity: decode stops at a full
-                    # context anyway, and an unclamped need could never
-                    # be met and would stall the FIFO head for good.
-                    need = min(len(req.prompt_ids) + req.max_new_tokens, self.max_seq_len)
-                    if not self._reserve_pages(idx, need, prefix_pages):
-                        break  # the head waits for pages; folds free them
+                try:
+                    key = self._prefix_hit(req)
+                    prefix_pages: Tuple[int, ...] = ()
+                    if self.page_index is not None and key is not None:
+                        prefix_pages = key.path_pages
+                    long_req = bool(self.prefill_chunk) and (
+                        len(req.prompt_ids) - len(prefix_pages) * self.page_size
+                        > 2 * self.prefill_chunk
+                    )
+                    if group and (key is not group_key or long_req):
+                        break  # the next selection takes it
+                    idx = free[len(group)]
+                    if self.alloc is not None:
+                        # Clamped to slot capacity: decode stops at a full
+                        # context anyway, and an unclamped need could never
+                        # be met and would stall the FIFO head for good.
+                        need = min(len(req.prompt_ids) + req.max_new_tokens, self.max_seq_len)
+                        if not self._reserve_pages(idx, need, prefix_pages):
+                            break  # the head waits for pages; folds free them
+                except Exception as exc:  # noqa: BLE001 — a failed restore or spill
+                    # fails this request, visibly; the prep thread lives on.
+                    self._backlog.popleft()
+                    req.future.set_exception(exc)
+                    failed = exc
+                    break
                 self._backlog.popleft()
                 self._prep_reserved.add(idx)
                 if long_req:
@@ -1517,6 +1675,10 @@ class ContinuousBatcher:
                     break
                 group_key = key
                 group.append((idx, req))
+        if failed is not None:
+            _log.error("prefix lookup failed: %s", failed, exc_info=failed)
+            if sticky_device_error(failed):
+                self._declare_dead(failed, "sticky CUDA error")
         return group, group_key, seg
 
     def _reserve_pages(self, idx: int, need: int, prefix_pages: Sequence[int]) -> bool:
@@ -1599,7 +1761,9 @@ class ContinuousBatcher:
 
     def _advance_segment(self) -> None:
         """Run one chunked-prefill segment of the segmenting request, or
-        dispatch its final segment, which admits it."""
+        dispatch its final segment, which admits it. Its chain may hold
+        freshly restored pages: pending restores are written first."""
+        self._apply_restores()
         idx, req, done = self._segmenting
         expired = req.deadline is not None and time.monotonic() >= req.deadline
         if req.cancelled or req.future.done() or expired:
@@ -1629,6 +1793,8 @@ class ContinuousBatcher:
                 self._end_segmentation()
                 return
             self.prefill_segments += 1
+            if not self._warming:
+                global_metrics.inc("engine.prefill_tokens", seg)
             self._segmenting[2] = done + seg
             self._beat()                      # segment landed: progress
             return
@@ -2066,12 +2232,19 @@ class ContinuousBatcher:
                 self._prep_reserved.clear()
                 self._first_reads.clear()
                 self._gen = [g + 1 for g in self._gen]
+                # Every restore staged so far targets the old allocator's
+                # pages: its epoch is now stale, and ``_apply_restores``
+                # below unwinds it.
+                self._alloc_epoch += 1
                 if self.alloc is not None:
                     self.alloc = PageAllocator(self.num_pages, self.page_size, self.n_slots,
                                                self.alloc.table.shape[1])
                 if self.page_index is not None:
                     self.page_index.clear()
                 if self.prefix_store is not None:
+                    # clear(), not eviction: no spill copies out of the
+                    # state this rebuild distrusts (the JAX engine's rule
+                    # for its mesh rebuild). The host tier's entries stay.
                     self.prefix_store.clear()
         events = None
         if self.stream is not None:
@@ -2087,6 +2260,9 @@ class ContinuousBatcher:
             self.runner.table.fill_(self.num_pages - 1)
         if events is not None:
             events[1].record()
+        # Staged restores unwind now: nothing is written, their host entries
+        # go back to the tier for the re-admissions to restore again.
+        self._apply_restores()
         self._last_rebuild = (time.perf_counter() - t0, *(events or (None, None)))
         global_metrics.inc("engine.rebuilds")
         global_metrics.inc(f"engine.rebuilds.{reason}")

@@ -149,8 +149,10 @@ class LLMHandler:
     ) -> LLMResponse:
         """Chat completion with retries and backoff. ``json_mode`` overrides
         the config/params flag (grammar-constrained decoding); ``slo_class``
-        fills the request's class where params carry none. Fields whose
-        feature belongs to a later slice (``json_schema``, ``session_id``,
+        fills the request's class where params carry none, and
+        ``session_id`` its KV-cache session handle (a multi-turn caller's
+        lineage, pinned in the host tier across turns) by the same rule.
+        Fields whose feature belongs to a later slice (``json_schema``,
         ``priority``, ``gang_id``) are refused by the engine, naming the
         ROADMAP item that brings them."""
         msgs, specs, params = self._normalize(

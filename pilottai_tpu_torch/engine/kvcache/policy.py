@@ -1,9 +1,10 @@
 """Eviction policy of the prefix cache (the port's own copy of
 ``pilottai_tpu/engine/kvcache/policy.py``).
 
-One definition of the cost-aware score, which the dense store
-(``engine/prefix_cache.py``) uses now and the host tier (ROADMAP P7)
-will use, so the two tiers cannot drift apart.
+One definition of the eviction score, used by the dense store
+(``engine/prefix_cache.py``) and the host tier (``kvcache/host_tier.py``)
+under ``engine_kvcache_policy`` ("cost" or "lru"), so the two tiers cannot
+drift apart.
 """
 
 from __future__ import annotations

@@ -13,13 +13,15 @@ O(len(ids)):
   the derived-entry primitive the dense store's shared-preamble
   self-organization uses — without comparing against any entry directly;
 * payload nodes are additionally indexed by exact key for O(1)-ish
-  ``has``/``remove`` (tuple hashing is O(len), the same bound).
+  ``has``/``get``/``remove`` (tuple hashing is O(len), the same bound);
+* ``payload_prefixes`` returns every stored key on the query's path and
+  ``deepest_common`` the longest common prefix with any stored key: the
+  host tier's session export and its partial (sliced) restores.
 
 The paged ``PagePrefixIndex`` keeps its own block-granular radix (its
 nodes are refcounted pages); this tree serves token-granular keys.
-Host-side bookkeeping only. ``payload_prefixes`` and ``deepest_common``
-serve the JAX package's host tier and cell router, which the port does
-not carry yet (ROADMAP P7), so they are left out.
+Host-side bookkeeping only. The host tier (``kvcache/host_tier.py``)
+keys spilled entries in the same tree.
 """
 
 from __future__ import annotations
@@ -67,6 +69,13 @@ class RadixTree:
 
     def has(self, ids: Sequence[int]) -> bool:
         return tuple(ids) in self._by_key
+
+    def __contains__(self, ids: Sequence[int]) -> bool:
+        return tuple(ids) in self._by_key
+
+    def get(self, ids: Sequence[int]) -> Any:
+        node = self._by_key.get(tuple(ids))
+        return node.payload if node is not None else None
 
     def keys(self) -> Iterator[Tuple[int, ...]]:
         return iter(self._by_key)
@@ -212,6 +221,58 @@ class RadixTree:
             p for p in sorted(out, reverse=True)
             if not self.has(tuple(ids[:p]))
         ]
+
+    def payload_prefixes(
+        self, ids: Sequence[int], proper: bool = False
+    ) -> List[RadixNode]:
+        """Every payload node whose key prefixes ``ids``, shallowest first
+        (so ``[-1]`` is ``longest_payload_prefix``'s answer). One O(len)
+        walk."""
+        limit = len(ids) - 1 if proper else len(ids)
+        out: List[RadixNode] = []
+        node = self._root
+        i = 0
+        while i < len(ids):
+            child = node.children.get(ids[i])
+            if child is None:
+                break
+            m = _common_len(child.label, ids[i:])
+            if m < len(child.label):
+                break
+            i += m
+            node = child
+            if node.payload is not None and node.key_len <= limit:
+                out.append(node)
+        return out
+
+    def deepest_common(
+        self, ids: Sequence[int]
+    ) -> Tuple[Optional[RadixNode], int]:
+        """``(payload_node, lcp)``: the longest common prefix between
+        ``ids`` and any stored key, and a payload node whose key starts
+        with it (the entry a partial restore slices). Causal attention's
+        K/V at a position does not depend on what follows, so the first
+        ``lcp`` rows of that entry are ``ids[:lcp]``'s exactly. One O(len)
+        walk, then a descent to the nearest payload."""
+        node = self._root
+        i = 0
+        while i < len(ids):
+            child = node.children.get(ids[i])
+            if child is None:
+                break
+            m = _common_len(child.label, ids[i:])
+            i += m
+            node = child
+            if m < len(child.label):
+                break
+        if node is self._root:
+            return None, 0
+        best = node
+        while best.payload is None:
+            # A pass-through node always has children (it is pruned
+            # otherwise), and every subtree holds a payload.
+            best = next(iter(best.children.values()))
+        return best, min(i, len(ids))
 
 
 __all__ = ["RadixTree", "RadixNode"]

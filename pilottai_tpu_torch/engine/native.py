@@ -13,7 +13,12 @@ place, leaf by leaf). With ``engine_kv_quantize="int8"`` the batcher's
 KV cache is int8 with per-token scales; the two quantizations compose.
 ``LLMConfig.reliability`` reaches the batcher as in the JAX engine: the
 queue depth it sheds at, in-flight recovery, the watchdog and the degrade
-ladder; a request's ``deadline`` and ``slo_class`` ride with it.
+ladder; a request's ``deadline`` and ``slo_class`` ride with it. With
+``engine_kvcache_host_mb`` the prefix cache spills evicted K/V to a host
+tier of that many MiB (``engine_kvcache_policy`` its eviction score, and
+the dense store's), a request's ``session_id`` pins its lineage there, and
+``export_session_kv`` / ``import_session_kv`` (and the request pair) move
+K/V in the JAX package's sealed transfer format.
 ``start``
 returns once the batcher's warm-up sweep has captured every chunk graph
 and run every prefill bucket (``ContinuousBatcher.warmup``); a sweep that
@@ -26,7 +31,7 @@ import asyncio
 import logging
 import time
 from pathlib import Path
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 
@@ -53,7 +58,6 @@ _REQUEST_LATER = {
     "json_schema": "serve",
     "priority": "sched",
     "gang_id": "sched",
-    "session_id": "kvtier",
 }
 
 _log = logging.getLogger(__name__)
@@ -136,6 +140,10 @@ class TorchEngine(LLMBackend):
             speculate=self.config.engine_speculate,
             draft_layers=self.config.engine_draft_layers,
             kv_quantize=self.config.engine_kv_quantize == "int8",
+            # The KV cache tier: the host-RAM budget and the eviction policy
+            # of both tiers.
+            kvcache_host_mb=self.config.engine_kvcache_host_mb,
+            kvcache_policy=self.config.engine_kvcache_policy,
             # The fault domain (ReliabilityConfig): shedding, bounded
             # in-flight recovery, the watchdog and the capability ladder.
             max_queue_depth=rel.max_queue_depth,
@@ -184,7 +192,30 @@ class TorchEngine(LLMBackend):
             deadline=params.deadline,
             slo_class=params.slo_class,
             trace_id=params.trace_id,
+            # The KV-cache session lineage the host tier pins.
+            session_id=params.session_id,
         )
+
+    def export_session_kv(self, session_id: str):
+        """A session's K/V in the host tier's transfer format (blocking
+        device reads: a control-plane call, run it off the event loop)."""
+        return self.batcher.export_session_kv(session_id) if self.batcher is not None else None
+
+    def import_session_kv(self, export) -> Dict[str, int]:
+        return (self.batcher.import_session_kv(export) if self.batcher is not None
+                else {"accepted": 0, "tokens": 0, "rejected": 0})
+
+    def export_request_kv(self, prompt_ids, session_id: Optional[str] = None):
+        """A prefilled request's K/V in the transfer format, keyed by its
+        prompt ids (blocking device reads: run it off the event loop)."""
+        return (self.batcher.export_request_kv(prompt_ids, session_id)
+                if self.batcher is not None else None)
+
+    def import_request_kv(self, export) -> Dict[str, int]:
+        """Land a prefilled request's K/V, so its admission here restores
+        instead of prefilling."""
+        return (self.batcher.import_request_kv(export) if self.batcher is not None
+                else {"accepted": 0, "tokens": 0, "rejected": 0})
 
     async def generate(
         self,

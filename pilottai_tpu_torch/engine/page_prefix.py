@@ -22,13 +22,27 @@ on page-aligned token blocks:
 
 A match is always a proper prefix (a tail token must remain for the first
 generated token's logits): the walk stops at ``(len(ids) - 1) //
-page_size`` blocks. The ``on_evict`` hook stays for the host tier of
-ROADMAP P7; nothing sets it yet.
+page_size`` blocks. With the host tier on, ``on_evict`` spills each
+evicted page's K/V before its unpin (``engine/kvcache/index.py``).
 """
 
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+
+def device_fault(exc: BaseException) -> bool:
+    """Is this a CUDA error (a sticky one, ``engine/batcher.py:
+    sticky_device_error``, or any error torch raises from the CUDA
+    runtime)? Such an error is never swallowed as a dropped spill."""
+    from pilottai_tpu_torch.engine.batcher import sticky_device_error
+
+    accelerator = getattr(torch, "AcceleratorError", None)
+    return (sticky_device_error(exc) or isinstance(exc, torch.cuda.CudaError)
+            or (accelerator is not None and isinstance(exc, accelerator))
+            or "CUDA error" in str(exc))
 
 
 class PageNode:
@@ -63,9 +77,9 @@ class PagePrefixIndex:
         self._root_children: Dict[Tuple[int, ...], PageNode] = {}
         self._nodes: set = set()  # all nodes, for LRU scans
         self._clock = 0
-        # Eviction hook for the host tier (ROADMAP P7): called with the
-        # victim's full token path and page BEFORE the unpin, while the
-        # page contents are still live. None drops the page.
+        # Eviction hook of the host tier: called with the victim's full
+        # token path and page BEFORE the unpin, while the page contents are
+        # still live. None drops the page.
         self.on_evict = None
 
     @staticmethod
@@ -191,8 +205,12 @@ class PagePrefixIndex:
                     # until the spill's read is enqueued.
                     try:
                         self.on_evict(self.path_tokens(victim), victim.page)
-                    except Exception:  # noqa: BLE001 — spill is optional
-                        pass
+                    except Exception as exc:  # noqa: BLE001 — a spill is optional...
+                        # ...but a device fault is not a dropped spill: it
+                        # reaches the batcher's fault arm.
+                        if device_fault(exc):
+                            alloc.unpin(victim.page)
+                            raise
                 alloc.unpin(victim.page)
                 dropped += 1
         return dropped

@@ -19,8 +19,12 @@ counts them as held), so that installing an entry quantizes it back to
 the bytes it was exported from. The
 bookkeeping rides the radix index (``engine/kvcache/radix.py``): ``match``
 and ``has`` are one O(len) walk, and eviction removes one scored victim
-per overflow, under the ``"cost"`` policy (recency weighted by the
-prefill saved per byte held) by default in the engine.
+per overflow, under ``engine_kvcache_policy`` ("cost", recency weighted by
+the prefill saved per byte held, by default in the engine), and hands it
+to ``on_evict``: with the host tier on (``engine_kvcache_host_mb``) its
+panels spill to host memory instead of being dropped
+(``engine/kvcache/index.py``). ``clear`` drops every entry without the
+hook: an engine-state rebuild must not copy out of state it distrusts.
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ from pilottai_tpu_torch.engine.kvcache.radix import RadixTree
 
 
 class PrefixEntry:
-    __slots__ = ("ids", "ks", "vs", "p_bucket", "stamp")
+    __slots__ = ("ids", "ks", "vs", "p_bucket", "stamp", "ready")
 
     def __init__(self, ids: Tuple[int, ...], ks: Any, vs: Any, p_bucket: int):
         self.ids = ids          # true tokens (len <= p_bucket)
@@ -40,6 +44,10 @@ class PrefixEntry:
         self.vs = vs
         self.p_bucket = p_bucket
         self.stamp = 0
+        # A restored entry's upload event (``kvcache/index.py``): whatever
+        # reads the panels on another stream waits on it first. None for
+        # an entry exported on the device stream.
+        self.ready: Any = None
 
     @property
     def nbytes(self) -> int:

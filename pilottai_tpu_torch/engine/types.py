@@ -1,8 +1,8 @@
 """Engine wire types: messages, tool specs, generation parameters,
 responses — the port's copy of ``pilottai_tpu/engine/types.py`` for the
 fields the port serves. Fields whose feature belongs to a later slice
-(schemas, sessions, priorities, gangs) are kept so a caller gets a clear
-refusal from the engine, not a validation error."""
+(schemas, priorities, gangs) are kept so a caller gets a clear refusal
+from the engine, not a validation error."""
 
 from __future__ import annotations
 
@@ -67,9 +67,14 @@ class GenerationParams(BaseModel):
     # SLO service class: "interactive" (None) or "batch", which sheds at a
     # lower queue depth and outright at the degrade ladder's last rung.
     slo_class: Optional[str] = None
+    # KV-cache session handle: the turns of one conversation send the same
+    # id, which pins their K/V lineage in the host tier
+    # (``engine_kvcache_host_mb``) across device-cache evictions, so a
+    # resume restores instead of prefilling its whole history. None =
+    # anonymous (cached, not pinned).
+    session_id: Optional[str] = None
     # Later slices; the engine refuses a request that sets them.
     json_schema: Optional[Dict[str, Any]] = None
-    session_id: Optional[str] = None
     priority: Optional[int] = None
     gang_id: Optional[str] = None
     gang_size: int = 0

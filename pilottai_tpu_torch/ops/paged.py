@@ -139,6 +139,18 @@ class PageAllocator:
         self._held[slot] = []
         self.table[slot, :] = self.sentinel
 
+    def take(self, n: int) -> Optional[List[int]]:
+        """Pop ``n`` free pages with a transient ref each (the host tier's
+        restore: the pages are filled from host memory, pinned by the
+        prefix index, and the transient ref dropped with ``unpin``). None,
+        and no change, when the pool cannot cover it."""
+        if n > len(self.free):
+            return None
+        pages = [self.free.pop() for _ in range(n)]
+        for p in pages:
+            self.refs[p] += 1
+        return pages
+
     def pin(self, page: int) -> None:
         """Add a ref that no slot holds (the prefix index's pin). The page
         must be live: pinning a free page is a logic error."""

@@ -9,8 +9,8 @@ tests: raise an exception, sleep to simulate a slow/hung dependency, or
 hand the consuming site a value (e.g. seconds of heartbeat stall).
 
 Canonical points wired in the port (callers may add more; names are
-free-form; the JAX package's agent, checkpoint, mesh, KV-tier and cell
-points come with the port's slices of those modules):
+free-form; the JAX package's agent, checkpoint, mesh and cell points
+come with the port's slices of those modules):
 
 ===========================  =============================================
 ``engine.step``              decode-chunk dispatch (``batcher._decode``)
@@ -30,6 +30,12 @@ points come with the port's slices of those modules):
                              ``exc=`` simulates a rebuild that itself
                              fails (retried next device-loop cycle)
 ``handler.timeout``          ``LLMHandler``'s backend call boundary
+``kvcache.spill.corrupt``    flips a byte of a host-tier entry AFTER its
+                             CRC sealed (host-RAM rot between spill and
+                             restore) — the restore must detect it and
+                             prefill instead
+``kvcache.restore.corrupt``  the same rot, injected at the restore site
+                             (``KVCacheIndex._entry_ok``)
 ===========================  =============================================
 
 Triggering is count-based (``times=N`` fires, then auto-disarm; ``times=None``

@@ -121,15 +121,16 @@ def test_concurrent_requests_complete_and_sampling_is_seed_deterministic():
 
 
 def test_knobs_outside_the_slice_are_refused(monkeypatch):
-    # The prefix cache (slice P2) is accepted at the JAX package's defaults;
-    # its host tier and eviction policies wait for P7.
+    # The prefix cache (slice P2) is accepted at the JAX package's defaults,
+    # and so, from P7, are its host tier and both eviction policies; a
+    # later slice's knob (pre-warm, P6c) is still refused.
     cfg = LLMConfig()
     assert (cfg.engine_prefix_cache, cfg.engine_prefix_min_len) == (4, None)
     LLMConfig(engine_prefix_cache=8, engine_prefix_min_len=16, engine_kvcache_policy="cost")
-    with pytest.raises(ValueError, match="P7"):
-        LLMConfig(engine_kvcache_host_mb=64)
-    with pytest.raises(ValueError, match="P7"):
-        LLMConfig(engine_kvcache_policy="lru")
+    assert LLMConfig(engine_kvcache_host_mb=64).engine_kvcache_host_mb == 64
+    assert LLMConfig(engine_kvcache_policy="lru").engine_kvcache_policy == "lru"
+    with pytest.raises(ValueError, match="P6c"):
+        LLMConfig(engine_prewarm_depth=512)
     with pytest.raises(ValueError):
         LLMConfig(engine_prefix_cache=-1)
     # Speculative decoding (slice P4) is accepted, at the JAX package's

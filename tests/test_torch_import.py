@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: importing every module of
-``pilottai_tpu_torch`` loads neither JAX, optax, orbax nor the JAX package, and its entry
-points refuse to run without a GPU unless the caller asks for the CPU."""
+``pilottai_tpu_torch`` loads neither JAX, optax, orbax, ml_dtypes nor the
+JAX package, and its entry points refuse to run without a GPU unless the
+caller asks for the CPU."""
 
 import pkgutil
 import subprocess
@@ -20,8 +21,8 @@ for name in names:
     importlib.import_module(name)
 banned = [
     m for m in sys.modules
-    if m in ("jax", "jaxlib", "orbax", "optax", "pilottai_tpu")
-    or m.startswith(("jax.", "jaxlib.", "orbax.", "optax.", "pilottai_tpu."))
+    if m in ("jax", "jaxlib", "orbax", "optax", "ml_dtypes", "pilottai_tpu")
+    or m.startswith(("jax.", "jaxlib.", "orbax.", "optax.", "ml_dtypes.", "pilottai_tpu."))
 ]
 print(len(names), "modules")
 print("GEMMA", "pilottai_tpu_torch.models.gemma" in names)
@@ -31,6 +32,10 @@ print("P6B", all(m in names for m in (
     "pilottai_tpu_torch.reliability.inject", "pilottai_tpu_torch.reliability.watchdog",
     "pilottai_tpu_torch.utils.metrics", "pilottai_tpu_torch.utils.logging",
     "pilottai_tpu_torch.utils.tracing")))
+print("P7", all(m in names for m in (
+    "pilottai_tpu_torch.engine.kvcache.host_tier", "pilottai_tpu_torch.engine.kvcache.integrity",
+    "pilottai_tpu_torch.engine.kvcache.index", "pilottai_tpu_torch.engine.kvcache.radix",
+    "pilottai_tpu_torch.engine.kvcache.policy")))
 root = __import__("logging").getLogger("pilottai_tpu_torch")
 print("LOGGING", root.handlers == [] and root.propagate)
 print("BANNED", banned)
@@ -47,7 +52,8 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert int(lines[0].split()[0]) >= 39          # every module was imported
     assert lines[1] == "GEMMA True"                # the Gemma configs (slice P9a) among them
     assert lines[2] == "P6B True"                  # the fault domain's modules (slice P6b)
-    assert lines[3] == "LOGGING True"              # importing configures no logging
+    assert lines[3] == "P7 True"                   # the KV cache tier's modules (slice P7)
+    assert lines[4] == "LOGGING True"              # importing configures no logging
     assert lines[-1] == "BANNED []", lines[-1]
 
 

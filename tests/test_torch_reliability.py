@@ -342,8 +342,10 @@ def test_config_takes_the_jax_reliability_knobs_and_still_refuses_later_ones():
         ReliabilityConfig(no_such_knob=1)
     with pytest.raises(ValueError):
         LLMConfig(retries=-1)
+    # The KV cache tier's budget is taken from P7 on.
+    assert LLMConfig(engine_kvcache_host_mb=64).engine_kvcache_host_mb == 64
     for knob, value, item in (("engine_sched_policy", "dag", "P6c"),
-                              ("engine_kvcache_host_mb", 64, "P7"),
+                              ("engine_prewarm_depth", 512, "P6c"),
                               ("mesh_shape", {"model": 4}, "P10"),
                               ("tokenizer_path", "/tok", "P9b")):
         with pytest.raises(ValueError, match=item) as refused:
